@@ -1,0 +1,430 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch / H100 port, run from the repository root
+on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
+into ``build/kernels/``, holds each kernel against its plain PyTorch version
+at the serving path's full-width shapes, serves qwen3-4b at full width
+(bf16, random weights from a seed) through ``repro_torch.launch.serve`` in
+the dense, paged and paged_int8 KV modes, and checks what comes out.  Each
+phase prints one JSON line; a failed phase exits non-zero before the result
+line.  The last two lines are the card's name and power limit
+(``nvidia-smi``) and ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+import repro_torch  # noqa: E402,F401  (fails at once outside a checkout)
+
+# H100 SXM published peaks (dense): bf16 tensor cores, int8 tensor cores,
+# HBM3 bandwidth.
+PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
+PEAK_BYTES = 3.35e12
+ARCH = "qwen3-4b"
+SEED = 0
+
+
+def _plain(o):
+    return o.item() if hasattr(o, "item") else str(o)
+
+
+def emit(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}, default=_plain), flush=True)
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise PhaseError(what)
+
+
+def smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int, flush: torch.Tensor | None = None
+            ) -> tuple[float, list[float]]:
+    """Mean device time of ``fn`` in ms over ``iters`` calls after two
+    warm-up calls, and the [min, max] of the calls, each call timed by CUDA
+    events; ``flush`` (a buffer larger than the 50 MB L2) is overwritten
+    before each call so the inputs come from device memory, as they do on
+    the serving path."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(iters):
+        if flush is not None:
+            flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sum(times) / iters, [min(times), max(times)]
+
+
+def closeness(got: torch.Tensor, want: torch.Tensor, atol: float) -> dict:
+    """How far a bf16 kernel output lies from its f32-arithmetic plain
+    version, row by row over the last axis.  Each element must satisfy
+    |got - want| <= 2^-7 |want| + atol (one bf16 ulp of the value, since
+    the two sum in different orders before rounding, plus ``atol``), and
+    each row's relative L2 error must stay under 2^-6, which a wrong
+    score or PV accumulation in any row exceeds by far."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    ratio = (diff / (2.0 ** -7 * want.abs() + atol)).max().item()
+    row_rel = (diff.norm(dim=-1) /
+               want.norm(dim=-1).clamp_min(1e-30)).max().item()
+    return dict(max_abs_err=diff.max().item(), worst_tol_ratio=ratio,
+                max_row_rel_l2=row_rel, mean_abs_out=want.abs().mean().item(),
+                tol=f"|err| <= 2^-7|want| + {atol}; row rel L2 <= 2^-6",
+                within_tol=ratio <= 1.0 and row_rel <= 2.0 ** -6)
+
+
+def bound(bytes_: float, ops: float, peak_ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = bytes_ / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain version at full-width shapes
+# ---------------------------------------------------------------------------
+
+def check_flash(flush) -> dict:
+    from repro_torch.kernels import attention as katt
+    B, S, H, Hkv, D = 1, 2048, 32, 8, 128
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn((B, S, h, D), generator=g, device="cuda")
+               .to(torch.bfloat16) for h in (H, Hkv, Hkv))
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    with torch.no_grad():
+        o, lse = katt.flash_attention_fwd_cuda(qt, kt, vt, causal=True)
+        o_ref, lse_ref = katt.flash_attention_fwd_plain(
+            qt.reshape(B * H, S, D), kt.reshape(B * Hkv, S, D),
+            vt.reshape(B * Hkv, S, D), causal=True)
+        torch.cuda.synchronize()
+        # atol 2e-3 covers p's bf16 rounding before PV flipping where the
+        # two score sums differ in their last f32 bits
+        close = closeness(o.reshape(B * H, S, D), o_ref, atol=2e-3)
+        lse_err = (lse - lse_ref).abs().max().item()
+        lse_tol = 1e-4
+        require(bool(torch.isfinite(o).all()), "flash_fwd: non-finite out")
+        require(close["within_tol"] and lse_err <= lse_tol,
+                f"flash_fwd disagrees: {close}, max|lse| err {lse_err} "
+                f"(tol {lse_tol})")
+        ms, ms_spread = time_ms(lambda: katt.flash_attention_fwd_cuda(
+            qt, kt, vt, causal=True), 20, flush)
+        plain_ms, _ = time_ms(lambda: katt.flash_attention_fwd_plain(
+            qt.reshape(B * H, S, D), kt.reshape(B * Hkv, S, D),
+            vt.reshape(B * Hkv, S, D), causal=True), 3, flush)
+        lib_ms, _ = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 20, flush)
+    pairs = H * S * (S + 1) // 2                   # unmasked (q, k) pairs
+    bytes_ = 2 * (q.numel() + k.numel() + v.numel() + o.numel()) + \
+        4 * lse.numel()
+    b_ms, b_by = bound(bytes_, 4 * D * pairs, PEAK_BF16)
+    row = dict(name="flash_fwd", route="cuda",
+               source="src/repro_torch/kernels/csrc/flash_fwd.cu",
+               replaces="src/repro/kernels/attention.py:153",
+               **close, lse_max_abs_err=lse_err, lse_tol=lse_tol,
+               ms=ms, ms_spread=ms_spread, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib_ms,
+               shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D, causal=True))
+    emit("kernel_check", **row)
+    return row
+
+
+def check_paged(quant: bool, flush) -> dict:
+    from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.models.layers import quantize_kv
+    B, H, Hkv, D, page, max_len = 4, 32, 8, 128, 16, 2048
+    MP = max_len // page
+    P = B * MP + 1
+    rng = np.random.default_rng(SEED + 1)
+    lens_np = rng.integers(1, max_len + 1, B).astype(np.int32)
+    perm = rng.permutation(np.arange(1, P)).reshape(B, MP)
+    table_np = np.zeros((B, MP), np.int32)
+    for b in range(B):
+        n = -(-int(lens_np[b]) // page)
+        table_np[b, :n] = perm[b, :n]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    q = torch.randn((B, H, D), generator=g, device="cuda").to(torch.bfloat16)
+    kf = torch.randn((P, page, Hkv, D), generator=g, device="cuda")
+    vf = torch.randn((P, page, Hkv, D), generator=g, device="cuda")
+    if quant:
+        (k, ks), (v, vs) = quantize_kv(kf), quantize_kv(vf)
+    else:
+        k, v = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+        ks = vs = None
+    del kf, vf
+    table = torch.from_numpy(table_np).to("cuda")
+    lens = torch.from_numpy(lens_np).to("cuda")
+    args = (q, k, v, table, lens, ks, vs)
+    out = kpa.paged_flash_decode_cuda(*args)
+    ref = kpa.paged_flash_decode_plain(*args)
+    torch.cuda.synchronize()
+    # kernel and plain version do the same f32 arithmetic (no bf16 p), so
+    # only the sum order differs before the output's rounding
+    close = closeness(out, ref, atol=1e-4)
+    name = "paged_decode_int8" if quant else "paged_decode_bf16"
+    require(bool(torch.isfinite(out).all()), f"{name}: non-finite out")
+    require(close["within_tol"], f"{name} disagrees: {close}")
+    ms, ms_spread = time_ms(lambda: kpa.paged_flash_decode_cuda(*args), 20,
+                            flush)
+    plain_ms, _ = time_ms(lambda: kpa.paged_flash_decode_plain(*args), 3,
+                          flush)
+    n_tok = int(lens_np.sum())
+    kv_item = 1 if quant else 2
+    bytes_ = (2 * n_tok * Hkv * D * kv_item + (2 * n_tok * Hkv * 4 if quant
+                                               else 0)
+              + 2 * 2 * q.numel() + 4 * (table.numel() + lens.numel()))
+    b_ms, b_by = bound(bytes_, 4 * D * H * n_tok,
+                       PEAK_INT8 if quant else PEAK_BF16)
+    row = dict(name=name, route="cuda",
+               source="src/repro_torch/kernels/csrc/paged_decode.cu",
+               replaces="src/repro/kernels/paged_attention.py:42",
+               **close, ms=ms, ms_spread=ms_spread, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               shape=dict(B=B, H=H, Hkv=Hkv, D=D, page=page, max_pages=MP,
+                          lengths=lens_np.tolist()))
+    emit("kernel_check", **row)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 4: serve qwen3-4b at full width
+# ---------------------------------------------------------------------------
+
+class FiniteWatch:
+    """Forwards to the engine's bundle and keeps, on the device, whether
+    every logit its serving steps returned was finite."""
+
+    def __init__(self, bundle):
+        self._bundle = bundle
+        self.finite = torch.ones((), dtype=torch.bool, device="cuda")
+        self.steps = 0
+
+    def __getattr__(self, name):
+        return getattr(self._bundle, name)
+
+    def _watch(self, out):
+        self.finite &= torch.isfinite(out[0]).all()
+        self.steps += 1
+        return out
+
+    def prefill(self, *a, **kw):
+        return self._watch(self._bundle.prefill(*a, **kw))
+
+    def decode_step(self, *a, **kw):
+        return self._watch(self._bundle.decode_step(*a, **kw))
+
+    def paged_step(self, *a, **kw):
+        return self._watch(self._bundle.paged_step(*a, **kw))
+
+
+def prompts(n: int, lo: int, hi: int, seed: int, share: float = 0.0,
+            vocab: int = 151936) -> list[np.ndarray]:
+    """``n`` random prompts of lengths in [lo, hi]; a ``share`` fraction of
+    them start with one common prefix of lo // 2 tokens."""
+    rng = np.random.default_rng(seed)
+    common = rng.integers(0, vocab, lo // 2)
+    out = []
+    for i in range(n):
+        p = rng.integers(0, vocab, int(rng.integers(lo, hi + 1)))
+        if share > 0 and i % max(1, round(1 / share)) == 0:
+            p[:len(common)] = common
+        out.append(p.astype(np.int32))
+    return out
+
+
+def workload(mode: str) -> tuple[list[np.ndarray], dict]:
+    """The serve phase's requests and engine settings for one KV mode:
+    dense takes 4 long prompts (the flash kernel's prefill path), the
+    paged modes 8 shorter ones over 4 slots, half sharing a prefix."""
+    if mode == "dense":
+        return prompts(4, 1024, 1900, SEED + 3), dict(max_new=16, slots=4)
+    return (prompts(8, 256, 1024, SEED + 4, share=0.5),
+            dict(max_new=32, slots=4, page_size=16, prefill_chunk=256,
+                 prefill_token_budget=1024))
+
+
+def serve(mode: str, params) -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_engine
+    reqs, kw = workload(mode)
+    max_new = kw["max_new"]
+    engine, _ = build_engine(ARCH, smoke=False, max_len=2048, kv_mode=mode,
+                             params=params, device="cuda", **kw)
+    watch = FiniteWatch(engine.bundle)
+    engine.bundle = watch
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for p in reqs:
+        engine.submit(p)
+    results = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    n_tok = sum(len(v) for v in results.values())
+    require(sorted(results) == list(range(len(reqs))),
+            f"{mode}: {len(results)} of {len(reqs)} requests completed")
+    require(all(len(v) == max_new for v in results.values()) and
+            all(o == "ok" for o in engine.outcomes.values()),
+            f"{mode}: a request ended short of {max_new} tokens")
+    require(bool(watch.finite.item()), f"{mode}: non-finite logits")
+    row = dict(mode=mode, requests=len(reqs), slots=engine.cfg.batch,
+               prompt_tokens=int(sum(len(p) for p in reqs)),
+               generated_tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
+               steps=watch.steps, launches=launches,
+               kv=engine.kv_stats(), prefix=engine.prefix_stats())
+    emit("serve", **row)
+    del engine, watch
+    torch.cuda.empty_cache()
+    return {"row": row, "results": results, "launches": launches}
+
+
+def agreement(a: dict, b: dict) -> float:
+    same = total = 0
+    for rid in a:
+        x, y = a[rid], b[rid]
+        same += sum(int(i == j) for i, j in zip(x, y))
+        total += max(len(x), len(y))
+    return same / max(1, total)
+
+
+def logits_check(params) -> dict:
+    """Full-width prefill logits of one 1536-token prompt through the flash
+    kernel against the plain attention path (the reference's XLA path):
+    bf16 at full width is not bit-stable across attention paths, so this
+    asserts a cosine similarity, not equality."""
+    import dataclasses
+
+    from repro_torch.configs import get_bundle
+    bundle = get_bundle(ARCH)
+    tok = torch.from_numpy(prompts(1, 1536, 1536, SEED + 9)[0][None]) \
+        .long().to("cuda")
+    out = {}
+    with torch.no_grad():
+        for impl in ("pallas", "xla"):
+            cfg = dataclasses.replace(bundle.cfg, attn_impl=impl)
+            cache = bundle.family.init_cache(cfg, 1, 1536, device="cuda")
+            logits, _ = bundle.family.prefill(cfg, params, tok, cache)
+            out[impl] = logits.float().flatten()
+            del cache
+    a, b = out["pallas"], out["xla"]
+    cos = F.cosine_similarity(a, b, dim=0).item()
+    row = dict(cosine=cos, max_abs_diff=(a - b).abs().max().item(),
+               top1_equal=bool(a.argmax() == b.argmax()),
+               finite=bool(torch.isfinite(a).all()))
+    emit("logits_check", **row)
+    require(row["finite"] and cos > 0.99,
+            f"flash vs plain prefill logits: cosine {cos}")
+    return row
+
+
+def main() -> int:
+    # phase 1: device
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    card = smi()
+    name = torch.cuda.get_device_name(0)
+    emit("device", name=name, nvidia_smi=card,
+         capability=list(torch.cuda.get_device_capability(0)),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # phase 2: build every kernel from the checkout's sources
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.build_all()
+    regs = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
+                if "registers" in ln or "spill" in ln]
+            for n in _build.SOURCES}
+    emit("build", seconds=time.perf_counter() - t0,
+         dir=str(_build.BUILD_DIR.relative_to(ROOT)), ptxas=regs)
+
+    # phase 3: kernels against their plain versions
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    rows = {r["name"]: r for r in (check_flash(flush),
+                                   check_paged(False, flush),
+                                   check_paged(True, flush))}
+    del flush
+
+    # phase 4: serve qwen3-4b at full width in the three KV modes
+    from repro_torch.configs import get_bundle
+    t0 = time.perf_counter()
+    params = get_bundle(ARCH).init_params(SEED, device="cuda")
+    torch.cuda.synchronize()
+    emit("init_params", seconds=time.perf_counter() - t0,
+         params=get_bundle(ARCH).param_count(),
+         bytes=sum(t.numel() * t.element_size() for t in
+                   [params["embed"], params["ln_f"], params["lm_head"],
+                    *params["layers"].values()]))
+    with torch.no_grad():
+        dense, paged, int8 = (serve(m, params)
+                              for m in ("dense", "paged", "paged_int8"))
+    require(dense["launches"]["flash_fwd"] > 0,
+            "dense mode never launched flash_fwd")
+    require(paged["launches"]["paged_decode_bf16"] > 0,
+            "paged mode never launched paged_decode_bf16")
+    require(int8["launches"]["paged_decode_int8"] > 0,
+            "paged_int8 mode never launched paged_decode_int8")
+    emit("agreement", paged_vs_paged_int8=agreement(paged["results"],
+                                                    int8["results"]))
+    logits_check(params)
+
+    # phase 5: the kernels line
+    launches = {k: dense["launches"][k] + paged["launches"][k] +
+                int8["launches"][k] for k in rows}
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = [{k: ({**r, "launches": launches[r["name"]]})[k] for k in keys}
+               for r in rows.values()]
+    for r in kernels:
+        require(all(v is None or not isinstance(v, float) or math.isfinite(v)
+                    for v in r.values()), f"{r['name']}: bad number")
+    print(json.dumps({"kernels": kernels}), flush=True)
+
+    # phase 6: the card, then the result line
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except PhaseError as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,136 @@
+"""Build and load the hand-written CUDA kernels of ``kernels/csrc``.
+
+Each ``csrc/<name>.cu`` compiles on first use into its own shared library
+with a plain C interface, loaded through ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+        -Xcompiler -fPIC -Xptxas=-v \
+        -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+
+The output lands in ``build/kernels/`` at the root of the checkout (git
+ignores it), named by a hash of the source and the flags, so an edited
+source rebuilds and an unchanged one loads at once.  ``ptxas``'s report of
+registers, shared memory and spills goes to ``<name>-<hash>.log`` beside
+it.  ``build_all`` starts one ``nvcc`` per source, all at the same time.
+Nothing here runs when the module is imported.
+
+Every C entry point takes pointers and the CUDA stream as ``void*``, launches
+on that stream and returns ``cudaGetLastError()``; :func:`check` raises on a
+non-zero value.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+SOURCES = ("flash_fwd", "paged_decode")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch "
+                           "build only on a machine with the CUDA toolkit")
+    return path
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{h}.so"
+
+
+def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return out, tmp, proc
+
+
+def _finish(name: str, job) -> None:
+    if job is None:
+        return
+    out, tmp, proc = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
+    os.replace(tmp, out)
+
+
+def build_all(names=SOURCES) -> None:
+    """Compile every named source that has no up-to-date library yet, one
+    ``nvcc`` process per source, all started together."""
+    with _LOCK:
+        jobs = [(n, _start(n)) for n in names]
+        errors = []
+        for n, job in jobs:
+            try:
+                _finish(n, job)
+            except RuntimeError as e:       # wait for every nvcc first
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+
+
+def build_log(name: str) -> str:
+    """What ``nvcc`` printed for the current build of ``name``."""
+    return _target(name).with_suffix(".log").read_text()
+
+
+def check_device(t: torch.Tensor) -> None:
+    """The kernels are built for sm_90a: refuse any other card."""
+    cap = torch.cuda.get_device_capability(t.device)
+    if cap != (9, 0):
+        raise RuntimeError(f"repro_torch CUDA kernels need an sm_90 (Hopper) "
+                           f"device; {t.device} has capability {cap}")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all((name,))
+        lib = ctypes.CDLL(str(_target(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def bind(name: str, fn: str, *argtypes) -> ctypes._CFuncPtr:
+    """C entry ``fn`` of ``csrc/<name>.cu``, with ``argtypes`` followed by
+    the stream (``void*``); it returns an int (the CUDA error code)."""
+    f = getattr(load(name), fn)
+    if f.argtypes is None:
+        f.argtypes = [*argtypes, ctypes.c_void_p]
+        f.restype = ctypes.c_int
+    return f
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
