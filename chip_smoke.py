@@ -6,12 +6,15 @@ on a machine with one NVIDIA H100:
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 into ``build/kernels/``, holds each kernel against its plain PyTorch version
-at the serving path's full-width shapes, serves qwen3-4b at full width
-(bf16, random weights from a seed) through ``repro_torch.launch.serve`` in
-the dense, paged and paged_int8 KV modes, and checks what comes out.  Each
-phase prints one JSON line; a failed phase exits non-zero before the result
-line.  The last two lines are the card's name and power limit
-(``nvidia-smi``) and ``{"ok": true, "device": {...}}``.
+at the serving and training paths' full-width shapes, serves qwen3-4b at
+full width (bf16, random weights from a seed) through
+``repro_torch.launch.serve`` in the dense, paged and paged_int8 KV modes,
+holds the flash kernels' loss and gradients against the plain attention
+path, trains qwen3-4b at full width for a few AdamW steps through
+``repro_torch.launch.train``, and checks what comes out.  Each phase prints
+one JSON line; a failed phase exits non-zero before the result line.  The
+last two lines are the card's name and power limit (``nvidia-smi``) and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -105,6 +108,23 @@ def closeness(got: torch.Tensor, want: torch.Tensor, atol: float) -> dict:
                 within_tol=ratio <= 1.0 and row_rel <= 2.0 ** -6)
 
 
+def closeness_f32(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """How far an f32 kernel output lies from its plain version (the same
+    f32 arithmetic summed in another order), row by row over the last axis:
+    each element within 2^-10 |want| + 1e-5 max|want|, each row's relative
+    L2 error under 2^-10."""
+    diff = (got - want).abs()
+    atol = 1e-5 * want.abs().max().item()
+    ratio = (diff / (2.0 ** -10 * want.abs() + atol)).max().item()
+    row_rel = (diff.norm(dim=-1) /
+               want.norm(dim=-1).clamp_min(1e-30)).max().item()
+    return dict(max_abs_err=diff.max().item(), worst_tol_ratio=ratio,
+                max_row_rel_l2=row_rel, mean_abs_out=want.abs().mean().item(),
+                tol="|err| <= 2^-10|want| + 1e-5 max|want|; "
+                    "row rel L2 <= 2^-10",
+                within_tol=ratio <= 1.0 and row_rel <= 2.0 ** -10)
+
+
 def bound(bytes_: float, ops: float, peak_ops: float) -> tuple[float, str]:
     t_bytes, t_ops = bytes_ / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -115,8 +135,10 @@ def bound(bytes_: float, ops: float, peak_ops: float) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 def check_flash(flush) -> dict:
+    """The forward kernel at the train phase's shape (B 2, S 2048, 32/8
+    heads), (B, S, H, D) tensors read through transposed views."""
     from repro_torch.kernels import attention as katt
-    B, S, H, Hkv, D = 1, 2048, 32, 8, 128
+    B, S, H, Hkv, D = 2, 2048, 32, 8, 128
     g = torch.Generator(device="cuda").manual_seed(SEED)
     q, k, v = (torch.randn((B, S, h, D), generator=g, device="cuda")
                .to(torch.bfloat16) for h in (H, Hkv, Hkv))
@@ -143,7 +165,7 @@ def check_flash(flush) -> dict:
             vt.reshape(B * Hkv, S, D), causal=True), 3, flush)
         lib_ms, _ = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), 20, flush)
-    pairs = H * S * (S + 1) // 2                   # unmasked (q, k) pairs
+    pairs = B * H * S * (S + 1) // 2               # unmasked (q, k) pairs
     bytes_ = 2 * (q.numel() + k.numel() + v.numel() + o.numel()) + \
         4 * lse.numel()
     b_ms, b_by = bound(bytes_, 4 * D * pairs, PEAK_BF16)
@@ -157,6 +179,99 @@ def check_flash(flush) -> dict:
                shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D, causal=True))
     emit("kernel_check", **row)
     return row
+
+
+def check_flash_bwd(flush) -> list[dict]:
+    """The dq and dk/dv kernels at the train phase's shape (B 2, S 2048,
+    32/8 heads), reached as the train path reaches them: the grads that
+    ``flash_attention_train``'s backward returns for (B, S, H, D) leaves
+    fed a transposed ``do``.  That backward is ``flash_attention_bwd`` (delta
+    from the strided o and do, then the kernels) cast to bf16, so its f32
+    results on the same residuals are held against the plain backward, and
+    the autograd grads must equal them cast, bit for bit (no atomics: every
+    run sums in one order)."""
+    from repro_torch.kernels import attention as katt
+    B, S, H, Hkv, D = 2, 2048, 32, 8, 128
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    q, do = (torch.randn((B, S, H, D), generator=g, device="cuda")
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), generator=g, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    o_fn = katt.flash_attention_train(*(x.transpose(1, 2) for x in leaves),
+                                      causal=True)
+    grads = torch.autograd.grad(o_fn, leaves, dot)
+    flat = (qt.reshape(B * H, S, D), kt.reshape(B * Hkv, S, D),
+            vt.reshape(B * Hkv, S, D), dot.reshape(B * H, S, D))
+    with torch.no_grad():
+        o, lse = katt.flash_attention_fwd_cuda(qt, kt, vt, causal=True)
+        f32 = katt.flash_attention_bwd(qt, kt, vt, o, lse, dot, causal=True)
+        delta = (o.float() * dot.float()).sum(-1).reshape(B * H, S) \
+            .contiguous()
+        dq_ref, dk_ref, dv_ref = katt.flash_attention_bwd_plain(
+            *flat, lse, delta, causal=True)
+        torch.cuda.synchronize()
+        dq, dk, dv = f32
+        close = {"flash_bwd_dq": closeness_f32(dq.reshape(B * H, S, D),
+                                               dq_ref)}
+        ck = closeness_f32(dk.reshape(B * Hkv, S, D), dk_ref)
+        cv = closeness_f32(dv.reshape(B * Hkv, S, D), dv_ref)
+        close["flash_bwd_dkv"] = {
+            **{key: max(ck[key], cv[key]) for key in
+               ("max_abs_err", "worst_tol_ratio", "max_row_rel_l2")},
+            "mean_abs_out": ck["mean_abs_out"],
+            "mean_abs_dv": cv["mean_abs_out"], "tol": ck["tol"],
+            "within_tol": ck["within_tol"] and cv["within_tol"]}
+        for name, c in close.items():
+            require(c["within_tol"], f"{name} disagrees: {c}")
+        require(all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv)),
+                "flash backward: non-finite out")
+        # the autograd grads are the f32 results cast, leaf by leaf
+        cast_err = [(gr.float() - f.transpose(1, 2).to(torch.bfloat16)
+                     .float()).abs().max().item()
+                    for gr, f in zip(grads, f32)]
+        require(torch.equal(o_fn, o) and all(e == 0.0 for e in cast_err),
+                f"flash_attention_train: o equal {torch.equal(o_fn, o)}, "
+                f"grads vs f32 results cast, max|err| {cast_err}")
+        args = (qt, kt, vt, dot, lse, delta)
+        ms = {"flash_bwd_dq": time_ms(
+            lambda: katt.flash_bwd_dq_cuda(*args, causal=True), 20, flush),
+              "flash_bwd_dkv": time_ms(
+            lambda: katt.flash_bwd_dkv_cuda(*args, causal=True), 20, flush)}
+        plain = {"flash_bwd_dq": time_ms(lambda: katt.flash_bwd_dq_plain(
+            *flat, lse, delta, causal=True), 3, flush)[0],
+                 "flash_bwd_dkv": time_ms(lambda: katt.flash_bwd_dkv_plain(
+            *flat, lse, delta, causal=True), 3, flush)[0]}
+    del grads, o_fn, f32, dq_ref, dk_ref, dv_ref
+    # the library's yardstick: SDPA's backward alone, one call for the pair
+    qs, ks, vs = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                         enable_gqa=True)
+    lib_ms, _ = time_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), dot, retain_graph=True), 20, flush)
+    del out, qs, ks, vs
+    pairs = B * H * S * (S + 1) // 2               # unmasked (q, k) pairs
+    inputs = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + \
+        4 * (lse.numel() + delta.numel())
+    rows = []
+    for name, flops, out_bytes in (
+            ("flash_bwd_dq", 6 * D * pairs, 4 * dq.numel()),
+            ("flash_bwd_dkv", 8 * D * pairs, 4 * (dk.numel() + dv.numel()))):
+        b_ms, b_by = bound(inputs + out_bytes, flops, PEAK_BF16)
+        row = dict(name=name, route="cuda",
+                   source="src/repro_torch/kernels/csrc/flash_bwd.cu",
+                   replaces="src/repro/kernels/attention.py:" +
+                   ("311" if name == "flash_bwd_dq" else "360"),
+                   **close[name], autograd_cast_max_abs_err=cast_err,
+                   ms=ms[name][0], ms_spread=ms[name][1],
+                   plain_ms=plain[name], bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib_ms,
+                   library="SDPA backward (causal, GQA), dq+dk+dv in one call",
+                   shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D, causal=True))
+        emit("kernel_check", **row)
+        rows.append(row)
+    return rows
 
 
 def check_paged(quant: bool, flush) -> dict:
@@ -348,6 +463,139 @@ def logits_check(params) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 5: train qwen3-4b at full width
+# ---------------------------------------------------------------------------
+
+def token_batch(B: int, S: int, seed: int) -> dict:
+    t = torch.from_numpy(np.stack(prompts(B, S + 1, S + 1, seed))).long() \
+        .to("cuda")
+    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+
+# |norm ratio - 1| of each train_check leaf: the cosine is blind to a
+# gradient wrong by a factor (a scale applied twice, a GQA group summed G
+# times), which the norm shows at once.  About 7x the largest reading of a
+# sound run on one H100 (6.8e-4, wv of layer 0).
+NORM_TOL = 5e-3
+
+
+def train_check(params) -> dict:
+    """Loss and gradients of one B 1, S 2048 batch through the flash
+    kernels (forward and backward) against the plain attention path, both
+    under per-layer recompute: bf16 over 36 layers is not bit-stable across
+    attention paths, so this asserts a relative loss difference under 1e-3
+    and, per leaf, a cosine over 0.99 and a norm within ``NORM_TOL`` of
+    the plain path's."""
+    import dataclasses
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.models import transformer
+    from repro_torch.training import loss_fn
+    bundle = get_bundle(ARCH)
+    batch = token_batch(1, 2048, SEED + 11)
+    L = bundle.cfg.n_layers
+    names = ("wq", "wk", "wv")
+    leaves = [params["embed"], *(params["layers"][n] for n in names)]
+    out = {}
+    for impl in ("pallas", "xla"):
+        cfg = dataclasses.replace(bundle.cfg, attn_impl=impl)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = loss_fn(lambda p, b: transformer.forward(cfg, p,
+                                                           b["tokens"]),
+                          params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        for p in leaves:
+            p.requires_grad_(False)
+        got = {"embed": grads[0]}
+        for n, g in zip(names, grads[1:]):
+            got[f"{n}[0]"], got[f"{n}[{L - 1}]"] = g[0].clone(), \
+                g[L - 1].clone()
+        out[impl] = (loss.item(), got)
+        del grads, loss
+    (la, ga), (lb, gb) = out["pallas"], out["xla"]
+    cos = {k: F.cosine_similarity(ga[k].float().flatten(),
+                                  gb[k].float().flatten(), dim=0).item()
+           for k in ga}
+    ratio = {k: (ga[k].float().norm() / gb[k].float().norm()).item()
+             for k in ga}
+    rel = abs(la - lb) / abs(lb)
+    row = dict(loss_flash=la, loss_plain=lb, loss_rel_diff=rel, cosine=cos,
+               norm_ratio=ratio,
+               tol=f"loss rel diff < 1e-3; per leaf cosine > 0.99 and "
+                   f"|norm ratio - 1| < {NORM_TOL}")
+    emit("train_check", **row)
+    require(math.isfinite(la) and rel < 1e-3 and
+            all(c > 0.99 for c in cos.values()) and
+            all(abs(r - 1.0) < NORM_TOL for r in ratio.values()),
+            f"flash vs plain training loss/grads: {row}")
+    return row
+
+
+def train(params) -> dict:
+    """Three AdamW steps of qwen3-4b at full width (B 2, S 2048, one
+    microbatch) through ``launch.train.run`` on the served weights, which
+    it updates in place."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import run
+    from repro_torch.configs import get_bundle
+    L = get_bundle(ARCH).cfg.n_layers
+
+    def probes():
+        return {"wq[0]": params["layers"]["wq"][0, :64, :64],
+                f"w_gate[{L - 1}]": params["layers"]["w_gate"][L - 1, :64,
+                                                               :64],
+                "embed": params["embed"][:64, :64]}
+    def moved():
+        return {k: not torch.equal(before[k], v) for k, v in probes().items()}
+
+    after_first = {}
+
+    def on_step(i, p, opt, m):
+        if i == 0:
+            after_first.update(moved())
+
+    before = {k: v.clone() for k, v in probes().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = run(ARCH, smoke=False, steps=3, seq_len=2048, global_batch=2,
+              microbatches=1, device="cuda", params=params, on_step=on_step)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    changed = moved()
+    steps_s = out["seconds"]
+    tokens = 2 * 2048
+    row = dict(steps=len(steps_s), losses=out["losses"],
+               finite=[m["finite"] for m in out["metrics"]],
+               grad_norm=[m["grad_norm"] for m in out["metrics"]],
+               lr=[m["lr"] for m in out["metrics"]], s_per_step=steps_s,
+               tok_per_s_after_first=tokens * (len(steps_s) - 1) /
+               sum(steps_s[1:]), wall_s=wall,
+               max_memory_allocated=peak,
+               params_changed_after_step_1=after_first,
+               params_changed=changed,
+               opt_step=int(out["opt"]["step"]), launches=launches)
+    emit("train", **row)
+    require(all(math.isfinite(x) for x in out["losses"]) and
+            all(f == 1.0 for f in row["finite"]) and len(steps_s) == 3,
+            f"train: a loss or finite flag is bad: {row}")
+    require(len(after_first) == len(changed) and
+            all(after_first.values()) and all(changed.values()) and
+            row["opt_step"] == 3,
+            f"train: params did not change: after step 1 {after_first}, "
+            f"after step 3 {changed}")
+    require(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == L * 3
+            and launches["flash_fwd"] == 2 * L * 3,
+            f"train: flash launches {launches}, want bwd {L * 3} each and "
+            f"fwd {2 * L * 3} (forward + per-layer recompute)")
+    del out
+    return row
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -375,9 +623,11 @@ def main() -> int:
     # phase 3: kernels against their plain versions
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     rows = {r["name"]: r for r in (check_flash(flush),
+                                   *check_flash_bwd(flush),
                                    check_paged(False, flush),
                                    check_paged(True, flush))}
     del flush
+    torch.cuda.empty_cache()
 
     # phase 4: serve qwen3-4b at full width in the three KV modes
     from repro_torch.configs import get_bundle
@@ -402,9 +652,17 @@ def main() -> int:
                                                     int8["results"]))
     logits_check(params)
 
-    # phase 5: the kernels line
+    # phase 5: train at full width (the served weights change in place)
+    torch.cuda.empty_cache()
+    train_check(params)
+    torch.cuda.empty_cache()
+    trained = train(params)
+    del params
+    torch.cuda.empty_cache()
+
+    # phase 6: the kernels line, launches from the serve and train phases
     launches = {k: dense["launches"][k] + paged["launches"][k] +
-                int8["launches"][k] for k in rows}
+                int8["launches"][k] + trained["launches"][k] for k in rows}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: ({**r, "launches": launches[r["name"]]})[k] for k in keys}
@@ -414,7 +672,7 @@ def main() -> int:
                     for v in r.values()), f"{r['name']}: bad number")
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # phase 6: the card, then the result line
+    # phase 7: the card, then the result line
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

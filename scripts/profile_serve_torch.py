@@ -33,6 +33,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 import chip_smoke  # noqa: E402  (the workload is defined there)
 
 GROUPS = (("flash_fwd", "flash_fwd_kernel"),
+          ("flash_bwd", "flash_bwd_"),
           ("paged_decode", "paged_decode_kernel"),
           # cuBLAS's GEMM / GEMV kernels (nvjet_* on Hopper, sm80_xmma_*,
           # cutlass_*, gemmSN_*, gemv*)

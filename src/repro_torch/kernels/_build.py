@@ -34,7 +34,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-SOURCES = ("flash_fwd", "paged_decode")
+SOURCES = ("flash_fwd", "flash_bwd", "paged_decode")
+
+# Launches of each CUDA kernel since the last reset (``ops.reset_launches``):
+# a plain integer per kernel, incremented by the kernel's launcher
+# (``*_cuda``) right after the launch is checked, and nowhere else.
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "paged_decode_bf16": 0, "paged_decode_int8": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -1,12 +1,14 @@
-"""Flash-attention forward: the pruned pair schedule, the plain PyTorch
-version, and the launcher of the hand-written CUDA kernel
-(``csrc/flash_fwd.cu``).
+"""Flash attention, forward and backward: the pruned pair schedule, the
+plain PyTorch versions, the launchers of the hand-written CUDA kernels
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) and the trainable
+:class:`FlashAttention` that binds them.
 
-Counterpart of ``repro.kernels.attention`` (forward only; the backward
-kernels come with the training slice).  The host-side schedule
-(``_row_range`` / ``_pair_schedule`` / ``scheduled_block_counts``) is a copy
-of the reference's, so the CUDA kernel's per-CTA k-block ranges are the
-reference's pruned pair table, row by row.
+Counterpart of ``repro.kernels.attention`` (flash forward, the dq and dk/dv
+backward kernels and ``flash_attention_train``; the dense decode kernel is
+not ported yet).  The host-side schedule (``_row_range`` /
+``_pair_schedule`` / ``scheduled_block_counts``) is a copy of the
+reference's, so the CUDA kernels' per-CTA block ranges are the reference's
+pruned pair table, row by row (forward, dq) and column by column (dk/dv).
 """
 from __future__ import annotations
 
@@ -135,9 +137,53 @@ def row_block_ranges(Sq: int, Sk: int, *, block_q: int, block_k: int,
     return ranges
 
 
+def col_block_ranges(Sq: int, Sk: int, *, block_q: int, block_k: int,
+                     causal: bool, window: int | None) -> np.ndarray:
+    """(nk, 2) int32 inclusive [lo, hi] q-block range of each k block: the
+    span of that column's real pairs in the column-ordered
+    ``_pair_schedule`` table.  A column no q block touches gets the empty
+    range (0, -1), which the dk/dv kernel drains as zeros where the table
+    holds one masked sentinel pair."""
+    rows = row_block_ranges(Sq, Sk, block_q=block_q, block_k=block_k,
+                            causal=causal, window=window)
+    nk = -(-Sk // block_k)
+    ranges = np.tile(np.asarray([[0, -1]], np.int32), (nk, 1))
+    for ik in range(nk):
+        iqs = np.flatnonzero((rows[:, 0] <= ik) & (ik <= rows[:, 1]))
+        if len(iqs):
+            # the band is convex: a column's q blocks are consecutive
+            assert iqs[-1] - iqs[0] + 1 == len(iqs), (ik, iqs)
+            ranges[ik] = (iqs[0], iqs[-1])
+    return ranges
+
+
 # ---------------------------------------------------------------------------
-# Plain PyTorch version (the CPU path and the kernel's check on the card)
+# Plain PyTorch versions (the CPU path and the kernels' check on the card)
 # ---------------------------------------------------------------------------
+
+def _block_mask(q0: int, k0: int, block_q: int, block_k: int, causal: bool,
+                window: int | None, kv_len: int, dev) -> torch.Tensor:
+    """(block_q, block_k) mask of one (q block, k block) pair, as the
+    kernels build it: keys past ``kv_len`` never attend."""
+    loc_k = k0 + torch.arange(block_k, device=dev)[None, :]
+    qpos = q0 + torch.arange(block_q, device=dev)[:, None]
+    mask = (loc_k < kv_len).expand(block_q, block_k)
+    if causal:
+        mask = mask & (qpos >= loc_k)
+    if window is not None:
+        mask = mask & ((qpos - loc_k) < window)
+    return mask
+
+
+def _rows(x: torch.Tensor, r0: int, n: int) -> torch.Tensor:
+    """Rows [r0, r0 + n) of x along dim 1 in f32, zero-padded to n rows at
+    the ragged edge."""
+    b = x[:, r0:r0 + n].float()
+    if b.shape[1] < n:
+        b = torch.nn.functional.pad(
+            b, (0, 0) * (b.dim() - 2) + (0, n - b.shape[1]))
+    return b
+
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
@@ -187,13 +233,8 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
             kb = torch.nn.functional.pad(kb, (0, 0, 0, block_k - nkr))
             vb = torch.nn.functional.pad(vb, (0, 0, 0, block_k - nkr))
         s = torch.einsum("hqd,hkd->hqk", qb, kb) * scale
-        loc_k = k0 + torch.arange(block_k, device=dev)[None, :]
-        qpos = q0 + torch.arange(block_q, device=dev)[:, None]
-        mask = (loc_k < kv_len).expand(block_q, block_k)
-        if causal:
-            mask = mask & (qpos >= loc_k)
-        if window is not None:
-            mask = mask & ((qpos - loc_k) < window)
+        mask = _block_mask(q0, k0, block_q, block_k, causal, window, kv_len,
+                           dev)
         s = torch.where(mask, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
@@ -207,6 +248,131 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
             o[:, q0:q0 + nqr] = (acc / safe[..., None])[:, :nqr].to(q.dtype)
             lse[:, q0:q0 + nqr] = (m + torch.log(safe))[:, :nqr]
     return o, lse
+
+
+class _BwdPairs:
+    """The backward's per-pair arithmetic over all heads at once, shared by
+    the plain dq and dk/dv walks: f32 scores, ``p = exp(s - lse)`` under
+    the mask guard (a fully masked row has lse == NEG_INF and would
+    otherwise come back as exp(0)), ``ds = p * (dp - delta) * scale``."""
+
+    def __init__(self, q, k, v, do, lse, delta, causal, window, block_q,
+                 block_k, scale, kv_len, q_len):
+        BH, Sq, Dh = q.shape
+        BHkv, Sk, _ = k.shape
+        if BH % BHkv:
+            raise ValueError(f"q heads {BH} not a multiple of kv heads "
+                             f"{BHkv}")
+        self.q, self.k, self.v, self.do = q, k, v, do
+        self.lse, self.delta = lse, delta
+        self.group = BH // BHkv
+        self.causal, self.window = bool(causal), window
+        self.block_q, self.block_k = block_q, block_k
+        self.scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+        self.kv_len = Sk if kv_len is None else kv_len
+        self.q_len = Sq if q_len is None else q_len
+        self.nq, self.nk = -(-Sq // block_q), -(-Sk // block_k)
+
+    def schedule(self, order: str) -> list:
+        sched, _ = _pair_schedule(self.nq, self.nk, self.block_q,
+                                  self.block_k, self.causal, self.window,
+                                  self.kv_len, self.q_len, order)
+        return sched.tolist()
+
+    def pair(self, iq: int, ik: int):
+        bq, bk, g = self.block_q, self.block_k, self.group
+        q0, k0 = iq * bq, ik * bk
+        qb, dob = _rows(self.q, q0, bq), _rows(self.do, q0, bq)
+        kb = _rows(self.k, k0, bk).repeat_interleave(g, dim=0)
+        vb = _rows(self.v, k0, bk).repeat_interleave(g, dim=0)
+        mask = _block_mask(q0, k0, bq, bk, self.causal, self.window,
+                           self.kv_len, self.q.device)
+        s = torch.einsum("hqd,hkd->hqk", qb, kb) * self.scale
+        lse = _rows(self.lse, q0, bq)[..., None]
+        p = torch.where(mask, torch.exp(s - lse), 0.0)
+        dp = torch.einsum("hqd,hkd->hqk", dob, vb)
+        ds = p * (dp - _rows(self.delta, q0, bq)[..., None]) * self.scale
+        return qb, dob, kb, p, ds
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, causal=True, window=None,
+                       block_q=BLOCK_Q, block_k=BLOCK_K, scale=None,
+                       kv_len=None, q_len=None) -> torch.Tensor:
+    """dq (f32, q's shape) of :func:`flash_attention_bwd_plain`: the
+    row-ordered pair table, ``dq += ds . k`` per step."""
+    w = _BwdPairs(q, k, v, do, lse, delta, causal, window, block_q, block_k,
+                  scale, kv_len, q_len)
+    BH, Sq, Dh = q.shape
+    dq = torch.zeros((BH, Sq, Dh), dtype=torch.float32, device=q.device)
+    acc = None
+    for iq, ik, first, last in w.schedule("row"):
+        if first:
+            acc = torch.zeros((BH, block_q, Dh), device=q.device)
+        _, _, kb, _, ds = w.pair(iq, ik)
+        acc += torch.einsum("hqk,hkd->hqd", ds, kb)
+        if last:
+            q0 = iq * block_q
+            dq[:, q0:q0 + block_q] = acc[:, :Sq - q0]
+    return dq
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal=True,
+                        window=None, block_q=BLOCK_Q, block_k=BLOCK_K,
+                        scale=None, kv_len=None, q_len=None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) (f32, k's shape) of :func:`flash_attention_bwd_plain`: the
+    column-ordered pair table, ``dv += p^T . do`` and ``dk += ds^T . q``
+    per step, a GQA group's heads and q rows folded in one sum."""
+    w = _BwdPairs(q, k, v, do, lse, delta, causal, window, block_q, block_k,
+                  scale, kv_len, q_len)
+    BHkv, Sk, Dh = k.shape
+    g = w.group
+
+    def fold(a, b):
+        return torch.einsum("hgqk,hgqd->hkd",
+                            a.reshape(BHkv, g, *a.shape[1:]),
+                            b.reshape(BHkv, g, *b.shape[1:]))
+
+    dk = torch.zeros((BHkv, Sk, Dh), dtype=torch.float32, device=k.device)
+    dv = torch.zeros_like(dk)
+    dk_acc = dv_acc = None
+    for iq, ik, first, last in w.schedule("col"):
+        if first:
+            dk_acc = torch.zeros((BHkv, block_k, Dh), device=k.device)
+            dv_acc = torch.zeros_like(dk_acc)
+        qb, dob, _, p, ds = w.pair(iq, ik)
+        dv_acc += fold(p, dob)
+        dk_acc += fold(ds, qb)
+        if last:
+            k0 = ik * block_k
+            dk[:, k0:k0 + block_k] = dk_acc[:, :Sk - k0]
+            dv[:, k0:k0 + block_k] = dv_acc[:, :Sk - k0]
+    return dk, dv
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, do: torch.Tensor,
+                              lse: torch.Tensor, delta: torch.Tensor, *,
+                              causal: bool = True, window: int | None = None,
+                              block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
+                              scale: float | None = None,
+                              kv_len: int | None = None,
+                              q_len: int | None = None
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Flash backward from the saved residuals.  q/do: (BH, Sq, D); k/v:
+    (BHkv, Sk, D); lse/delta: f32 (BH, Sq) with ``delta = rowsum(o * do)``.
+    Returns (dq, dk, dv) in f32.
+
+    Walks the row-ordered pair table for dq and the column-ordered one for
+    dk/dv, one step at a time over all heads at once, with the kernels'
+    arithmetic (:class:`_BwdPairs`).  Sentinel pairs are computed like any
+    other, so where they are fully masked they drain 0, as in the
+    reference."""
+    kw = dict(causal=causal, window=window, block_q=block_q,
+              block_k=block_k, scale=scale, kv_len=kv_len, q_len=q_len)
+    dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    return (dq, *flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw))
 
 
 # ---------------------------------------------------------------------------
@@ -224,33 +390,19 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     D) — any strides with a contiguous last dimension, e.g. the
     ``transpose(1, 2)`` views of the engine's (B, S, H, D) tensors, which
     are read in place.  Returns ``(o, lse)``: o has q's shape and memory
-    layout, lse is f32 (B * H, Sq)."""
-    B, H, Sq, D = q.shape
-    Bk, Hkv, Sk, Dk = k.shape
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention_fwd_cuda: q, k, v must lie on "
-                         "one CUDA device")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
-            v.dtype != q.dtype:
-        raise TypeError(f"flash_attention_fwd_cuda takes bf16 or f32 q/k/v "
-                        f"of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if (Bk, Dk) != (B, D) or v.shape != k.shape or H % Hkv or \
-            D not in (64, 128):
-        raise ValueError(f"flash_attention_fwd_cuda: unsupported shapes "
-                         f"q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)} (head_dim 64 or 128)")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("flash_attention_fwd_cuda: the head dim must be "
-                         "contiguous")
-    if window is not None and window <= 0:
-        raise ValueError(f"window must be positive, got {window}")
+    layout, lse is f32 (B * H, Sq).  The launch carries no gradient, so it
+    refuses inputs that autograd wants one of: those go through
+    :func:`flash_attention_train`."""
+    _check_inputs("flash_attention_fwd_cuda", q, k, v, window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        raise NotImplementedError(
-            "flash attention backward on CUDA comes with the training "
-            "slice of the port; call under torch.no_grad()")
-    _build.check_device(q)
-    ranges = _ranges_on(q.device, Sq, Sk, bool(causal), window)
+        raise RuntimeError(
+            "flash_attention_fwd_cuda is the forward-only launch; for a "
+            "gradient call flash_attention_train, or call under "
+            "torch.no_grad()")
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    ranges = _ranges_on(q.device, Sq, Sk, bool(causal), window, "row")
     o = torch.empty_like(q)          # keeps q's (B, S, H, D) memory layout
     lse = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
     fn = _build.bind("flash_fwd", "flash_fwd", *[ctypes.c_void_p] * 6,
@@ -267,21 +419,214 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
              o.stride(0), o.stride(1), o.stride(2),
              1.0 / math.sqrt(D), _build.stream_ptr(q))
     _build.check(err, "flash_fwd")
+    _build.LAUNCHES["flash_fwd"] += 1
     return o, lse
+
+
+def _check_inputs(what: str, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, window: int | None) -> None:
+    """What the kernels take: q (B, H, Sq, D), k/v (B, Hkv, Sk, D) on one
+    sm_90 device, bf16 or f32 of one dtype, head_dim 64 or 128, the head
+    dim contiguous."""
+    B, H, Sq, D = q.shape
+    Bk, Hkv, Sk, Dk = k.shape
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError(f"{what}: q, k, v must lie on one CUDA device")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise TypeError(f"{what} takes bf16 or f32 q/k/v of one dtype, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if (Bk, Dk) != (B, D) or v.shape != k.shape or H % Hkv or \
+            D not in (64, 128):
+        raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)} "
+                         "(head_dim 64 or 128)")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError(f"{what}: the head dim must be contiguous")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    _build.check_device(q)
+
+
+def _check_bwd(q, k, v, do, lse, delta, window) -> None:
+    _check_inputs("flash_attention_bwd_cuda", q, k, v, window)
+    B, H, Sq, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or \
+            do.device != q.device or do.stride(-1) != 1:
+        raise ValueError(f"flash_attention_bwd_cuda: do must match q "
+                         f"{tuple(q.shape)} {q.dtype} with a contiguous "
+                         f"last dim, got {tuple(do.shape)} {do.dtype} "
+                         f"strides {do.stride()}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B * H, Sq) or t.dtype != torch.float32 or \
+                t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd_cuda: {name} must be "
+                             f"contiguous f32 {(B * H, Sq)} on {q.device}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+
+
+def _strides(*ts) -> ctypes.Array:
+    """(batch, head, seq) strides of each tensor, as one C array."""
+    return (ctypes.c_longlong * (3 * len(ts)))(
+        *[st for t in ts for st in t.stride()[:3]])
+
+
+_BWD_ARGS = (*[ctypes.c_int] * 10, ctypes.POINTER(ctypes.c_longlong),
+             ctypes.c_float)
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal=True,
+                      window=None) -> torch.Tensor:
+    """Launch ``flash_bwd_dq`` of ``csrc/flash_bwd.cu``; arguments as
+    :func:`flash_attention_bwd_cuda`.  Returns dq in f32 with q's memory
+    layout."""
+    _check_bwd(q, k, v, do, lse, delta, window)
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    rows = _ranges_on(q.device, Sq, Sk, bool(causal), window, "row")
+    dq = torch.empty_like(q, dtype=torch.float32)
+    fn = _build.bind("flash_bwd", "flash_bwd_dq", *[ctypes.c_void_p] * 8,
+                     *_BWD_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), rows.data_ptr(),
+             _DTYPE_CODE[q.dtype], B, H, H // Hkv, Sq, Sk, D, rows.shape[0],
+             int(bool(causal)), 0 if window is None else int(window),
+             _strides(q, k, v, do, dq), 1.0 / math.sqrt(D),
+             _build.stream_ptr(q))
+    _build.check(err, "flash_bwd_dq")
+    _build.LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal=True,
+                       window=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``flash_bwd_dkv`` of ``csrc/flash_bwd.cu``; arguments as
+    :func:`flash_attention_bwd_cuda`.  Returns (dk, dv) in f32 with k's
+    and v's memory layouts."""
+    _check_bwd(q, k, v, do, lse, delta, window)
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    cols = _ranges_on(q.device, Sq, Sk, bool(causal), window, "col")
+    dk = torch.empty_like(k, dtype=torch.float32)
+    dv = torch.empty_like(v, dtype=torch.float32)
+    fn = _build.bind("flash_bwd", "flash_bwd_dkv", *[ctypes.c_void_p] * 9,
+                     *_BWD_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             cols.data_ptr(), _DTYPE_CODE[q.dtype], B, H, H // Hkv, Sq, Sk, D,
+             cols.shape[0], int(bool(causal)),
+             0 if window is None else int(window),
+             _strides(q, k, v, do, dk, dv), 1.0 / math.sqrt(D),
+             _build.stream_ptr(q))
+    _build.check(err, "flash_bwd_dkv")
+    _build.LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, do: torch.Tensor,
+                             lse: torch.Tensor, delta: torch.Tensor, *,
+                             causal: bool = True, window: int | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Launch the two kernels of ``csrc/flash_bwd.cu``: dq, then dk/dv.
+    q/do: (B, H, Sq, D), k/v: (B, Hkv, Sk, D) — any strides with a
+    contiguous last dimension (``do`` arrives as the gradient of a
+    transposed view); lse/delta: f32 (B * H, Sq) contiguous.  Returns
+    (dq, dk, dv) in f32, each with its input's memory layout."""
+    kw = dict(causal=causal, window=window)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+    return (dq, *flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw))
 
 
 _RANGES: dict[tuple, torch.Tensor] = {}
 
 
 def _ranges_on(dev: torch.device, Sq: int, Sk: int, causal: bool,
-               window: int | None) -> torch.Tensor:
-    """The kernel's per-CTA k-block ranges, on the device, built once per
-    shape."""
-    key = (dev, Sq, Sk, causal, window)
+               window: int | None, order: str) -> torch.Tensor:
+    """The kernels' per-CTA block ranges (``order`` 'row': k blocks of each
+    q block; 'col': q blocks of each k block), on the device, built once
+    per shape."""
+    key = (dev, Sq, Sk, causal, window, order)
     t = _RANGES.get(key)
     if t is None:
-        r = row_block_ranges(Sq, Sk, block_q=BLOCK_Q, block_k=BLOCK_K,
-                             causal=causal, window=window)
+        build = row_block_ranges if order == "row" else col_block_ranges
+        r = build(Sq, Sk, block_q=BLOCK_Q, block_k=BLOCK_K, causal=causal,
+                  window=window)
         t = torch.from_numpy(r).to(dev)
         _RANGES[key] = t
     return t
+
+
+# ---------------------------------------------------------------------------
+# Trainable entry: forward and backward bound in one autograd Function
+# ---------------------------------------------------------------------------
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of :class:`FlashAttention` from its residuals, before
+    the cast to the inputs' dtypes.  q/o/do: (B, H, Sq, D), k/v: (B, Hkv,
+    Sk, D), lse: f32 (B * H, Sq) from the forward.  Forms ``delta =
+    rowsum(o * do)`` in f32 with torch ops, as the reference does outside
+    its kernels, then launches the dq and dk/dv kernels on CUDA tensors
+    (or raises) and runs the plain versions on CPU tensors.  Returns
+    (dq, dk, dv) in f32 with q's, k's and v's shapes."""
+    B, H, Sq, D = q.shape
+    if do.stride(-1) != 1:                 # e.g. an expanded gradient
+        do = do.contiguous()
+    delta = (o.float() * do.float()).sum(-1).reshape(B * H, Sq) \
+        .contiguous()
+    kw = dict(causal=causal, window=window)
+    if q.is_cuda:
+        return flash_attention_bwd_cuda(q, k, v, do, lse, delta, **kw)
+    dq, dk, dv = flash_attention_bwd_plain(
+        q.reshape(B * H, Sq, D), *_kv_rows(k, v), do.reshape(B * H, Sq, D),
+        lse, delta, **kw)
+    return dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention, the counterpart of the reference's
+    custom VJP ``flash_attention_train``.  q: (B, H, Sq, D), k/v: (B, Hkv,
+    Sk, D).  The forward saves (q, k, v, o, lse); the backward is
+    :func:`flash_attention_bwd`, cast to the inputs' dtypes.  On CUDA
+    tensors each half launches its kernels (or raises); on CPU tensors it
+    runs the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if q.is_cuda:
+            o, lse = flash_attention_fwd_cuda(q, k, v, causal=causal,
+                                              window=window)
+        else:
+            B, H, Sq, D = q.shape
+            o, lse = flash_attention_fwd_plain(
+                q.reshape(B * H, Sq, D), *_kv_rows(k, v), causal=causal,
+                window=window)
+            o = o.reshape(q.shape)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def _kv_rows(k: torch.Tensor, v: torch.Tensor):
+    B, Hkv, Sk, D = k.shape
+    return k.reshape(B * Hkv, Sk, D), v.reshape(B * Hkv, Sk, D)
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          window: int | None = None) -> torch.Tensor:
+    """Trainable flash attention on (B, H, S, D) q and (B, Hkv, Sk, D) k/v
+    (see :class:`FlashAttention`)."""
+    return FlashAttention.apply(q, k, v, causal, window)

@@ -1,18 +1,20 @@
 """Public wrappers around the hand-written CUDA kernels.
 
-Counterpart of ``repro.kernels.ops`` for the two kernels of the serving
-path.  Each wrapper takes the reference wrapper's layout, records its
-dispatch, and then
+Counterpart of ``repro.kernels.ops`` for the kernels of the serving and
+training paths: flash attention (forward, and the dq and dk/dv backward
+kernels under autograd) and paged decode.  Each wrapper takes the reference
+wrapper's layout, records its dispatch, and then
 
-* on CUDA tensors launches its kernel (``kernels/csrc``) and adds one to
-  its entry in :data:`LAUNCHES` — or raises: nothing falls back to the
-  plain version or to the CPU;
+* on CUDA tensors launches its kernels (``kernels/csrc``) — or raises:
+  nothing falls back to the plain version or to the CPU.  Each kernel's
+  launcher adds one to its entry in :data:`LAUNCHES` where it launches,
+  whichever entry point called it;
 * on CPU tensors runs the plain PyTorch version of the same arithmetic
   (the path the parity tests take).
 
 Block shapes are the kernels' own, fixed for sm_90a (64 x 64 for flash
-forward; one page per step for paged decode).  The reference's tile search
-(``repro.core``) is not ported yet.
+forward and backward; one page per step for paged decode).  The
+reference's tile search (``repro.core``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -20,10 +22,7 @@ import torch
 
 from . import attention as _attention
 from . import paged_attention as _paged_attention
-
-# Launches of each CUDA kernel since the last reset: a plain integer per
-# kernel, incremented where the wrapper launches it and nowhere else.
-LAUNCHES = {"flash_fwd": 0, "paged_decode_bf16": 0, "paged_decode_int8": 0}
+from ._build import LAUNCHES
 
 
 def reset_launches() -> None:
@@ -55,27 +54,35 @@ def _impl(x: torch.Tensor) -> str:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
-    """q: (B, H, S, D), k/v: (B, Hkv, Sk, D) -> (B, H, S, D), forward only.
+                    causal: bool = True, window: int | None = None
+                    ) -> torch.Tensor:
+    """q: (B, H, S, D), k/v: (B, Hkv, Sk, D) -> (B, H, S, D).
 
-    On CUDA the kernel reads q/k/v through their strides, so the
-    ``transpose(1, 2)`` views of (B, S, H, D) activations cost no copy, and
-    the output keeps q's memory layout.  Fully masked k blocks are pruned
-    from the schedule."""
+    When autograd wants a gradient of q, k or v, the call goes through
+    :class:`attention.FlashAttention`: the forward kernel saves its lse and
+    the backward runs the dq and dk/dv kernels.  Otherwise it is the
+    forward-only launch, as on the serving path.  On CUDA the kernels read
+    q/k/v through their strides, so the ``transpose(1, 2)`` views of
+    (B, S, H, D) activations cost no copy, and the output keeps q's memory
+    layout.  Fully masked k blocks are pruned from the schedule."""
     B, H, Sq, D = q.shape
     _, Hkv, Sk, _ = k.shape
     impl = _impl(q)
+    train = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
     bq, bk = _attention.BLOCK_Q, _attention.BLOCK_K
     real, total = _attention.scheduled_block_counts(
         Sq, Sk, block_q=bq, block_k=bk, causal=causal, window=window)
-    _record_dispatch("flash_attention", impl=impl, sq=Sq, sk=Sk, block_q=bq,
-                     block_k=bk, scheduled_blocks=real, dense_blocks=total,
+    _record_dispatch("flash_attention", impl="train" if train else impl,
+                     sq=Sq, sk=Sk, block_q=bq, block_k=bk,
+                     scheduled_blocks=real, dense_blocks=total,
                      pruning_ratio=real / total if total else 1.0)
+    if train:
+        return _attention.flash_attention_train(q, k, v, causal=causal,
+                                                window=window)
     if impl == "cuda":
         o, _ = _attention.flash_attention_fwd_cuda(q, k, v, causal=causal,
                                                    window=window)
-        LAUNCHES["flash_fwd"] += 1
         return o
     o, _ = _attention.flash_attention_fwd_plain(
         q.reshape(B * H, Sq, D), k.reshape(B * Hkv, Sk, D),
@@ -103,9 +110,7 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                      batch=B, pages=P, page_size=page_size,
                      max_pages=int(page_table.shape[1]))
     if impl == "cuda":
-        out = _paged_attention.paged_flash_decode_cuda(
+        return _paged_attention.paged_flash_decode_cuda(
             q, k_pages, v_pages, page_table, lengths, k_scale, v_scale)
-        LAUNCHES["paged_decode_int8" if quant else "paged_decode_bf16"] += 1
-        return out
     return _paged_attention.paged_flash_decode_plain(
         q, k_pages, v_pages, page_table, lengths, k_scale, v_scale)

@@ -138,4 +138,6 @@ def paged_flash_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
              out.stride(0), out.stride(1),
              1.0 / math.sqrt(Dh), _build.stream_ptr(q))
     _build.check(err, "paged_decode")
+    _build.LAUNCHES["paged_decode_int8" if quant else
+                    "paged_decode_bf16"] += 1
     return out

@@ -70,8 +70,11 @@ def _flash_mode(S: int, Sk: int, override: str | None, on_cuda: bool) -> str:
 
 
 def _flash_pallas(q, k, v, *, causal, window):
-    """The flash kernel on (B, S, H, D) activations: the transposes are
-    views, read by the kernel through their strides."""
+    """The trainable flash kernels on (B, S, H, D) activations: the
+    transposes are views, read by the kernels through their strides.  Under
+    autograd the call goes through ``FlashAttention`` (forward kernel, then
+    the dq and dk/dv kernels in backward); on the CPU, through the same
+    Function's plain halves."""
     from repro_torch.kernels import ops as kops
     o = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2), causal=causal, window=window)
@@ -159,12 +162,12 @@ def _attention_blocked(q, k, v, *, causal, window, q_chunk=2048,
 
 def attention(q, k, v, *, causal=True, window=None, impl=None,
               full_threshold: int = 2048, q_offset: int = 0):
-    """Dispatch: the hand-written flash kernel when the flash policy picks
-    it (on CUDA: ``auto`` at max(S, Sk) >= min_seq, or forced), else the
-    full-mask path for short sequences and the double-blocked online
-    softmax for long ones.  ``impl`` overrides the policy ('pallas' |
-    'xla'; None / 'auto' resolves via REPRO_FLASH_ATTN).  q: (B, S, H, D);
-    k/v: (B, Sk, Hkv, D)."""
+    """Dispatch: the trainable hand-written flash kernels when the flash
+    policy picks them (on CUDA: ``auto`` at max(S, Sk) >= min_seq, or
+    forced), else the full-mask path for short sequences and the
+    double-blocked online softmax for long ones.  ``impl`` overrides the
+    policy ('pallas' | 'xla'; None / 'auto' resolves via
+    REPRO_FLASH_ATTN).  q: (B, S, H, D); k/v: (B, Sk, Hkv, D)."""
     if impl not in (None, "auto", "pallas", "xla"):
         raise ValueError(f"attention impl {impl!r} not in "
                          "(None, 'auto', 'pallas', 'xla')")

@@ -1,9 +1,12 @@
-"""Decoder-only transformer (dense GQA), the serving half.
+"""Decoder-only transformer (dense GQA): training forward and serving.
 
 Counterpart of ``repro.models.transformer`` for dense configs such as
 qwen3-4b (qk_norm) on one device.  Layers are stacked on a leading axis,
-as in the reference, and traversed with a Python loop.  A MoE config
-raises ``NotImplementedError``; MoE comes with a later slice of the port.
+as in the reference, unbound once per call and traversed with a Python
+loop.  Under autograd ``forward`` checkpoints each layer, as the
+reference's default ``remat=True`` does: the backward recomputes the layer,
+flash forward kernel included.  A MoE config raises ``NotImplementedError``;
+MoE comes with a later slice of the port.
 
 The caches and the page pool are written IN PLACE (``index_put_`` /
 slice assignment): a functional copy of a 1.2 GB pool per layer and tick
@@ -17,6 +20,8 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -116,8 +121,13 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     }
 
 
-def _layer(params: dict, i: int) -> dict:
-    return {k: v[i] for k, v in params["layers"].items()}
+def _layers(params: dict) -> list[dict]:
+    """Per-layer param dicts, each stacked leaf unbound ONCE: indexing it
+    per layer would give each of the layers a full-size zero gradient of
+    the whole stack under autograd."""
+    names = list(params["layers"])
+    cols = [params["layers"][k].unbind(0) for k in names]
+    return [dict(zip(names, vals)) for vals in zip(*cols)]
 
 
 def _qkv(cfg: TransformerConfig, lp: dict, x: torch.Tensor, positions):
@@ -148,20 +158,35 @@ def _positions(S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device)[None, :]
 
 
-def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor):
-    """tokens: (B, S) int -> (logits (B, S, vocab), aux_loss 0.0)."""
-    _dense_only(cfg)
-    x = params["embed"][tokens]
+def _block_train(cfg: TransformerConfig, x: torch.Tensor, lp: dict,
+                 positions: torch.Tensor) -> torch.Tensor:
     B, S, _ = x.shape
-    positions = _positions(S, x.device)
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = _qkv(cfg, lp, h, positions)
-        o = attention(q, k, v, causal=True, window=cfg.window,
-                      impl=cfg.attn_impl)
-        x = x + o.reshape(B, S, -1) @ lp["wo"]
-        x = x + _mlp(cfg, lp, x)
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, lp, h, positions)
+    o = attention(q, k, v, causal=True, window=cfg.window,
+                  impl=cfg.attn_impl)
+    x = x + o.reshape(B, S, -1) @ lp["wo"]
+    return x + _mlp(cfg, lp, x)
+
+
+def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor):
+    """tokens: (B, S) int -> (logits (B, S, vocab), aux_loss 0.0).
+
+    With grad enabled each layer runs under ``torch.utils.checkpoint``
+    (the reference's ``remat``): only its input is kept, and the backward
+    recomputes it; at full width nothing else fits beside the optimizer
+    state.  (The reference also saves the attention output across
+    the recompute; here the flash forward runs again.)"""
+    _dense_only(cfg)
+    x = F.embedding(tokens, params["embed"])
+    positions = _positions(x.shape[1], x.device)
+    remat = torch.is_grad_enabled()
+    for lp in _layers(params):
+        if remat:
+            x = checkpoint(_block_train, cfg, x, lp, positions,
+                           use_reentrant=False)
+        else:
+            x = _block_train(cfg, x, lp, positions)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x @ params["lm_head"], 0.0
 
@@ -204,12 +229,11 @@ def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     set to the true length and the returned logits are taken at position
     ``true_lengths - 1``."""
     _dense_only(cfg)
-    x = params["embed"][tokens]
+    x = F.embedding(tokens, params["embed"])
     B, S, _ = x.shape
     positions = _positions(S, x.device)
     quantized = cache["k"].dtype == torch.int8
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(_layers(params)):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = _qkv(cfg, lp, h, positions)
         o = attention(q, k, v, causal=True, window=cfg.window,
@@ -244,7 +268,7 @@ def decode_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     """tokens: (B, 1) -> (logits (B, 1, V), cache): one serving step that
     writes each slot's new K/V at its own length, in place."""
     _dense_only(cfg)
-    x = params["embed"][tokens]
+    x = F.embedding(tokens, params["embed"])
     B = x.shape[0]
     length = cache["length"]
     positions = length[:, None]
@@ -253,8 +277,7 @@ def decode_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     # row, as the reference's dynamic_update_slice does
     pos = torch.clamp(length.long(), max=cache["k"].shape[2] - 1)
     quantized = "k_scale" in cache
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(_layers(params)):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = _qkv(cfg, lp, h, positions)
         kc, vc = cache["k"][i], cache["v"][i]
@@ -323,7 +346,7 @@ def paged_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
 
     Returns (logits (B, T, vocab), pool, lengths + counts)."""
     _dense_only(cfg)
-    x = params["embed"][tokens]
+    x = F.embedding(tokens, params["embed"])
     B, T, _ = x.shape
     page = pool["k"].shape[2]
     MP = page_table.shape[1]
@@ -337,8 +360,7 @@ def paged_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     # the kernel path is decode-only; chunked prefill stays on the gather
     # path (its q block is the whole chunk, a different schedule)
     impl = cfg.attn_impl if T == 1 else "xla"
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(_layers(params)):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = _qkv(cfg, lp, h, positions)
         kc, vc = pool["k"][i], pool["v"][i]

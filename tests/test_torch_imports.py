@@ -17,7 +17,9 @@ PORT = ROOT / "src" / "repro_torch"
 MODULES = ["repro_torch", "repro_torch.launch.serve", "repro_torch.weights",
            "repro_torch.kernels.ops", "repro_torch.kernels._build",
            "repro_torch.models.transformer", "repro_torch.serving",
-           "repro_torch.configs", "repro_torch.obs"]
+           "repro_torch.configs", "repro_torch.obs",
+           "repro_torch.launch.train", "repro_torch.training",
+           "repro_torch.optim", "repro_torch.data"]
 
 
 def test_import_leaves_jax_out():
@@ -52,12 +54,15 @@ def test_no_jax_or_reference_import(path):
 def test_entry_points_refuse_without_a_card(monkeypatch):
     """No device given and no card: raise, never drop to the CPU."""
     from repro_torch.configs import get_bundle
+    from repro_torch.launch import train
     from repro_torch.launch.serve import build_engine, run
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_engine("qwen3-4b")
     with pytest.raises(RuntimeError, match="CUDA"):
         run("qwen3-4b", n_requests=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.run("qwen3-4b", steps=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         get_bundle("qwen3-4b", smoke=True).init_params(0)
     engine, _ = build_engine("qwen3-4b", device="cpu")

@@ -1,12 +1,14 @@
 """The port's kernel modules on the CPU: the plain versions of the flash
-forward and paged decode kernels against the reference's Pallas kernels
-in interpret mode, the copied pair schedule against the reference's, and
-the wrappers' dispatch rules (no fallback for CUDA, no launch counted on
-the CPU)."""
+forward and backward and paged decode kernels against the reference's
+Pallas kernels in interpret mode, the trainable flash attention against
+``jax.grad`` of the reference's, the copied pair schedule against the
+reference's, and the wrappers' dispatch rules (no fallback for CUDA, no
+launch counted on the CPU)."""
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -55,6 +57,88 @@ def test_flash_plain_matches_pallas(case):
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), atol=1e-5)
     if case == "sentinel_rows":
         assert (o[:, 16:].abs().max() == 0) and (lse[:, 16:] == -1e30).all()
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_bwd_plain_matches_pallas(case):
+    """dq, dk, dv of the plain backward against the reference's two Pallas
+    backward kernels (interpret mode) on the same lse and delta, atol 1e-5
+    (f32 on both sides, sums in another order)."""
+    c = dict(FLASH_CASES[case])
+    BH, BHkv = c.pop("BH"), c.pop("BHkv")
+    S, D, blk = 32, 16, 8
+    q, k, v = _normal(BH, S, D), _normal(BHkv, S, D), _normal(BHkv, S, D)
+    do = _normal(BH, S, D)
+    o, lse = ref_att.flash_attention_fwd_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=blk,
+        block_k=blk, interpret=True, **c)
+    lse = np.array(lse)
+    delta = (np.asarray(o) * do).sum(-1)
+    want = ref_att.flash_attention_bwd_pallas(
+        *map(jnp.asarray, (q, k, v, do, lse, delta)), block_q=blk,
+        block_k=blk, interpret=True, **c)
+    got = pt_att.flash_attention_bwd_plain(
+        *map(torch.from_numpy, (q, k, v, do, lse, delta)), block_q=blk,
+        block_k=blk, **c)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
+    if case == "sentinel_rows":
+        # q blocks 2-3 and every key past kv_len 8 drain exactly 0
+        dq, dk, dv = got
+        assert dq[:, 16:].abs().max() == 0
+        assert dk[:, 8:].abs().max() == 0 and dv[:, 8:].abs().max() == 0
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 8),
+                                           (False, None)])
+def test_flash_attention_train_grads_match_jax(causal, window):
+    """The port's FlashAttention (plain halves on the CPU) against jax.grad
+    through the reference's trainable wrapper (custom VJP over the Pallas
+    kernels in interpret mode): output and dq/dk/dv of a weighted sum of
+    the output, atol 1e-5 (f32)."""
+    B, H, Hkv, S, D = 2, 4, 2, 40, 16
+    q, k, v = _normal(B, H, S, D), _normal(B, Hkv, S, D), _normal(B, Hkv, S,
+                                                                   D)
+    w = _normal(B, H, S, D)
+
+    def ref_loss(q, k, v):
+        o = ref_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                    block_q=8, block_k=8)
+        return (o * jnp.asarray(w)).sum(), o
+
+    (_, o_ref), g_ref = jax.value_and_grad(ref_loss, argnums=(0, 1, 2),
+                                           has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    o = pt_att.flash_attention_train(qt, kt, vt, causal=causal,
+                                     window=window)
+    (o * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(o_ref),
+                               atol=1e-5)
+    for t, g in zip((qt, kt, vt), g_ref):
+        assert t.grad.dtype == torch.float32 and t.grad.shape == t.shape
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=1e-5)
+
+
+def test_flash_wrapper_trains_through_the_function():
+    """ops.flash_attention under autograd goes through FlashAttention (its
+    plain halves here) and counts no launch; the bf16 grads come back in
+    the inputs' dtype and layout."""
+    pt_ops.reset_launches()
+    x = torch.from_numpy(_normal(1, 24, 4, 16)).to(torch.bfloat16)
+    q = x.clone().requires_grad_(True)
+    kv = x[:, :, :2].clone().requires_grad_(True)
+    o = pt_ops.flash_attention(q.transpose(1, 2), kv.transpose(1, 2),
+                               kv.transpose(1, 2))
+    assert o.grad_fn is not None and o.dtype == torch.bfloat16
+    o.float().sum().backward()
+    assert q.grad.dtype == torch.bfloat16 and q.grad.shape == q.shape
+    assert kv.grad.shape == kv.shape and torch.isfinite(kv.grad).all()
+    with torch.no_grad():
+        assert pt_ops.flash_attention(q.transpose(1, 2), kv.transpose(1, 2),
+                                      kv.transpose(1, 2)).grad_fn is None
+    assert all(n == 0 for n in pt_ops.LAUNCHES.values())
 
 
 def test_flash_wrapper_matches_reference_ops():
@@ -111,6 +195,32 @@ def test_schedule_counts_and_tables_equal_reference(Sq, Sk, bq, bk, causal,
             assert row[0, 2] == 1 and row[-1, 3] == 1
     real, _ = ref_att.scheduled_block_counts(Sq, Sk, **kw)
     assert int(np.maximum(r[:, 1] - r[:, 0] + 1, 0).sum()) == real
+
+
+@pytest.mark.parametrize("Sq,Sk,bq,bk,causal,window", SWEEP)
+def test_col_ranges_are_the_reference_column_table(Sq, Sk, bq, bk, causal,
+                                                   window):
+    """The dk/dv kernel's per-CTA q-block ranges are the column spans of
+    the reference's column-ordered table; a column the kernel drains as
+    zeros holds the table's one sentinel pair, and it is fully masked."""
+    kw = dict(block_q=bq, block_k=bk, causal=causal, window=window)
+    c = pt_att.col_block_ranges(Sq, Sk, **kw)
+    nq, nk = Sq // bq, Sk // bk
+    assert c.shape == (nk, 2) and c.dtype == np.int32
+    t_ref, real = ref_att._pair_schedule(nq, nk, bq, bk, causal, window, Sk,
+                                         Sq, "col")
+    for ik in range(nk):
+        col = t_ref[t_ref[:, 1] == ik]
+        assert col[0, 2] == 1 and col[-1, 3] == 1
+        if c[ik, 1] < c[ik, 0]:
+            assert tuple(c[ik]) == (0, -1) and len(col) == 1
+            mask = pt_att._block_mask(int(col[0, 0]) * bq, ik * bk, bq, bk,
+                                      causal, window, Sk, "cpu")
+            assert not mask.any()
+        else:
+            np.testing.assert_array_equal(
+                col[:, 0], np.arange(c[ik, 0], c[ik, 1] + 1))
+    assert int(np.maximum(c[:, 1] - c[:, 0] + 1, 0).sum()) == real
 
 
 # ---------------------------------------------------------------------------
