@@ -6,14 +6,17 @@ on a machine with one NVIDIA H100:
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 into ``build/kernels/``, holds each kernel against its plain PyTorch version
-at the serving and training paths' full-width shapes, serves qwen3-4b at
-full width (bf16, random weights from a seed) through
-``repro_torch.launch.serve`` in the dense, paged and paged_int8 KV modes,
-holds the flash kernels' loss and gradients against the plain attention
-path, trains qwen3-4b at full width for a few AdamW steps through
-``repro_torch.launch.train``, and checks what comes out.  Each phase prints
-one JSON line; a failed phase exits non-zero before the result line.  The
-last two lines are the card's name and power limit (``nvidia-smi``) and
+at the serving, training and paper-workload paths' full-width shapes, runs
+the paper's workload catalog (24 convolution, correlation and GEMM layers
+at their own shapes, bf16, batch 1) and qwen3-4b's dense decode shape
+through ``repro_torch.kernels.ops``, serves qwen3-4b at full width (bf16,
+random weights from a seed) through ``repro_torch.launch.serve`` in the
+dense, paged and paged_int8 KV modes, holds the flash kernels' loss and
+gradients against the plain attention path, trains qwen3-4b at full width
+for a few AdamW steps through ``repro_torch.launch.train``, and checks what
+comes out.  Each phase prints JSON lines (``paper_workloads`` one per
+workload); a failed phase exits non-zero before the result line.  The last
+two lines are the card's name and power limit (``nvidia-smi``) and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -332,6 +335,246 @@ def check_paged(quant: bool, flush) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 3 and 3b: the paper's workloads (matmul, conv2d, correlation) and
+# dense flash decode, each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# atol of the bf16 comparisons below (besides one bf16 ulp of the value):
+# the inputs are scaled so that every output has unit variance, and kernel
+# and plain version sum the same f32 products (at most 9,216 of them) in
+# two orders, which moves a sum by ~1e-5; 1e-3 leaves 100x room and is
+# still 1/100 of what a dropped tap, channel chunk or displacement costs.
+# Decode's outputs are means of ~1,500 unit values (~0.04): there, as for
+# paged decode, both keep p in f32 and differ by ~1e-7.
+PAPER_ATOL = {"matmul": 1e-3, "conv2d": 1e-3, "correlation": 1e-3,
+              "flash_decode": 1e-4}
+PAPER_SOURCES = {
+    "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
+               "src/repro/kernels/matmul.py:21"),
+    "conv2d": ("src/repro_torch/kernels/csrc/conv2d.cu",
+               "src/repro/kernels/conv2d.py:25"),
+    "correlation": ("src/repro_torch/kernels/csrc/correlation.cu",
+                    "src/repro/kernels/correlation.py:25"),
+    "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                     "src/repro/kernels/attention.py:577"),
+}
+
+
+def catalog_cases() -> list[dict]:
+    """Every workload of the paper's catalog (``repro_torch.sim``) that a
+    kernel computes, at the catalog's own shapes and batch 1: the dense
+    convolutions (input rows and columns derived for VALID padding from the
+    output, kernel, stride and dilation), the two correlations and the two
+    GEMMs.  The depthwise MBN_DW_S1 has no kernel (``ops.conv2d`` has no
+    groups) and stays with the simulator."""
+    from repro_torch.sim import ALL
+    cases = []
+    for w in ALL:
+        d = {x.name: x.size for x in w.op.dims}
+        if w.family == "gemm":
+            kernel, shapes = "matmul", dict(M=d["i"], N=d["j"], K=d["k"])
+            macs = d["i"] * d["j"] * d["k"]
+        elif w.family == "spatial":
+            D = d["i"]
+            kernel = "correlation"
+            shapes = dict(H=d["l"], W=d["k"], C=d["m"], radius=(D - 1) // 2)
+            macs = D * D * d["l"] * d["k"] * d["m"]
+        elif "ci" in d:
+            rows = w.op.inputs[0].index_exprs[1]      # y * stride + m * dil
+            s, dil = rows.coeff("y"), rows.coeff("m")
+            OH, OW, KH, KW = d["y"], d["x"], d["m"], d["n"]
+            CI, CO = d["ci"], d["co"]
+            kernel = "conv2d"
+            shapes = dict(x=(1, (OH - 1) * s + (KH - 1) * dil + 1,
+                             (OW - 1) * s + (KW - 1) * dil + 1, CI),
+                          w=(KH, KW, CI, CO), stride=s, dilation=dil)
+            macs = CO * OH * OW * CI * KH * KW
+        else:
+            continue
+        cases.append(dict(name=w.name, kernel=kernel, shapes=shapes,
+                          macs=macs))
+    return cases
+
+
+def decode_case() -> dict:
+    """qwen3-4b's decode shape: B 4, 32 q / 8 kv heads, D 128, a dense cache
+    of the serve phase's max_len 2048, lengths 1024-1916 from seed 0."""
+    lens = np.random.default_rng(SEED).integers(1024, 1917, 4)
+    B, H, Hkv, D, S = 4, 32, 8, 128, 2048
+    return dict(name="qwen3-4b decode", kernel="flash_decode",
+                shapes=dict(B=B, H=H, Hkv=Hkv, D=D, S=S,
+                            lengths=[int(x) for x in lens]),
+                macs=2 * H * D * int(lens.sum()))
+
+
+def case_calls(case: dict, seed: int) -> dict:
+    """Inputs of one case (numpy, from ``seed``, bf16 on the card, scaled so
+    every output has unit variance), and its calls: ``main`` through
+    ``ops`` as a user calls it, ``launch`` of the kernel alone with the same
+    tile, ``plain`` (the plain version) and ``library`` (one PyTorch call of
+    the same function, or None); with the bytes and flops of its bound."""
+    from repro_torch.core.cuda_bridge import matmul_block_shapes
+    from repro_torch.kernels import attention as katt
+    from repro_torch.kernels import conv2d as kconv
+    from repro_torch.kernels import correlation as kcorr
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale=1.0):
+        x = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return torch.from_numpy(x).to("cuda", torch.bfloat16)
+
+    sh, kind = case["shapes"], case["kernel"]
+    if kind == "matmul":
+        M, N, K = sh["M"], sh["N"], sh["K"]
+        a, b = t((M, K)), t((K, N), K ** -0.5)
+        bm, bn, bk = matmul_block_shapes(max(M, 8), N, K)
+        out_numel, in_numel = M * N, M * K + K * N
+        calls = dict(
+            tile=dict(block_m=bm, block_n=bn, block_k=bk),
+            main=lambda: ops.matmul(a, b),
+            launch=lambda: kmm.matmul_cuda(a, b, block_m=bm, block_n=bn,
+                                           block_k=bk),
+            plain=lambda: kmm.matmul_plain(a, b, block_k=bk),
+            library=lambda: torch.matmul(a, b))
+    elif kind == "conv2d":
+        (_, IH, IW, CI), (KH, KW, _, CO) = sh["x"], sh["w"]
+        s, dil = sh["stride"], sh["dilation"]
+        x, w = t(sh["x"]), t(sh["w"], (KH * KW * CI) ** -0.5)
+        OH, OW = kconv.out_hw(IH, IW, KH, KW, s, dil)
+        boh, bco = min(8, OH), min(128, CO)
+        w_cl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        out_numel, in_numel = OH * OW * CO, x.numel() + w.numel()
+        calls = dict(
+            tile=dict(block_oh=boh, block_co=bco),
+            main=lambda: ops.conv2d(x, w, stride=s, dilation=dil),
+            launch=lambda: kconv.conv2d_cuda(x, w, stride=s, dilation=dil,
+                                             block_oh=boh, block_co=bco),
+            plain=lambda: kconv.conv2d_plain(x, w, stride=s, dilation=dil),
+            library=lambda: F.conv2d(x.permute(0, 3, 1, 2), w_cl, stride=s,
+                                     dilation=dil))
+    elif kind == "correlation":
+        H, W, C, R = sh["H"], sh["W"], sh["C"], sh["radius"]
+        i1, i2 = t((H, W, C), C ** -0.25), t((H, W, C), C ** -0.25)
+        by = min(8, H)
+        D = 2 * R + 1
+        out_numel, in_numel = H * W * D * D, 2 * H * W * C
+        calls = dict(
+            tile=dict(block_y=by, strip=32, channels=32),
+            main=lambda: ops.correlation(i1, i2, radius=R),
+            launch=lambda: kcorr.correlation_cuda(i1, i2, radius=R,
+                                                  block_y=by),
+            plain=lambda: kcorr.correlation_plain(i1, i2, radius=R),
+            library=None)
+    else:
+        B, H, Hkv, D, S = (sh[k] for k in ("B", "H", "Hkv", "D", "S"))
+        q, kc, vc = t((B, H, D)), t((B, Hkv, S, D)), t((B, Hkv, S, D))
+        lens = torch.tensor(sh["lengths"], dtype=torch.int32, device="cuda")
+        mask = (torch.arange(S, device="cuda")[None, :] <
+                lens[:, None].long())[:, None, None, :]
+        n_tok = sum(sh["lengths"])
+        out_numel = in_numel = 0
+        calls = dict(
+            tile=dict(step=32, plain_block_k=katt.decode_block_k(S, 512)),
+            main=lambda: ops.flash_decode(q, kc, vc, lens),
+            launch=lambda: katt.flash_decode_cuda(q, kc, vc, lens),
+            plain=lambda: katt.flash_decode_plain(q, kc, vc, lens),
+            library=lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True))
+        # the live K/V rows, q and out once each, the lengths
+        calls["bytes"] = 2 * (2 * n_tok * Hkv * D + 2 * B * H * D) + 4 * B
+    if "bytes" not in calls:
+        calls["bytes"] = 2 * (in_numel + out_numel)
+    calls["flops"] = 2 * case["macs"]
+    return calls
+
+
+def run_case(case: dict, flush, seed: int, iters: int = 20) -> dict:
+    """One case through ``ops`` on the card, with the launch counts reset
+    just before and read just after; then its output against the plain
+    version, and the kernel's, the plain version's and the library call's
+    device times (means over ``iters`` calls; the plain version 3)."""
+    from repro_torch.kernels import ops
+    kind = case["kernel"]
+    calls = case_calls(case, seed)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with torch.no_grad():
+        out = calls["main"]()
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        require(launches[kind] == 1 and sum(launches.values()) == 1,
+                f"{case['name']}: ops.{kind} launched {launches}")
+        ref = calls["plain"]()
+        torch.cuda.synchronize()
+        close = closeness(out, ref, atol=PAPER_ATOL[kind])
+        require(bool(torch.isfinite(out).all()),
+                f"{case['name']}: non-finite out")
+        require(close["within_tol"], f"{case['name']} ({kind}) disagrees: "
+                f"{close}")
+        ms, ms_spread = time_ms(calls["launch"], iters, flush)
+        plain_ms, _ = time_ms(calls["plain"], 3, flush)
+        lib_ms = (time_ms(calls["library"], iters, flush)[0]
+                  if calls["library"] is not None else None)
+    b_ms, b_by = bound(calls["bytes"], calls["flops"], PEAK_BF16)
+    tile = calls["tile"]
+    del calls, out, ref
+    return dict(workload=case["name"], kernel=kind, shapes=case["shapes"],
+                tile=tile, **close, ms=ms,
+                ms_spread=ms_spread, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms,
+                kernel_over_library=(ms / lib_ms if lib_ms else None),
+                launches=launches)
+
+
+PAPER_LIBRARY = {"matmul": "torch.matmul (cuBLAS)",
+                 "conv2d": "F.conv2d on channels_last tensors (cuDNN)",
+                 "correlation": None,
+                 "flash_decode": "SDPA with a boolean length mask, GQA"}
+
+
+def check_paper_kernels(flush) -> list[dict]:
+    """The four kernels of the paper-workload path against their plain
+    versions: matmul at GEMM_1K, conv2d at DL_ATROUS4, correlation at
+    FLOWNET_CORR, flash decode at qwen3-4b's decode shape."""
+    by = {c["name"]: c for c in catalog_cases()}
+    rows = []
+    for i, case in enumerate((by["GEMM_1K"], by["DL_ATROUS4"],
+                              by["FLOWNET_CORR"], decode_case())):
+        r = run_case(case, flush, SEED + 20 + i)
+        source, replaces = PAPER_SOURCES[case["kernel"]]
+        row = dict(name=case["kernel"], route="cuda", source=source,
+                   replaces=replaces, workload=case["name"],
+                   library=PAPER_LIBRARY[case["kernel"]],
+                   **{k: v for k, v in r.items()
+                      if k not in ("workload", "kernel", "launches")})
+        emit("kernel_check", **row)
+        rows.append(row)
+    return rows
+
+
+def paper_workloads(flush) -> dict:
+    """Phase 3b: the 24 catalog workloads and qwen3-4b's decode shape
+    through ``ops`` on the card, one line each; every kernel of the path
+    must have launched."""
+    cases = catalog_cases() + [decode_case()]
+    total = dict.fromkeys(PAPER_SOURCES, 0)
+    t0 = time.perf_counter()
+    for i, case in enumerate(cases):
+        row = run_case(case, flush, SEED + 100 + i)
+        emit("paper_workload", **row)
+        for k in total:
+            total[k] += row["launches"][k]
+    emit("paper_workloads", workloads=len(cases), launches=total,
+         seconds=time.perf_counter() - t0)
+    for k, n in total.items():
+        require(n > 0, f"paper_workloads never launched {k}")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serve qwen3-4b at full width
 # ---------------------------------------------------------------------------
 
@@ -625,7 +868,11 @@ def main() -> int:
     rows = {r["name"]: r for r in (check_flash(flush),
                                    *check_flash_bwd(flush),
                                    check_paged(False, flush),
-                                   check_paged(True, flush))}
+                                   check_paged(True, flush),
+                                   *check_paper_kernels(flush))}
+
+    # phase 3b: the paper's workloads at their own shapes
+    paper = paper_workloads(flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -660,9 +907,11 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    # phase 6: the kernels line, launches from the serve and train phases
-    launches = {k: dense["launches"][k] + paged["launches"][k] +
-                int8["launches"][k] + trained["launches"][k] for k in rows}
+    # phase 6: the kernels line, launches from the paper-workload, serve
+    # and train phases
+    phases = (paper, dense["launches"], paged["launches"], int8["launches"],
+              trained["launches"])
+    launches = {k: sum(ph.get(k, 0) for ph in phases) for k in rows}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: ({**r, "launches": launches[r["name"]]})[k] for k in keys}
@@ -670,6 +919,7 @@ def main() -> int:
     for r in kernels:
         require(all(v is None or not isinstance(v, float) or math.isfinite(v)
                     for v in r.values()), f"{r['name']}: bad number")
+        require(r["launches"] > 0, f"{r['name']}: no launch on the main path")
     print(json.dumps({"kernels": kernels}), flush=True)
 
     # phase 7: the card, then the result line

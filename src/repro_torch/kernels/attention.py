@@ -1,11 +1,12 @@
-"""Flash attention, forward and backward: the pruned pair schedule, the
-plain PyTorch versions, the launchers of the hand-written CUDA kernels
-(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) and the trainable
-:class:`FlashAttention` that binds them.
+"""Flash attention, forward and backward, and dense flash decode: the
+pruned pair schedule, the plain PyTorch versions, the launchers of the
+hand-written CUDA kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``,
+``csrc/flash_decode.cu``) and the trainable :class:`FlashAttention` that
+binds the first two.
 
 Counterpart of ``repro.kernels.attention`` (flash forward, the dq and dk/dv
-backward kernels and ``flash_attention_train``; the dense decode kernel is
-not ported yet).  The host-side schedule (``_row_range`` /
+backward kernels, ``flash_attention_train`` and the dense decode kernel).
+The host-side schedule (``_row_range`` /
 ``_pair_schedule`` / ``scheduled_block_counts``) is a copy of the
 reference's, so the CUDA kernels' per-CTA block ranges are the reference's
 pruned pair table, row by row (forward, dq) and column by column (dk/dv).
@@ -19,6 +20,7 @@ import math
 import numpy as np
 import torch
 
+from ..core.cuda_bridge import pow2_floor
 from . import _build
 
 NEG_INF = -1e30  # avoid nan from (-inf) - (-inf)
@@ -630,3 +632,110 @@ def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Trainable flash attention on (B, H, S, D) q and (B, Hkv, Sk, D) k/v
     (see :class:`FlashAttention`)."""
     return FlashAttention.apply(q, k, v, causal, window)
+
+
+# ---------------------------------------------------------------------------
+# Dense decode: one new token against a (B, Hkv, S, D) KV cache
+# ---------------------------------------------------------------------------
+
+def decode_block_k(S: int, block_k: int) -> int:
+    """The reference's ``block_k`` for a cache of S tokens: clamped to S,
+    and to the pow2 floor of S when S is not a multiple (the last block is
+    then ragged; the length mask drops what lies past S)."""
+    block_k = min(block_k, S)
+    if S % block_k:
+        block_k = min(block_k, pow2_floor(S))
+    return block_k
+
+
+def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                       block_k: int = 512) -> torch.Tensor:
+    """q (B, H, D) one token; caches (B, Hkv, S, D); lengths (B,) valid
+    tokens.  Returns (B, H, D) in q's dtype.
+
+    The kernel's arithmetic, ``block_k`` cached tokens at a time for every
+    sequence and head at once: f32 scores and online softmax with the -1e30
+    guard, masked positions adding exactly 0, l == 0 drained as 1 (so a
+    length of 0 gives 0)."""
+    B, H, Dh = q.shape
+    _, Hkv, S, _ = k_cache.shape
+    G = H // Hkv
+    block_k = decode_block_k(S, block_k)
+    dev = q.device
+    qg = q.reshape(B, Hkv, G, Dh).float()
+    m = torch.full((B, Hkv, G), NEG_INF, device=dev)
+    l = torch.zeros((B, Hkv, G), device=dev)
+    acc = torch.zeros((B, Hkv, G, Dh), device=dev)
+    lens = lengths.long().to(dev)
+    scale = 1.0 / math.sqrt(Dh)
+    for k0 in range(0, S, block_k):
+        k = k_cache[:, :, k0:k0 + block_k].float()      # (B, Hkv, t, D)
+        v = v_cache[:, :, k0:k0 + block_k].float()
+        s = torch.einsum("bkgd,bktd->bkgt", qg, k) * scale
+        kpos = k0 + torch.arange(k.shape[2], device=dev)
+        mask = (kpos[None, :] < lens[:, None])[:, None, None, :]
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgt,bktd->bkgd", p, v)
+        m = m_new
+    safe = torch.where(l == 0.0, 1.0, l)
+    return (acc / safe[..., None]).reshape(B, H, Dh).to(q.dtype)
+
+
+_DECODE_STEP = 32       # cached tokens csrc/flash_decode.cu stages a step
+
+
+def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor,
+                      lengths: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/flash_decode.cu`` on the shapes of
+    :func:`flash_decode_plain`.  The caches are read through their
+    (batch, head, seq) strides in place; q, caches need a contiguous last
+    dimension, one dtype (bf16 or f32); lengths int32."""
+    tensors = (q, k_cache, v_cache, lengths)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError("flash_decode_cuda: every operand must lie on q's "
+                         "CUDA device")
+    if q.dtype not in _DTYPE_CODE or k_cache.dtype != q.dtype or \
+            v_cache.dtype != q.dtype:
+        raise TypeError(f"flash_decode_cuda takes bf16 or f32 q and caches "
+                        f"of one dtype, got {q.dtype}/{k_cache.dtype}/"
+                        f"{v_cache.dtype}")
+    if lengths.dtype != torch.int32:
+        raise TypeError("flash_decode_cuda: lengths must be int32")
+    B, H, Dh = q.shape
+    _, Hkv, S, _ = k_cache.shape
+    G = H // Hkv
+    if (k_cache.shape != (B, Hkv, S, Dh) or v_cache.shape != k_cache.shape
+            or H % Hkv or not 1 <= G <= 8 or Dh > 256 or
+            lengths.shape != (B,)):
+        raise ValueError(f"flash_decode_cuda: unsupported shapes q "
+                         f"{tuple(q.shape)} caches {tuple(k_cache.shape)} "
+                         f"lengths {tuple(lengths.shape)}")
+    if (q.stride(-1) != 1 or k_cache.stride(-1) != 1 or
+            v_cache.stride(-1) != 1 or lengths.stride(0) != 1):
+        raise ValueError("flash_decode_cuda: unsupported strides")
+    T = _DECODE_STEP
+    smem = 4 * (G * Dh + T * (Dh + 1) + T * Dh + G * T + 3 * G)
+    if smem > 48 * 1024:
+        raise ValueError(f"flash_decode_cuda: G {G} x D {Dh} needs {smem} B "
+                         f"of shared memory (> 48 KB)")
+    _build.check_device(q)
+    out = torch.empty((B, H, Dh), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 10)(
+        q.stride(0), q.stride(1), *k_cache.stride()[:3],
+        *v_cache.stride()[:3], out.stride(0), out.stride(1))
+    fn = _build.bind("flash_decode", "flash_decode", *[ctypes.c_void_p] * 5,
+                     *[ctypes.c_int] * 6, ctypes.POINTER(ctypes.c_longlong),
+                     ctypes.c_float)
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+             lengths.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], B,
+             Hkv, G, Dh, S, strides, 1.0 / math.sqrt(Dh),
+             _build.stream_ptr(q))
+    _build.check(err, "flash_decode")
+    _build.LAUNCHES["flash_decode"] += 1
+    return out

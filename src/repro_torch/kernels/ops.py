@@ -1,9 +1,11 @@
 """Public wrappers around the hand-written CUDA kernels.
 
-Counterpart of ``repro.kernels.ops`` for the kernels of the serving and
-training paths: flash attention (forward, and the dq and dk/dv backward
-kernels under autograd) and paged decode.  Each wrapper takes the reference
-wrapper's layout, records its dispatch, and then
+Counterpart of ``repro.kernels.ops``: the serving and training paths'
+flash attention (forward, and the dq and dk/dv backward kernels under
+autograd) and paged decode, and the paper's workloads — ``matmul``,
+``conv2d``, ``correlation`` and dense ``flash_decode``.  Each wrapper takes
+the reference wrapper's signature and layouts, records its dispatch, and
+then
 
 * on CUDA tensors launches its kernels (``kernels/csrc``) — or raises:
   nothing falls back to the plain version or to the CPU.  Each kernel's
@@ -12,15 +14,23 @@ wrapper's layout, records its dispatch, and then
 * on CPU tensors runs the plain PyTorch version of the same arithmetic
   (the path the parity tests take).
 
-Block shapes are the kernels' own, fixed for sm_90a (64 x 64 for flash
-forward and backward; one page per step for paged decode).  The
-reference's tile search (``repro.core``) is not ported yet.
+``matmul``'s blocks come from the paper's tile search re-targeted to one
+H100 CTA (``repro_torch.core.cuda_bridge.matmul_block_shapes``); ``conv2d``
+and ``correlation`` keep the reference's ``block_oh`` / ``block_co`` /
+``block_y`` and their clamping; dense decode steps 32 cached tokens at a
+time on the card (``block_k`` shapes only the plain version).  The flash
+kernels keep fixed 64 x 64 blocks and paged decode one page a step.  The
+ragged edges are masked in the kernels: no wrapper pads by a copy.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core.cuda_bridge import matmul_block_shapes
 from . import attention as _attention
+from . import conv2d as _conv2d
+from . import correlation as _correlation
+from . import matmul as _matmul
 from . import paged_attention as _paged_attention
 from ._build import LAUNCHES
 
@@ -51,6 +61,74 @@ def _impl(x: torch.Tensor) -> str:
     if x.device.type == "cpu":
         return "plain"
     raise ValueError(f"no kernel for device {x.device}")
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int | None = None,
+           block_n: int | None = None, block_k: int | None = None
+           ) -> torch.Tensor:
+    """VectorMesh-tiled matmul: (M, K) @ (K, N) -> (M, N) in a's dtype.
+    Blocks not given come from the H100 tile search; on CUDA a tile the
+    kernel is not built for raises."""
+    M, K = a.shape
+    _, N = b.shape
+    if block_m is None or block_n is None or block_k is None:
+        bm, bn, bk = matmul_block_shapes(max(M, 8), N, K)
+        block_m = block_m or bm
+        block_n = block_n or bn
+        block_k = block_k or bk
+    impl = _impl(a)
+    _record_dispatch("matmul", impl=impl, M=M, N=N, K=K, block_m=block_m,
+                     block_n=block_n, block_k=block_k)
+    if impl == "cuda":
+        return _matmul.matmul_cuda(a, b, block_m=block_m, block_n=block_n,
+                                   block_k=block_k)
+    return _matmul.matmul_plain(a, b, block_k=block_k)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+           dilation: int = 1, block_oh: int = 8, block_co: int = 128
+           ) -> torch.Tensor:
+    """NHWC x HWIO conv, VALID padding (pad x yourself for SAME)."""
+    N, IH, IW, CI = x.shape
+    KH, KW, _, CO = w.shape
+    OH, OW = _conv2d.out_hw(IH, IW, KH, KW, stride, dilation)
+    block_oh = min(block_oh, OH)
+    block_co = min(block_co, CO)
+    impl = _impl(x)
+    _record_dispatch("conv2d", impl=impl, oh=OH, ow=OW, ci=CI, co=CO,
+                     block_oh=block_oh, block_co=block_co)
+    if impl == "cuda":
+        return _conv2d.conv2d_cuda(x, w, stride=stride, dilation=dilation,
+                                   block_oh=block_oh, block_co=block_co)
+    return _conv2d.conv2d_plain(x, w, stride=stride, dilation=dilation)
+
+
+def correlation(i1: torch.Tensor, i2: torch.Tensor, *, radius: int,
+                block_y: int = 8) -> torch.Tensor:
+    """FlowNet correlation (Eq. 3): (H, W, C) x2 -> (H, W, D, D), D = 2R+1,
+    indexed [dy, dx] in the last two axes."""
+    block_y = min(block_y, i1.shape[0])
+    if _impl(i1) == "cuda":
+        return _correlation.correlation_cuda(i1, i2, radius=radius,
+                                             block_y=block_y)
+    return _correlation.correlation_plain(i1, i2, radius=radius)
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                 block_k: int = 512) -> torch.Tensor:
+    """q: (B, H, D) one token; caches: (B, Hkv, S, D), read in place;
+    lengths: (B,) int32.  Returns (B, H, D)."""
+    B = q.shape[0]
+    S = k_cache.shape[2]
+    block_k = min(block_k, S)
+    impl = _impl(q)
+    _record_dispatch("flash_decode", impl=impl, batch=B, s=S,
+                     block_k=block_k)
+    if impl == "cuda":
+        return _attention.flash_decode_cuda(q, k_cache, v_cache, lengths)
+    return _attention.flash_decode_plain(q, k_cache, v_cache, lengths,
+                                         block_k=block_k)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -2,7 +2,9 @@
 card, over the shapes and options the serving and training runs do not
 reach: ragged lengths, sliding windows, non-causal masks, GQA groups,
 head_dim 64 and 16, f32 and int8, the engine's smoke config on the card,
-and one train step of a small config on the card against the CPU.  Every
+one train step of a small config on the card against the CPU, and the
+paper-workload kernels (matmul, conv2d, correlation, dense flash decode)
+over every built tile with ragged edges.  Every
 test needs an sm_90 card and skips elsewhere; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -13,7 +15,10 @@ flash forward, whose p is rounded to bf16 before PV, 1e-4 for paged decode,
 which keeps p in f32; each row's relative L2 error stays under 2^-6.  f32
 outputs may differ by 1e-4.  The backward kernels' outputs are f32 sums in
 another order than the plain version's: each element within
-2^-10 |want| + 1e-5 max|want|, each row's relative L2 error under 2^-10."""
+2^-10 |want| + 1e-5 max|want|, each row's relative L2 error under 2^-10.
+The paper-workload kernels' inputs are scaled to unit-variance outputs;
+their f32 sums run in another order than the plain version's (atol 1e-3
+in bf16, 1e-4 in f32; decode 1e-4 as paged decode)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -287,3 +292,169 @@ def test_train_step_on_the_card_matches_cpu(dev):
     # remat: each layer's flash forward runs again in the backward
     assert n["flash_fwd"] == 2 * cfg.n_layers
     assert n["flash_bwd_dq"] == n["flash_bwd_dkv"] == cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# paper-workload kernels: matmul, conv2d, correlation, dense flash decode
+# ---------------------------------------------------------------------------
+
+def _paper_close(got, want, dtype, atol):
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    if dtype == torch.bfloat16:
+        tol = 2.0 ** -7 * want.abs() + atol
+        row_rel = diff.norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+        assert row_rel.max().item() <= 2.0 ** -6, \
+            f"max row rel L2 err {row_rel.max().item()}"
+    else:
+        tol = torch.full_like(want, 1e-4)
+    assert not (diff > tol).any(), f"max err {diff.max().item()}"
+
+
+def _randn(g, shape, dev, dt, scale=1.0):
+    return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_matmul_kernel_matches_plain_on_every_built_tile(dev, dt):
+    """Every tile the tile search can return, on ragged M, N and K."""
+    from repro_torch.core.cuda_bridge import MATMUL_TILES
+    from repro_torch.kernels import matmul as kmm
+    g = torch.Generator(device=dev).manual_seed(7)
+    for M, N, K in ((1, 200, 300), (130, 70, 97), (257, 129, 64)):
+        a = _randn(g, (M, K), dev, dt)
+        b = _randn(g, (K, N), dev, dt, K ** -0.5)
+        want = kmm.matmul_plain(a, b, block_k=64)
+        for bm, bn, bk in sorted(MATMUL_TILES):
+            got = kmm.matmul_cuda(a, b, block_m=bm, block_n=bn, block_k=bk)
+            assert got.dtype == dt and got.shape == (M, N)
+            _paper_close(got, want, dt, atol=1e-3)
+
+
+def test_matmul_reads_a_row_strided_operand(dev):
+    from repro_torch.kernels import matmul as kmm
+    g = torch.Generator(device=dev).manual_seed(8)
+    big = _randn(g, (100, 160), dev, torch.bfloat16)
+    a = big[:, 10:90]                          # row stride 160, K 80
+    b = _randn(g, (80, 96), dev, torch.bfloat16, 80 ** -0.5)
+    got = kmm.matmul_cuda(a, b, block_m=64, block_n=64, block_k=32)
+    _paper_close(got, kmm.matmul_plain(a.contiguous(), b, block_k=32),
+                 torch.bfloat16, atol=1e-3)
+
+
+CONV = [
+    # (x shape, w shape, stride, dilation, block_oh, block_co, dtype)
+    ((1, 31, 35, 3), (11, 11, 3, 48), 4, 1, 8, 48, torch.bfloat16),
+    ((2, 20, 19, 40), (3, 3, 40, 125), 1, 1, 8, 128, torch.bfloat16),
+    ((1, 23, 23, 64), (3, 3, 64, 27), 1, 4, 3, 27, torch.bfloat16),
+    ((1, 17, 17, 33), (1, 7, 33, 64), 2, 2, 1, 16, torch.float32),
+    ((1, 9, 70, 8), (1, 1, 8, 70), 1, 1, 64, 100, torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", CONV, ids=lambda c: "-".join(map(str, c)))
+def test_conv2d_kernel_matches_plain(dev, case):
+    """Stride 4 with 11x11, CO 125 and 27 (ragged channel blocks), CI past
+    one 32-channel chunk, dilation, odd block_oh, a 64-row tile."""
+    from repro_torch.kernels import conv2d as kconv
+    xs, ws, stride, dil, boh, bco, dt = case
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = _randn(g, xs, dev, dt)
+    w = _randn(g, ws, dev, dt, (ws[0] * ws[1] * ws[2]) ** -0.5)
+    got = kconv.conv2d_cuda(x, w, stride=stride, dilation=dil, block_oh=boh,
+                            block_co=bco)
+    want = kconv.conv2d_plain(x, w, stride=stride, dilation=dil)
+    assert got.shape == want.shape and got.dtype == dt
+    _paper_close(got, want, dt, atol=1e-3)
+
+
+CORR = [
+    # (H, W, C, radius, block_y, dtype)
+    (48, 64, 256, 10, 8, torch.bfloat16),
+    (26, 26, 64, 8, 8, torch.bfloat16),
+    (10, 10, 40, 8, 3, torch.float32),
+    (7, 45, 5, 0, 4, torch.float32),
+    (5, 33, 16, 31, 8, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", CORR, ids=lambda c: "-".join(map(str, c)))
+def test_correlation_kernel_matches_plain(dev, case):
+    """FLOWNET_CORR and EVA2_MATCH, ragged strips and channel chunks,
+    radius 0 and the largest built (31) on a map narrower than D."""
+    from repro_torch.kernels import correlation as kcorr
+    H, W, C, R, by, dt = case
+    g = torch.Generator(device=dev).manual_seed(10)
+    i1, i2 = (_randn(g, (H, W, C), dev, dt, C ** -0.25) for _ in range(2))
+    got = kcorr.correlation_cuda(i1, i2, radius=R, block_y=by)
+    want = kcorr.correlation_plain(i1, i2, radius=R)
+    assert got.shape == (H, W, 2 * R + 1, 2 * R + 1)
+    _paper_close(got, want, dt, atol=1e-3)
+
+
+DECODE = [
+    # (B, H, Hkv, S, D, lengths, dtype)
+    (4, 32, 8, 2048, 128, [1783, 1592, 1480, 1264], torch.bfloat16),
+    (3, 8, 2, 100, 64, [100, 33, 1], torch.bfloat16),
+    (2, 16, 2, 70, 128, [0, 70], torch.float32),
+    (2, 4, 4, 40, 16, [31, 32], torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", DECODE, ids=lambda c: "-".join(map(str, c)))
+def test_flash_decode_kernel_matches_plain(dev, case):
+    """The qwen3-4b decode shape, ragged 32-token steps, G 8 and 1, and a
+    length of 0, where kernel and plain version both give 0."""
+    from repro_torch.kernels import attention as katt
+    B, H, Hkv, S, D, lens, dt = case
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = _randn(g, (B, H, D), dev, dt)
+    kc, vc = (_randn(g, (B, Hkv, S, D), dev, dt) for _ in range(2))
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = katt.flash_decode_cuda(q, kc, vc, ln)
+    want = katt.flash_decode_plain(q, kc, vc, ln)
+    _paper_close(got, want, dt, atol=1e-4)
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert torch.equal(got[b], torch.zeros_like(got[b]))
+
+
+def test_flash_decode_reads_a_strided_cache_in_place(dev):
+    """A (B, S, Hkv, D) cache seen as (B, Hkv, S, D) through a transpose."""
+    from repro_torch.kernels import attention as katt
+    g = torch.Generator(device=dev).manual_seed(12)
+    q = _randn(g, (2, 8, 128), dev, torch.bfloat16)
+    kc, vc = (_randn(g, (2, 300, 2, 128), dev, torch.bfloat16).transpose(1, 2)
+              for _ in range(2))
+    ln = torch.tensor([300, 77], dtype=torch.int32, device=dev)
+    got = katt.flash_decode_cuda(q, kc, vc, ln)
+    want = katt.flash_decode_plain(q, kc.contiguous(), vc.contiguous(), ln)
+    _paper_close(got, want, torch.bfloat16, atol=1e-4)
+
+
+def test_paper_wrappers_launch_count_and_refuse_unbuilt_tiles(dev):
+    """Each ``ops`` wrapper launches its kernel once on the card (tiles from
+    the tile search), and raises on a tile its kernel is not built for."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(13)
+    a = _randn(g, (70, 90), dev, torch.bfloat16)
+    x = _randn(g, (1, 12, 12, 8), dev, torch.bfloat16)
+    w = _randn(g, (3, 3, 8, 16), dev, torch.bfloat16)
+    i = _randn(g, (9, 9, 8), dev, torch.bfloat16)
+    q = _randn(g, (1, 4, 64), dev, torch.bfloat16)
+    kc = _randn(g, (1, 2, 40, 64), dev, torch.bfloat16)
+    ln = torch.tensor([30], dtype=torch.int32, device=dev)
+    ops.reset_launches()
+    ops.matmul(a, a.t().contiguous())
+    ops.conv2d(x, w)
+    ops.correlation(i, i, radius=2)
+    ops.flash_decode(q, kc, kc, ln)
+    assert {k: n for k, n in ops.LAUNCHES.items() if n} == {
+        "matmul": 1, "conv2d": 1, "correlation": 1, "flash_decode": 1}
+    with pytest.raises(ValueError, match="not one csrc/matmul.cu"):
+        ops.matmul(a, a.t().contiguous(), block_m=32, block_n=32, block_k=64)
+    with pytest.raises(ValueError, match="not ones csrc/conv2d.cu"):
+        ops.conv2d(x, _randn(g, (3, 3, 8, 200), dev, torch.bfloat16),
+                   block_co=200)
+    assert ops.LAUNCHES["matmul"] == ops.LAUNCHES["conv2d"] == 1

@@ -19,7 +19,8 @@ MODULES = ["repro_torch", "repro_torch.launch.serve", "repro_torch.weights",
            "repro_torch.models.transformer", "repro_torch.serving",
            "repro_torch.configs", "repro_torch.obs",
            "repro_torch.launch.train", "repro_torch.training",
-           "repro_torch.optim", "repro_torch.data"]
+           "repro_torch.optim", "repro_torch.data", "repro_torch.core",
+           "repro_torch.sim"]
 
 
 def test_import_leaves_jax_out():
