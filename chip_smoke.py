@@ -5,19 +5,26 @@ on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-into ``build/kernels/``, holds each kernel against its plain PyTorch version
-at the serving, training and paper-workload paths' full-width shapes, runs
-the paper's workload catalog (24 convolution, correlation and GEMM layers
-at their own shapes, bf16, batch 1) and qwen3-4b's dense decode shape
-through ``repro_torch.kernels.ops``, serves qwen3-4b at full width (bf16,
+into ``build/kernels/`` (and prints ``ptxas``'s registers, spills and
+shared memory of each), holds each kernel route on a main path against its
+plain PyTorch version at the serving, training and paper-workload paths'
+full-width shapes (the flash forward's wgmma route; the matmul's wgmma
+route at GEMM_1K and its split-K GEMV at GEMM_FC), runs the paper's
+workload catalog (24 convolution, correlation and GEMM layers at their own
+shapes, bf16, batch 1) and qwen3-4b's dense decode shape through
+``repro_torch.kernels.ops``, times both of the matmul's bf16 routes at
+GEMM_FC's N and K for M below 64, serves qwen3-4b at full width (bf16,
 random weights from a seed) through ``repro_torch.launch.serve`` in the
 dense, paged and paged_int8 KV modes, holds the flash kernels' loss and
 gradients against the plain attention path, trains qwen3-4b at full width
 for a few AdamW steps through ``repro_torch.launch.train``, and checks what
 comes out.  Each phase prints JSON lines (``paper_workloads`` one per
-workload); a failed phase exits non-zero before the result line.  The last
-two lines are the card's name and power limit (``nvidia-smi``) and
-``{"ok": true, "device": {...}}``.
+workload); a failed phase exits non-zero before the result line.  Each
+kernel time is given twice: ``ms``, the span a caller waits for (the
+wrapper's host work included where it outlasts the flush before it), and
+``device_ms``, the device work alone.  The last two lines are the card's
+name and power limit (``nvidia-smi``) and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -70,19 +77,31 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int, flush: torch.Tensor | None = None
-            ) -> tuple[float, list[float]]:
-    """Mean device time of ``fn`` in ms over ``iters`` calls after two
-    warm-up calls, and the [min, max] of the calls, each call timed by CUDA
-    events; ``flush`` (a buffer larger than the 50 MB L2) is overwritten
-    before each call so the inputs come from device memory, as they do on
-    the serving path."""
+# cycles of the spin kernel queued before each call a covered timing reads
+# (~1 ms at the H100's clocks): longer than any wrapper's host work before
+# its launch
+HOST_COVER_CYCLES = 2_000_000
+
+
+def time_ms(fn, iters: int, flush: torch.Tensor | None = None, *,
+            covered: bool = False) -> tuple[float, list[float]]:
+    """Mean time of ``fn`` in ms over ``iters`` calls after two warm-up
+    calls, and the [min, max] of the calls, each call timed by CUDA events
+    recorded around it; ``flush`` (a buffer larger than the 50 MB L2) is
+    overwritten before each call so the inputs come from device memory, as
+    they do on the serving path.  Uncovered (each row's ``ms``), the span
+    holds whatever of the wrapper's host work before its launch outlasts
+    the flush, as a caller waits for it.  ``covered`` queues a spin kernel
+    after the flush that keeps the stream busy while the host runs the
+    wrapper, so the events time the device work alone (``device_ms``)."""
     for _ in range(2):
         fn()
     times = []
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        if covered:
+            torch.cuda._sleep(HOST_COVER_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -91,6 +110,11 @@ def time_ms(fn, iters: int, flush: torch.Tensor | None = None
         b.synchronize()
         times.append(a.elapsed_time(b))
     return sum(times) / iters, [min(times), max(times)]
+
+
+def device_ms(fn, iters: int, flush: torch.Tensor | None) -> float:
+    """The covered reading of :func:`time_ms`: device time alone."""
+    return time_ms(fn, iters, flush, covered=True)[0]
 
 
 def closeness(got: torch.Tensor, want: torch.Tensor, atol: float) -> dict:
@@ -146,11 +170,15 @@ def check_flash(flush) -> dict:
     q, k, v = (torch.randn((B, S, h, D), generator=g, device="cuda")
                .to(torch.bfloat16) for h in (H, Hkv, Hkv))
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    route = katt.flash_fwd_route(qt, kt, vt)
+    require(route == "flash_fwd", f"flash_fwd: the bf16 train shape takes "
+            f"route {route}, not the wgmma kernel")
+    bq, bk = katt.flash_fwd_blocks(route)
     with torch.no_grad():
         o, lse = katt.flash_attention_fwd_cuda(qt, kt, vt, causal=True)
         o_ref, lse_ref = katt.flash_attention_fwd_plain(
             qt.reshape(B * H, S, D), kt.reshape(B * Hkv, S, D),
-            vt.reshape(B * Hkv, S, D), causal=True)
+            vt.reshape(B * Hkv, S, D), causal=True, block_q=bq, block_k=bk)
         torch.cuda.synchronize()
         # atol 2e-3 covers p's bf16 rounding before PV flipping where the
         # two score sums differ in their last f32 bits
@@ -161,13 +189,18 @@ def check_flash(flush) -> dict:
         require(close["within_tol"] and lse_err <= lse_tol,
                 f"flash_fwd disagrees: {close}, max|lse| err {lse_err} "
                 f"(tol {lse_tol})")
-        ms, ms_spread = time_ms(lambda: katt.flash_attention_fwd_cuda(
-            qt, kt, vt, causal=True), 20, flush)
+        fwd = lambda: katt.flash_attention_fwd_cuda(  # noqa: E731
+            qt, kt, vt, causal=True)
+        ms, ms_spread = time_ms(fwd, 20, flush)
+        dev_ms = device_ms(fwd, 20, flush)
         plain_ms, _ = time_ms(lambda: katt.flash_attention_fwd_plain(
             qt.reshape(B * H, S, D), kt.reshape(B * Hkv, S, D),
-            vt.reshape(B * Hkv, S, D), causal=True), 3, flush)
-        lib_ms, _ = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 20, flush)
+            vt.reshape(B * Hkv, S, D), causal=True, block_q=bq, block_k=bk),
+            3, flush)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_ms, _ = time_ms(sdpa, 20, flush)
+        lib_dev_ms = device_ms(sdpa, 20, flush)
     pairs = B * H * S * (S + 1) // 2               # unmasked (q, k) pairs
     bytes_ = 2 * (q.numel() + k.numel() + v.numel() + o.numel()) + \
         4 * lse.numel()
@@ -176,9 +209,10 @@ def check_flash(flush) -> dict:
                source="src/repro_torch/kernels/csrc/flash_fwd.cu",
                replaces="src/repro/kernels/attention.py:153",
                **close, lse_max_abs_err=lse_err, lse_tol=lse_tol,
-               ms=ms, ms_spread=ms_spread, plain_ms=plain_ms,
-               bound_ms=b_ms, bound_by=b_by,
-               library_ms=lib_ms,
+               ms=ms, ms_spread=ms_spread, device_ms=dev_ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib_ms, library_device_ms=lib_dev_ms,
+               blocks=[bq, bk],
                shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D, causal=True))
     emit("kernel_check", **row)
     return row
@@ -238,10 +272,11 @@ def check_flash_bwd(flush) -> list[dict]:
                 f"flash_attention_train: o equal {torch.equal(o_fn, o)}, "
                 f"grads vs f32 results cast, max|err| {cast_err}")
         args = (qt, kt, vt, dot, lse, delta)
-        ms = {"flash_bwd_dq": time_ms(
-            lambda: katt.flash_bwd_dq_cuda(*args, causal=True), 20, flush),
-              "flash_bwd_dkv": time_ms(
-            lambda: katt.flash_bwd_dkv_cuda(*args, causal=True), 20, flush)}
+        launch = {"flash_bwd_dq": lambda: katt.flash_bwd_dq_cuda(
+            *args, causal=True), "flash_bwd_dkv": lambda:
+            katt.flash_bwd_dkv_cuda(*args, causal=True)}
+        ms = {n: time_ms(f, 20, flush) for n, f in launch.items()}
+        dev_ms = {n: device_ms(f, 20, flush) for n, f in launch.items()}
         plain = {"flash_bwd_dq": time_ms(lambda: katt.flash_bwd_dq_plain(
             *flat, lse, delta, causal=True), 3, flush)[0],
                  "flash_bwd_dkv": time_ms(lambda: katt.flash_bwd_dkv_plain(
@@ -251,8 +286,10 @@ def check_flash_bwd(flush) -> list[dict]:
     qs, ks, vs = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
     out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
                                          enable_gqa=True)
-    lib_ms, _ = time_ms(lambda: torch.autograd.grad(
-        out, (qs, ks, vs), dot, retain_graph=True), 20, flush)
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        out, (qs, ks, vs), dot, retain_graph=True)
+    lib_ms, _ = time_ms(sdpa_bwd, 20, flush)
+    lib_dev_ms = device_ms(sdpa_bwd, 20, flush)
     del out, qs, ks, vs
     pairs = B * H * S * (S + 1) // 2               # unmasked (q, k) pairs
     inputs = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + \
@@ -268,8 +305,9 @@ def check_flash_bwd(flush) -> list[dict]:
                    ("311" if name == "flash_bwd_dq" else "360"),
                    **close[name], autograd_cast_max_abs_err=cast_err,
                    ms=ms[name][0], ms_spread=ms[name][1],
-                   plain_ms=plain[name], bound_ms=b_ms, bound_by=b_by,
-                   library_ms=lib_ms,
+                   device_ms=dev_ms[name], plain_ms=plain[name],
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   library_device_ms=lib_dev_ms,
                    library="SDPA backward (causal, GQA), dq+dk+dv in one call",
                    shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D, causal=True))
         emit("kernel_check", **row)
@@ -314,6 +352,7 @@ def check_paged(quant: bool, flush) -> dict:
     require(close["within_tol"], f"{name} disagrees: {close}")
     ms, ms_spread = time_ms(lambda: kpa.paged_flash_decode_cuda(*args), 20,
                             flush)
+    dev_ms = device_ms(lambda: kpa.paged_flash_decode_cuda(*args), 20, flush)
     plain_ms, _ = time_ms(lambda: kpa.paged_flash_decode_plain(*args), 3,
                           flush)
     n_tok = int(lens_np.sum())
@@ -326,8 +365,9 @@ def check_paged(quant: bool, flush) -> dict:
     row = dict(name=name, route="cuda",
                source="src/repro_torch/kernels/csrc/paged_decode.cu",
                replaces="src/repro/kernels/paged_attention.py:42",
-               **close, ms=ms, ms_spread=ms_spread, plain_ms=plain_ms,
-               bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               **close, ms=ms, ms_spread=ms_spread, device_ms=dev_ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None, library_device_ms=None,
                shape=dict(B=B, H=H, Hkv=Hkv, D=D, page=page, max_pages=MP,
                           lengths=lens_np.tolist()))
     emit("kernel_check", **row)
@@ -413,7 +453,7 @@ def case_calls(case: dict, seed: int) -> dict:
     ``ops`` as a user calls it, ``launch`` of the kernel alone with the same
     tile, ``plain`` (the plain version) and ``library`` (one PyTorch call of
     the same function, or None); with the bytes and flops of its bound."""
-    from repro_torch.core.cuda_bridge import matmul_block_shapes
+    from repro_torch.core.cuda_bridge import gemv_plan, matmul_block_shapes
     from repro_torch.kernels import attention as katt
     from repro_torch.kernels import conv2d as kconv
     from repro_torch.kernels import correlation as kcorr
@@ -429,15 +469,26 @@ def case_calls(case: dict, seed: int) -> dict:
     if kind == "matmul":
         M, N, K = sh["M"], sh["N"], sh["K"]
         a, b = t((M, K)), t((K, N), K ** -0.5)
-        bm, bn, bk = matmul_block_shapes(max(M, 8), N, K)
+        route = kmm.matmul_route(a, b)
         out_numel, in_numel = M * N, M * K + K * N
-        calls = dict(
-            tile=dict(block_m=bm, block_n=bn, block_k=bk),
-            main=lambda: ops.matmul(a, b),
-            launch=lambda: kmm.matmul_cuda(a, b, block_m=bm, block_n=bn,
-                                           block_k=bk),
-            plain=lambda: kmm.matmul_plain(a, b, block_k=bk),
-            library=lambda: torch.matmul(a, b))
+        if route == "matmul_gemv":
+            splits, kchunk = gemv_plan(M, N, K)
+            calls = dict(tile=dict(route=route, splits=splits,
+                                   kchunk=kchunk),
+                         launch=lambda: kmm.matmul_gemv_cuda(a, b),
+                         plain=lambda: kmm.matmul_gemv_plain(a, b))
+        else:
+            bm, bn, bk = matmul_block_shapes(
+                M if route == "matmul" else max(M, 8), N, K, route=route)
+            launcher = (kmm.matmul_cuda if route == "matmul"
+                        else kmm.matmul_simt_cuda)
+            calls = dict(tile=dict(route=route, block_m=bm, block_n=bn,
+                                   block_k=bk),
+                         launch=lambda: launcher(a, b, block_m=bm,
+                                                 block_n=bn, block_k=bk),
+                         plain=lambda: kmm.matmul_plain(a, b, block_k=bk))
+        calls.update(key=route, main=lambda: ops.matmul(a, b),
+                     library=lambda: torch.matmul(a, b))
     elif kind == "conv2d":
         (_, IH, IW, CI), (KH, KW, _, CO) = sh["x"], sh["w"]
         s, dil = sh["stride"], sh["dilation"]
@@ -485,6 +536,7 @@ def case_calls(case: dict, seed: int) -> dict:
                 q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True))
         # the live K/V rows, q and out once each, the lengths
         calls["bytes"] = 2 * (2 * n_tok * Hkv * D + 2 * B * H * D) + 4 * B
+    calls.setdefault("key", kind)
     if "bytes" not in calls:
         calls["bytes"] = 2 * (in_numel + out_numel)
     calls["flops"] = 2 * case["macs"]
@@ -493,20 +545,24 @@ def case_calls(case: dict, seed: int) -> dict:
 
 def run_case(case: dict, flush, seed: int, iters: int = 20) -> dict:
     """One case through ``ops`` on the card, with the launch counts reset
-    just before and read just after; then its output against the plain
-    version, and the kernel's, the plain version's and the library call's
-    device times (means over ``iters`` calls; the plain version 3)."""
+    just before and read just after (exactly one launch, of the case's
+    route); then its output against the plain version, and the kernel's,
+    the plain version's and the library call's times (means over ``iters``
+    calls, the plain version 3; ``ms`` as a caller waits for it,
+    ``device_ms`` the device work alone: ``time_ms``)."""
     from repro_torch.kernels import ops
     kind = case["kernel"]
     calls = case_calls(case, seed)
+    key = calls["key"]
     torch.cuda.synchronize()
     ops.reset_launches()
     with torch.no_grad():
         out = calls["main"]()
         torch.cuda.synchronize()
         launches = dict(ops.LAUNCHES)
-        require(launches[kind] == 1 and sum(launches.values()) == 1,
-                f"{case['name']}: ops.{kind} launched {launches}")
+        require(launches[key] == 1 and sum(launches.values()) == 1,
+                f"{case['name']}: ops.{kind} launched {launches}, want one "
+                f"launch of {key}")
         ref = calls["plain"]()
         torch.cuda.synchronize()
         close = closeness(out, ref, atol=PAPER_ATOL[kind])
@@ -515,17 +571,23 @@ def run_case(case: dict, flush, seed: int, iters: int = 20) -> dict:
         require(close["within_tol"], f"{case['name']} ({kind}) disagrees: "
                 f"{close}")
         ms, ms_spread = time_ms(calls["launch"], iters, flush)
+        dev_ms = device_ms(calls["launch"], iters, flush)
         plain_ms, _ = time_ms(calls["plain"], 3, flush)
-        lib_ms = (time_ms(calls["library"], iters, flush)[0]
-                  if calls["library"] is not None else None)
+        lib = calls["library"]
+        lib_ms, lib_dev_ms = ((time_ms(lib, iters, flush)[0],
+                               device_ms(lib, iters, flush))
+                              if lib is not None else (None, None))
     b_ms, b_by = bound(calls["bytes"], calls["flops"], PEAK_BF16)
     tile = calls["tile"]
     del calls, out, ref
-    return dict(workload=case["name"], kernel=kind, shapes=case["shapes"],
-                tile=tile, **close, ms=ms,
-                ms_spread=ms_spread, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms,
+    return dict(workload=case["name"], kernel=kind, key=key,
+                shapes=case["shapes"], tile=tile, **close, ms=ms,
+                ms_spread=ms_spread, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                library_device_ms=lib_dev_ms,
                 kernel_over_library=(ms / lib_ms if lib_ms else None),
+                device_over_library=(dev_ms / lib_dev_ms if lib_dev_ms
+                                     else None),
                 launches=launches)
 
 
@@ -536,42 +598,117 @@ PAPER_LIBRARY = {"matmul": "torch.matmul (cuBLAS)",
 
 
 def check_paper_kernels(flush) -> list[dict]:
-    """The four kernels of the paper-workload path against their plain
-    versions: matmul at GEMM_1K, conv2d at DL_ATROUS4, correlation at
-    FLOWNET_CORR, flash decode at qwen3-4b's decode shape."""
+    """The kernel routes of the paper-workload path against their plain
+    versions: the matmul's wgmma route at GEMM_1K and its GEMV route at
+    GEMM_FC, conv2d at DL_ATROUS4, correlation at FLOWNET_CORR, flash
+    decode at qwen3-4b's decode shape.  Each row is named by its launch
+    key."""
     by = {c["name"]: c for c in catalog_cases()}
     rows = []
-    for i, case in enumerate((by["GEMM_1K"], by["DL_ATROUS4"],
+    for i, case in enumerate((by["GEMM_1K"], by["GEMM_FC"], by["DL_ATROUS4"],
                               by["FLOWNET_CORR"], decode_case())):
         r = run_case(case, flush, SEED + 20 + i)
         source, replaces = PAPER_SOURCES[case["kernel"]]
-        row = dict(name=case["kernel"], route="cuda", source=source,
+        row = dict(name=r["key"], route="cuda", source=source,
                    replaces=replaces, workload=case["name"],
                    library=PAPER_LIBRARY[case["kernel"]],
                    **{k: v for k, v in r.items()
-                      if k not in ("workload", "kernel", "launches")})
+                      if k not in ("workload", "kernel", "key", "launches")})
         emit("kernel_check", **row)
         rows.append(row)
     return rows
 
 
+# the launch keys of the paper-workload path: the matmul's wgmma and GEMV
+# routes (GEMM_1K, GEMM_FC), conv2d, correlation, dense decode
+PAPER_KEYS = ("matmul", "matmul_gemv", "conv2d", "correlation",
+              "flash_decode")
+
+
 def paper_workloads(flush) -> dict:
     """Phase 3b: the 24 catalog workloads and qwen3-4b's decode shape
-    through ``ops`` on the card, one line each; every kernel of the path
-    must have launched."""
+    through ``ops`` on the card, one line each (with the route and tile of
+    each matmul); every kernel route of the path must have launched."""
     cases = catalog_cases() + [decode_case()]
-    total = dict.fromkeys(PAPER_SOURCES, 0)
+    total: dict[str, int] = {}
     t0 = time.perf_counter()
     for i, case in enumerate(cases):
         row = run_case(case, flush, SEED + 100 + i)
         emit("paper_workload", **row)
-        for k in total:
-            total[k] += row["launches"][k]
+        for k, n in row["launches"].items():
+            total[k] = total.get(k, 0) + n
     emit("paper_workloads", workloads=len(cases), launches=total,
          seconds=time.perf_counter() - t0)
-    for k, n in total.items():
-        require(n > 0, f"paper_workloads never launched {k}")
+    for k in PAPER_KEYS:
+        require(total.get(k, 0) > 0, f"paper_workloads never launched {k}")
     return total
+
+
+# GEMM_FC's N and K (AlexNet's fc6) at the batch sizes below one 64-row tile
+SKINNY_M = (1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 32, 48, 63)
+
+
+def skinny_matmuls(flush) -> list[dict]:
+    """Phase 3c: bf16 M < 64 at GEMM_FC's N 4096 and K 9216, each M on both
+    kernels that can take it: the split-K GEMV and the wgmma kernel at the
+    tile search's tile, each launched once with the counts reset and held
+    against its plain version, with host-inclusive and device-only times
+    beside ``torch.matmul``'s; and ``ops.matmul`` on the route
+    ``matmul_route`` gives the M (the GEMV only at M <= ``GEMV_MAX_M``).
+    One line per M: the readings behind that cut."""
+    from repro_torch.core.cuda_bridge import gemv_plan, matmul_block_shapes
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ops
+    N, K = 4096, 9216
+    g = torch.Generator(device="cuda").manual_seed(SEED + 200)
+    rows = []
+    for M in SKINNY_M:
+        a = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+        b = (torch.randn((K, N), generator=g, device="cuda") * K ** -0.5) \
+            .to(torch.bfloat16)
+        bm, bn, bk = matmul_block_shapes(M, N, K, route="matmul")
+        runs = {
+            "matmul_gemv": (lambda: kmm.matmul_gemv_cuda(a, b),
+                            lambda: kmm.matmul_gemv_plain(a, b),
+                            dict(zip(("splits", "kchunk"),
+                                     gemv_plan(M, N, K)))),
+            "matmul": (lambda: kmm.matmul_cuda(a, b, block_m=bm, block_n=bn,
+                                               block_k=bk),
+                       lambda: kmm.matmul_plain(a, b, block_k=bk),
+                       dict(block_m=bm, block_n=bn, block_k=bk))}
+        route = kmm.matmul_route(a, b)
+        row = dict(M=M, N=N, K=K, route=route)
+        with torch.no_grad():
+            for key, (launch, plain, tile) in runs.items():
+                ops.reset_launches()
+                out = launch()
+                torch.cuda.synchronize()
+                launched = {k: n for k, n in ops.LAUNCHES.items() if n}
+                require(launched == {key: 1}, f"skinny M {M}: launched "
+                        f"{launched}, want one launch of {key}")
+                close = closeness(out, plain(), atol=PAPER_ATOL["matmul"])
+                require(close["within_tol"], f"skinny M {M} ({key}) "
+                        f"disagrees: {close}")
+                ms, spread = time_ms(launch, 20, flush)
+                row[key] = dict(tile, ms=ms, ms_spread=spread,
+                                device_ms=device_ms(launch, 20, flush),
+                                worst_tol_ratio=close["worst_tol_ratio"])
+            ops.reset_launches()
+            ops.matmul(a, b)
+            torch.cuda.synchronize()
+            launched = {k: n for k, n in ops.LAUNCHES.items() if n}
+            require(route in runs and launched == {route: 1},
+                    f"skinny M {M}: ops.matmul launched {launched}, its "
+                    f"route is {route}")
+            lib = lambda: torch.matmul(a, b)  # noqa: E731
+            row.update(library_ms=time_ms(lib, 20, flush)[0],
+                       library_device_ms=device_ms(lib, 20, flush))
+        row["bound_ms"], row["bound_by"] = bound(
+            2 * (M * K + K * N + M * N), 2 * M * N * K, PEAK_BF16)
+        emit("skinny_matmul", **row)
+        rows.append(row)
+        del a, b
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -832,9 +969,10 @@ def train(params) -> dict:
             f"train: params did not change: after step 1 {after_first}, "
             f"after step 3 {changed}")
     require(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == L * 3
-            and launches["flash_fwd"] == 2 * L * 3,
+            and launches["flash_fwd"] == 2 * L * 3
+            and launches["flash_fwd_simt"] == 0,
             f"train: flash launches {launches}, want bwd {L * 3} each and "
-            f"fwd {2 * L * 3} (forward + per-layer recompute)")
+            f"wgmma fwd {2 * L * 3} (forward + per-layer recompute)")
     del out
     return row
 
@@ -857,11 +995,17 @@ def main() -> int:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     _build.build_all()
-    regs = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
-                if "registers" in ln or "spill" in ln]
-            for n in _build.SOURCES}
+    # each kernel's registers, spills and shared memory; nvcc's warnings
+    # (ptxas names a wgmma it had to serialise there)
+    ptxas = {n: _build.ptxas_report(_build.build_log(n))
+             for n in _build.SOURCES}
+    warnings = [ln.strip() for n in _build.SOURCES
+                for ln in _build.build_log(n).splitlines()
+                if "warning" in ln.lower()]
     emit("build", seconds=time.perf_counter() - t0,
-         dir=str(_build.BUILD_DIR.relative_to(ROOT)), ptxas=regs)
+         dir=str(_build.BUILD_DIR.relative_to(ROOT)), warnings=warnings,
+         spills={n: sum(r["spill_stores"] + r["spill_loads"] for r in rs)
+                 for n, rs in ptxas.items()}, ptxas=ptxas)
 
     # phase 3: kernels against their plain versions
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
@@ -871,8 +1015,9 @@ def main() -> int:
                                    check_paged(True, flush),
                                    *check_paper_kernels(flush))}
 
-    # phase 3b: the paper's workloads at their own shapes
+    # phase 3b: the paper's workloads at their own shapes; 3c: M < 64
     paper = paper_workloads(flush)
+    skinny_matmuls(flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -890,7 +1035,7 @@ def main() -> int:
         dense, paged, int8 = (serve(m, params)
                               for m in ("dense", "paged", "paged_int8"))
     require(dense["launches"]["flash_fwd"] > 0,
-            "dense mode never launched flash_fwd")
+            "dense mode never launched the wgmma flash_fwd")
     require(paged["launches"]["paged_decode_bf16"] > 0,
             "paged mode never launched paged_decode_bf16")
     require(int8["launches"]["paged_decode_int8"] > 0,
@@ -907,13 +1052,14 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    # phase 6: the kernels line, launches from the paper-workload, serve
-    # and train phases
+    # phase 6: the kernels line (one row per kernel route a main path runs),
+    # launches from the paper-workload, serve and train phases
     phases = (paper, dense["launches"], paged["launches"], int8["launches"],
               trained["launches"])
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in rows}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "library_device_ms")
     kernels = [{k: ({**r, "launches": launches[r["name"]]})[k] for k in keys}
                for r in rows.values()]
     for r in kernels:

@@ -32,7 +32,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import chip_smoke  # noqa: E402  (the workload is defined there)
 
-GROUPS = (("flash_fwd", "flash_fwd_kernel"),
+GROUPS = (("flash_fwd", "flash_fwd_"),
           ("flash_bwd", "flash_bwd_"),
           ("paged_decode", "paged_decode_kernel"),
           # cuBLAS's GEMM / GEMV kernels (nvjet_* on Hopper, sm80_xmma_*,

@@ -8,10 +8,15 @@ with a plain C interface, loaded through ``ctypes``:
         -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
 The output lands in ``build/kernels/`` at the root of the checkout (git
-ignores it), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads at once.  ``ptxas``'s report of
-registers, shared memory and spills goes to ``<name>-<hash>.log`` beside
-it.  ``build_all`` starts one ``nvcc`` per source, all at the same time.
+ignores it), named by a hash of the source, of every ``csrc/*.cuh`` header
+it includes (``hopper.cuh``: the mbarrier, TMA and ``wgmma`` helpers) and
+of the flags, so an edited source or header rebuilds and an unchanged one
+loads at once.  ``ptxas``'s report of registers, shared memory and spills
+goes to ``<name>-<hash>.log`` beside it (:func:`ptxas_report` reads it).
+TMA descriptors are encoded on the host inside the C entry points, through
+``cuTensorMapEncodeTiled`` taken from the driver with
+``cudaGetDriverEntryPoint``: nothing links ``-lcuda``.  ``build_all``
+starts one ``nvcc`` per source, all at the same time.
 Nothing here runs when the module is imported.
 
 Every C entry point takes pointers and the CUDA stream as ``void*``, launches
@@ -23,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -37,12 +43,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "flash_decode",
            "matmul", "conv2d", "correlation")
 
-# Launches of each CUDA kernel since the last reset (``ops.reset_launches``):
-# a plain integer per kernel, incremented by the kernel's launcher
-# (``*_cuda``) right after the launch is checked, and nowhere else.
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "paged_decode_bf16": 0, "paged_decode_int8": 0,
-            "flash_decode": 0, "matmul": 0, "conv2d": 0, "correlation": 0}
+# Launches of each CUDA kernel route since the last reset
+# (``ops.reset_launches``): a plain integer per route, incremented by the
+# route's launcher (``*_cuda``) right after the launch is checked, and
+# nowhere else.  ``flash_fwd`` and ``matmul`` are the tensor-core (wgmma)
+# routes; ``flash_fwd_simt`` and ``matmul_simt`` the CUDA-core kernels kept
+# for f32 and for operands TMA cannot take; ``matmul_gemv`` the split-K
+# kernel pair for M = 1.
+LAUNCHES = {"flash_fwd": 0, "flash_fwd_simt": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "paged_decode_bf16": 0,
+            "paged_decode_int8": 0, "flash_decode": 0, "matmul": 0,
+            "matmul_gemv": 0, "matmul_simt": 0, "conv2d": 0,
+            "correlation": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -56,9 +68,23 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _headers(path: Path) -> list[Path]:
+    """Every header of ``csrc`` that ``path`` includes, directly or not."""
+    out: list[Path] = []
+    for m in _INCLUDE.finditer(path.read_bytes()):
+        h = CSRC / m.group(1).decode()
+        if h not in out:
+            out += [h, *(x for x in _headers(h) if x not in out)]
+    return out
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src = CSRC / f"{name}.cu"
+    blob = b"".join(p.read_bytes() for p in (src, *_headers(src)))
+    h = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{h}.so"
 
 
@@ -105,6 +131,32 @@ def build_all(names=SOURCES) -> None:
 def build_log(name: str) -> str:
     """What ``nvcc`` printed for the current build of ``name``."""
     return _target(name).with_suffix(".log").read_text()
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_NUM = {"registers": re.compile(r"Used (\d+) registers"),
+              "spill_stores": re.compile(r"(\d+) bytes spill stores"),
+              "spill_loads": re.compile(r"(\d+) bytes spill loads"),
+              "stack": re.compile(r"(\d+) bytes stack frame"),
+              "smem": re.compile(r"(\d+) bytes smem")}
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """One record per kernel of a ``ptxas -v`` log: its (mangled) name, and
+    its registers, stack frame, spill stores and loads and static shared
+    memory in bytes (0 where ptxas prints none)."""
+    out: list[dict] = []
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            out.append({"kernel": m.group(1), **dict.fromkeys(_PTXAS_NUM, 0)})
+            continue
+        if out:
+            for key, rx in _PTXAS_NUM.items():
+                hit = rx.search(line)
+                if hit:
+                    out[-1][key] = int(hit.group(1))
+    return out
 
 
 def check_device(t: torch.Tensor) -> None:

@@ -9,7 +9,15 @@ backward kernels, ``flash_attention_train`` and the dense decode kernel).
 The host-side schedule (``_row_range`` /
 ``_pair_schedule`` / ``scheduled_block_counts``) is a copy of the
 reference's, so the CUDA kernels' per-CTA block ranges are the reference's
-pruned pair table, row by row (forward, dq) and column by column (dk/dv).
+pruned pair table at each kernel's block shape, row by row (forward, dq)
+and column by column (dk/dv).
+
+The forward has two routes (:func:`flash_fwd_route`): ``"flash_fwd"``, the
+tensor-core (``wgmma``) kernel with 128 x 128 blocks, for bf16 at head_dim
+64 or 128 with strides TMA can read; and ``"flash_fwd_simt"``, the
+CUDA-core kernel with 64 x 64 blocks, for f32 and anything else.  The
+backward kernels keep 64 x 64 blocks whichever route the forward took:
+they read only o and the per-row lse, whose layouts do not depend on it.
 """
 from __future__ import annotations
 
@@ -25,10 +33,14 @@ from . import _build
 
 NEG_INF = -1e30  # avoid nan from (-inf) - (-inf)
 
-# Block shape of the CUDA kernel: fixed for sm_90a (64 x 64 score tile at
-# head_dim 64 or 128; see csrc/flash_fwd.cu).
+# Block shape of the CUDA-core forward and of the backward kernels (64 x 64
+# score tile at head_dim 64 or 128; see csrc/flash_fwd.cu, flash_bwd.cu).
 BLOCK_Q = 64
 BLOCK_K = 64
+# Block shape of the wgmma forward: 128 q rows (two warpgroups of 64) by
+# 128 keys, which keeps a 2-stage K/V ring in shared memory at head_dim 128.
+WGMMA_BLOCK_Q = 128
+WGMMA_BLOCK_K = 128
 
 
 # ---------------------------------------------------------------------------
@@ -384,17 +396,49 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 
+def _tma_strides(t: torch.Tensor) -> list[int]:
+    """(batch, head, seq) strides of a (B, H, S, D) tensor as its TMA
+    descriptor takes them: a dim of size 1 is never stepped, so its stride
+    is given as the tensor's whole extent rounded to 8 elements."""
+    span = max(st * n for st, n in zip(t.stride(), t.shape))
+    return [st if n > 1 else -(-span // 8) * 8
+            for st, n in zip(t.stride()[:3], t.shape[:3])]
+
+
+def flash_fwd_route(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> str:
+    """The forward kernel's route (module docstring), a pure function of
+    the inputs' dtype, head_dim and strides on any device: ``"flash_fwd"``
+    (wgmma) for bf16 q/k/v at head_dim 64 or 128 whose (batch, head, seq)
+    strides are multiples of 8 elements (16 bytes) and whose bases are
+    16-byte aligned, ``"flash_fwd_simt"`` otherwise."""
+    ok = (all(t.dtype == torch.bfloat16 and t.stride(-1) == 1 and
+              t.data_ptr() % 16 == 0 and
+              all(st % 8 == 0 for st in _tma_strides(t)) for t in (q, k, v))
+          and q.shape[-1] in (64, 128))
+    return "flash_fwd" if ok else "flash_fwd_simt"
+
+
+def flash_fwd_blocks(route: str) -> tuple[int, int]:
+    """(block_q, block_k) of a forward route's kernel."""
+    if route == "flash_fwd":
+        return WGMMA_BLOCK_Q, WGMMA_BLOCK_K
+    return BLOCK_Q, BLOCK_K
+
+
 def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True,
                              window: int | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/flash_fwd.cu``.  q: (B, H, Sq, D), k/v: (B, Hkv, Sk,
-    D) — any strides with a contiguous last dimension, e.g. the
-    ``transpose(1, 2)`` views of the engine's (B, S, H, D) tensors, which
-    are read in place.  Returns ``(o, lse)``: o has q's shape and memory
-    layout, lse is f32 (B * H, Sq).  The launch carries no gradient, so it
-    refuses inputs that autograd wants one of: those go through
-    :func:`flash_attention_train`."""
+    """Launch the forward kernel of ``csrc/flash_fwd.cu`` that
+    :func:`flash_fwd_route` names: the wgmma kernel (launch key
+    ``flash_fwd``) or the CUDA-core one (``flash_fwd_simt``).  q: (B, H, Sq,
+    D), k/v: (B, Hkv, Sk, D) — any strides with a contiguous last
+    dimension, e.g. the ``transpose(1, 2)`` views of the engine's (B, S, H,
+    D) tensors, which are read in place.  Returns ``(o, lse)``: o has q's
+    shape and memory layout, lse is f32 (B * H, Sq).  The launch carries no
+    gradient, so it refuses inputs that autograd wants one of: those go
+    through :func:`flash_attention_train`."""
     _check_inputs("flash_attention_fwd_cuda", q, k, v, window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -404,24 +448,33 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
             "torch.no_grad()")
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    ranges = _ranges_on(q.device, Sq, Sk, bool(causal), window, "row")
+    route = flash_fwd_route(q, k, v)
+    ranges = _ranges_on(q.device, Sq, Sk, bool(causal), window, "row",
+                        *flash_fwd_blocks(route))
     o = torch.empty_like(q)          # keeps q's (B, S, H, D) memory layout
     lse = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
-    fn = _build.bind("flash_fwd", "flash_fwd", *[ctypes.c_void_p] * 6,
-                     *[ctypes.c_int] * 10, *[ctypes.c_longlong] * 12,
-                     ctypes.c_float)
     nq = ranges.shape[0]
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr(), ranges.data_ptr(), _DTYPE_CODE[q.dtype], B, H,
-             H // Hkv, Sq, Sk, D, nq, int(bool(causal)),
-             0 if window is None else int(window),
-             q.stride(0), q.stride(1), q.stride(2),
-             k.stride(0), k.stride(1), k.stride(2),
-             v.stride(0), v.stride(1), v.stride(2),
-             o.stride(0), o.stride(1), o.stride(2),
-             1.0 / math.sqrt(D), _build.stream_ptr(q))
-    _build.check(err, "flash_fwd")
-    _build.LAUNCHES["flash_fwd"] += 1
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), ranges.data_ptr())
+    shape = (B, H, H // Hkv, Sq, Sk, D, nq, int(bool(causal)),
+             0 if window is None else int(window))
+    if route == "flash_fwd":
+        fn = _build.bind("flash_fwd", "flash_fwd_wgmma",
+                         *[ctypes.c_void_p] * 6, *[ctypes.c_int] * 9,
+                         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float)
+        st = (ctypes.c_longlong * 12)(
+            *[x for t in (q, k, v) for x in _tma_strides(t)],
+            *o.stride()[:3])
+        err = fn(*head, *shape, st, 1.0 / math.sqrt(D), _build.stream_ptr(q))
+    else:
+        fn = _build.bind("flash_fwd", "flash_fwd_simt",
+                         *[ctypes.c_void_p] * 6, *[ctypes.c_int] * 10,
+                         *[ctypes.c_longlong] * 12, ctypes.c_float)
+        err = fn(*head, _DTYPE_CODE[q.dtype], *shape,
+                 *[x for t in (q, k, v, o) for x in t.stride()[:3]],
+                 1.0 / math.sqrt(D), _build.stream_ptr(q))
+    _build.check(err, route)
+    _build.LAUNCHES[route] += 1
     return o, lse
 
 
@@ -485,7 +538,8 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal=True,
     _check_bwd(q, k, v, do, lse, delta, window)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    rows = _ranges_on(q.device, Sq, Sk, bool(causal), window, "row")
+    rows = _ranges_on(q.device, Sq, Sk, bool(causal), window, "row",
+                      BLOCK_Q, BLOCK_K)
     dq = torch.empty_like(q, dtype=torch.float32)
     fn = _build.bind("flash_bwd", "flash_bwd_dq", *[ctypes.c_void_p] * 8,
                      *_BWD_ARGS)
@@ -508,7 +562,8 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal=True,
     _check_bwd(q, k, v, do, lse, delta, window)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    cols = _ranges_on(q.device, Sq, Sk, bool(causal), window, "col")
+    cols = _ranges_on(q.device, Sq, Sk, bool(causal), window, "col",
+                      BLOCK_Q, BLOCK_K)
     dk = torch.empty_like(k, dtype=torch.float32)
     dv = torch.empty_like(v, dtype=torch.float32)
     fn = _build.bind("flash_bwd", "flash_bwd_dkv", *[ctypes.c_void_p] * 9,
@@ -545,15 +600,16 @@ _RANGES: dict[tuple, torch.Tensor] = {}
 
 
 def _ranges_on(dev: torch.device, Sq: int, Sk: int, causal: bool,
-               window: int | None, order: str) -> torch.Tensor:
+               window: int | None, order: str, block_q: int,
+               block_k: int) -> torch.Tensor:
     """The kernels' per-CTA block ranges (``order`` 'row': k blocks of each
-    q block; 'col': q blocks of each k block), on the device, built once
-    per shape."""
-    key = (dev, Sq, Sk, causal, window, order)
+    q block; 'col': q blocks of each k block) at a kernel's block shape, on
+    the device, built once per shape."""
+    key = (dev, Sq, Sk, causal, window, order, block_q, block_k)
     t = _RANGES.get(key)
     if t is None:
         build = row_block_ranges if order == "row" else col_block_ranges
-        r = build(Sq, Sk, block_q=BLOCK_Q, block_k=BLOCK_K, causal=causal,
+        r = build(Sq, Sk, block_q=block_q, block_k=block_k, causal=causal,
                   window=window)
         t = torch.from_numpy(r).to(dev)
         _RANGES[key] = t
@@ -604,9 +660,10 @@ class FlashAttention(torch.autograd.Function):
                                               window=window)
         else:
             B, H, Sq, D = q.shape
+            bq, bk = flash_fwd_blocks(flash_fwd_route(q, k, v))
             o, lse = flash_attention_fwd_plain(
                 q.reshape(B * H, Sq, D), *_kv_rows(k, v), causal=causal,
-                window=window)
+                window=window, block_q=bq, block_k=bk)
             o = o.reshape(q.shape)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window

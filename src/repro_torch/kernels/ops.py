@@ -14,19 +14,25 @@ then
 * on CPU tensors runs the plain PyTorch version of the same arithmetic
   (the path the parity tests take).
 
-``matmul``'s blocks come from the paper's tile search re-targeted to one
-H100 CTA (``repro_torch.core.cuda_bridge.matmul_block_shapes``); ``conv2d``
+``matmul`` takes one of three routes (``kernels.matmul.matmul_route``:
+the ``wgmma`` kernel for bf16 with M > 1, the split-K GEMV for bf16 with
+M = 1, the CUDA-core kernel for f32 or operands TMA cannot read), and the
+tiled routes' blocks come from the paper's tile search re-targeted to one
+H100 CTA (``repro_torch.core.cuda_bridge.matmul_block_shapes``); the flash
+forward takes the ``wgmma`` kernel (128 x 128 blocks) for bf16 and the
+CUDA-core one (64 x 64) for f32 (``attention.flash_fwd_route``); ``conv2d``
 and ``correlation`` keep the reference's ``block_oh`` / ``block_co`` /
 ``block_y`` and their clamping; dense decode steps 32 cached tokens at a
 time on the card (``block_k`` shapes only the plain version).  The flash
-kernels keep fixed 64 x 64 blocks and paged decode one page a step.  The
-ragged edges are masked in the kernels: no wrapper pads by a copy.
+backward kernels keep fixed 64 x 64 blocks and paged decode one page a
+step.  The ragged edges are masked in the kernels: no wrapper pads by a
+copy.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.cuda_bridge import matmul_block_shapes
+from ..core.cuda_bridge import gemv_plan, matmul_block_shapes
 from . import attention as _attention
 from . import conv2d as _conv2d
 from . import correlation as _correlation
@@ -67,21 +73,40 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int | None = None,
            block_n: int | None = None, block_k: int | None = None
            ) -> torch.Tensor:
     """VectorMesh-tiled matmul: (M, K) @ (K, N) -> (M, N) in a's dtype.
-    Blocks not given come from the H100 tile search; on CUDA a tile the
-    kernel is not built for raises."""
+
+    The route (``matmul``, ``matmul_gemv`` or ``matmul_simt``) follows from
+    the operands and from whether a block is given
+    (``kernels.matmul.matmul_route``).  The GEMV takes no tile (its K split
+    comes from ``cuda_bridge.gemv_plan``), so it runs only when no block is
+    given; a block given for bf16 M = 1 picks the tiled wgmma route, as a
+    tile is honoured on every other shape.  Blocks not given come from the
+    H100 tile search, and on CUDA a tile the route's kernel is not built
+    for raises."""
     M, K = a.shape
     _, N = b.shape
+    route = _matmul.matmul_route(
+        a, b, tiled=any(x is not None for x in (block_m, block_n, block_k)))
+    impl = _impl(a)
+    if route == "matmul_gemv":
+        splits, kchunk = gemv_plan(M, N, K)
+        _record_dispatch("matmul", impl=impl, route=route, M=M, N=N, K=K,
+                         splits=splits, kchunk=kchunk)
+        if impl == "cuda":
+            return _matmul.matmul_gemv_cuda(a, b)
+        return _matmul.matmul_gemv_plain(a, b)
     if block_m is None or block_n is None or block_k is None:
-        bm, bn, bk = matmul_block_shapes(max(M, 8), N, K)
+        bm, bn, bk = matmul_block_shapes(
+            max(M, 8) if route == "matmul_simt" else M, N, K, route=route)
         block_m = block_m or bm
         block_n = block_n or bn
         block_k = block_k or bk
-    impl = _impl(a)
-    _record_dispatch("matmul", impl=impl, M=M, N=N, K=K, block_m=block_m,
-                     block_n=block_n, block_k=block_k)
+    _record_dispatch("matmul", impl=impl, route=route, M=M, N=N, K=K,
+                     block_m=block_m, block_n=block_n, block_k=block_k)
     if impl == "cuda":
-        return _matmul.matmul_cuda(a, b, block_m=block_m, block_n=block_n,
-                                   block_k=block_k)
+        launch = (_matmul.matmul_cuda if route == "matmul"
+                  else _matmul.matmul_simt_cuda)
+        return launch(a, b, block_m=block_m, block_n=block_n,
+                      block_k=block_k)
     return _matmul.matmul_plain(a, b, block_k=block_k)
 
 
@@ -136,7 +161,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     ) -> torch.Tensor:
     """q: (B, H, S, D), k/v: (B, Hkv, Sk, D) -> (B, H, S, D).
 
-    When autograd wants a gradient of q, k or v, the call goes through
+    The forward kernel's route (wgmma or CUDA-core) and its blocks follow
+    from the inputs (``attention.flash_fwd_route``).  When autograd wants a
+    gradient of q, k or v, the call goes through
     :class:`attention.FlashAttention`: the forward kernel saves its lse and
     the backward runs the dq and dk/dv kernels.  Otherwise it is the
     forward-only launch, as on the serving path.  On CUDA the kernels read
@@ -148,11 +175,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     impl = _impl(q)
     train = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
-    bq, bk = _attention.BLOCK_Q, _attention.BLOCK_K
+    route = _attention.flash_fwd_route(q, k, v)
+    bq, bk = _attention.flash_fwd_blocks(route)
     real, total = _attention.scheduled_block_counts(
         Sq, Sk, block_q=bq, block_k=bk, causal=causal, window=window)
     _record_dispatch("flash_attention", impl="train" if train else impl,
-                     sq=Sq, sk=Sk, block_q=bq, block_k=bk,
+                     route=route, sq=Sq, sk=Sk, block_q=bq, block_k=bk,
                      scheduled_blocks=real, dense_blocks=total,
                      pruning_ratio=real / total if total else 1.0)
     if train:

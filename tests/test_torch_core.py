@@ -2,8 +2,11 @@
 workload catalog (``repro_torch.sim``) against the JAX package's: the same
 integer arithmetic, so every result is held equal exactly.  Also the Hopper
 re-target of the GEMM search (``cuda_bridge.matmul_block_shapes``): every
-tile it returns is one that ``csrc/matmul.cu`` is built for and fits one
-CTA, and the two packages keep their disk caches apart."""
+tile it returns, on the wgmma route and on the CUDA-core one, is one that
+``csrc/matmul.cu`` is built for, fits one CTA's shared memory and
+registers, and (wgmma) fills the card's 132 SMs wherever the problem has
+that many 64 x 64 tiles; and the two packages keep their disk caches
+apart."""
 import dataclasses
 import itertools
 
@@ -117,36 +120,69 @@ HOPPER_SWEEP = sorted(set(itertools.product(
     (1, 3, 31, 32, 33, 64, 96, 100, 1024, 9216))))
 
 
-def _check_hopper_tile(M, N, K):
-    bm, bn, bk = cuda_bridge.matmul_block_shapes(M, N, K)
-    assert (bm, bn, bk) in cuda_bridge.MATMUL_TILES
-    assert (bm + bn) * bk * cuda_bridge.STAGE_BYTES <= \
-        cuda_bridge.SMEM_PER_CTA == 232448
-    assert bm * bn * 4 <= cuda_bridge.ACC_BUDGET
+def _check_hopper_tile(M, N, K, route="matmul"):
+    cb = cuda_bridge
+    bm, bn, bk = cb.matmul_block_shapes(M, N, K, route=route)
+    if route == "matmul":
+        assert (bm, bn, bk) in cb.WGMMA_TILES
+        # bf16 tiles in a ring of STAGES stages
+        assert (bm + bn) * bk * 2 * cb.STAGES <= cb.SMEM_BUDGET
+        # the accumulator: bn / 2 f32 registers per consumer thread, at
+        # most 128, over bm / 64 warpgroups
+        assert bm * bn * 4 <= cb.WGMMA_ACC_BUDGET and bn // 2 <= 128
+        ctas = cb.grid_ctas(M, N, bm, bn)
+        if cb.grid_ctas(M, N, 64, 64) >= cb.SM_COUNT:
+            assert ctas >= cb.SM_COUNT == 132
+        else:                       # as many CTAs as the problem allows
+            assert (bm, bn) == (64, 64)
+    else:
+        assert (bm, bn, bk) in cb.MATMUL_TILES
+        assert (bm + bn) * bk * cb.SIMT_STAGE_BYTES <= cb.SMEM_BUDGET
+        assert bm * bn * 4 <= cb.ACC_BUDGET
+    assert cb.SMEM_BUDGET <= cb.SMEM_PER_CTA == 232448
     return bm, bn, bk
 
 
 def test_hopper_tiles_of_the_catalog_gemms():
-    """GEMM_1K takes the largest tile; GEMM_FC (M 1, raised to 8 as
-    ``ops.matmul`` does) an 8-row tile, not a padded 64-row one."""
-    got = {w.name: _check_hopper_tile(max(w.op.dim_map["i"].size, 8),
-                                      w.op.dim_map["j"].size,
-                                      w.op.dim_map["k"].size)
-           for w in pt_sim.GEMM}
-    assert got == {"GEMM_1K": (128, 128, 64), "GEMM_FC": (8, 128, 64)}
+    """GEMM_1K (bf16, M 1024) takes the wgmma route, on the 64 x 64 tile
+    that gives 256 CTAs for 132 SMs (the largest, 128 x 256, gives 32);
+    GEMM_FC (M 1) takes the split-K GEMV route: 64 strips x 8 splits of
+    1,152 = 512 CTAs."""
+    import torch
+    from repro_torch.kernels import matmul as kmm
+    got = {}
+    for w in pt_sim.GEMM:
+        M, N, K = (w.op.dim_map[d].size for d in "ijk")
+        a = torch.empty((M, K), dtype=torch.bfloat16)
+        b = torch.empty((K, N), dtype=torch.bfloat16)
+        route = kmm.matmul_route(a, b)
+        got[w.name] = (route, _check_hopper_tile(M, N, K) if
+                       route == "matmul" else cuda_bridge.gemv_plan(M, N, K))
+    assert got == {"GEMM_1K": ("matmul", (64, 64, 64)),
+                   "GEMM_FC": ("matmul_gemv", (8, 1152))}
+    # the CUDA-core route keeps its lattice (M raised to 8, as before)
+    assert _check_hopper_tile(1024, 1024, 1024, "matmul_simt") == \
+        (128, 128, 64)
+    assert _check_hopper_tile(8, 4096, 9216, "matmul_simt") == (8, 128, 64)
 
 
 @pytest.mark.parametrize("M", sorted({m for m, _, _ in HOPPER_SWEEP}))
 def test_hopper_tiles_are_built_and_fit(M):
     for m, n, k in HOPPER_SWEEP:
         if m == M:
-            _check_hopper_tile(m, n, k)
+            _check_hopper_tile(m, n, k, "matmul")
+            _check_hopper_tile(m, n, k, "matmul_simt")
 
 
 def test_hopper_search_refuses_to_substitute(monkeypatch):
     monkeypatch.setattr(cuda_bridge, "MATMUL_TILES", frozenset())
     with pytest.raises(ValueError, match="not built for"):
+        cuda_bridge.matmul_block_shapes(640, 640, 640, route="matmul_simt")
+    monkeypatch.setattr(cuda_bridge, "WGMMA_TILES", frozenset())
+    with pytest.raises(ValueError, match="not built for"):
         cuda_bridge.matmul_block_shapes(640, 640, 640)
+    with pytest.raises(ValueError, match="no tile search"):
+        cuda_bridge.matmul_block_shapes(1, 640, 640, route="matmul_gemv")
 
 
 def test_disk_caches_are_kept_apart(monkeypatch, tmp_path):

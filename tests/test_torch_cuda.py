@@ -4,7 +4,9 @@ reach: ragged lengths, sliding windows, non-causal masks, GQA groups,
 head_dim 64 and 16, f32 and int8, the engine's smoke config on the card,
 one train step of a small config on the card against the CPU, and the
 paper-workload kernels (matmul, conv2d, correlation, dense flash decode)
-over every built tile with ragged edges.  Every
+over every built tile with ragged edges.  The flash forward and the matmul
+have several routes (the wgmma kernels, the split-K GEMV, the CUDA-core
+kernels); the launch counts show which one each case took.  Every
 test needs an sm_90 card and skips elsewhere; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -55,6 +57,9 @@ FLASH = [
     (2, 200, 200, 8, 2, 128, True, None, torch.bfloat16),
     (1, 300, 300, 8, 8, 64, True, 100, torch.bfloat16),
     (2, 130, 190, 4, 1, 128, False, None, torch.bfloat16),
+    # Sq not a multiple of the wgmma kernel's 128 rows, window edges inside
+    # its 128-key blocks
+    (1, 1000, 1000, 16, 2, 128, True, 300, torch.bfloat16),
     (1, 64, 64, 4, 2, 64, True, 3, torch.float32),
     (1, 257, 257, 16, 4, 128, True, None, torch.float32),
 ]
@@ -62,18 +67,29 @@ FLASH = [
 
 @pytest.mark.parametrize("case", FLASH, ids=lambda c: "-".join(map(str, c)))
 def test_flash_kernel_matches_plain(dev, case):
+    """bf16 takes the wgmma kernel (launch key ``flash_fwd``, 128 x 128
+    blocks), f32 the CUDA-core one (``flash_fwd_simt``, 64 x 64); each is
+    held against the plain version at its own blocks."""
     from repro_torch.kernels import attention as katt
+    from repro_torch.kernels import ops
     B, S, Sk, H, Hkv, D, causal, window, dt = case
     g = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn((B, S, H, D), generator=g, device=dev).to(dt)
     k = torch.randn((B, Sk, Hkv, D), generator=g, device=dev).to(dt)
     v = torch.randn((B, Sk, Hkv, D), generator=g, device=dev).to(dt)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    route = katt.flash_fwd_route(qt, kt, vt)
+    assert route == ("flash_fwd" if dt == torch.bfloat16
+                     else "flash_fwd_simt")
+    ops.reset_launches()
     o, lse = katt.flash_attention_fwd_cuda(qt, kt, vt, causal=causal,
                                            window=window)
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == {route: 1}
+    bq, bk = katt.flash_fwd_blocks(route)
     o_ref, lse_ref = katt.flash_attention_fwd_plain(
         qt.reshape(B * H, S, D), kt.reshape(B * Hkv, Sk, D),
-        vt.reshape(B * Hkv, Sk, D), causal=causal, window=window)
+        vt.reshape(B * Hkv, Sk, D), causal=causal, window=window,
+        block_q=bq, block_k=bk)
     assert o.stride() == qt.stride()        # written in q's (B, S, H, D)
     _ulp_close(o.reshape(B * H, S, D), o_ref, dt, atol=2e-3)
     torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
@@ -96,6 +112,10 @@ FLASH_BWD = FLASH + [(1, 256, 64, 4, 2, 64, False, 100, torch.float32)]
 @pytest.mark.parametrize("case", FLASH_BWD,
                          ids=lambda c: "-".join(map(str, c)))
 def test_flash_bwd_kernels_match_plain(dev, case):
+    """The backward kernels fed the forward kernel's own o and lse (the
+    wgmma route's for bf16, the CUDA-core route's for f32), as
+    ``FlashAttention`` feeds them, against the plain backward on the same
+    residuals."""
     from repro_torch.kernels import attention as katt
     B, S, Sk, H, Hkv, D, causal, window, dt = case
     g = torch.Generator(device=dev).manual_seed(3)
@@ -107,7 +127,8 @@ def test_flash_bwd_kernels_match_plain(dev, case):
     flat = (qt.reshape(B * H, S, D), kt.reshape(B * Hkv, Sk, D),
             vt.reshape(B * Hkv, Sk, D))
     kw = dict(causal=causal, window=window)
-    o, lse = katt.flash_attention_fwd_plain(*flat, **kw)
+    o, lse = katt.flash_attention_fwd_cuda(qt, kt, vt, **kw)
+    o = o.reshape(B * H, S, D)
     delta = (o.float() * dot.reshape(B * H, S, D).float()).sum(-1)
     got = katt.flash_attention_bwd_cuda(qt, kt, vt, dot, lse, delta, **kw)
     want = katt.flash_attention_bwd_plain(*flat, dot.reshape(B * H, S, D),
@@ -318,7 +339,8 @@ def _randn(g, shape, dev, dt, scale=1.0):
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 def test_matmul_kernel_matches_plain_on_every_built_tile(dev, dt):
-    """Every tile the tile search can return, on ragged M, N and K."""
+    """The CUDA-core kernel (route ``matmul_simt``) on every tile its tile
+    search can return, on ragged M, N and K."""
     from repro_torch.core.cuda_bridge import MATMUL_TILES
     from repro_torch.kernels import matmul as kmm
     g = torch.Generator(device=dev).manual_seed(7)
@@ -327,20 +349,117 @@ def test_matmul_kernel_matches_plain_on_every_built_tile(dev, dt):
         b = _randn(g, (K, N), dev, dt, K ** -0.5)
         want = kmm.matmul_plain(a, b, block_k=64)
         for bm, bn, bk in sorted(MATMUL_TILES):
-            got = kmm.matmul_cuda(a, b, block_m=bm, block_n=bn, block_k=bk)
+            got = kmm.matmul_simt_cuda(a, b, block_m=bm, block_n=bn,
+                                       block_k=bk)
             assert got.dtype == dt and got.shape == (M, N)
             _paper_close(got, want, dt, atol=1e-3)
 
 
-def test_matmul_reads_a_row_strided_operand(dev):
+def _padded(g, rows, cols, pitch, dev, scale=1.0):
+    """A (rows, cols) bf16 view with row stride ``pitch``: a ragged width
+    that TMA and 16-byte loads can still read."""
+    return _randn(g, (rows, pitch), dev, torch.bfloat16, scale)[:, :cols]
+
+
+def test_matmul_wgmma_matches_plain_on_every_built_tile(dev):
+    """The wgmma kernel (route ``matmul``) on every tile it is built for,
+    on ragged M, N and K: 193 x 130 x 200 (B's rows padded to 136), a K
+    shorter than one 64-deep stage, M exactly 64, and the GEMM_1K shape."""
+    from repro_torch.core.cuda_bridge import WGMMA_TILES
     from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(14)
+    for M, N, K, pitch in ((193, 130, 200, 136), (300, 64, 40, 64),
+                           (64, 520, 1000, 520), (1024, 1024, 1024, 1024)):
+        a = _randn(g, (M, K), dev, torch.bfloat16)
+        b = _padded(g, K, N, pitch, dev, K ** -0.5)
+        assert kmm.matmul_route(a, b) == "matmul"
+        want = kmm.matmul_plain(a, b, block_k=64)
+        ops.reset_launches()
+        for bm, bn, bk in sorted(WGMMA_TILES):
+            got = kmm.matmul_cuda(a, b, block_m=bm, block_n=bn, block_k=bk)
+            assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+            _paper_close(got, want, torch.bfloat16, atol=1e-3)
+        assert ops.LAUNCHES["matmul"] == len(WGMMA_TILES)
+
+
+@pytest.mark.parametrize("M", [1, 3, 7, 40])
+def test_matmul_gemv_matches_plain(dev, M):
+    """The split-K GEMV kernel at M 1, 3, 7 and 40 (five 8-row groups), on
+    a ragged N (200: a partial 64-column strip; 130 with rows padded to
+    136: a partial 8-column vector) and K that no split divides; and the
+    GEMM_FC shape.  Two runs give the same bits (the splits are summed in a
+    fixed order, no atomics).  The route (``matmul_gemv``) sends the kernel
+    only M <= ``GEMV_MAX_M`` (1), and ``ops.matmul`` must take it there;
+    the other M are launched directly."""
+    from repro_torch.core.cuda_bridge import GEMV_MAX_M, gemv_plan
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(15)
+    for N, K, pitch in ((200, 1000, 200), (130, 3001, 136),
+                        (4096, 9216, 4096)):
+        a = _randn(g, (M, K), dev, torch.bfloat16)
+        b = _padded(g, K, N, pitch, dev, K ** -0.5)
+        splits, kchunk = gemv_plan(M, N, K)
+        ops.reset_launches()
+        got = kmm.matmul_gemv_cuda(a, b)
+        assert ops.LAUNCHES["matmul_gemv"] == 1 and got.shape == (M, N)
+        _paper_close(got, kmm.matmul_gemv_plain(a, b), torch.bfloat16,
+                     atol=1e-3)
+        assert torch.equal(got, kmm.matmul_gemv_cuda(a, b))
+        if M <= GEMV_MAX_M:
+            assert kmm.matmul_route(a, b) == "matmul_gemv"
+            assert torch.equal(got, ops.matmul(a, b))
+            assert ops.LAUNCHES["matmul_gemv"] == 3
+        else:
+            assert kmm.matmul_route(a, b) != "matmul_gemv"
+        if N == 200:
+            assert splits > 1 and K % kchunk
+
+
+@pytest.mark.parametrize("M", [1, 5, 40])
+def test_ops_matmul_named_tile_below_64_rows_takes_wgmma(dev, M):
+    """bf16 M < 64 with a tile named: the GEMV takes no tile, so
+    ``ops.matmul`` honours it on the wgmma route (TMA zero-fills the rows
+    past M), also at M 1, the GEMV's M, with one ``matmul`` launch a call
+    and none of the GEMV; a tile the kernel is not built for raises."""
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(16)
+    a = _randn(g, (M, 200), dev, torch.bfloat16)
+    b = _padded(g, 200, 130, 136, dev, 200 ** -0.5)
+    assert kmm.matmul_route(a, b) == ("matmul_gemv" if M == 1 else
+                                      "matmul")
+    assert kmm.matmul_route(a, b, tiled=True) == "matmul"
+    want = kmm.matmul_plain(a, b, block_k=64)
+    ops.reset_launches()
+    for bm, bn in ((64, 64), (128, 256)):
+        got = ops.matmul(a, b, block_m=bm, block_n=bn, block_k=64)
+        assert got.dtype == torch.bfloat16 and got.shape == (M, 130)
+        _paper_close(got, want, torch.bfloat16, atol=1e-3)
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == {"matmul": 2}
+    with pytest.raises(ValueError, match="not one csrc/matmul.cu"):
+        ops.matmul(a, b, block_m=32, block_n=32, block_k=64)
+    assert ops.LAUNCHES["matmul_gemv"] == 0
+
+
+def test_matmul_reads_a_row_strided_operand(dev):
+    """A row-strided A whose base is not 16-byte aligned: ``ops.matmul``
+    routes it to the CUDA-core kernel, which reads it in place."""
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ops
     g = torch.Generator(device=dev).manual_seed(8)
     big = _randn(g, (100, 160), dev, torch.bfloat16)
     a = big[:, 10:90]                          # row stride 160, K 80
     b = _randn(g, (80, 96), dev, torch.bfloat16, 80 ** -0.5)
-    got = kmm.matmul_cuda(a, b, block_m=64, block_n=64, block_k=32)
+    assert kmm.matmul_route(a, b) == "matmul_simt"
+    ops.reset_launches()
+    got = ops.matmul(a, b)
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == {"matmul_simt": 1}
     _paper_close(got, kmm.matmul_plain(a.contiguous(), b, block_k=32),
                  torch.bfloat16, atol=1e-3)
+    with pytest.raises(ValueError, match="16-byte row stride"):
+        kmm.matmul_cuda(a, b, block_m=64, block_n=64, block_k=64)
 
 
 CONV = [
@@ -445,16 +564,24 @@ def test_paper_wrappers_launch_count_and_refuse_unbuilt_tiles(dev):
     q = _randn(g, (1, 4, 64), dev, torch.bfloat16)
     kc = _randn(g, (1, 2, 40, 64), dev, torch.bfloat16)
     ln = torch.tensor([30], dtype=torch.int32, device=dev)
+    a8 = _randn(g, (96, 64), dev, torch.bfloat16)     # 16-byte rows
     ops.reset_launches()
-    ops.matmul(a, a.t().contiguous())
+    ops.matmul(a, a.t().contiguous())        # B's rows are 140 bytes
+    ops.matmul(a8, a8.t().contiguous())      # M 96: wgmma
+    ops.matmul(a8[:1], a8.t().contiguous())  # M 1: the GEMV
     ops.conv2d(x, w)
     ops.correlation(i, i, radius=2)
     ops.flash_decode(q, kc, kc, ln)
     assert {k: n for k, n in ops.LAUNCHES.items() if n} == {
-        "matmul": 1, "conv2d": 1, "correlation": 1, "flash_decode": 1}
+        "matmul_simt": 1, "matmul": 1, "matmul_gemv": 1, "conv2d": 1,
+        "correlation": 1, "flash_decode": 1}
     with pytest.raises(ValueError, match="not one csrc/matmul.cu"):
         ops.matmul(a, a.t().contiguous(), block_m=32, block_n=32, block_k=64)
+    with pytest.raises(ValueError, match="not one csrc/matmul.cu"):
+        ops.matmul(a8, a8.t().contiguous(), block_m=64, block_n=64,
+                   block_k=32)
     with pytest.raises(ValueError, match="not ones csrc/conv2d.cu"):
         ops.conv2d(x, _randn(g, (3, 3, 8, 200), dev, torch.bfloat16),
                    block_co=200)
-    assert ops.LAUNCHES["matmul"] == ops.LAUNCHES["conv2d"] == 1
+    assert ops.LAUNCHES["matmul_simt"] == ops.LAUNCHES["conv2d"] == \
+        ops.LAUNCHES["matmul"] == 1

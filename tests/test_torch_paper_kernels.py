@@ -213,14 +213,18 @@ def test_cpu_calls_count_no_launch():
     q, kc, vc, ln = _decode_inputs(1, 4, 2, 8, 16, [5])
     pt_ops.flash_decode(*(torch.from_numpy(a) for a in (q, kc, vc, ln)))
     assert all(n == 0 for n in pt_ops.LAUNCHES.values())
-    assert {"matmul", "conv2d", "correlation", "flash_decode"} <= \
-        set(pt_ops.LAUNCHES)
+    assert {"matmul", "matmul_gemv", "matmul_simt", "conv2d", "correlation",
+            "flash_decode"} <= set(pt_ops.LAUNCHES)
 
 
 def test_cuda_launchers_refuse_cpu_tensors():
     x = torch.zeros(64, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
-        pt_mm.matmul_cuda(x, x, block_m=64, block_n=64, block_k=32)
+        pt_mm.matmul_cuda(x, x, block_m=64, block_n=64, block_k=64)
+    with pytest.raises(ValueError, match="CUDA"):
+        pt_mm.matmul_simt_cuda(x, x, block_m=64, block_n=64, block_k=32)
+    with pytest.raises(ValueError, match="CUDA"):
+        pt_mm.matmul_gemv_cuda(x[:1], x)
     with pytest.raises(ValueError, match="CUDA"):
         pt_conv.conv2d_cuda(torch.zeros(1, 8, 8, 4), torch.zeros(3, 3, 4, 8),
                             block_oh=8, block_co=8)
@@ -237,11 +241,21 @@ def test_cuda_launchers_refuse_cpu_tensors():
                                   (8, 128, 128)])
 def test_matmul_launcher_refuses_tiles_it_is_not_built_for(tile):
     """The tile is checked first: an unbuilt tile raises, and is never
-    replaced by another (the reference tests' 32 x 32 x 64 among them)."""
+    replaced by another (the reference tests' 32 x 32 x 64 among them).
+    Each tiled launcher holds the tile to its own kernel's set: 128 x 256 x
+    64 is a wgmma tile, not a CUDA-core one."""
+    from repro_torch.core.cuda_bridge import MATMUL_TILES, WGMMA_TILES
     x = torch.zeros(64, 64)
     bm, bn, bk = tile
-    with pytest.raises(ValueError, match="not one csrc/matmul.cu"):
-        pt_mm.matmul_cuda(x, x, block_m=bm, block_n=bn, block_k=bk)
+    refused = 0
+    for launch, built in ((pt_mm.matmul_cuda, WGMMA_TILES),
+                          (pt_mm.matmul_simt_cuda, MATMUL_TILES)):
+        if tile in built:
+            continue
+        with pytest.raises(ValueError, match="not one csrc/matmul.cu"):
+            launch(x, x, block_m=bm, block_n=bn, block_k=bk)
+        refused += 1
+    assert refused >= 1
 
 
 @pytest.mark.parametrize("blocks", [(0, 8), (65, 8), (8, 0), (8, 129)])
