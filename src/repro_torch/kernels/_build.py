@@ -46,12 +46,13 @@ SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "flash_decode",
 # Launches of each CUDA kernel route since the last reset
 # (``ops.reset_launches``): a plain integer per route, incremented by the
 # route's launcher (``*_cuda``) right after the launch is checked, and
-# nowhere else.  ``flash_fwd`` and ``matmul`` are the tensor-core (wgmma)
-# routes; ``flash_fwd_simt`` and ``matmul_simt`` the CUDA-core kernels kept
-# for f32 and for operands TMA cannot take; ``matmul_gemv`` the split-K
-# kernel pair for M = 1.
+# nowhere else.  ``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv`` and
+# ``matmul`` are the tensor-core (wgmma) routes; the ``*_simt`` keys the
+# CUDA-core kernels kept for f32 and for operands TMA cannot take;
+# ``matmul_gemv`` the split-K kernel pair for M = 1.
 LAUNCHES = {"flash_fwd": 0, "flash_fwd_simt": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0, "paged_decode_bf16": 0,
+            "flash_bwd_dkv": 0, "flash_bwd_dq_simt": 0,
+            "flash_bwd_dkv_simt": 0, "paged_decode_bf16": 0,
             "paged_decode_int8": 0, "flash_decode": 0, "matmul": 0,
             "matmul_gemv": 0, "matmul_simt": 0, "conv2d": 0,
             "correlation": 0}

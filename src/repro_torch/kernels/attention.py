@@ -16,8 +16,12 @@ The forward has two routes (:func:`flash_fwd_route`): ``"flash_fwd"``, the
 tensor-core (``wgmma``) kernel with 128 x 128 blocks, for bf16 at head_dim
 64 or 128 with strides TMA can read; and ``"flash_fwd_simt"``, the
 CUDA-core kernel with 64 x 64 blocks, for f32 and anything else.  The
-backward kernels keep 64 x 64 blocks whichever route the forward took:
-they read only o and the per-row lse, whose layouts do not depend on it.
+backward has two routes of its own (:func:`flash_bwd_route`), decided on
+q, k, v and do: ``"flash_bwd"``, the wgmma dq kernel (128 q rows x 64-key
+blocks) and dk/dv kernel (64-row q blocks x 128 keys), which round p and ds
+to bf16 before their second products; and ``"flash_bwd_simt"``, the
+CUDA-core pair at 64 x 64 in f32.  Each backward route reads only o and
+the per-row lse, whose layouts do not depend on the forward's route.
 """
 from __future__ import annotations
 
@@ -33,14 +37,20 @@ from . import _build
 
 NEG_INF = -1e30  # avoid nan from (-inf) - (-inf)
 
-# Block shape of the CUDA-core forward and of the backward kernels (64 x 64
-# score tile at head_dim 64 or 128; see csrc/flash_fwd.cu, flash_bwd.cu).
+# Block shape of the CUDA-core forward and backward kernels (64 x 64 score
+# tile at head_dim 64 or 128; see csrc/flash_fwd.cu, flash_bwd.cu).
 BLOCK_Q = 64
 BLOCK_K = 64
 # Block shape of the wgmma forward: 128 q rows (two warpgroups of 64) by
 # 128 keys, which keeps a 2-stage K/V ring in shared memory at head_dim 128.
 WGMMA_BLOCK_Q = 128
 WGMMA_BLOCK_K = 128
+# Block shapes of the wgmma backward (csrc/flash_bwd.cu): dq holds 128 q
+# rows (two warpgroups of 64) against 64-key K / V blocks; dk/dv holds 128
+# keys (two warpgroups of 64) against 64-row Q / dO steps, which keeps
+# dK, dV, S^T and dP^T of a warpgroup in its registers at head_dim 128.
+WGMMA_BWD_DQ_BLOCKS = (128, 64)
+WGMMA_BWD_DKV_BLOCKS = (64, 128)
 
 
 # ---------------------------------------------------------------------------
@@ -268,10 +278,13 @@ class _BwdPairs:
     """The backward's per-pair arithmetic over all heads at once, shared by
     the plain dq and dk/dv walks: f32 scores, ``p = exp(s - lse)`` under
     the mask guard (a fully masked row has lse == NEG_INF and would
-    otherwise come back as exp(0)), ``ds = p * (dp - delta) * scale``."""
+    otherwise come back as exp(0)), ``ds = p * (dp - delta) * scale``.
+    ``rounded`` rounds p and ds to bf16 after ds is formed from the f32 p,
+    as the wgmma route feeds them to its second products (dv += p^T . do,
+    dq += ds . k, dk += ds^T . q)."""
 
     def __init__(self, q, k, v, do, lse, delta, causal, window, block_q,
-                 block_k, scale, kv_len, q_len):
+                 block_k, scale, kv_len, q_len, rounded=False):
         BH, Sq, Dh = q.shape
         BHkv, Sk, _ = k.shape
         if BH % BHkv:
@@ -286,6 +299,7 @@ class _BwdPairs:
         self.kv_len = Sk if kv_len is None else kv_len
         self.q_len = Sq if q_len is None else q_len
         self.nq, self.nk = -(-Sq // block_q), -(-Sk // block_k)
+        self.rounded = rounded
 
     def schedule(self, order: str) -> list:
         sched, _ = _pair_schedule(self.nq, self.nk, self.block_q,
@@ -306,16 +320,20 @@ class _BwdPairs:
         p = torch.where(mask, torch.exp(s - lse), 0.0)
         dp = torch.einsum("hqd,hkd->hqk", dob, vb)
         ds = p * (dp - _rows(self.delta, q0, bq)[..., None]) * self.scale
+        if self.rounded:
+            p = p.to(torch.bfloat16).float()
+            ds = ds.to(torch.bfloat16).float()
         return qb, dob, kb, p, ds
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, causal=True, window=None,
                        block_q=BLOCK_Q, block_k=BLOCK_K, scale=None,
-                       kv_len=None, q_len=None) -> torch.Tensor:
+                       kv_len=None, q_len=None,
+                       rounded=False) -> torch.Tensor:
     """dq (f32, q's shape) of :func:`flash_attention_bwd_plain`: the
     row-ordered pair table, ``dq += ds . k`` per step."""
     w = _BwdPairs(q, k, v, do, lse, delta, causal, window, block_q, block_k,
-                  scale, kv_len, q_len)
+                  scale, kv_len, q_len, rounded)
     BH, Sq, Dh = q.shape
     dq = torch.zeros((BH, Sq, Dh), dtype=torch.float32, device=q.device)
     acc = None
@@ -332,13 +350,13 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, causal=True, window=None,
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal=True,
                         window=None, block_q=BLOCK_Q, block_k=BLOCK_K,
-                        scale=None, kv_len=None, q_len=None
+                        scale=None, kv_len=None, q_len=None, rounded=False
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) (f32, k's shape) of :func:`flash_attention_bwd_plain`: the
     column-ordered pair table, ``dv += p^T . do`` and ``dk += ds^T . q``
     per step, a GQA group's heads and q rows folded in one sum."""
     w = _BwdPairs(q, k, v, do, lse, delta, causal, window, block_q, block_k,
-                  scale, kv_len, q_len)
+                  scale, kv_len, q_len, rounded)
     BHkv, Sk, Dh = k.shape
     g = w.group
 
@@ -371,22 +389,30 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
                               scale: float | None = None,
                               kv_len: int | None = None,
-                              q_len: int | None = None
+                              q_len: int | None = None,
+                              dkv_blocks: tuple[int, int] | None = None,
+                              rounded: bool = False
                               ) -> tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """Flash backward from the saved residuals.  q/do: (BH, Sq, D); k/v:
     (BHkv, Sk, D); lse/delta: f32 (BH, Sq) with ``delta = rowsum(o * do)``.
     Returns (dq, dk, dv) in f32.
 
-    Walks the row-ordered pair table for dq and the column-ordered one for
-    dk/dv, one step at a time over all heads at once, with the kernels'
-    arithmetic (:class:`_BwdPairs`).  Sentinel pairs are computed like any
+    Walks the row-ordered pair table at (block_q, block_k) for dq and the
+    column-ordered one at ``dkv_blocks`` (default the same) for dk/dv, one
+    step at a time over all heads at once, with the kernels' arithmetic
+    (:class:`_BwdPairs`; ``rounded``: p and ds in bf16 before their second
+    products, as the wgmma route).  :func:`flash_bwd_plain_kw` gives a
+    route's blocks and rounding.  Sentinel pairs are computed like any
     other, so where they are fully masked they drain 0, as in the
     reference."""
-    kw = dict(causal=causal, window=window, block_q=block_q,
-              block_k=block_k, scale=scale, kv_len=kv_len, q_len=q_len)
-    dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
-    return (dq, *flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw))
+    kw = dict(causal=causal, window=window, scale=scale, kv_len=kv_len,
+              q_len=q_len, rounded=rounded)
+    dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, block_q=block_q,
+                            block_k=block_k, **kw)
+    bq, bk = dkv_blocks or (block_q, block_k)
+    return (dq, *flash_bwd_dkv_plain(q, k, v, do, lse, delta, block_q=bq,
+                                     block_k=bk, **kw))
 
 
 # ---------------------------------------------------------------------------
@@ -405,18 +431,48 @@ def _tma_strides(t: torch.Tensor) -> list[int]:
             for st, n in zip(t.stride()[:3], t.shape[:3])]
 
 
+def _tma_readable(t: torch.Tensor) -> bool:
+    """bf16 with a contiguous head dim, a 16-byte aligned base and
+    (batch, head, seq) strides that are positive multiples of 8 elements:
+    what the wgmma kernels' TMA descriptors can read."""
+    return (t.dtype == torch.bfloat16 and t.stride(-1) == 1 and
+            t.data_ptr() % 16 == 0 and
+            all(st > 0 and st % 8 == 0 for st in _tma_strides(t)))
+
+
 def flash_fwd_route(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> str:
     """The forward kernel's route (module docstring), a pure function of
     the inputs' dtype, head_dim and strides on any device: ``"flash_fwd"``
-    (wgmma) for bf16 q/k/v at head_dim 64 or 128 whose (batch, head, seq)
-    strides are multiples of 8 elements (16 bytes) and whose bases are
-    16-byte aligned, ``"flash_fwd_simt"`` otherwise."""
-    ok = (all(t.dtype == torch.bfloat16 and t.stride(-1) == 1 and
-              t.data_ptr() % 16 == 0 and
-              all(st % 8 == 0 for st in _tma_strides(t)) for t in (q, k, v))
-          and q.shape[-1] in (64, 128))
+    (wgmma) for bf16 q/k/v at head_dim 64 or 128 that TMA can read
+    (:func:`_tma_readable`), ``"flash_fwd_simt"`` otherwise."""
+    ok = all(_tma_readable(t) for t in (q, k, v)) and q.shape[-1] in (64, 128)
     return "flash_fwd" if ok else "flash_fwd_simt"
+
+
+def flash_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    do: torch.Tensor) -> str:
+    """The backward kernels' route (module docstring), a pure function of
+    dtype, head_dim and strides on any device: ``"flash_bwd"`` (the wgmma
+    pair, launch keys ``flash_bwd_dq`` and ``flash_bwd_dkv``) for bf16 q,
+    k, v and do at head_dim 64 or 128 that TMA can read,
+    ``"flash_bwd_simt"`` (keys ``flash_bwd_dq_simt``,
+    ``flash_bwd_dkv_simt``) otherwise."""
+    ok = (all(_tma_readable(t) for t in (q, k, v, do))
+          and q.shape[-1] in (64, 128))
+    return "flash_bwd" if ok else "flash_bwd_simt"
+
+
+def flash_bwd_plain_kw(route: str) -> dict:
+    """The blocks and rounding of a backward route's kernels, as
+    :func:`flash_attention_bwd_plain` takes them: the plain version at
+    these is the same function as the route's kernels."""
+    if route == "flash_bwd":
+        bq, bk = WGMMA_BWD_DQ_BLOCKS
+        return dict(block_q=bq, block_k=bk, dkv_blocks=WGMMA_BWD_DKV_BLOCKS,
+                    rounded=True)
+    return dict(block_q=BLOCK_Q, block_k=BLOCK_K,
+                dkv_blocks=(BLOCK_Q, BLOCK_K), rounded=False)
 
 
 def flash_fwd_blocks(route: str) -> tuple[int, int]:
@@ -526,57 +582,69 @@ def _strides(*ts) -> ctypes.Array:
         *[st for t in ts for st in t.stride()[:3]])
 
 
-_BWD_ARGS = (*[ctypes.c_int] * 10, ctypes.POINTER(ctypes.c_longlong),
-             ctypes.c_float)
+def _bwd_call(name: str, q, k, v, do, lse, delta, outs, ranges, causal,
+              window, route: str) -> None:
+    """Launch kernel ``name`` ('dq' or 'dkv') of ``route`` and count it."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *[o.data_ptr() for o in outs],
+            ranges.data_ptr())
+    shape = (B, H, H // Hkv, Sq, Sk, D, ranges.shape[0], int(bool(causal)),
+             0 if window is None else int(window))
+    tail = (ctypes.POINTER(ctypes.c_longlong), ctypes.c_float)
+    if route == "flash_bwd":
+        key = f"flash_bwd_{name}"
+        fn = _build.bind("flash_bwd", f"{key}_wgmma",
+                         *[ctypes.c_void_p] * len(ptrs),
+                         *[ctypes.c_int] * 9, *tail)
+        st = [x for t in (q, k, v, do) for x in _tma_strides(t)]
+        st += [x for o in outs for x in o.stride()[:3]]
+        err = fn(*ptrs, *shape, (ctypes.c_longlong * len(st))(*st),
+                 1.0 / math.sqrt(D), _build.stream_ptr(q))
+    else:
+        key = f"flash_bwd_{name}_simt"
+        fn = _build.bind("flash_bwd", key, *[ctypes.c_void_p] * len(ptrs),
+                         *[ctypes.c_int] * 10, *tail)
+        err = fn(*ptrs, _DTYPE_CODE[q.dtype], *shape,
+                 _strides(q, k, v, do, *outs), 1.0 / math.sqrt(D),
+                 _build.stream_ptr(q))
+    _build.check(err, key)
+    _build.LAUNCHES[key] += 1
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal=True,
                       window=None) -> torch.Tensor:
-    """Launch ``flash_bwd_dq`` of ``csrc/flash_bwd.cu``; arguments as
-    :func:`flash_attention_bwd_cuda`.  Returns dq in f32 with q's memory
-    layout."""
+    """Launch the dq kernel of ``csrc/flash_bwd.cu`` that
+    :func:`flash_bwd_route` names (launch key ``flash_bwd_dq`` or
+    ``flash_bwd_dq_simt``); arguments as :func:`flash_attention_bwd_cuda`.
+    Returns dq in f32 with q's memory layout."""
     _check_bwd(q, k, v, do, lse, delta, window)
-    B, H, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
-    rows = _ranges_on(q.device, Sq, Sk, bool(causal), window, "row",
-                      BLOCK_Q, BLOCK_K)
+    route = flash_bwd_route(q, k, v, do)
+    kw = flash_bwd_plain_kw(route)
+    rows = _ranges_on(q.device, q.shape[2], k.shape[2], bool(causal), window,
+                      "row", kw["block_q"], kw["block_k"])
     dq = torch.empty_like(q, dtype=torch.float32)
-    fn = _build.bind("flash_bwd", "flash_bwd_dq", *[ctypes.c_void_p] * 8,
-                     *_BWD_ARGS)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), rows.data_ptr(),
-             _DTYPE_CODE[q.dtype], B, H, H // Hkv, Sq, Sk, D, rows.shape[0],
-             int(bool(causal)), 0 if window is None else int(window),
-             _strides(q, k, v, do, dq), 1.0 / math.sqrt(D),
-             _build.stream_ptr(q))
-    _build.check(err, "flash_bwd_dq")
-    _build.LAUNCHES["flash_bwd_dq"] += 1
+    _bwd_call("dq", q, k, v, do, lse, delta, (dq,), rows, causal, window,
+              route)
     return dq
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal=True,
                        window=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``flash_bwd_dkv`` of ``csrc/flash_bwd.cu``; arguments as
-    :func:`flash_attention_bwd_cuda`.  Returns (dk, dv) in f32 with k's
-    and v's memory layouts."""
+    """Launch the dk/dv kernel of ``csrc/flash_bwd.cu`` that
+    :func:`flash_bwd_route` names (launch key ``flash_bwd_dkv`` or
+    ``flash_bwd_dkv_simt``); arguments as
+    :func:`flash_attention_bwd_cuda`.  Returns (dk, dv) in f32 with k's and
+    v's memory layouts."""
     _check_bwd(q, k, v, do, lse, delta, window)
-    B, H, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
-    cols = _ranges_on(q.device, Sq, Sk, bool(causal), window, "col",
-                      BLOCK_Q, BLOCK_K)
+    route = flash_bwd_route(q, k, v, do)
+    cols = _ranges_on(q.device, q.shape[2], k.shape[2], bool(causal), window,
+                      "col", *flash_bwd_plain_kw(route)["dkv_blocks"])
     dk = torch.empty_like(k, dtype=torch.float32)
     dv = torch.empty_like(v, dtype=torch.float32)
-    fn = _build.bind("flash_bwd", "flash_bwd_dkv", *[ctypes.c_void_p] * 9,
-                     *_BWD_ARGS)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             cols.data_ptr(), _DTYPE_CODE[q.dtype], B, H, H // Hkv, Sq, Sk, D,
-             cols.shape[0], int(bool(causal)),
-             0 if window is None else int(window),
-             _strides(q, k, v, do, dk, dv), 1.0 / math.sqrt(D),
-             _build.stream_ptr(q))
-    _build.check(err, "flash_bwd_dkv")
-    _build.LAUNCHES["flash_bwd_dkv"] += 1
+    _bwd_call("dkv", q, k, v, do, lse, delta, (dk, dv), cols, causal, window,
+              route)
     return dk, dv
 
 
@@ -586,11 +654,12 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              causal: bool = True, window: int | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
-    """Launch the two kernels of ``csrc/flash_bwd.cu``: dq, then dk/dv.
-    q/do: (B, H, Sq, D), k/v: (B, Hkv, Sk, D) — any strides with a
-    contiguous last dimension (``do`` arrives as the gradient of a
-    transposed view); lse/delta: f32 (B * H, Sq) contiguous.  Returns
-    (dq, dk, dv) in f32, each with its input's memory layout."""
+    """Launch the two kernels of ``csrc/flash_bwd.cu`` on the route
+    :func:`flash_bwd_route` names: dq, then dk/dv.  q/do: (B, H, Sq, D),
+    k/v: (B, Hkv, Sk, D) — any strides with a contiguous last dimension
+    (``do`` arrives as the gradient of a transposed view); lse/delta: f32
+    (B * H, Sq) contiguous.  Returns (dq, dk, dv) in f32, each with its
+    input's memory layout."""
     kw = dict(causal=causal, window=window)
     dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
     return (dq, *flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw))
@@ -628,8 +697,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the cast to the inputs' dtypes.  q/o/do: (B, H, Sq, D), k/v: (B, Hkv,
     Sk, D), lse: f32 (B * H, Sq) from the forward.  Forms ``delta =
     rowsum(o * do)`` in f32 with torch ops, as the reference does outside
-    its kernels, then launches the dq and dk/dv kernels on CUDA tensors
-    (or raises) and runs the plain versions on CPU tensors.  Returns
+    its kernels, then launches the dq and dk/dv kernels of
+    :func:`flash_bwd_route` on CUDA tensors (or raises) and runs the plain
+    versions at that route's blocks and rounding on CPU tensors.  Returns
     (dq, dk, dv) in f32 with q's, k's and v's shapes."""
     B, H, Sq, D = q.shape
     if do.stride(-1) != 1:                 # e.g. an expanded gradient
@@ -641,7 +711,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_bwd_cuda(q, k, v, do, lse, delta, **kw)
     dq, dk, dv = flash_attention_bwd_plain(
         q.reshape(B * H, Sq, D), *_kv_rows(k, v), do.reshape(B * H, Sq, D),
-        lse, delta, **kw)
+        lse, delta, **kw, **flash_bwd_plain_kw(flash_bwd_route(q, k, v, do)))
     return dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape)
 
 

@@ -61,12 +61,6 @@ constexpr int FA_THREADS = 2 * 128 + 32;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <int D>
 struct FaSmem {
   static constexpr int Q_BYTES = FA_BQ * D * 2;   // D / 64 atom columns

@@ -16,8 +16,23 @@ Tolerances: a bf16 output element may differ by one bf16 ulp of its value
 flash forward, whose p is rounded to bf16 before PV, 1e-4 for paged decode,
 which keeps p in f32; each row's relative L2 error stays under 2^-6.  f32
 outputs may differ by 1e-4.  The backward kernels' outputs are f32 sums in
-another order than the plain version's: each element within
-2^-10 |want| + 1e-5 max|want|, each row's relative L2 error under 2^-10.
+another order than the plain version's.  On the CUDA-core route
+(``flash_bwd_simt``: f32, unaligned views) nothing is rounded: each
+element within 2^-10 |want| + 1e-5 max|want|, each row's relative L2 error
+under 2^-10.  The wgmma route (``flash_bwd``) rounds p and ds to bf16
+before their second products, and so does the plain version it is held
+against; the two form p and ds in f32 in other orders (and with exp2 in
+the kernel), so where a value lies at a bf16 rounding boundary one of them
+rounds up and the other down: that term of a sum moves by one bf16 ulp, at
+most 2^-7 of itself.  Flips are rare (the f32 values differ by ~1e-6
+relative, an ulp is 2^-8) and unbiased, so the whole tensor's relative L2
+error stays under 2^-10; but a row dominated by one term (the last keys of
+a causal dk / dv see one q row per head) can move by 2^-7 of its norm.
+So: each element within 2^-7 (|want| + the RMS of its row), each row's
+L2 error under 2^-7 of its norm, the tensor's under 2^-10, and each with
+an absolute floor of 1e-5 max|want| (per element; times sqrt(D) a row)
+for rows that cancel to 0 (a causal first q row, whose ds is
+p (dp - delta) with delta = dp in exact arithmetic).
 The paper-workload kernels' inputs are scaled to unit-variance outputs;
 their f32 sums run in another order than the plain version's (atol 1e-3
 in bf16, 1e-4 in f32; decode 1e-4 as paged decode)."""
@@ -104,42 +119,119 @@ def _bwd_close(got, want):
     assert not (diff > tol).any(), f"max err {diff.max().item()}"
 
 
-# the forward's cases, and non-causal with a window past the keys: q rows
-# from 163 on see no key, so their lse is -1e30 and their dq must be 0
-FLASH_BWD = FLASH + [(1, 256, 64, 4, 2, 64, False, 100, torch.float32)]
+def _bwd_close_rounded(got, want):
+    """The wgmma route against its rounded plain version (module
+    docstring)."""
+    diff = (got - want).abs()
+    atol = 1e-5 * want.abs().max()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    rel = (diff.norm() / want.norm().clamp_min(1e-30)).item()
+    assert rel <= 2.0 ** -10, f"tensor rel L2 err {rel}"
+    row_excess = diff.norm(dim=-1) - (2.0 ** -7 * want.norm(dim=-1) +
+                                      atol * want.shape[-1] ** 0.5)
+    assert row_excess.max().item() <= 0, \
+        f"row L2 err over its bound by {row_excess.max().item()}"
+    bad = diff > 2.0 ** -7 * (want.abs() + rms) + atol
+    assert not bad.any(), f"max err {diff.max().item()}"
+
+
+# the forward's cases; head_dim 64 at GQA groups 1, 4 and 8; and
+# non-causal with a window past the keys: q rows from 163 on see no key,
+# so their lse is -1e30 and their dq must be 0
+FLASH_BWD = FLASH + [
+    (1, 512, 512, 8, 8, 64, True, None, torch.bfloat16),
+    (2, 384, 384, 16, 4, 64, True, 200, torch.bfloat16),
+    (1, 300, 300, 16, 2, 64, False, None, torch.bfloat16),
+    (1, 256, 64, 8, 1, 64, False, 100, torch.bfloat16),
+    (1, 256, 64, 4, 2, 64, False, 100, torch.float32),
+]
+
+
+def _bwd_inputs(dev, case, seed=3):
+    B, S, Sk, H, Hkv, D, causal, window, dt = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn((B, S, H, D), generator=g, device=dev).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((B, Sk, Hkv, D), generator=g, device=dev).to(dt)
+            for _ in range(2))
+    return tuple(x.transpose(1, 2) for x in (q, k, v, do))
+
+
+def _bwd_check(qt, kt, vt, dot, causal, window, route):
+    """The backward kernels fed the forward kernel's own o and lse, as
+    ``FlashAttention`` feeds them, against the plain backward on the same
+    residuals at the route's blocks and rounding."""
+    from repro_torch.kernels import attention as katt
+    from repro_torch.kernels import ops
+    B, H, S, D = qt.shape
+    Hkv, Sk = kt.shape[1], kt.shape[2]
+    assert katt.flash_bwd_route(qt, kt, vt, dot) == route
+    kw = dict(causal=causal, window=window)
+    o, lse = katt.flash_attention_fwd_cuda(qt, kt, vt, **kw)
+    o = o.reshape(B * H, S, D)
+    delta = (o.float() * dot.reshape(B * H, S, D).float()).sum(-1)
+    ops.reset_launches()
+    got = katt.flash_attention_bwd_cuda(qt, kt, vt, dot, lse, delta, **kw)
+    keys = ("flash_bwd_dq", "flash_bwd_dkv") if route == "flash_bwd" else \
+        ("flash_bwd_dq_simt", "flash_bwd_dkv_simt")
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == \
+        dict.fromkeys(keys, 1)
+    want = katt.flash_attention_bwd_plain(
+        qt.reshape(B * H, S, D), kt.reshape(B * Hkv, Sk, D),
+        vt.reshape(B * Hkv, Sk, D), dot.reshape(B * H, S, D), lse, delta,
+        **kw, **katt.flash_bwd_plain_kw(route))
+    # written in q's and k's memory layouts (dense views: their own strides)
+    assert got[0].stride() == torch.empty_like(qt).stride()
+    assert got[1].stride() == torch.empty_like(kt).stride()
+    close = _bwd_close_rounded if route == "flash_bwd" else _bwd_close
+    for x, w in zip(got, want):
+        assert x.dtype == torch.float32 and torch.isfinite(x).all()
+        close(x.reshape(w.shape), w)
+    if not causal and window is not None and S > Sk - 1 + window:
+        dead = (lse == -1e30)        # q rows that see no key: dq is 0
+        assert dead.any() and (got[0].reshape(want[0].shape)[dead] == 0).all()
+    return got
 
 
 @pytest.mark.parametrize("case", FLASH_BWD,
                          ids=lambda c: "-".join(map(str, c)))
 def test_flash_bwd_kernels_match_plain(dev, case):
-    """The backward kernels fed the forward kernel's own o and lse (the
-    wgmma route's for bf16, the CUDA-core route's for f32), as
-    ``FlashAttention`` feeds them, against the plain backward on the same
-    residuals."""
+    """bf16 takes the wgmma pair (held against the rounded plain version at
+    its blocks), f32 the CUDA-core pair (the unrounded one at 64 x 64)."""
+    route = "flash_bwd" if case[-1] == torch.bfloat16 else "flash_bwd_simt"
+    _bwd_check(*_bwd_inputs(dev, case), case[6], case[7], route)
+
+
+@pytest.mark.parametrize("case", [
+    (1, 200, 200, 8, 2, 128, True, None),
+    (2, 130, 190, 4, 1, 64, False, 50)], ids=lambda c: "-".join(map(str, c)))
+def test_flash_bwd_simt_route_takes_unaligned_bf16(dev, case):
+    """bf16 whose seq stride is not a multiple of 8 elements (a slice of a
+    wider buffer) takes the CUDA-core pair, held against the unrounded
+    plain version at 64 x 64."""
+    B, S, Sk, H, Hkv, D, causal, window = case
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def view(s, h):
+        wide = torch.randn((B, s, h * D + 4), generator=g, device=dev)
+        return wide.to(torch.bfloat16)[..., :h * D].unflatten(
+            -1, (h, D)).transpose(1, 2)
+
+    qt, kt, vt, dot = view(S, H), view(Sk, Hkv), view(Sk, Hkv), view(S, H)
+    _bwd_check(qt, kt, vt, dot, causal, window, "flash_bwd_simt")
+
+
+def test_flash_bwd_wgmma_is_deterministic(dev):
+    """No atomics: two launches of the wgmma pair on the same inputs give
+    the same bits (the per-layer recompute relies on it)."""
     from repro_torch.kernels import attention as katt
-    B, S, Sk, H, Hkv, D, causal, window, dt = case
-    g = torch.Generator(device=dev).manual_seed(3)
-    q, do = (torch.randn((B, S, H, D), generator=g, device=dev).to(dt)
-             for _ in range(2))
-    k, v = (torch.randn((B, Sk, Hkv, D), generator=g, device=dev).to(dt)
-            for _ in range(2))
-    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
-    flat = (qt.reshape(B * H, S, D), kt.reshape(B * Hkv, Sk, D),
-            vt.reshape(B * Hkv, Sk, D))
-    kw = dict(causal=causal, window=window)
-    o, lse = katt.flash_attention_fwd_cuda(qt, kt, vt, **kw)
-    o = o.reshape(B * H, S, D)
-    delta = (o.float() * dot.reshape(B * H, S, D).float()).sum(-1)
-    got = katt.flash_attention_bwd_cuda(qt, kt, vt, dot, lse, delta, **kw)
-    want = katt.flash_attention_bwd_plain(*flat, dot.reshape(B * H, S, D),
-                                          lse, delta, **kw)
-    assert got[0].stride() == qt.stride() and got[1].stride() == kt.stride()
-    for x, w in zip(got, want):
-        assert x.dtype == torch.float32
-        _bwd_close(x.reshape(w.shape), w)
-    if not causal and window is not None:
-        dead = (lse == -1e30)
-        assert dead.any() and (got[0].reshape(want[0].shape)[dead] == 0).all()
+    qt, kt, vt, dot = _bwd_inputs(dev, FLASH_BWD[0], seed=9)
+    B, H, S, D = qt.shape
+    o, lse = katt.flash_attention_fwd_cuda(qt, kt, vt, causal=True)
+    delta = (o.float() * dot.float()).sum(-1).reshape(B * H, S)
+    first = katt.flash_attention_bwd_cuda(qt, kt, vt, dot, lse, delta)
+    second = katt.flash_attention_bwd_cuda(qt, kt, vt, dot, lse, delta)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 PAGED = [
@@ -227,6 +319,8 @@ def test_launchers_count_launches_and_forward_launch_refuses_autograd(dev):
         katt.flash_attention_bwd(x, x[:, :2], x[:, :2], o, lse, x)
     assert ops.LAUNCHES["flash_fwd"] == 4
     assert ops.LAUNCHES["flash_bwd_dq"] == ops.LAUNCHES["flash_bwd_dkv"] == 2
+    assert ops.LAUNCHES["flash_bwd_dq_simt"] == \
+        ops.LAUNCHES["flash_bwd_dkv_simt"] == 0
 
 
 @pytest.mark.parametrize("kv_mode", ["dense", "paged", "paged_int8"])
@@ -313,6 +407,7 @@ def test_train_step_on_the_card_matches_cpu(dev):
     # remat: each layer's flash forward runs again in the backward
     assert n["flash_fwd"] == 2 * cfg.n_layers
     assert n["flash_bwd_dq"] == n["flash_bwd_dkv"] == cfg.n_layers
+    assert n["flash_bwd_dq_simt"] == n["flash_bwd_dkv_simt"] == 0
 
 
 # ---------------------------------------------------------------------------

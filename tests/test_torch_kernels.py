@@ -162,7 +162,8 @@ def test_flash_wrapper_matches_reference_ops():
 SWEEP = [(Sq, Sk, bq, bk, causal, window)
          for Sq, Sk in [(64, 64), (128, 128), (96, 160), (2048, 2048),
                         (256, 64)]     # non-causal + window: sentinel rows
-         for bq, bk in [(64, 64), (32, 64), (128, 128)]
+         for bq, bk in [(64, 64), (32, 64), (128, 128), (128, 64),
+                        (64, 128)]
          for causal in (True, False)
          for window in (None, 100)
          if Sq % bq == 0 and Sk % bk == 0]

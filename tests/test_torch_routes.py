@@ -1,13 +1,17 @@
-"""The kernel routes of the port's matmul and flash forward, on the CPU: the
-route functions (``kernels.matmul.matmul_route``,
-``kernels.attention.flash_fwd_route``) that pick the tensor-core, GEMV or
-CUDA-core kernel before a launch; the plain versions of the new schedules
-against the reference's Pallas kernels in interpret mode (the split-K GEMV
-at M 1-7, within the reference test's 2e-4 in f32; the flash forward at the
-wgmma kernel's 128 x 128 blocks, within the present 1e-5); the pruned
-ranges at those blocks against the reference's ``_row_range``; the CPU
-wrappers following the routes; and the build's hash of included headers
-and its ``ptxas`` report."""
+"""The kernel routes of the port's matmul and flash attention, on the CPU:
+the route functions (``kernels.matmul.matmul_route``,
+``kernels.attention.flash_fwd_route``, ``flash_bwd_route``) that pick the
+tensor-core, GEMV or CUDA-core kernel before a launch; the plain versions
+of the new schedules against the reference's Pallas kernels in interpret
+mode (the split-K GEMV at M 1-7, within the reference test's 2e-4 in f32;
+the flash forward at the wgmma kernel's 128 x 128 blocks and the backward
+at the wgmma pair's 128 x 64 / 64 x 128, within the present 1e-5, and the
+backward with p and ds rounded to bf16 within a bound derived from that
+rounding); the pruned ranges at those blocks against the reference's
+``_row_range``; the CPU wrappers following the routes; and the build's
+hash of included headers and its ``ptxas`` report."""
+import functools
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -278,6 +282,195 @@ def test_ops_flash_attention_takes_the_route_blocks_on_cpu():
             k.reshape(B * Hkv, S, D), causal=True, block_q=blocks[0],
             block_k=blocks[1])
         assert torch.equal(got, want.reshape(B, H, S, D))
+
+
+# ---------------------------------------------------------------------------
+# flash backward routes and the plain backward at the wgmma pair's blocks
+# ---------------------------------------------------------------------------
+
+def _unaligned_base(B, S, H, D):
+    """A (B, H, S, D) view of (B, S, H, D) bf16 whose base is 8 bytes past
+    a 16-byte boundary."""
+    flat = _t((B * S * H * D + 4,))[4:]
+    return flat.view(B, S, H, D).transpose(1, 2)
+
+
+FLASH_BWD_ROUTES = [
+    # (id, (q, kv, do) built in the test, route)
+    ("bf16 D 128", lambda: (_bshd(2, 256, 32, 128), _bshd(2, 256, 8, 128),
+                            _bshd(2, 256, 32, 128)), "flash_bwd"),
+    ("bf16 D 64", lambda: (_bshd(1, 300, 8, 64), _bshd(1, 300, 8, 64),
+                           _bshd(1, 300, 8, 64)), "flash_bwd"),
+    ("bf16 size-1 batch and heads",
+     lambda: (_bshd(1, 200, 1, 64), _bshd(1, 200, 1, 64),
+              _bshd(1, 200, 1, 64)), "flash_bwd"),
+    ("bf16 contiguous (B, H, S, D)",
+     lambda: (_t((1, 4, 128, 64)), _t((1, 4, 128, 64))[:, :2],
+              _t((1, 4, 128, 64))), "flash_bwd"),
+    ("f32", lambda: (_bshd(1, 64, 4, 64, torch.float32),
+                     _bshd(1, 64, 2, 64, torch.float32),
+                     _bshd(1, 64, 4, 64, torch.float32)), "flash_bwd_simt"),
+    ("bf16 D 32", lambda: (_bshd(1, 64, 4, 32), _bshd(1, 64, 2, 32),
+                           _bshd(1, 64, 4, 32)), "flash_bwd_simt"),
+    ("bf16 do seq stride 68",
+     lambda: (_bshd(1, 64, 1, 64), _bshd(1, 64, 1, 64),
+              _t((1, 64, 68))[..., :64].unsqueeze(1)), "flash_bwd_simt"),
+    ("bf16 q base 8 bytes off 16",
+     lambda: (_unaligned_base(1, 64, 4, 64), _bshd(1, 64, 2, 64),
+              _bshd(1, 64, 4, 64)), "flash_bwd_simt"),
+    ("bf16 do expanded over heads",
+     lambda: (_bshd(1, 64, 4, 64), _bshd(1, 64, 2, 64),
+              _t((1, 1, 64, 64)).expand(1, 4, 64, 64)), "flash_bwd_simt"),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_ROUTES,
+                         ids=[c[0] for c in FLASH_BWD_ROUTES])
+def test_flash_bwd_route(case):
+    """bf16 q, k, v and do at head_dim 64 or 128 that TMA can read (16-byte
+    bases, positive (batch, head, seq) strides in multiples of 8 elements)
+    -> the wgmma pair, dq at 128 x 64 and dk/dv at 64 x 128 with p and ds
+    rounded to bf16; anything else -> the CUDA-core pair at 64 x 64,
+    unrounded."""
+    _, operands, want = case
+    q, kv, do = operands()
+    assert pt_att.flash_bwd_route(q, kv, kv, do) == want
+    kw = pt_att.flash_bwd_plain_kw(want)
+    if want == "flash_bwd":
+        assert kw == dict(block_q=128, block_k=64, dkv_blocks=(64, 128),
+                          rounded=True)
+    else:
+        assert kw == dict(block_q=64, block_k=64, dkv_blocks=(64, 64),
+                          rounded=False)
+
+
+def _bf16_values(rng, *shape):
+    """Normal f32 values that bf16 holds exactly."""
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    return x.to(BF16).float().numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_reference(case: str):
+    """Inputs, residuals and the reference's Pallas backward (interpret
+    mode, f32) of one ``FWD_CASES`` case: dq at the wgmma dq kernel's
+    128 x 64 blocks, dk/dv at the dk/dv kernel's 64 x 128."""
+    BH, BHkv, S, D, causal, window, q_len, kv_len = FWD_CASES[case]
+    rng = np.random.default_rng(sorted(FWD_CASES).index(case))
+    q, do = _bf16_values(rng, BH, S, D), _bf16_values(rng, BH, S, D)
+    k, v = _bf16_values(rng, BHkv, S, D), _bf16_values(rng, BHkv, S, D)
+    kw = dict(causal=causal, window=window, q_len=q_len, kv_len=kv_len)
+    o, lse = pt_att.flash_attention_fwd_plain(
+        *map(torch.from_numpy, (q, k, v)), block_q=128, block_k=128, **kw)
+    lse = lse.numpy()
+    delta = (o.numpy() * do).sum(-1)
+    args = tuple(map(jnp.asarray, (q, k, v, do, lse, delta)))
+    dq = ref_att.flash_attention_bwd_pallas(
+        *args, block_q=128, block_k=64, interpret=True, **kw)[0]
+    _, dk, dv = ref_att.flash_attention_bwd_pallas(
+        *args, block_q=64, block_k=128, interpret=True, **kw)
+    want = tuple(np.asarray(x) for x in (dq, dk, dv))
+    return (q, k, v, do, lse, delta), kw, want
+
+
+def _cut(case, dq, dk, dv):
+    """The rows the reference defines: q rows below q_len, keys below
+    kv_len."""
+    q_len, kv_len = FWD_CASES[case][6:]
+    return dq[:, :q_len], dk[:, :kv_len], dv[:, :kv_len]
+
+
+@pytest.mark.parametrize("case", sorted(FWD_CASES))
+def test_flash_bwd_plain_at_wgmma_blocks_matches_pallas(case):
+    """The plain backward at the wgmma pair's blocks, unrounded (f32),
+    against the reference's Pallas backward at the same blocks: dq, dk and
+    dv within 1e-5, as at 64 x 64."""
+    inputs, kw, want = _bwd_reference(case)
+    got = pt_att.flash_attention_bwd_plain(
+        *map(torch.from_numpy, inputs), **kw,
+        **dict(pt_att.flash_bwd_plain_kw("flash_bwd"), rounded=False))
+    for g, w in zip(_cut(case, *got), _cut(case, *want)):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-5)
+
+
+def _abs_products(case, inputs):
+    """sum |ds| |k| (dq), sum |ds| |q| (dk) and sum |p| |do| (dv) over
+    every unmasked pair of the case, the GQA group folded, in f32 numpy:
+    the scale of the error that rounding p and ds brings."""
+    q, k, v, do, lse, delta = inputs
+    BH, BHkv, S, D, causal, window, q_len, kv_len = FWD_CASES[case]
+    g = BH // BHkv
+    kr, vr = np.repeat(k, g, axis=0), np.repeat(v, g, axis=0)
+    qpos, kpos = np.arange(S)[:, None], np.arange(S)[None, :]
+    mask = kpos < kv_len
+    if causal:
+        mask = mask & (qpos >= kpos)
+    if window is not None:
+        mask = mask & (qpos - kpos < window)
+    s = np.einsum("hqd,hkd->hqk", q, kr) / np.sqrt(D)
+    p = np.where(mask, np.exp(np.minimum(s - lse[..., None], 0.0)), 0.0)
+    dp = np.einsum("hqd,hkd->hqk", do, vr)
+    ds = np.abs(p * (dp - delta[..., None]) / np.sqrt(D))
+    fold = lambda a: a.reshape(BHkv, g, *a.shape[1:]).sum(1)  # noqa: E731
+    return (np.einsum("hqk,hkd->hqd", ds, np.abs(kr)),
+            fold(np.einsum("hqk,hqd->hkd", ds, np.abs(q))),
+            fold(np.einsum("hqk,hqd->hkd", p, np.abs(do))))
+
+
+@pytest.mark.parametrize("case", sorted(FWD_CASES))
+def test_flash_bwd_rounded_plain_matches_pallas_within_bf16_rounding(case):
+    """The wgmma route's plain version (p and ds rounded to bf16 before
+    their second products) on bf16 inputs against the reference's f32
+    Pallas backward at the same blocks.  Rounding to bf16 moves a value by
+    at most 2^-8 of itself (8 significant bits), so each output element
+    lies within 2^-8 of the sum of its terms' magnitudes
+    (sum |ds| |k| for dq, sum |ds| |q| for dk, sum |p| |do| for dv), plus
+    1e-5 for the f32 sums' order."""
+    inputs, kw, want = _bwd_reference(case)
+    q, k, v, do, lse, delta = (torch.from_numpy(x) for x in inputs)
+    got = pt_att.flash_attention_bwd_plain(
+        q.to(BF16), k.to(BF16), v.to(BF16), do.to(BF16), lse, delta, **kw,
+        **pt_att.flash_bwd_plain_kw("flash_bwd"))
+    bounds = _cut(case, *_abs_products(case, inputs))
+    moved = False
+    for g, w, b in zip(_cut(case, *got), _cut(case, *want), bounds):
+        err = np.abs(g.numpy() - w)
+        assert (err <= 2.0 ** -8 * b + 1e-5).all(), \
+            (err - 2.0 ** -8 * b).max()
+        moved |= bool((err > 1e-5).any())
+    assert moved          # the rounding is there: the f32 test's 1e-5 fails
+
+
+def test_flash_attention_bf16_backward_on_cpu_is_the_routes_plain_version():
+    """bf16 at head_dim 64 on the CPU: FlashAttention's backward runs the
+    plain backward at the wgmma route's blocks and rounding, so the
+    autograd grads equal its f32 results cast, bit for bit."""
+    B, H, Hkv, S, D = 1, 4, 2, 200, 64
+    q, do = (torch.from_numpy(_normal(B, H, S, D)).to(BF16)
+             for _ in range(2))
+    k, v = (torch.from_numpy(_normal(B, Hkv, S, D)).to(BF16)
+            for _ in range(2))
+    route = pt_att.flash_bwd_route(q, k, v, do)
+    assert route == "flash_bwd"
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    o = pt_att.flash_attention_train(*leaves, causal=True)
+    grads = torch.autograd.grad(o, leaves, do)
+    o_ref, lse = pt_att.flash_attention_fwd_plain(
+        q.reshape(B * H, S, D), k.reshape(B * Hkv, S, D),
+        v.reshape(B * Hkv, S, D), causal=True, block_q=128, block_k=128)
+    o_ref = o_ref.reshape(q.shape)
+    assert torch.equal(o.detach(), o_ref)
+    delta = (o_ref.float() * do.float()).sum(-1).reshape(B * H, S) \
+        .contiguous()
+    want = pt_att.flash_attention_bwd_plain(
+        q.reshape(B * H, S, D), k.reshape(B * Hkv, S, D),
+        v.reshape(B * Hkv, S, D), do.reshape(B * H, S, D), lse, delta,
+        causal=True, **pt_att.flash_bwd_plain_kw(route))
+    for gr, w, x in zip(grads, want, (q, k, v)):
+        assert gr.dtype == BF16
+        assert torch.equal(gr, w.reshape(x.shape).to(BF16))
+    assert all(n == 0 for n in pt_ops.LAUNCHES.values())
 
 
 # ---------------------------------------------------------------------------
