@@ -9,7 +9,9 @@ into ``build/kernels/`` (and prints ``ptxas``'s registers, spills and
 shared memory of each), holds each kernel route on a main path against its
 plain PyTorch version at the serving, training and paper-workload paths'
 full-width shapes (the flash forward's and backward's wgmma routes; the
-matmul's wgmma route at GEMM_1K and its split-K GEMV at GEMM_FC), runs
+matmul's wgmma route at GEMM_1K and its split-K GEMV at GEMM_FC; the
+conv2d wgmma implicit GEMM at DL_ATROUS4; dense decode split over the
+history at qwen3-4b's decode shape), runs
 the paper's workload catalog (24 convolution, correlation and GEMM layers
 at their own shapes, bf16, batch 1) and qwen3-4b's dense decode shape
 through ``repro_torch.kernels.ops``, times both of the matmul's bf16 routes at
@@ -476,7 +478,9 @@ def case_calls(case: dict, seed: int) -> dict:
     ``ops`` as a user calls it, ``launch`` of the kernel alone with the same
     tile, ``plain`` (the plain version) and ``library`` (one PyTorch call of
     the same function, or None); with the bytes and flops of its bound."""
-    from repro_torch.core.cuda_bridge import gemv_plan, matmul_block_shapes
+    from repro_torch.core.cuda_bridge import (conv2d_a_tma, conv2d_plan,
+                                              gemv_plan,
+                                              matmul_block_shapes)
     from repro_torch.kernels import attention as katt
     from repro_torch.kernels import conv2d as kconv
     from repro_torch.kernels import correlation as kcorr
@@ -517,15 +521,23 @@ def case_calls(case: dict, seed: int) -> dict:
         s, dil = sh["stride"], sh["dilation"]
         x, w = t(sh["x"]), t(sh["w"], (KH * KW * CI) ** -0.5)
         OH, OW = kconv.out_hw(IH, IW, KH, KW, s, dil)
-        boh, bco = min(8, OH), min(128, CO)
+        route = kconv.conv2d_route(x, w)
+        # the plan ops.conv2d takes: pixel tile, channel tile, K split
+        plan = conv2d_plan(1, OH, OW, CI, CO, KH, KW, stride=s)
+        blocks = dict(block_oh=plan.block_oh, block_ow=plan.block_ow,
+                      block_co=plan.block_co, splits=plan.splits)
         w_cl = w.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
         out_numel, in_numel = OH * OW * CO, x.numel() + w.numel()
         calls = dict(
-            tile=dict(block_oh=boh, block_co=bco),
+            key=route,
+            tile=dict(route=route, **blocks, k_steps=plan.k_steps,
+                      ctas=plan.ctas,
+                      a_tma=conv2d_a_tma(CI, s, plan.block_ow),
+                      b_tma=CO % 8 == 0),
             main=lambda: ops.conv2d(x, w, stride=s, dilation=dil),
             launch=lambda: kconv.conv2d_cuda(x, w, stride=s, dilation=dil,
-                                             block_oh=boh, block_co=bco),
+                                             **blocks),
             plain=lambda: kconv.conv2d_plain(x, w, stride=s, dilation=dil),
             library=lambda: F.conv2d(x.permute(0, 3, 1, 2), w_cl, stride=s,
                                      dilation=dil))
@@ -550,11 +562,17 @@ def case_calls(case: dict, seed: int) -> dict:
                 lens[:, None].long())[:, None, None, :]
         n_tok = sum(sh["lengths"])
         out_numel = in_numel = 0
+        bk = katt.decode_block_k(S, 512)          # ops.flash_decode's default
+        splits = katt.decode_splits(S, bk)
+        live = sum(-(-n // bk) for n in sh["lengths"])
         calls = dict(
-            tile=dict(step=32, plain_block_k=katt.decode_block_k(S, 512)),
-            main=lambda: ops.flash_decode(q, kc, vc, lens),
-            launch=lambda: katt.flash_decode_cuda(q, kc, vc, lens),
-            plain=lambda: katt.flash_decode_plain(q, kc, vc, lens),
+            tile=dict(block_k=bk, splits=splits,
+                      ctas=B * Hkv * splits, live_ctas=Hkv * live),
+            main=lambda: ops.flash_decode(q, kc, vc, lens, block_k=bk),
+            launch=lambda: katt.flash_decode_cuda(q, kc, vc, lens,
+                                                  block_k=bk),
+            plain=lambda: katt.flash_decode_plain(q, kc, vc, lens,
+                                                  block_k=bk),
             library=lambda: F.scaled_dot_product_attention(
                 q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True))
         # the live K/V rows, q and out once each, the lengths
@@ -623,9 +641,9 @@ PAPER_LIBRARY = {"matmul": "torch.matmul (cuBLAS)",
 def check_paper_kernels(flush) -> list[dict]:
     """The kernel routes of the paper-workload path against their plain
     versions: the matmul's wgmma route at GEMM_1K and its GEMV route at
-    GEMM_FC, conv2d at DL_ATROUS4, correlation at FLOWNET_CORR, flash
-    decode at qwen3-4b's decode shape.  Each row is named by its launch
-    key."""
+    GEMM_FC, conv2d's wgmma route at DL_ATROUS4, correlation at
+    FLOWNET_CORR, flash decode at qwen3-4b's decode shape.  Each row is
+    named by its launch key."""
     by = {c["name"]: c for c in catalog_cases()}
     rows = []
     for i, case in enumerate((by["GEMM_1K"], by["GEMM_FC"], by["DL_ATROUS4"],
@@ -643,7 +661,7 @@ def check_paper_kernels(flush) -> list[dict]:
 
 
 # the launch keys of the paper-workload path: the matmul's wgmma and GEMV
-# routes (GEMM_1K, GEMM_FC), conv2d, correlation, dense decode
+# routes (GEMM_1K, GEMM_FC), conv2d's wgmma route, correlation, dense decode
 PAPER_KEYS = ("matmul", "matmul_gemv", "conv2d", "correlation",
               "flash_decode")
 
@@ -651,7 +669,9 @@ PAPER_KEYS = ("matmul", "matmul_gemv", "conv2d", "correlation",
 def paper_workloads(flush) -> dict:
     """Phase 3b: the 24 catalog workloads and qwen3-4b's decode shape
     through ``ops`` on the card, one line each (with the route and tile of
-    each matmul); every kernel route of the path must have launched."""
+    each matmul, the tile, CTAs and K split of each conv, the splits of
+    the decode); every kernel route of the path must have launched, and
+    all 20 convs on the wgmma route."""
     cases = catalog_cases() + [decode_case()]
     total: dict[str, int] = {}
     t0 = time.perf_counter()
@@ -664,6 +684,12 @@ def paper_workloads(flush) -> dict:
          seconds=time.perf_counter() - t0)
     for k in PAPER_KEYS:
         require(total.get(k, 0) > 0, f"paper_workloads never launched {k}")
+    n_conv = sum(c["kernel"] == "conv2d" for c in cases)
+    require(n_conv == 20 and total.get("conv2d") == n_conv and
+            total.get("conv2d_simt", 0) == 0,
+            f"paper_workloads: {n_conv} convs launched conv2d "
+            f"{total.get('conv2d')} and conv2d_simt "
+            f"{total.get('conv2d_simt', 0)} times, want 20 and 0")
     return total
 
 

@@ -46,11 +46,18 @@ bf16 at M <= ``GEMV_MAX_M`` with no tile named takes no tile:
 
 Both searches resolve through the memoized engine
 (``repro_torch.core.autotune``), so a repeated shape is a cache lookup.
+
+:func:`conv2d_plan` plans the conv2d ``wgmma`` route's implicit GEMM
+(``csrc/conv2d.cu``): the pixel tile (``block_oh`` x ``block_ow`` output
+pixels, 64 or 128 of them), the output-channel tile and the K split.  It
+keeps the same card rule (large tiles, smaller while the grid has fewer
+CTAs than SMs, then the K steps split over CTAs), with the box width and
+split threshold measured on the card.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Mapping, NamedTuple
 
 from .exchange import GridOrder, order_grid_for_sharing
 from .ndrange import TensorOp, matmul_op
@@ -216,3 +223,115 @@ def gemv_plan(M: int, N: int, K: int) -> tuple[int, int]:
     want = max(1, min(-(-GEMV_CTAS // ctas), K // GEMV_MIN_SPLIT_K))
     kchunk = round_up(-(-K // want), 8)
     return -(-K // kchunk), kchunk
+
+
+# route "conv2d" (csrc/conv2d.cu's wgmma implicit GEMM): a tile of BM
+# output pixels (one or two consumer warpgroups of 64) as block_oh rows x
+# block_ow columns of one image, block_co output channels (one or two
+# 64-wide swizzle atoms of B), the (kh, kw, ci) reduction in 64-wide steps
+CONV_BM = (128, 64)
+CONV_BLOCK_OW = (64, 32, 16, 8)
+CONV_BLOCK_CO = (128, 64)
+# Every (block_oh, block_ow, block_co) the wgmma conv kernel instantiates.
+CONV_TILES = frozenset((bm // bow, bow, bco) for bm in CONV_BM
+                       for bow in CONV_BLOCK_OW for bco in CONV_BLOCK_CO)
+CONV_BLOCK_OH = frozenset(t[0] for t in CONV_TILES)
+
+
+class ConvPlan(NamedTuple):
+    """A launch of the conv2d wgmma route: its tile, its K split, the K
+    steps of 64 it walks and its CTAs (pixel tiles x channel tiles x
+    splits)."""
+
+    block_oh: int
+    block_ow: int
+    block_co: int
+    splits: int
+    k_steps: int
+    ctas: int
+
+
+def conv2d_a_tma(CI: int, stride: int, block_ow: int) -> bool:
+    """Whether the kernel loads the input pixels by TMA (tap by tap, 64
+    channels a step): rows of 16-byte multiples, and a box of block_ow
+    outputs that steps the W axis by the stride spans at most 256
+    elements; otherwise its producers gather the flattened (kh, kw, ci)
+    reduction."""
+    return CI % 8 == 0 and stride <= 8 and block_ow * stride <= 256
+
+
+def conv2d_k_steps(CI: int, KH: int, KW: int, *, stride: int = 1,
+                   block_ow: int = 64) -> int:
+    """64-wide reduction steps of the wgmma conv: KH KW ceil(CI / 64) tap
+    by tap, or ceil(KH KW CI / 64) over the flattened reduction."""
+    if conv2d_a_tma(CI, stride, block_ow):
+        return KH * KW * -(-CI // 64)
+    return -(-(KH * KW * CI) // 64)
+
+
+def conv2d_blocks_built(block_oh: int | None, block_co: int | None) -> bool:
+    """Whether blocks a caller names (None: not named) are ones the wgmma
+    conv kernel instantiates."""
+    return ((block_oh is None or block_oh in CONV_BLOCK_OH) and
+            (block_co is None or block_co in CONV_BLOCK_CO))
+
+
+def conv2d_plan(N: int, OH: int, OW: int, CI: int, CO: int, KH: int,
+                KW: int, *, stride: int = 1, block_oh: int | None = None,
+                block_co: int | None = None) -> ConvPlan:
+    """The tile and K split of the conv2d ``wgmma`` route for an (N, OH,
+    OW, CO) output over a (KH, KW, CI) reduction, by rules measured on one
+    H100 (``chip_smoke.py``'s catalog convs, every built tile and split):
+
+    * block_ow: the smallest power of two that covers an output row, at
+      most 64.  Each tile row is one TMA box, and few large boxes beat
+      many small ones even where they pad more (DL_ATROUS4: 0.033 ms at
+      1 x 64 pixels, 0.045 ms at 8 x 8, by device time);
+    * BM (block_oh x block_ow pixels): 128 where that grid reaches
+      ``SM_COUNT`` CTAs, else 64; always 64 where the producers gather A
+      (CI = 3: TY_CONV1 0.067 ms at 64 pixels, 0.086 ms at 128);
+    * block_co: 128 where CO > 64 and that grid reaches ``SM_COUNT``
+      CTAs, else 64;
+    * a K split only while the grid has fewer than ``SM_COUNT // 2`` CTAs
+      (it adds the reduction pass: MBN_PW 0.0085 ms unsplit at 112 CTAs,
+      0.0132 ms split in two), then splits until the grid reaches
+      ``SM_COUNT`` or every split is one K step, none empty.
+
+    Blocks a caller names are kept (block_ow then follows from block_oh
+    and BM); blocks the kernel is not built for raise."""
+    if not conv2d_blocks_built(block_oh, block_co):
+        raise ValueError(
+            f"conv2d: blocks (block_oh {block_oh}, block_co {block_co}) are "
+            f"not ones csrc/conv2d.cu is built for on route conv2d "
+            f"(block_oh {sorted(CONV_BLOCK_OH)}, block_co "
+            f"{sorted(CONV_BLOCK_CO)})")
+    nat = min(64, max(8, pow2_ceil(OW)))
+    # the row-covering width first, then wider, then narrower ones
+    bows = sorted(CONV_BLOCK_OW, key=lambda b: (b < nat, abs(b - nat)))
+
+    def tile(bm: int):
+        for bow in bows:
+            if block_oh is None or bm // bow == block_oh:
+                return bm // bow, bow
+        return None
+
+    def ctas(boh: int, bow: int, bco: int) -> int:
+        return N * -(-OH // boh) * -(-OW // bow) * -(-CO // bco)
+
+    wide = block_co or (128 if CO > 64 else 64)
+    gather = not conv2d_a_tma(CI, stride, nat)
+    shapes = [t for t in (tile(bm) for bm in
+                          ((64, 128) if gather else CONV_BM)) if t]
+    boh, bow = shapes[0]
+    if not gather and len(shapes) > 1 and \
+            ctas(boh, bow, wide) < SM_COUNT:
+        boh, bow = shapes[1]
+    bco = block_co or (128 if wide == 128 and
+                       ctas(boh, bow, 128) >= SM_COUNT else 64)
+    n = ctas(boh, bow, bco)
+    steps = conv2d_k_steps(CI, KH, KW, stride=stride, block_ow=bow)
+    splits = 1
+    if n < SM_COUNT // 2:
+        per = -(-steps // min(steps, -(-SM_COUNT // n)))
+        splits = -(-steps // per)
+    return ConvPlan(boh, bow, bco, splits, steps, n * splits)

@@ -484,7 +484,7 @@ def flash_fwd_blocks(route: str) -> tuple[int, int]:
 
 def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True,
-                             window: int | None = None
+                             window: int | None = None, prune: bool = True
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel of ``csrc/flash_fwd.cu`` that
     :func:`flash_fwd_route` names: the wgmma kernel (launch key
@@ -494,7 +494,8 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     D) tensors, which are read in place.  Returns ``(o, lse)``: o has q's
     shape and memory layout, lse is f32 (B * H, Sq).  The launch carries no
     gradient, so it refuses inputs that autograd wants one of: those go
-    through :func:`flash_attention_train`."""
+    through :func:`flash_attention_train`.  ``prune=False`` walks the dense
+    grid (:func:`_ranges_on`)."""
     _check_inputs("flash_attention_fwd_cuda", q, k, v, window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -506,7 +507,7 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     Hkv, Sk = k.shape[1], k.shape[2]
     route = flash_fwd_route(q, k, v)
     ranges = _ranges_on(q.device, Sq, Sk, bool(causal), window, "row",
-                        *flash_fwd_blocks(route))
+                        *flash_fwd_blocks(route), prune)
     o = torch.empty_like(q)          # keeps q's (B, S, H, D) memory layout
     lse = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
     nq = ranges.shape[0]
@@ -614,7 +615,7 @@ def _bwd_call(name: str, q, k, v, do, lse, delta, outs, ranges, causal,
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal=True,
-                      window=None) -> torch.Tensor:
+                      window=None, prune=True) -> torch.Tensor:
     """Launch the dq kernel of ``csrc/flash_bwd.cu`` that
     :func:`flash_bwd_route` names (launch key ``flash_bwd_dq`` or
     ``flash_bwd_dq_simt``); arguments as :func:`flash_attention_bwd_cuda`.
@@ -623,7 +624,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal=True,
     route = flash_bwd_route(q, k, v, do)
     kw = flash_bwd_plain_kw(route)
     rows = _ranges_on(q.device, q.shape[2], k.shape[2], bool(causal), window,
-                      "row", kw["block_q"], kw["block_k"])
+                      "row", kw["block_q"], kw["block_k"], prune)
     dq = torch.empty_like(q, dtype=torch.float32)
     _bwd_call("dq", q, k, v, do, lse, delta, (dq,), rows, causal, window,
               route)
@@ -631,7 +632,8 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal=True,
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal=True,
-                       window=None) -> tuple[torch.Tensor, torch.Tensor]:
+                       window=None, prune=True
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the dk/dv kernel of ``csrc/flash_bwd.cu`` that
     :func:`flash_bwd_route` names (launch key ``flash_bwd_dkv`` or
     ``flash_bwd_dkv_simt``); arguments as
@@ -640,7 +642,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal=True,
     _check_bwd(q, k, v, do, lse, delta, window)
     route = flash_bwd_route(q, k, v, do)
     cols = _ranges_on(q.device, q.shape[2], k.shape[2], bool(causal), window,
-                      "col", *flash_bwd_plain_kw(route)["dkv_blocks"])
+                      "col", *flash_bwd_plain_kw(route)["dkv_blocks"], prune)
     dk = torch.empty_like(k, dtype=torch.float32)
     dv = torch.empty_like(v, dtype=torch.float32)
     _bwd_call("dkv", q, k, v, do, lse, delta, (dk, dv), cols, causal, window,
@@ -651,7 +653,8 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal=True,
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, do: torch.Tensor,
                              lse: torch.Tensor, delta: torch.Tensor, *,
-                             causal: bool = True, window: int | None = None
+                             causal: bool = True, window: int | None = None,
+                             prune: bool = True
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """Launch the two kernels of ``csrc/flash_bwd.cu`` on the route
@@ -660,7 +663,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     (``do`` arrives as the gradient of a transposed view); lse/delta: f32
     (B * H, Sq) contiguous.  Returns (dq, dk, dv) in f32, each with its
     input's memory layout."""
-    kw = dict(causal=causal, window=window)
+    kw = dict(causal=causal, window=window, prune=prune)
     dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
     return (dq, *flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw))
 
@@ -670,16 +673,21 @@ _RANGES: dict[tuple, torch.Tensor] = {}
 
 def _ranges_on(dev: torch.device, Sq: int, Sk: int, causal: bool,
                window: int | None, order: str, block_q: int,
-               block_k: int) -> torch.Tensor:
+               block_k: int, prune: bool = True) -> torch.Tensor:
     """The kernels' per-CTA block ranges (``order`` 'row': k blocks of each
     q block; 'col': q blocks of each k block) at a kernel's block shape, on
-    the device, built once per shape."""
-    key = (dev, Sq, Sk, causal, window, order, block_q, block_k)
+    the device, built once per shape.  ``prune=False`` gives every q block
+    every k block (the dense grid): the kernels mask the blocks a pruned
+    range leaves out, so they add exactly 0."""
+    key = (dev, Sq, Sk, causal, window, order, block_q, block_k, prune)
     t = _RANGES.get(key)
     if t is None:
         build = row_block_ranges if order == "row" else col_block_ranges
         r = build(Sq, Sk, block_q=block_q, block_k=block_k, causal=causal,
                   window=window)
+        if not prune:       # every block of the other axis
+            r[:] = (0, -(-Sk // block_k) - 1 if order == "row"
+                    else -(-Sq // block_q) - 1)
         t = torch.from_numpy(r).to(dev)
         _RANGES[key] = t
     return t
@@ -691,7 +699,9 @@ def _ranges_on(dev: torch.device, Sq: int, Sk: int, causal: bool,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                        *, causal: bool = True, window: int | None = None
+                        *, causal: bool = True, window: int | None = None,
+                        prune: bool = True,
+                        blocks: tuple[int, int] | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward of :class:`FlashAttention` from its residuals, before
     the cast to the inputs' dtypes.  q/o/do: (B, H, Sq, D), k/v: (B, Hkv,
@@ -699,8 +709,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rowsum(o * do)`` in f32 with torch ops, as the reference does outside
     its kernels, then launches the dq and dk/dv kernels of
     :func:`flash_bwd_route` on CUDA tensors (or raises) and runs the plain
-    versions at that route's blocks and rounding on CPU tensors.  Returns
-    (dq, dk, dv) in f32 with q's, k's and v's shapes."""
+    versions at that route's blocks and rounding on CPU tensors (at
+    ``blocks`` for both kernels, where given).  ``prune=False`` hands the
+    kernels the dense grid.  Returns (dq, dk, dv) in f32 with q's, k's and
+    v's shapes."""
     B, H, Sq, D = q.shape
     if do.stride(-1) != 1:                 # e.g. an expanded gradient
         do = do.contiguous()
@@ -708,10 +720,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         .contiguous()
     kw = dict(causal=causal, window=window)
     if q.is_cuda:
-        return flash_attention_bwd_cuda(q, k, v, do, lse, delta, **kw)
+        return flash_attention_bwd_cuda(q, k, v, do, lse, delta, **kw,
+                                        prune=prune)
+    plain_kw = flash_bwd_plain_kw(flash_bwd_route(q, k, v, do))
+    if blocks is not None:
+        plain_kw.update(block_q=blocks[0], block_k=blocks[1],
+                        dkv_blocks=tuple(blocks))
     dq, dk, dv = flash_attention_bwd_plain(
         q.reshape(B * H, Sq, D), *_kv_rows(k, v), do.reshape(B * H, Sq, D),
-        lse, delta, **kw, **flash_bwd_plain_kw(flash_bwd_route(q, k, v, do)))
+        lse, delta, **kw, **plain_kw)
     return dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape)
 
 
@@ -720,23 +737,25 @@ class FlashAttention(torch.autograd.Function):
     custom VJP ``flash_attention_train``.  q: (B, H, Sq, D), k/v: (B, Hkv,
     Sk, D).  The forward saves (q, k, v, o, lse); the backward is
     :func:`flash_attention_bwd`, cast to the inputs' dtypes.  On CUDA
-    tensors each half launches its kernels (or raises); on CPU tensors it
-    runs the plain versions."""
+    tensors each half launches its kernels (or raises) on the dense grid
+    when ``prune`` is False; on CPU tensors it runs the plain versions, at
+    ``blocks`` where given."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, prune=True, blocks=None):
         if q.is_cuda:
             o, lse = flash_attention_fwd_cuda(q, k, v, causal=causal,
-                                              window=window)
+                                              window=window, prune=prune)
         else:
             B, H, Sq, D = q.shape
-            bq, bk = flash_fwd_blocks(flash_fwd_route(q, k, v))
+            bq, bk = blocks or flash_fwd_blocks(flash_fwd_route(q, k, v))
             o, lse = flash_attention_fwd_plain(
                 q.reshape(B * H, Sq, D), *_kv_rows(k, v), causal=causal,
                 window=window, block_q=bq, block_k=bk)
             o = o.reshape(q.shape)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
+        ctx.prune, ctx.blocks = prune, blocks
         return o
 
     @staticmethod
@@ -744,8 +763,10 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
                                          causal=ctx.causal,
-                                         window=ctx.window)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+                                         window=ctx.window, prune=ctx.prune,
+                                         blocks=ctx.blocks)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None)
 
 
 def _kv_rows(k: torch.Tensor, v: torch.Tensor):
@@ -755,10 +776,12 @@ def _kv_rows(k: torch.Tensor, v: torch.Tensor):
 
 def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
-                          window: int | None = None) -> torch.Tensor:
+                          window: int | None = None, prune: bool = True,
+                          blocks: tuple[int, int] | None = None
+                          ) -> torch.Tensor:
     """Trainable flash attention on (B, H, S, D) q and (B, Hkv, Sk, D) k/v
     (see :class:`FlashAttention`)."""
-    return FlashAttention.apply(q, k, v, causal, window)
+    return FlashAttention.apply(q, k, v, causal, window, prune, blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -775,27 +798,36 @@ def decode_block_k(S: int, block_k: int) -> int:
     return block_k
 
 
+def decode_splits(S: int, block_k: int) -> int:
+    """Splits of the history the decode kernel runs for a cache of S tokens
+    at the reference's ``block_k``: ceil(S / decode_block_k(S, block_k)),
+    each one CTA per (sequence, kv head)."""
+    return -(-S // decode_block_k(S, block_k))
+
+
 def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
                        v_cache: torch.Tensor, lengths: torch.Tensor, *,
                        block_k: int = 512) -> torch.Tensor:
     """q (B, H, D) one token; caches (B, Hkv, S, D); lengths (B,) valid
     tokens.  Returns (B, H, D) in q's dtype.
 
-    The kernel's arithmetic, ``block_k`` cached tokens at a time for every
-    sequence and head at once: f32 scores and online softmax with the -1e30
-    guard, masked positions adding exactly 0, l == 0 drained as 1 (so a
-    length of 0 gives 0)."""
+    The kernel's arithmetic: the history is cut into splits of
+    ``block_k`` cached tokens (after the reference's clamp,
+    :func:`decode_block_k`); each split, for every sequence and head at
+    once, forms its f32 softmax partial against its own maximum, m (with
+    the -1e30 guard: masked positions add exactly 0, a split with no live
+    token keeps m = -1e30, l = 0, acc = 0), l = sum p and acc = sum p v;
+    the splits combine as sum_i e^(m_i - M) acc_i / sum_i e^(m_i - M) l_i
+    with l == 0 drained as 1 (so a length of 0 gives 0)."""
     B, H, Dh = q.shape
     _, Hkv, S, _ = k_cache.shape
     G = H // Hkv
     block_k = decode_block_k(S, block_k)
     dev = q.device
     qg = q.reshape(B, Hkv, G, Dh).float()
-    m = torch.full((B, Hkv, G), NEG_INF, device=dev)
-    l = torch.zeros((B, Hkv, G), device=dev)
-    acc = torch.zeros((B, Hkv, G, Dh), device=dev)
     lens = lengths.long().to(dev)
     scale = 1.0 / math.sqrt(Dh)
+    ms, ls, accs = [], [], []
     for k0 in range(0, S, block_k):
         k = k_cache[:, :, k0:k0 + block_k].float()      # (B, Hkv, t, D)
         v = v_cache[:, :, k0:k0 + block_k].float()
@@ -803,26 +835,30 @@ def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
         kpos = k0 + torch.arange(k.shape[2], device=dev)
         mask = (kpos[None, :] < lens[:, None])[:, None, None, :]
         s = torch.where(mask, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1))
-        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum("bkgt,bktd->bkgd", p, v)
-        m = m_new
+        m = s.amax(-1)
+        p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bkgt,bktd->bkgd", p, v))
+    m_all = torch.stack(ms)                              # (splits, B, Hkv, G)
+    M = m_all.amax(0)
+    f = torch.exp(m_all - M)
+    l = (f * torch.stack(ls)).sum(0)
+    acc = (f[..., None] * torch.stack(accs)).sum(0)
     safe = torch.where(l == 0.0, 1.0, l)
     return (acc / safe[..., None]).reshape(B, H, Dh).to(q.dtype)
 
 
-_DECODE_STEP = 32       # cached tokens csrc/flash_decode.cu stages a step
-
-
 def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor,
-                      lengths: torch.Tensor) -> torch.Tensor:
+                      lengths: torch.Tensor, *,
+                      block_k: int = 512) -> torch.Tensor:
     """Launch ``csrc/flash_decode.cu`` on the shapes of
-    :func:`flash_decode_plain`.  The caches are read through their
-    (batch, head, seq) strides in place; q, caches need a contiguous last
-    dimension, one dtype (bf16 or f32); lengths int32."""
+    :func:`flash_decode_plain`: one CTA per (split of ``block_k`` cached
+    tokens, kv head, sequence), then the kernel that combines the splits
+    (none when the history is one split).  The caches are read through
+    their (batch, head, seq) strides in place; q, caches need a contiguous
+    last dimension, one dtype (bf16 or f32); lengths int32."""
     tensors = (q, k_cache, v_cache, lengths)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError("flash_decode_cuda: every operand must lie on q's "
@@ -846,23 +882,28 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     if (q.stride(-1) != 1 or k_cache.stride(-1) != 1 or
             v_cache.stride(-1) != 1 or lengths.stride(0) != 1):
         raise ValueError("flash_decode_cuda: unsupported strides")
-    T = _DECODE_STEP
-    smem = 4 * (G * Dh + T * (Dh + 1) + T * Dh + G * T + 3 * G)
-    if smem > 48 * 1024:
-        raise ValueError(f"flash_decode_cuda: G {G} x D {Dh} needs {smem} B "
-                         f"of shared memory (> 48 KB)")
+    if block_k < 1:
+        raise ValueError(f"flash_decode_cuda: block_k {block_k} < 1")
     _build.check_device(q)
+    bk, nsplit = decode_block_k(S, block_k), decode_splits(S, block_k)
     out = torch.empty((B, H, Dh), dtype=q.dtype, device=q.device)
+    # the split workspace: each split's (m, l) and acc, f32
+    part_acc = part_ml = out
+    if nsplit > 1:
+        part_acc = torch.empty((B, H, nsplit, Dh), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((B, H, nsplit, 2), dtype=torch.float32,
+                              device=q.device)
     strides = (ctypes.c_longlong * 10)(
         q.stride(0), q.stride(1), *k_cache.stride()[:3],
         *v_cache.stride()[:3], out.stride(0), out.stride(1))
-    fn = _build.bind("flash_decode", "flash_decode", *[ctypes.c_void_p] * 5,
-                     *[ctypes.c_int] * 6, ctypes.POINTER(ctypes.c_longlong),
+    fn = _build.bind("flash_decode", "flash_decode", *[ctypes.c_void_p] * 7,
+                     *[ctypes.c_int] * 8, ctypes.POINTER(ctypes.c_longlong),
                      ctypes.c_float)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], B,
-             Hkv, G, Dh, S, strides, 1.0 / math.sqrt(Dh),
-             _build.stream_ptr(q))
+             lengths.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+             part_ml.data_ptr(), _DTYPE_CODE[q.dtype], B, Hkv, G, Dh, S, bk,
+             nsplit, strides, 1.0 / math.sqrt(Dh), _build.stream_ptr(q))
     _build.check(err, "flash_decode")
     _build.LAUNCHES["flash_decode"] += 1
     return out

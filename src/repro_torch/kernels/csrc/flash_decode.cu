@@ -1,5 +1,7 @@
 // Dense flash decode for Hopper (sm_90a): one new token per sequence
-// attends its (B, Hkv, S, D) KV cache up to its length, GQA grouped.
+// attends its (B, Hkv, S, D) KV cache up to its length, GQA grouped, with
+// the history split over CTAs and the partial results combined by their
+// log-sum-exp.
 //
 // Replaces the TPU kernel `_decode_kernel` (src/repro/kernels/attention.py:577,
 // entry `flash_decode_pallas`).
@@ -7,166 +9,452 @@
 // What bounds it on the H100: bytes.  Each live cached token's K and V rows
 // are read once (2 x Hkv x D x 2 B a token in bf16) for 4 x D x G flops per
 // kv head, far below the ~295 flop/byte the card needs before its arithmetic
-// is the limit.  The design reads each live token exactly once and nothing
-// else, with the structure of csrc/paged_decode.cu over a dense cache:
-//   * one CTA per (sequence b, kv head h) keeps the G = H / Hkv query heads
-//     of the group together, so a K/V row is read once for all of them (the
-//     TPU kernel's (B * Hkv, G, D) grouping, without its reshape);
-//   * the cache is read through its (batch, head, seq) strides in place: no
-//     padded or reshaped copy is made (the JAX wrapper pads S to a block
-//     multiple and reshapes), and tokens at or past `lengths[b]` are never
-//     read; the TPU kernel's `block_k` becomes a fixed step of 32 tokens;
-//   * the online softmax (m, l, acc) stays in f32 with the TPU kernel's
-//     -1e30 guard; a masked position adds exactly 0 (p is zeroed, not taken
-//     as exp(-1e30 - m)), and l == 0 drains as 1, so a length of 0 gives 0.
-// With one token per sequence the grid holds only B x Hkv CTAs (32 at the
-// qwen3-4b decode shape, for 132 SMs): splitting the history across CTAs (a
-// second reduction pass) is left to a later change.
+// is the limit.  At qwen3-4b's decode shape the live K/V are ~24 MB, a
+// 0.0075 ms bound at 3.35 TB/s: the kernel has to keep every SM loading.
+//   * The TPU kernel's sequential `block_k` grid axis becomes the split:
+//     one CTA per (split, kv head, sequence), where a split is `block_k`
+//     consecutive cache positions (the reference's own `block_k`, after its
+//     clamp `decode_block_k`), so B x Hkv x ceil(S / block_k) CTAs fill the
+//     card (128 at qwen3-4b's shape with the default 512).  A split at or
+//     past `lengths[b]` reads nothing and writes nothing.
+//   * Inside a CTA the G = H / Hkv query heads of the group stay together,
+//     so each live K/V row is read once for all of them.  A row is read by
+//     a group of L lanes with 16-byte loads (L = D / 8 in bf16: half a warp
+//     at D 128, so a warp covers two tokens per load instruction); each
+//     group walks its own tokens, U at a time, with the next U tokens' K
+//     and V loads in flight while this step computes, and keeps its own
+//     online softmax (m, l, acc) in f32 registers.  The G x U score dots
+//     reduce over the group's lanes with warp shuffles, one round for all
+//     of them at a time; max, exp and PV run on every lane at once.
+//   * The groups of a CTA merge by their maxima (shuffles inside a warp,
+//     shared memory across warps), and the CTA writes its split's (m, l,
+//     acc) to an f32 workspace the wrapper allocates; a second kernel
+//     (`decode_combine_kernel`) forms sum_i e^(m_i - M) acc_i /
+//     sum_i e^(m_i - M) l_i over each sequence's live splits in split
+//     order.  With one split the CTA writes the output itself.
+//   * The caches are read through their (batch, head, seq) strides in
+//     place: no padded or reshaped copy is made (the JAX wrapper pads S to
+//     a block multiple and reshapes), and tokens at or past `lengths[b]`
+//     are never read.  Operands whose rows or bases are not 16-byte
+//     aligned take the same kernel with scalar loads.
+//   * The softmax works in the log2 domain with the TPU kernel's -1e30
+//     guard: a masked position adds exactly 0, and l == 0 drains as 1, so
+//     a length of 0 gives 0.  p stays f32.
 //
-// Launch contract (checked by the Python wrapper): blockDim.x == D rounded
-// up to a warp, D <= 256, G <= MAX_G; q (B, H, D), caches (B, Hkv, S, D) and
-// out (B, H, D) with the last dimension contiguous; lengths (B,) int32.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// Launch contract (checked by the Python wrapper): G <= MAX_G, D <= 256;
+// q (B, H, D), caches (B, Hkv, S, D) and out (B, H, D) with the last
+// dimension contiguous; lengths (B,) int32; for nsplit > 1, part_acc f32
+// (B, H, nsplit, D) and part_ml f32 (B, H, nsplit, 2), contiguous.
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int MAX_G = 8;
-constexpr int STEP = 32;            // cached tokens staged per step
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+// tokens a lane group takes a step: 4, or 2 where a lane holds 64 values
+// of q (G 8 at 8 per lane, or the scalar and two-vector f32 rows), whose
+// registers would otherwise spill
+template <int GM, int NV, int W>
+__host__ __device__ constexpr int unroll() {
+  return GM * NV * W >= 64 ? 2 : 4;
+}
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+
+// W consecutive elements of a row (W = 16 bytes' worth, or 1): loaded raw,
+// so a load in flight holds 16 bytes of registers, and widened to f32
+// where they are used.
+template <typename T, int W>
+struct Vec;
+template <typename T>
+struct Vec<T, 1> {
+  T r;
+  __device__ __forceinline__ void load(const T* p) { r = p[0]; }
+  __device__ __forceinline__ void zero() { r = T(0.f); }
+  __device__ __forceinline__ void get(float (&x)[1]) const { x[0] = to_f(r); }
+};
+template <>
+struct Vec<__nv_bfloat16, 8> {
+  uint4 r;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    r = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void zero() { r = make_uint4(0, 0, 0, 0); }
+  __device__ __forceinline__ void get(float (&x)[8]) const {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      x[2 * e] = f.x;
+      x[2 * e + 1] = f.y;
+    }
+  }
+};
+template <>
+struct Vec<float, 4> {
+  float4 r;
+  __device__ __forceinline__ void load(const float* p) {
+    r = __ldg(reinterpret_cast<const float4*>(p));
+  }
+  __device__ __forceinline__ void zero() { r = make_float4(0, 0, 0, 0); }
+  __device__ __forceinline__ void get(float (&x)[4]) const {
+    x[0] = r.x;
+    x[1] = r.y;
+    x[2] = r.z;
+    x[3] = r.w;
+  }
+};
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-template <typename T>
-__global__ void flash_decode_kernel(
+// Merge (mb, lb, accb) into (ma, la, acca): both softmax partials taken
+// against their own maxima (log2 domain).  Two empty partials (m = -1e30)
+// stay empty; an empty one adds exactly 0 to a live one.
+__device__ __forceinline__ float merge_scale(float& ma, float mb,
+                                             float& fb) {
+  const float m = fmaxf(ma, mb);
+  const float fa = hopper::ex2(ma - m);
+  fb = hopper::ex2(mb - m);
+  ma = m;
+  return fa;
+}
+
+// One CTA: split `blockIdx.x` of sequence `blockIdx.z`, kv head
+// `blockIdx.y`.  Lane group `grp` (L lanes) takes tokens t0 + grp,
+// t0 + grp + NG, ...; lane `lig` of the group holds elements
+// (lig + i L) W .. + W - 1 of a row, i < NV.
+template <typename T, int W, int NV, int GM>
+__global__ void __launch_bounds__(THREADS) decode_split_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ lengths, T* __restrict__ out, int G, int D, int S,
-    float scale, long long q_sb, long long q_sh, long long k_sb,
-    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
-    long long v_ss, long long o_sb, long long o_sh) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;   // kv head
-  const int d = threadIdx.x;  // head-dim column; threads d >= D only help
-  const bool live = d < D;    // with the score products
-  float* q_s = smem;                  // [G][D]
-  float* k_s = q_s + G * D;           // [STEP][D + 1]
-  float* v_s = k_s + STEP * (D + 1);  // [STEP][D]
-  float* s_s = v_s + STEP * D;        // [G][STEP]: scores, then p
-  float* m_s = s_s + G * STEP;        // [G]
-  float* l_s = m_s + G;               // [G]
-  float* a_s = l_s + G;               // [G]: this step's rescale alpha
-
-  if (live)
-    for (int g = 0; g < G; ++g)
-      q_s[g * D + d] = to_f(q[b * q_sb + (long long)(h * G + g) * q_sh + d]);
-  if (d < G) {
-    m_s[d] = NEG_INF;
-    l_s[d] = 0.f;
-  }
-  float acc[MAX_G];
-#pragma unroll
-  for (int g = 0; g < MAX_G; ++g) acc[g] = 0.f;
-
+    const int* __restrict__ lengths, T* __restrict__ out,
+    float* __restrict__ part_acc, float* __restrict__ part_ml, int G, int D,
+    int S, int block_k, int nsplit, int L, float scale2, long long q_sb,
+    long long q_sh, long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss, long long o_sb,
+    long long o_sh) {
+  extern __shared__ float red[];   // [WARPS][GM][D] acc, then [WARPS][GM] m, l
+  const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int H = gridDim.y * G;
   const int len = min(max(lengths[b], 0), S);
+  const int t0 = sp * block_k;
+  if (t0 >= len && nsplit > 1) return;   // the combine skips this split
+  const int t1 = min(t0 + block_k, len);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int grp = tid / L, lig = tid % L, NG = THREADS / L;
+
+  float qf[GM][NV][W];
+#pragma unroll
+  for (int g = 0; g < GM; ++g)
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int d = (lig + i * L) * W;
+      Vec<T, W> qv;
+      qv.zero();
+      if (g < G && d < D)
+        qv.load(q + b * q_sb + (long long)(h * G + g) * q_sh + d);
+      qv.get(qf[g][i]);
+    }
+  float m[GM], l[GM], acc[GM][NV][W];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+#pragma unroll
+      for (int e = 0; e < W; ++e) acc[g][i][e] = 0.f;
+  }
+
+  constexpr int UNROLL = unroll<GM, NV, W>();
   const T* kb = k + b * k_sb + h * k_sh;
   const T* vb = v + b * v_sb + h * v_sh;
-  for (int t0 = 0; t0 < len; t0 += STEP) {
-    const int n = min(STEP, len - t0);
-    __syncthreads();  // last step's k_s / v_s / s_s reads are done
-    for (int t = 0; live && t < n; ++t) {
-      k_s[t * (D + 1) + d] = to_f(kb[(t0 + t) * k_ss + d]);
-      v_s[t * D + d] = to_f(vb[(t0 + t) * v_ss + d]);
-    }
-    __syncthreads();
-    for (int i = d; i < G * STEP; i += blockDim.x) {
-      const int g = i / STEP, t = i % STEP;
-      float dot = 0.f;
-      if (t < n)
-        for (int e = 0; e < D; ++e)
-          dot += q_s[g * D + e] * k_s[t * (D + 1) + e];
-      s_s[i] = (t < n) ? dot * scale : NEG_INF;
-    }
-    __syncthreads();
-    if (d < G) {
-      const int g = d;
-      const float m_prev = m_s[g];
-      float mx = NEG_INF;
-      for (int t = 0; t < n; ++t) mx = fmaxf(mx, s_s[g * STEP + t]);
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = 0; t < STEP; ++t) {
-        // mask guard: a masked position adds exactly 0
-        const float p = (t < n) ? expf(s_s[g * STEP + t] - m_new) : 0.f;
-        s_s[g * STEP + t] = p;
-        sum += p;
-      }
-      const float alpha = expf(m_prev - m_new);
-      l_s[g] = l_s[g] * alpha + sum;
-      m_s[g] = m_new;
-      a_s[g] = alpha;
-    }
-    __syncthreads();
+  // K and V rows of this group's next UNROLL tokens, raw: fetched one
+  // step ahead, so they load while the current step computes
+  Vec<T, W> kn[UNROLL][NV], vn[UNROLL][NV];
+  auto fetch = [&](int tb) {
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      if (g < G && live) {
-        float pv = 0.f;
-        for (int t = 0; t < n; ++t) pv += s_s[g * STEP + t] * v_s[t * D + d];
-        acc[g] = acc[g] * a_s[g] + pv;
+    for (int u = 0; u < UNROLL; ++u) {
+      const int tu = tb + grp + u * NG;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int d = (lig + i * L) * W;
+        kn[u][i].zero();
+        vn[u][i].zero();
+        if (tu < t1 && d < D) {
+          kn[u][i].load(kb + tu * k_ss + d);
+          vn[u][i].load(vb + tu * v_ss + d);
+        }
+      }
+    }
+  };
+  if (t0 < t1) fetch(t0);
+  // the trip count is the CTA's, so a warp's lane groups shuffle together;
+  // a group's tokens past t1 are masked
+  for (int tb = t0; tb < t1; tb += NG * UNROLL) {
+    float kx[UNROLL][NV][W], vx[UNROLL][NV][W];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        kn[u][i].get(kx[u][i]);
+        vn[u][i].get(vx[u][i]);
+      }
+    if (tb + NG * UNROLL < t1) fetch(tb + NG * UNROLL);
+    const int t = tb + grp;
+    // the group's partial dots, then all G x UNROLL of them reduced over
+    // the group's lanes together, one shuffle round at a time
+    float s[GM][UNROLL];
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        float dot = 0.f;
+#pragma unroll
+        for (int i = 0; i < NV; ++i)
+#pragma unroll
+          for (int e = 0; e < W; ++e) dot += qf[g][i][e] * kx[u][i][e];
+        s[g][u] = dot;
+      }
+#pragma unroll
+    for (int r = 4; r >= 0; --r) {
+      const int off = 1 << r;
+      if (off < L)
+#pragma unroll
+        for (int g = 0; g < GM; ++g)
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u)
+            s[g][u] += __shfl_xor_sync(0xffffffffu, s[g][u], off);
+    }
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g >= G) continue;
+      float mx = m[g];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        s[g][u] = (t + u * NG < t1) ? s[g][u] * scale2 : NEG_INF;
+        mx = fmaxf(mx, s[g][u]);
+      }
+      // masked tokens give exactly 0; while the group has seen no live
+      // token, m = mx = -1e30 and alpha = 1 rescales zeros
+      const float alpha = hopper::ex2(m[g] - mx);
+      float p[UNROLL], ps = 0.f;
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        p[u] = (t + u * NG < t1) ? hopper::ex2(s[g][u] - mx) : 0.f;
+        ps += p[u];
+      }
+      l[g] = l[g] * alpha + ps;
+      m[g] = mx;
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          float a = acc[g][i][e] * alpha;
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u) a += p[u] * vx[u][i][e];
+          acc[g][i][e] = a;
+        }
+    }
+  }
+
+  // merge the lane groups of a warp (shuffles), then the warps (shared)
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    for (int off = L; off < 32; off <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
+      float fb;
+      const float fa = merge_scale(m[g], mo, fb);
+      l[g] = l[g] * fa + lo * fb;
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          const float ao = __shfl_xor_sync(0xffffffffu, acc[g][i][e], off);
+          acc[g][i][e] = acc[g][i][e] * fa + ao * fb;
+        }
+    }
+  }
+  float* red_m = red + WARPS * GM * D;
+  float* red_l = red_m + WARPS * GM;
+  if (lane < L) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g >= G) continue;
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          const int d = (lig + i * L) * W + e;
+          if (d < D) red[(warp * GM + g) * D + d] = acc[g][i][e];
+        }
+      if (lane == 0) {
+        red_m[warp * GM + g] = m[g];
+        red_l[warp * GM + g] = l[g];
       }
     }
   }
   __syncthreads();
+  for (int idx = tid; idx < G * D; idx += THREADS) {
+    const int g = idx / D, d = idx % D;
+    float M = NEG_INF;
 #pragma unroll
-  for (int g = 0; g < MAX_G; ++g) {
-    if (g < G && live) {
-      const float l = l_s[g];
-      const float safe = (l == 0.f) ? 1.f : l;
-      store(&out[b * o_sb + (long long)(h * G + g) * o_sh + d], acc[g] / safe);
+    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, red_m[w * GM + g]);
+    float a = 0.f, ls = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float f = hopper::ex2(red_m[w * GM + g] - M);
+      a += f * red[(w * GM + g) * D + d];
+      ls += f * red_l[w * GM + g];
+    }
+    const int hq = h * G + g;
+    if (nsplit == 1) {
+      store(&out[b * o_sb + (long long)hq * o_sh + d],
+            a / (ls == 0.f ? 1.f : ls));
+    } else {
+      const long long row = ((long long)b * H + hq) * nsplit + sp;
+      part_acc[row * D + d] = a;
+      if (d == 0) {
+        part_ml[2 * row] = M;
+        part_ml[2 * row + 1] = ls;
+      }
     }
   }
 }
 
+// out[b, hq] = sum_i e^(m_i - M) acc_i / sum_i e^(m_i - M) l_i over the
+// splits of sequence b that start before its length, in split order; no
+// live split (a length of 0) gives 0.  One CTA per (b, hq), one thread
+// per element of the row.
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* lens,
-           void* out, int B, int Hkv, int G, int D, int S, float scale,
-           const long long* st, cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-                      (G * D + STEP * (D + 1) + STEP * D + G * STEP + 3 * G);
-  dim3 grid(B, Hkv);
-  const int threads = (D + 31) / 32 * 32;
-  flash_decode_kernel<T><<<grid, threads, smem, stream>>>(
+__global__ void decode_combine_kernel(const float* __restrict__ part_acc,
+                                      const float* __restrict__ part_ml,
+                                      const int* __restrict__ lengths,
+                                      T* __restrict__ out, int H, int D,
+                                      int S, int block_k, int nsplit,
+                                      long long o_sb, long long o_sh) {
+  const int bh = blockIdx.x, b = bh / H, hq = bh % H;
+  const int len = min(max(lengths[b], 0), S);
+  const int live = min(nsplit, (len + block_k - 1) / block_k);
+  const float* ml = part_ml + (long long)bh * nsplit * 2;
+  float M = NEG_INF;
+  for (int i = 0; i < live; ++i) M = fmaxf(M, ml[2 * i]);
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float a = 0.f, ls = 0.f;
+    for (int i = 0; i < live; ++i) {
+      const float f = hopper::ex2(ml[2 * i] - M);
+      a += f * part_acc[((long long)bh * nsplit + i) * D + d];
+      ls += f * ml[2 * i + 1];
+    }
+    store(&out[b * o_sb + (long long)hq * o_sh + d],
+          a / (ls == 0.f ? 1.f : ls));
+  }
+}
+
+template <typename T, int W, int NV, int GM>
+int launch_split(const void* q, const void* k, const void* v,
+                 const void* lens, void* out, void* part_acc, void* part_ml,
+                 int B, int Hkv, int G, int D, int S, int block_k, int nsplit,
+                 int L, float scale, const long long* st,
+                 cudaStream_t stream) {
+  auto kern = decode_split_kernel<T, W, NV, GM>;
+  const int smem = (int)sizeof(float) * WARPS * GM * (D + 2);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid(nsplit, Hkv, B);
+  kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(lens),
-      static_cast<T*>(out), G, D, S, scale, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9]);
+      static_cast<T*>(out), static_cast<float*>(part_acc),
+      static_cast<float*>(part_ml), G, D, S, block_k, nsplit, L,
+      scale * LOG2E, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], st[9]);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || nsplit == 1) return (int)e;
+  const int threads = min(256, (D + 31) / 32 * 32);
+  decode_combine_kernel<T><<<B * Hkv * G, threads, 0, stream>>>(
+      static_cast<const float*>(part_acc),
+      static_cast<const float*>(part_ml), static_cast<const int*>(lens),
+      static_cast<T*>(out), Hkv * G, D, S, block_k, nsplit, st[8], st[9]);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int W, int NV>
+int by_group(int G, const void* q, const void* k, const void* v,
+             const void* lens, void* out, void* pa, void* pm, int B, int Hkv,
+             int D, int S, int block_k, int nsplit, int L, float scale,
+             const long long* st, cudaStream_t s) {
+#define ARGS q, k, v, lens, out, pa, pm, B, Hkv, G, D, S, block_k, nsplit, L, \
+             scale, st, s
+  if (G <= 1) return launch_split<T, W, NV, 1>(ARGS);
+  if (G <= 2) return launch_split<T, W, NV, 2>(ARGS);
+  if (G <= 4) return launch_split<T, W, NV, 4>(ARGS);
+  return launch_split<T, W, NV, 8>(ARGS);
+#undef ARGS
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* lens,
+             void* out, void* pa, void* pm, int B, int Hkv, int G, int D,
+             int S, int block_k, int nsplit, float scale,
+             const long long* st, cudaStream_t s) {
+  constexpr int VW = 16 / (int)sizeof(T);   // elements in 16 bytes
+  bool vec = D % VW == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+             aligned16(out);
+  for (int i = 0; i < 10; ++i) vec = vec && st[i] % VW == 0;
+  const int nvec = vec ? D / VW : D;
+  int L = 1;
+  while (L < nvec && L < 32) L <<= 1;
+  const int nv = (nvec + L - 1) / L;
+#define ARGS G, q, k, v, lens, out, pa, pm, B, Hkv, D, S, block_k, nsplit, L, \
+             scale, st, s
+  if (vec && nv == 1) return by_group<T, VW, 1>(ARGS);
+  if constexpr (VW == 4)   // f32 rows of up to 64 vectors
+    if (vec && nv == 2) return by_group<T, VW, 2>(ARGS);
+  if (!vec && nv <= 8) return by_group<T, 1, 8>(ARGS);
+#undef ARGS
+  return -1;
 }
 
 }  // namespace
 
 // dtype: 0 = bf16, 1 = f32 (q, caches and out share it).  strides: q (b, h),
-// k (b, h, s), v (b, h, s), out (b, h), in elements.  Returns
+// k (b, h, s), v (b, h, s), out (b, h), in elements.  block_k: cache
+// positions a split covers; nsplit = ceil(S / block_k).  part_acc /
+// part_ml: the split workspace (unused when nsplit == 1).  Returns
 // cudaGetLastError(), or -1 for a shape or dtype this file does not build.
 extern "C" int flash_decode(const void* q, const void* k, const void* v,
-                            const void* lens, void* out, int dtype, int B,
-                            int Hkv, int G, int D, int S,
+                            const void* lens, void* out, void* part_acc,
+                            void* part_ml, int dtype, int B, int Hkv, int G,
+                            int D, int S, int block_k, int nsplit,
                             const long long* strides, float scale,
                             void* stream) {
-  if (G > MAX_G || G < 1 || D < 1 || D > 256) return -1;
+  if (G > MAX_G || G < 1 || D < 1 || D > 256 || block_k < 1 ||
+      nsplit != (S + block_k - 1) / block_k)
+    return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<__nv_bfloat16>(q, k, v, lens, out, B, Hkv, G, D, S, scale,
-                                 strides, s);
+    return dispatch<__nv_bfloat16>(q, k, v, lens, out, part_acc, part_ml, B,
+                                   Hkv, G, D, S, block_k, nsplit, scale,
+                                   strides, s);
   if (dtype == 1)
-    return launch<float>(q, k, v, lens, out, B, Hkv, G, D, S, scale, strides,
-                         s);
+    return dispatch<float>(q, k, v, lens, out, part_acc, part_ml, B, Hkv, G,
+                           D, S, block_k, nsplit, scale, strides, s);
   return -1;
 }

@@ -87,6 +87,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// Make this thread's generic-proxy writes to shared memory (st.shared)
+// visible to the async proxy (wgmma, TMA); follow with the barrier arrival
+// that hands the tile over.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // --- TMA tile loads (global -> shared, completion on an mbarrier) ----------
 
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
@@ -374,15 +381,20 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
 
 // A bf16 tensor of `rank` dims (innermost first; strides in bytes of dims
 // 1..rank-1), read in boxes of `box` elements with the 128-byte swizzle;
-// out-of-bounds elements load as zeros.  Returns 0, or a CUresult.
+// out-of-bounds elements load as zeros.  `elem_strides` (null: all 1)
+// steps a box through every e-th element of a dim (not the innermost):
+// the box then spans box[i] elements and loads ceil(box[i] / e) of them.
+// Returns 0, or a CUresult.
 inline int encode_bf16(CUtensorMap* map, int rank, const void* base,
                        const uint64_t* dims, const uint64_t* strides,
-                       const uint32_t* box) {
+                       const uint32_t* box,
+                       const uint32_t* elem_strides = nullptr) {
   PFN_cuTensorMapEncodeTiled_v12000 fn = encode_fn();
   if (fn == nullptr) return (int)CUDA_ERROR_NOT_SUPPORTED;
   const uint32_t ones[5] = {1, 1, 1, 1, 1};
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-                  const_cast<void*>(base), dims, strides, box, ones,
+                  const_cast<void*>(base), dims, strides, box,
+                  elem_strides != nullptr ? elem_strides : ones,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

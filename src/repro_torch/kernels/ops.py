@@ -20,19 +20,22 @@ M = 1, the CUDA-core kernel for f32 or operands TMA cannot read), and the
 tiled routes' blocks come from the paper's tile search re-targeted to one
 H100 CTA (``repro_torch.core.cuda_bridge.matmul_block_shapes``); the flash
 forward takes the ``wgmma`` kernel (128 x 128 blocks) for bf16 and the
-CUDA-core one (64 x 64) for f32 (``attention.flash_fwd_route``); ``conv2d``
-and ``correlation`` keep the reference's ``block_oh`` / ``block_co`` /
-``block_y`` and their clamping; dense decode steps 32 cached tokens at a
-time on the card (``block_k`` shapes only the plain version).  The flash
-backward kernels keep fixed 64 x 64 blocks and paged decode one page a
-step.  The ragged edges are masked in the kernels: no wrapper pads by a
-copy.
+CUDA-core one (64 x 64) for f32 (``attention.flash_fwd_route``), and a
+block a caller names must be the route's; ``conv2d`` takes the ``wgmma``
+implicit GEMM for bf16, its tile and K split from
+``cuda_bridge.conv2d_plan``, and the CUDA-core kernel for f32
+(``conv2d.conv2d_route``); ``correlation`` keeps the reference's
+``block_y`` and its clamping; dense decode splits the history into
+``block_k``-token splits combined by their lse.  The flash backward
+kernels keep their route's blocks and paged decode one page a step.  The
+ragged edges are masked in the kernels: no wrapper pads by a copy.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.cuda_bridge import gemv_plan, matmul_block_shapes
+from ..core.cuda_bridge import (conv2d_blocks_built, conv2d_plan, gemv_plan,
+                                matmul_block_shapes)
 from . import attention as _attention
 from . import conv2d as _conv2d
 from . import correlation as _correlation
@@ -111,20 +114,44 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int | None = None,
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
-           dilation: int = 1, block_oh: int = 8, block_co: int = 128
-           ) -> torch.Tensor:
-    """NHWC x HWIO conv, VALID padding (pad x yourself for SAME)."""
+           dilation: int = 1, block_oh: int | None = None,
+           block_co: int | None = None) -> torch.Tensor:
+    """NHWC x HWIO conv, VALID padding (pad x yourself for SAME).
+
+    The route (``conv2d`` for bf16, ``conv2d_simt`` for f32 or operands
+    TMA cannot read) follows from the operands
+    (``kernels.conv2d.conv2d_route``).  On the wgmma route the tile and K
+    split come from ``cuda_bridge.conv2d_plan``, which keeps the blocks
+    given and raises, on the card, for blocks the kernel is not built for;
+    the CUDA-core route takes the reference's defaults (8, 128) and clamp."""
     N, IH, IW, CI = x.shape
     KH, KW, _, CO = w.shape
     OH, OW = _conv2d.out_hw(IH, IW, KH, KW, stride, dilation)
-    block_oh = min(block_oh, OH)
-    block_co = min(block_co, CO)
     impl = _impl(x)
-    _record_dispatch("conv2d", impl=impl, oh=OH, ow=OW, ci=CI, co=CO,
-                     block_oh=block_oh, block_co=block_co)
-    if impl == "cuda":
-        return _conv2d.conv2d_cuda(x, w, stride=stride, dilation=dilation,
-                                   block_oh=block_oh, block_co=block_co)
+    route = _conv2d.conv2d_route(x, w)
+    if route == "conv2d" and (impl == "cuda" or
+                              conv2d_blocks_built(block_oh, block_co)):
+        plan = conv2d_plan(N, OH, OW, CI, CO, KH, KW, stride=stride,
+                           block_oh=block_oh, block_co=block_co)
+        _record_dispatch("conv2d", impl=impl, route=route, oh=OH, ow=OW,
+                         ci=CI, co=CO, block_oh=plan.block_oh,
+                         block_ow=plan.block_ow, block_co=plan.block_co,
+                         splits=plan.splits, ctas=plan.ctas)
+        if impl == "cuda":
+            return _conv2d.conv2d_cuda(
+                x, w, stride=stride, dilation=dilation,
+                block_oh=plan.block_oh, block_ow=plan.block_ow,
+                block_co=plan.block_co, splits=plan.splits)
+    else:
+        block_oh = min(block_oh or 8, OH)
+        block_co = min(block_co or 128, CO)
+        _record_dispatch("conv2d", impl=impl, route=route, oh=OH, ow=OW,
+                         ci=CI, co=CO, block_oh=block_oh, block_co=block_co)
+        if impl == "cuda":
+            return _conv2d.conv2d_simt_cuda(x, w, stride=stride,
+                                            dilation=dilation,
+                                            block_oh=block_oh,
+                                            block_co=block_co)
     return _conv2d.conv2d_plain(x, w, stride=stride, dilation=dilation)
 
 
@@ -143,57 +170,79 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, lengths: torch.Tensor, *,
                  block_k: int = 512) -> torch.Tensor:
     """q: (B, H, D) one token; caches: (B, Hkv, S, D), read in place;
-    lengths: (B,) int32.  Returns (B, H, D)."""
+    lengths: (B,) int32.  Returns (B, H, D).  The history is cut into
+    splits of ``block_k`` cached tokens (after the reference's clamp), one
+    CTA each on the card, combined by their lse."""
     B = q.shape[0]
     S = k_cache.shape[2]
     block_k = min(block_k, S)
     impl = _impl(q)
     _record_dispatch("flash_decode", impl=impl, batch=B, s=S,
-                     block_k=block_k)
+                     block_k=block_k,
+                     splits=_attention.decode_splits(S, block_k))
     if impl == "cuda":
-        return _attention.flash_decode_cuda(q, k_cache, v_cache, lengths)
+        return _attention.flash_decode_cuda(q, k_cache, v_cache, lengths,
+                                            block_k=block_k)
     return _attention.flash_decode_plain(q, k_cache, v_cache, lengths,
                                          block_k=block_k)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int | None = None
+                    causal: bool = True, window: int | None = None,
+                    block_q: int | None = None, block_k: int | None = None,
+                    trainable: bool = True, prune: bool = True
                     ) -> torch.Tensor:
     """q: (B, H, S, D), k/v: (B, Hkv, Sk, D) -> (B, H, S, D).
 
     The forward kernel's route (wgmma or CUDA-core) and its blocks follow
-    from the inputs (``attention.flash_fwd_route``).  When autograd wants a
-    gradient of q, k or v, the call goes through
-    :class:`attention.FlashAttention`: the forward kernel saves its lse and
-    the backward runs the dq and dk/dv kernels.  Otherwise it is the
-    forward-only launch, as on the serving path.  On CUDA the kernels read
-    q/k/v through their strides, so the ``transpose(1, 2)`` views of
-    (B, S, H, D) activations cost no copy, and the output keeps q's memory
-    layout.  Fully masked k blocks are pruned from the schedule."""
+    from the inputs (``attention.flash_fwd_route``,
+    ``attention.flash_fwd_blocks``).  On the card a ``block_q`` /
+    ``block_k`` given must be the route's, or the call raises naming the
+    route; the plain version on the CPU runs any blocks.  When
+    ``trainable`` and autograd wants a gradient of q, k or v, the call goes
+    through :class:`attention.FlashAttention`: the forward kernel saves its
+    lse and the backward runs the dq and dk/dv kernels.  Otherwise it is
+    the forward-only launch (under ``torch.no_grad()``), as on the serving
+    path.  On CUDA the kernels read q/k/v through their strides, so the
+    ``transpose(1, 2)`` views of (B, S, H, D) activations cost no copy, and
+    the output keeps q's memory layout.  Fully masked k blocks are pruned
+    from the schedule; ``prune=False`` walks the dense grid, whose extra
+    blocks the kernels mask to exactly 0."""
     B, H, Sq, D = q.shape
     _, Hkv, Sk, _ = k.shape
     impl = _impl(q)
-    train = torch.is_grad_enabled() and (
+    train = trainable and torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
     route = _attention.flash_fwd_route(q, k, v)
-    bq, bk = _attention.flash_fwd_blocks(route)
+    rbq, rbk = _attention.flash_fwd_blocks(route)
+    bq, bk = block_q or rbq, block_k or rbk
+    if impl == "cuda" and (bq, bk) != (rbq, rbk):
+        raise ValueError(f"flash_attention: blocks (block_q {bq}, block_k "
+                         f"{bk}) are not the ones route {route} is built "
+                         f"for ({rbq}, {rbk})")
     real, total = _attention.scheduled_block_counts(
         Sq, Sk, block_q=bq, block_k=bk, causal=causal, window=window)
-    _record_dispatch("flash_attention", impl="train" if train else impl,
+    if not prune:
+        real = total                      # dense grid: nothing skipped
+    _record_dispatch("flash_attention",
+                     impl="train" if train else (impl if trainable
+                                                 else f"{impl}-fwd"),
                      route=route, sq=Sq, sk=Sk, block_q=bq, block_k=bk,
                      scheduled_blocks=real, dense_blocks=total,
                      pruning_ratio=real / total if total else 1.0)
     if train:
-        return _attention.flash_attention_train(q, k, v, causal=causal,
-                                                window=window)
-    if impl == "cuda":
-        o, _ = _attention.flash_attention_fwd_cuda(q, k, v, causal=causal,
-                                                   window=window)
-        return o
-    o, _ = _attention.flash_attention_fwd_plain(
-        q.reshape(B * H, Sq, D), k.reshape(B * Hkv, Sk, D),
-        v.reshape(B * Hkv, Sk, D), causal=causal, window=window,
-        block_q=bq, block_k=bk)
+        return _attention.flash_attention_train(
+            q, k, v, causal=causal, window=window, prune=prune,
+            blocks=None if impl == "cuda" else (bq, bk))
+    with torch.no_grad():
+        if impl == "cuda":
+            o, _ = _attention.flash_attention_fwd_cuda(
+                q, k, v, causal=causal, window=window, prune=prune)
+            return o
+        o, _ = _attention.flash_attention_fwd_plain(
+            q.reshape(B * H, Sq, D), k.reshape(B * Hkv, Sk, D),
+            v.reshape(B * Hkv, Sk, D), causal=causal, window=window,
+            block_q=bq, block_k=bk)
     return o.reshape(B, H, Sq, D)
 
 

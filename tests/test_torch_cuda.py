@@ -323,6 +323,48 @@ def test_launchers_count_launches_and_forward_launch_refuses_autograd(dev):
         ops.LAUNCHES["flash_bwd_dkv_simt"] == 0
 
 
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_attention_takes_the_reference_arguments(dev, dt):
+    """``ops.flash_attention`` takes the reference's ``block_q``,
+    ``block_k``, ``trainable`` and ``prune``.  Blocks other than the
+    route's raise, naming the route; ``prune=False`` hands the forward and
+    both backward kernels the dense grid and gives ``prune=True``'s output
+    and gradients bit for bit (the extra blocks are masked to exactly 0);
+    ``trainable=False`` is the forward-only launch, with no gradient."""
+    from repro_torch.kernels import attention as katt
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(17)
+    q = _randn(g, (1, 4, 300, 128), dev, dt)
+    k, v, do = (_randn(g, s, dev, dt) for s in
+                ((1, 2, 300, 128), (1, 2, 300, 128), (1, 4, 300, 128)))
+    route = katt.flash_fwd_route(q, k, v)
+    assert route == ("flash_fwd" if dt == torch.bfloat16
+                     else "flash_fwd_simt")
+    bq, bk = katt.flash_fwd_blocks(route)
+    other = 64 if bq == 128 else 128
+    with pytest.raises(ValueError, match=f"route {route} "):
+        ops.flash_attention(q, k, v, block_q=other)
+    with pytest.raises(ValueError, match=f"route {route} "):
+        ops.flash_attention(q, k, v, block_q=bq, block_k=other)
+    for causal, window in ((True, None), (True, 100), (False, 100)):
+        kw = dict(causal=causal, window=window, block_q=bq, block_k=bk)
+        outs = {}
+        for prune in (True, False):
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            o = ops.flash_attention(*leaves, prune=prune, **kw)
+            outs[prune] = (o, *torch.autograd.grad(o, leaves, do))
+        for a, b in zip(outs[True], outs[False]):
+            assert torch.equal(a, b), (causal, window)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    with torch.no_grad():
+        want = ops.flash_attention(q, k, v)
+    ops.reset_launches()
+    o = ops.flash_attention(*leaves, trainable=False)
+    assert not o.requires_grad and torch.equal(o, want)
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == {route: 1}
+
+
 @pytest.mark.parametrize("kv_mode", ["dense", "paged", "paged_int8"])
 def test_smoke_engine_on_the_card_matches_cpu(dev, kv_mode):
     """The smoke config (f32) serves on the card through the kernels and
@@ -569,18 +611,86 @@ CONV = [
 
 @pytest.mark.parametrize("case", CONV, ids=lambda c: "-".join(map(str, c)))
 def test_conv2d_kernel_matches_plain(dev, case):
-    """Stride 4 with 11x11, CO 125 and 27 (ragged channel blocks), CI past
-    one 32-channel chunk, dilation, odd block_oh, a 64-row tile."""
+    """The CUDA-core kernel (route ``conv2d_simt``): stride 4 with 11x11,
+    CO 125 and 27 (ragged channel blocks), CI past one 32-channel chunk,
+    dilation, odd block_oh, a 64-row tile."""
     from repro_torch.kernels import conv2d as kconv
     xs, ws, stride, dil, boh, bco, dt = case
     g = torch.Generator(device=dev).manual_seed(9)
     x = _randn(g, xs, dev, dt)
     w = _randn(g, ws, dev, dt, (ws[0] * ws[1] * ws[2]) ** -0.5)
-    got = kconv.conv2d_cuda(x, w, stride=stride, dilation=dil, block_oh=boh,
-                            block_co=bco)
+    got = kconv.conv2d_simt_cuda(x, w, stride=stride, dilation=dil,
+                                 block_oh=boh, block_co=bco)
     want = kconv.conv2d_plain(x, w, stride=stride, dilation=dil)
     assert got.shape == want.shape and got.dtype == dt
     _paper_close(got, want, dt, atol=1e-3)
+
+
+CONV_WGMMA = [
+    # (x shape, w shape, stride, dilation): the wgmma route's hard cases
+    ((1, 63, 67, 3), (11, 11, 3, 48), 4, 1),    # CI 3 gathered, stride 4
+    ((1, 20, 21, 3), (3, 3, 3, 16), 1, 1),      # CI 3, CO 16
+    ((1, 34, 40, 16), (3, 3, 16, 32), 1, 1),    # CI 16: box past CI
+    ((1, 31, 31, 48), (5, 5, 48, 128), 1, 1),   # CI 48: rows of next tap
+    ((1, 22, 70, 32), (3, 3, 32, 27), 1, 1),    # CO 27 gathered, OW 68
+    ((1, 13, 13, 256), (1, 1, 256, 125), 1, 1),  # CO 125, 13x13, split K
+    ((1, 15, 15, 192), (3, 3, 192, 192), 1, 1),  # AL_CONV4: split K
+    ((1, 30, 30, 64), (3, 3, 64, 64), 1, 4),    # dilation 4
+    ((2, 33, 41, 64), (3, 3, 64, 128), 2, 1),   # stride 2 by TMA, N 2
+    ((1, 40, 40, 16), (2, 2, 16, 64), 9, 1),    # stride 9: 16-byte gather
+]
+
+
+def _conv_inputs(dev, xs, ws, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = _randn(g, xs, dev, torch.bfloat16)
+    w = _randn(g, ws, dev, torch.bfloat16, (ws[0] * ws[1] * ws[2]) ** -0.5)
+    return x, w
+
+
+@pytest.mark.parametrize("case", CONV_WGMMA,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_conv2d_wgmma_matches_plain(dev, case):
+    """The wgmma implicit GEMM (route ``conv2d``) through ``ops.conv2d``
+    (the tile and K split of ``conv2d_plan``: one launch), then on every
+    tile it is built for, unsplit and split into one K step a CTA."""
+    from repro_torch.core.cuda_bridge import CONV_TILES, conv2d_k_steps
+    from repro_torch.kernels import conv2d as kconv
+    from repro_torch.kernels import ops
+    xs, ws, stride, dil = case
+    x, w = _conv_inputs(dev, xs, ws, 14)
+    want = kconv.conv2d_plain(x, w, stride=stride, dilation=dil)
+    ops.reset_launches()
+    got = ops.conv2d(x, w, stride=stride, dilation=dil)
+    assert {k: n for k, n in ops.LAUNCHES.items() if n} == {"conv2d": 1}
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _paper_close(got, want, torch.bfloat16, atol=1e-3)
+    for boh, bow, bco in sorted(CONV_TILES):
+        steps = conv2d_k_steps(xs[3], ws[0], ws[1], stride=stride,
+                               block_ow=bow)
+        for splits in sorted({1, steps}):
+            got = kconv.conv2d_cuda(x, w, stride=stride, dilation=dil,
+                                    block_oh=boh, block_ow=bow,
+                                    block_co=bco, splits=splits)
+            _paper_close(got, want, torch.bfloat16, atol=1e-3)
+
+
+def test_conv2d_wgmma_split_k_is_deterministic(dev):
+    """Split K sums its f32 partials in split order, with no atomics: two
+    runs give the same bits, and a split run stays within tolerance of the
+    unsplit one."""
+    from repro_torch.core.cuda_bridge import conv2d_plan
+    from repro_torch.kernels import conv2d as kconv
+    x, w = _conv_inputs(dev, (1, 15, 15, 256), (3, 3, 256, 512), 15)
+    plan = conv2d_plan(1, 13, 13, 256, 512, 3, 3)
+    assert plan.splits > 1
+    tile = dict(block_oh=plan.block_oh, block_ow=plan.block_ow,
+                block_co=plan.block_co)
+    a = kconv.conv2d_cuda(x, w, **tile, splits=plan.splits)
+    b = kconv.conv2d_cuda(x, w, **tile, splits=plan.splits)
+    assert torch.equal(a, b)
+    one = kconv.conv2d_cuda(x, w, **tile, splits=1)
+    _paper_close(a, one, torch.bfloat16, atol=1e-3)
 
 
 CORR = [
@@ -613,13 +723,15 @@ DECODE = [
     (3, 8, 2, 100, 64, [100, 33, 1], torch.bfloat16),
     (2, 16, 2, 70, 128, [0, 70], torch.float32),
     (2, 4, 4, 40, 16, [31, 32], torch.float32),
+    (2, 6, 2, 50, 20, [50, 7], torch.bfloat16),   # D 20: scalar loads
 ]
 
 
 @pytest.mark.parametrize("case", DECODE, ids=lambda c: "-".join(map(str, c)))
 def test_flash_decode_kernel_matches_plain(dev, case):
-    """The qwen3-4b decode shape, ragged 32-token steps, G 8 and 1, and a
-    length of 0, where kernel and plain version both give 0."""
+    """The qwen3-4b decode shape, ragged splits, G 8, 3 and 1, a head_dim
+    whose rows 16-byte loads cannot take, and a length of 0, where kernel
+    and plain version both give 0."""
     from repro_torch.kernels import attention as katt
     B, H, Hkv, S, D, lens, dt = case
     g = torch.Generator(device=dev).manual_seed(11)
@@ -632,6 +744,32 @@ def test_flash_decode_kernel_matches_plain(dev, case):
     for b, n in enumerate(lens):
         if n == 0:
             assert torch.equal(got[b], torch.zeros_like(got[b]))
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("block_k", [8, 32, 512])
+def test_flash_decode_splits_match_plain(dev, G, D, block_k):
+    """The split history at a block_k's edges: lengths 0, 1, block_k - 1,
+    block_k, block_k + 1 and S over a ragged S, through ``ops`` (one
+    launch), against the plain version at the same block_k."""
+    from repro_torch.kernels import attention as katt
+    from repro_torch.kernels import ops
+    S, Hkv = 1100, 2
+    lens = [0, 1, block_k - 1, block_k, block_k + 1, S]
+    B = len(lens)
+    g = torch.Generator(device=dev).manual_seed(16)
+    q = _randn(g, (B, Hkv * G, D), dev, torch.bfloat16)
+    kc, vc = (_randn(g, (B, Hkv, S, D), dev, torch.bfloat16)
+              for _ in range(2))
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    ops.reset_launches()
+    got = ops.flash_decode(q, kc, vc, ln, block_k=block_k)
+    assert {k: n for k, n in ops.LAUNCHES.items() if n} == \
+        {"flash_decode": 1}
+    want = katt.flash_decode_plain(q, kc, vc, ln, block_k=block_k)
+    _paper_close(got, want, torch.bfloat16, atol=1e-4)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
 
 
 def test_flash_decode_reads_a_strided_cache_in_place(dev):
@@ -664,12 +802,13 @@ def test_paper_wrappers_launch_count_and_refuse_unbuilt_tiles(dev):
     ops.matmul(a, a.t().contiguous())        # B's rows are 140 bytes
     ops.matmul(a8, a8.t().contiguous())      # M 96: wgmma
     ops.matmul(a8[:1], a8.t().contiguous())  # M 1: the GEMV
-    ops.conv2d(x, w)
+    ops.conv2d(x, w)                         # bf16: wgmma
+    ops.conv2d(x.float(), w.float())         # f32: CUDA cores
     ops.correlation(i, i, radius=2)
     ops.flash_decode(q, kc, kc, ln)
     assert {k: n for k, n in ops.LAUNCHES.items() if n} == {
         "matmul_simt": 1, "matmul": 1, "matmul_gemv": 1, "conv2d": 1,
-        "correlation": 1, "flash_decode": 1}
+        "conv2d_simt": 1, "correlation": 1, "flash_decode": 1}
     with pytest.raises(ValueError, match="not one csrc/matmul.cu"):
         ops.matmul(a, a.t().contiguous(), block_m=32, block_n=32, block_k=64)
     with pytest.raises(ValueError, match="not one csrc/matmul.cu"):
@@ -678,5 +817,7 @@ def test_paper_wrappers_launch_count_and_refuse_unbuilt_tiles(dev):
     with pytest.raises(ValueError, match="not ones csrc/conv2d.cu"):
         ops.conv2d(x, _randn(g, (3, 3, 8, 200), dev, torch.bfloat16),
                    block_co=200)
+    with pytest.raises(ValueError, match="route conv2d "):
+        ops.conv2d(x, w, block_oh=3)
     assert ops.LAUNCHES["matmul_simt"] == ops.LAUNCHES["conv2d"] == \
-        ops.LAUNCHES["matmul"] == 1
+        ops.LAUNCHES["matmul"] == ops.LAUNCHES["conv2d_simt"] == 1

@@ -155,6 +155,57 @@ def test_flash_wrapper_matches_reference_ops():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("blocks", [(8, 8), (32, 32), (8, None)],
+                         ids=["8x8", "32x32", "8xroute"])
+def test_flash_wrapper_takes_the_reference_blocks(causal, blocks):
+    """``block_q`` / ``block_k`` as the reference's tests pass them
+    (``tests/test_kernels.py:64``: 8 x 8; ``bench_kernels.py:49``: 32 x
+    32): the plain version on the CPU runs any blocks, forward-only and
+    under autograd, and gives the reference's output and gradients."""
+    B, H, Hkv, S, D = 2, 8, 2, 24, 16
+    bq, bk = blocks
+    q, k, v, do = (_normal(B, h, S, D) for h in (H, Hkv, Hkv, H))
+    kw = dict(causal=causal, block_q=bq, block_k=bk)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    ref = ref_ops.flash_attention(jq, jk, jv, trainable=False, **kw)
+    ref_grads = jax.grad(lambda a, b, c: jnp.sum(
+        ref_ops.flash_attention(a, b, c, **kw) * jnp.asarray(do)),
+        argnums=(0, 1, 2))(jq, jk, jv)
+    got = pt_ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                 **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    o = pt_ops.flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad(o, leaves, torch.from_numpy(do))
+    for g, r in zip(grads, ref_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-4)
+
+
+@pytest.mark.parametrize("trainable", [True, False])
+def test_flash_wrapper_prune_and_trainable_match_reference(trainable):
+    """``prune`` and ``trainable`` as ``tests/test_attention_vjp.py:152``
+    passes them: the pruned and dense grids give the same numbers as each
+    other and as the reference; ``trainable=False`` is the forward-only
+    path (no gradient), ``trainable=True`` trains."""
+    B, H, S, D = 1, 2, 40, 8
+    q, k, v = (_normal(B, H, S, D) for _ in range(3))
+    outs = {}
+    for prune in (True, False):
+        kw = dict(causal=True, window=8, block_q=8, block_k=8, prune=prune,
+                  trainable=trainable)
+        ref = ref_ops.flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                      **kw)
+        leaves = [torch.from_numpy(a).requires_grad_(True)
+                  for a in (q, k, v)]
+        got = pt_ops.flash_attention(*leaves, **kw)
+        assert got.requires_grad == trainable
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                                   rtol=1e-6, atol=1e-6)
+        outs[prune] = got.detach()
+    assert torch.equal(outs[True], outs[False])
+
+
 # ---------------------------------------------------------------------------
 # the copied pair schedule
 # ---------------------------------------------------------------------------

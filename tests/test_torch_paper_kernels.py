@@ -21,6 +21,7 @@ import numpy as np  # noqa: E402
 
 from repro.kernels import ops as ref_ops  # noqa: E402
 from repro.kernels import ref as ref_oracles  # noqa: E402
+from repro_torch import sim as pt_sim  # noqa: E402
 from repro_torch.kernels import attention as pt_att  # noqa: E402
 from repro_torch.kernels import conv2d as pt_conv  # noqa: E402
 from repro_torch.kernels import correlation as pt_corr  # noqa: E402
@@ -198,6 +199,136 @@ def test_decode_block_k_is_the_reference_clamp():
             assert pt_att.decode_block_k(S, bk) == want
 
 
+@pytest.mark.parametrize("block_k,S", [(8, 37), (32, 101), (512, 601)])
+def test_flash_decode_splits_match_reference(block_k, S):
+    """The split history of ``flash_decode_plain`` (the kernel's
+    arithmetic: one softmax partial per ``block_k`` split, combined by
+    their lse) at a split's edges, lengths 0, 1, block_k - 1, block_k,
+    block_k + 1 and S, on a ragged S: the reference's Pallas decode at
+    lengths >= 1, its oracle ``decode_ref`` (0) at length 0."""
+    lens = [0, 1, block_k - 1, block_k, block_k + 1, S]
+    B, G, Hkv, D = len(lens), 2, 2, 16
+    q, kc, vc, ln = _decode_inputs(B, Hkv * G, Hkv, S, D, lens)
+    got = pt_ops.flash_decode(*(torch.from_numpy(a) for a in (q, kc, vc, ln)),
+                              block_k=block_k)
+    assert pt_att.decode_splits(S, block_k) == -(-S // pt_att.decode_block_k(
+        S, block_k)) > 1
+    want = ref_ops.flash_decode(jnp.asarray(q), jnp.asarray(kc),
+                                jnp.asarray(vc), jnp.asarray(ln),
+                                block_k=block_k)
+    _close(got[1:], np.asarray(want)[1:], **TOL)
+    oracle = ref_oracles.decode_ref(
+        jnp.asarray(q.reshape(B * Hkv, G, D)),
+        jnp.asarray(kc.reshape(B * Hkv, S, D)),
+        jnp.asarray(vc.reshape(B * Hkv, S, D)), jnp.repeat(jnp.asarray(ln),
+                                                           Hkv))
+    _close(got, np.asarray(oracle).reshape(B, Hkv * G, D), **TOL)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+# the 20 catalog convs chip_smoke.py runs (the depthwise MBN_DW_S1 has no
+# kernel)
+CONV_NAMES = [w.name for w in pt_sim.ALL if w.family not in ("gemm", "spatial")
+              and "ci" in {d.name for d in w.op.dims}]
+
+
+def _conv_case(name):
+    """(N, OH, OW, CI, CO, KH, KW, stride, x shape, w shape) of catalog
+    conv ``name`` as ``chip_smoke.py`` runs it."""
+    c = {c["name"]: c for c in _chip_smoke().catalog_cases()}[name]
+    sh = c["shapes"]
+    (N, IH, IW, CI), (KH, KW, _, CO) = sh["x"], sh["w"]
+    OH, OW = pt_conv.out_hw(IH, IW, KH, KW, sh["stride"], sh["dilation"])
+    return N, OH, OW, CI, CO, KH, KW, sh["stride"], sh["x"], sh["w"]
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("name", CONV_NAMES)
+def test_conv2d_route_on_every_catalog_shape(name, dtype):
+    """bf16 takes the wgmma route and f32 the CUDA-core one, at every
+    catalog conv's own shapes (CPU tensors: the route is a pure function
+    of dtype and alignment); a bf16 input whose base is not 16-byte
+    aligned takes the CUDA-core route."""
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    *_, xs, ws = _conv_case(name)
+    x, w = torch.empty(xs, dtype=tdt), torch.empty(ws, dtype=tdt)
+    want = "conv2d" if dtype == "bf16" else "conv2d_simt"
+    assert pt_conv.conv2d_route(x, w) == want
+    shifted = torch.empty(x.numel() + 1, dtype=tdt)[1:].view(x.shape)
+    assert pt_conv.conv2d_route(shifted, w) == "conv2d_simt"
+
+
+@pytest.mark.parametrize("name", CONV_NAMES)
+def test_conv2d_plan_fills_the_card_with_built_tiles(name):
+    """``conv2d_plan`` on every catalog conv: a tile the kernel is built
+    for, a K split with no empty split, the CTA count of its grid, and a
+    grid of at least half the SMs (below that a split pays for its
+    reduction pass) unless every split is one K step; producers that
+    gather A (CI 3) take 64-pixel tiles."""
+    from repro_torch.core.cuda_bridge import (CONV_TILES, SM_COUNT,
+                                              conv2d_a_tma, conv2d_k_steps,
+                                              conv2d_plan)
+    assert len(CONV_NAMES) == 20
+    N, OH, OW, CI, CO, KH, KW, stride, _, _ = _conv_case(name)
+    p = conv2d_plan(N, OH, OW, CI, CO, KH, KW, stride=stride)
+    assert (p.block_oh, p.block_ow, p.block_co) in CONV_TILES
+    assert p.k_steps == conv2d_k_steps(CI, KH, KW, stride=stride,
+                                       block_ow=p.block_ow)
+    per = -(-p.k_steps // p.splits)
+    assert -(-p.k_steps // per) == p.splits        # no split is empty
+    grid = N * -(-OH // p.block_oh) * -(-OW // p.block_ow) * \
+        -(-CO // p.block_co)
+    assert p.ctas == grid * p.splits
+    assert p.ctas >= SM_COUNT // 2 or p.splits == p.k_steps
+    assert p.splits == 1 or grid < SM_COUNT // 2
+    if not conv2d_a_tma(CI, stride, p.block_ow):
+        assert p.block_oh * p.block_ow == 64
+    assert conv2d_plan(N, OH, OW, CI, CO, KH, KW, stride=stride) == p
+
+
+def test_conv2d_plan_keeps_named_blocks_and_refuses_unbuilt_ones():
+    from repro_torch.core.cuda_bridge import conv2d_plan
+    for boh in (1, 2, 4, 8, 16):
+        for bco in (64, 128):
+            p = conv2d_plan(1, 13, 13, 128, 192, 3, 3, block_oh=boh,
+                            block_co=bco)
+            assert (p.block_oh, p.block_co) == (boh, bco)
+    for blocks in (dict(block_oh=3), dict(block_oh=32), dict(block_co=48),
+                   dict(block_co=256)):
+        with pytest.raises(ValueError, match="route conv2d "):
+            conv2d_plan(1, 13, 13, 128, 192, 3, 3, **blocks)
+
+
+@pytest.mark.parametrize("case", [
+    ((1, 27, 30, 3), (11, 11, 3, 5), 4, 1),
+    ((1, 20, 19, 16), (3, 3, 16, 6), 1, 4),
+], ids=["stride4_11x11", "dilation4"])
+def test_conv2d_bf16_takes_the_wgmma_route_on_cpu(case):
+    """bf16 CPU tensors take the wgmma route: ``ops.conv2d`` plans it and
+    runs the plain version, which matches the reference's oracle on the
+    same bf16 values (summed in f32), and counts no launch; blocks the
+    route is not built for give the plain version on the CPU."""
+    from repro_torch.obs import REGISTRY
+    xs, ws, stride, dilation = case
+    x = torch.from_numpy(_normal(*xs)).to(torch.bfloat16)
+    w = torch.from_numpy(_normal(*ws)).to(torch.bfloat16)
+    assert pt_conv.conv2d_route(x, w) == "conv2d"
+    before = REGISTRY.get_counter("kernel_dispatch", kernel="conv2d",
+                                  impl="plain")
+    pt_ops.reset_launches()
+    got = pt_ops.conv2d(x, w, stride=stride, dilation=dilation)
+    again = pt_ops.conv2d(x, w, stride=stride, dilation=dilation,
+                          block_oh=3, block_co=5)
+    assert torch.equal(got, again) and got.dtype == torch.bfloat16
+    assert all(n == 0 for n in pt_ops.LAUNCHES.values())
+    assert REGISTRY.get_counter("kernel_dispatch", kernel="conv2d",
+                                impl="plain") == before + 2
+    want = ref_oracles.conv2d_ref(jnp.asarray(x.float().numpy()),
+                                  jnp.asarray(w.float().numpy()),
+                                  stride=stride, dilation=dilation)
+    _close(got, want, rtol=2 ** -7, atol=2e-2)
+
+
 # ---------------------------------------------------------------------------
 # dispatch rules
 # ---------------------------------------------------------------------------
@@ -225,9 +356,15 @@ def test_cuda_launchers_refuse_cpu_tensors():
         pt_mm.matmul_simt_cuda(x, x, block_m=64, block_n=64, block_k=32)
     with pytest.raises(ValueError, match="CUDA"):
         pt_mm.matmul_gemv_cuda(x[:1], x)
+    bf = dict(dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
-        pt_conv.conv2d_cuda(torch.zeros(1, 8, 8, 4), torch.zeros(3, 3, 4, 8),
-                            block_oh=8, block_co=8)
+        pt_conv.conv2d_cuda(torch.zeros(1, 8, 8, 4, **bf),
+                            torch.zeros(3, 3, 4, 8, **bf), block_oh=8,
+                            block_ow=8, block_co=64)
+    with pytest.raises(ValueError, match="CUDA"):
+        pt_conv.conv2d_simt_cuda(torch.zeros(1, 8, 8, 4),
+                                 torch.zeros(3, 3, 4, 8), block_oh=8,
+                                 block_co=8)
     i = torch.zeros(8, 8, 4)
     with pytest.raises(ValueError, match="CUDA"):
         pt_corr.correlation_cuda(i, i, radius=2, block_y=8)
@@ -260,10 +397,16 @@ def test_matmul_launcher_refuses_tiles_it_is_not_built_for(tile):
 
 @pytest.mark.parametrize("blocks", [(0, 8), (65, 8), (8, 0), (8, 129)])
 def test_conv2d_launcher_refuses_blocks_it_is_not_built_for(blocks):
+    """Both launchers check their blocks first: the CUDA-core one's
+    (1..64, 1..128) and the wgmma one's tiles (``CONV_TILES``), which take
+    none of these."""
     block_oh, block_co = blocks
+    x, w = torch.zeros(1, 8, 8, 4), torch.zeros(3, 3, 4, 8)
     with pytest.raises(ValueError, match="not ones csrc/conv2d.cu"):
-        pt_conv.conv2d_cuda(torch.zeros(1, 8, 8, 4), torch.zeros(3, 3, 4, 8),
-                            block_oh=block_oh, block_co=block_co)
+        pt_conv.conv2d_simt_cuda(x, w, block_oh=block_oh, block_co=block_co)
+    with pytest.raises(ValueError, match="not ones csrc/conv2d.cu"):
+        pt_conv.conv2d_cuda(x.bfloat16(), w.bfloat16(), block_oh=block_oh,
+                            block_ow=8, block_co=block_co)
 
 
 # ---------------------------------------------------------------------------
