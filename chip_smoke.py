@@ -17,7 +17,9 @@ at their own shapes, bf16, batch 1) and qwen3-4b's dense decode shape
 through ``repro_torch.kernels.ops``, times both of the matmul's bf16 routes at
 GEMM_FC's N and K for M below 64, serves qwen3-4b at full width (bf16,
 random weights from a seed) through ``repro_torch.launch.serve`` in the
-dense, paged and paged_int8 KV modes, holds the flash kernels' loss and
+dense, paged and paged_int8 KV modes, holds one paged decode step through
+the paged kernel (history split by ``paged_decode_plan``) against the plain
+gather path over bf16 and int8 pools, holds the flash kernels' loss and
 gradients against the plain attention path, trains qwen3-4b at full width
 for a few AdamW steps through ``repro_torch.launch.train``, and checks what
 comes out.  Each phase prints JSON lines (``paper_workloads`` one per
@@ -340,20 +342,27 @@ def check_flash_bwd(flush) -> list[dict]:
     return rows
 
 
-def check_paged(quant: bool, flush) -> dict:
-    from repro_torch.kernels import paged_attention as kpa
+PAGED_SHAPE = dict(B=4, H=32, Hkv=8, D=128, page=16, max_pages=128)
+
+
+def paged_inputs(quant: bool, lens_np: np.ndarray, max_pages: int,
+                 seed: int) -> tuple:
+    """Operands of the paged decode kernel at qwen3-4b's widths
+    (``PAGED_SHAPE``, one slot a length of ``lens_np``): q, bf16 pools or
+    int8 pools with scales (``models.layers.quantize_kv``), each slot's
+    pages drawn at random from the pool, unmapped columns on trash page
+    0."""
     from repro_torch.models.layers import quantize_kv
-    B, H, Hkv, D, page, max_len = 4, 32, 8, 128, 16, 2048
-    MP = max_len // page
-    P = B * MP + 1
-    rng = np.random.default_rng(SEED + 1)
-    lens_np = rng.integers(1, max_len + 1, B).astype(np.int32)
-    perm = rng.permutation(np.arange(1, P)).reshape(B, MP)
-    table_np = np.zeros((B, MP), np.int32)
+    sh = PAGED_SHAPE
+    B, H, Hkv, D, page = (sh[k] for k in ("B", "H", "Hkv", "D", "page"))
+    P = B * max_pages + 1
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(np.arange(1, P)).reshape(B, max_pages)
+    table_np = np.zeros((B, max_pages), np.int32)
     for b in range(B):
         n = -(-int(lens_np[b]) // page)
         table_np[b, :n] = perm[b, :n]
-    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
     q = torch.randn((B, H, D), generator=g, device="cuda").to(torch.bfloat16)
     kf = torch.randn((P, page, Hkv, D), generator=g, device="cuda")
     vf = torch.randn((P, page, Hkv, D), generator=g, device="cuda")
@@ -362,10 +371,38 @@ def check_paged(quant: bool, flush) -> dict:
     else:
         k, v = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
         ks = vs = None
-    del kf, vf
     table = torch.from_numpy(table_np).to("cuda")
-    lens = torch.from_numpy(lens_np).to("cuda")
-    args = (q, k, v, table, lens, ks, vs)
+    lens = torch.from_numpy(lens_np.astype(np.int32)).to("cuda")
+    return q, k, v, table, lens, ks, vs
+
+
+def paged_bound(args: tuple, lens_np: np.ndarray) -> tuple[float, str]:
+    """The least time of one paged decode call on these lengths: each live
+    token's K and V rows (and scales) read once, q and the table read and
+    out written once, against the 4 D H flops a token takes."""
+    q, k, _, table, lens, ks, _ = args
+    _, H, D = q.shape
+    Hkv = k.shape[2]
+    n_tok = int(lens_np.sum())
+    quant = ks is not None
+    bytes_ = (2 * n_tok * Hkv * D * k.element_size() +
+              (2 * n_tok * Hkv * 4 if quant else 0) + 2 * 2 * q.numel() +
+              4 * (table.numel() + lens.numel()))
+    return bound(bytes_, 4 * D * H * n_tok, PEAK_INT8 if quant else PEAK_BF16)
+
+
+def check_paged(quant: bool, flush) -> dict:
+    from repro_torch.kernels import paged_attention as kpa
+    sh = PAGED_SHAPE
+    B, H, Hkv, D, page, MP = (sh[k] for k in ("B", "H", "Hkv", "D", "page",
+                                              "max_pages"))
+    rng = np.random.default_rng(SEED + 1)
+    lens_np = rng.integers(1, MP * page + 1, B).astype(np.int32)
+    args = paged_inputs(quant, lens_np, MP, SEED + 2)
+    # the split plan (shapes only), and the CTAs these lengths keep live
+    pps, nsplit = kpa.paged_decode_plan(B, Hkv, MP, page)
+    live = Hkv * sum(min(nsplit, -(-int(n) // (pps * page)))
+                     for n in lens_np)
     out = kpa.paged_flash_decode_cuda(*args)
     ref = kpa.paged_flash_decode_plain(*args)
     torch.cuda.synchronize()
@@ -380,13 +417,7 @@ def check_paged(quant: bool, flush) -> dict:
     dev_ms = device_ms(lambda: kpa.paged_flash_decode_cuda(*args), 20, flush)
     plain_ms, _ = time_ms(lambda: kpa.paged_flash_decode_plain(*args), 3,
                           flush)
-    n_tok = int(lens_np.sum())
-    kv_item = 1 if quant else 2
-    bytes_ = (2 * n_tok * Hkv * D * kv_item + (2 * n_tok * Hkv * 4 if quant
-                                               else 0)
-              + 2 * 2 * q.numel() + 4 * (table.numel() + lens.numel()))
-    b_ms, b_by = bound(bytes_, 4 * D * H * n_tok,
-                       PEAK_INT8 if quant else PEAK_BF16)
+    b_ms, b_by = paged_bound(args, lens_np)
     row = dict(name=name, route="cuda",
                source="src/repro_torch/kernels/csrc/paged_decode.cu",
                replaces="src/repro/kernels/paged_attention.py:42",
@@ -394,7 +425,9 @@ def check_paged(quant: bool, flush) -> dict:
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                library_ms=None, library_device_ms=None,
                shape=dict(B=B, H=H, Hkv=Hkv, D=D, page=page, max_pages=MP,
-                          lengths=lens_np.tolist()))
+                          lengths=lens_np.tolist()),
+               plan=dict(pages_per_split=pps, splits=nsplit,
+                         ctas=B * Hkv * nsplit, live_ctas=live))
     emit("kernel_check", **row)
     return row
 
@@ -892,6 +925,75 @@ def logits_check(params) -> dict:
     return row
 
 
+def paged_step_check(params) -> list[dict]:
+    """One full-width T = 1 ``paged_step`` over bf16 and int8 pools that a
+    prefill step of 4 prompts (256-1024 tokens) filled, through the paged
+    kernel (``attn_impl="pallas"``) and through the plain gather path
+    (``"xla"``), in that order, on the same pool (the step writes the same
+    new K/V either way): bf16 at full width is not bit-stable across
+    attention paths, so this asserts a cosine similarity of the logits, as
+    ``logits_check`` does, and that only the kernel path launched the
+    kernel, once a layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.kernels import ops
+    bundle = get_bundle(ARCH)
+    L, page = bundle.cfg.n_layers, 16
+    reqs = prompts(4, 256, 1024, SEED + 12)
+    B, T = len(reqs), max(len(p) for p in reqs)
+    MP = 1 << (-(-(T + 1) // page) - 1).bit_length()   # the engine's view
+    table = (1 + torch.arange(B * MP, dtype=torch.int32, device="cuda")
+             .reshape(B, MP))
+    tok = torch.zeros((B, T), dtype=torch.long, device="cuda")
+    for b, p in enumerate(reqs):
+        tok[b, :len(p)] = torch.from_numpy(p).long()
+    counts = torch.tensor([len(p) for p in reqs], dtype=torch.int32,
+                          device="cuda")
+    zeros = torch.zeros(B, dtype=torch.int32, device="cuda")
+    rows = []
+    for kv in ("bf16", "int8"):
+        pool = bundle.family.init_paged_pool(
+            bundle.cfg, 1 + B * MP, page,
+            kv_dtype=torch.int8 if kv == "int8" else None, device="cuda")
+        with torch.no_grad():
+            logits, pool, lengths = bundle.family.paged_step(
+                bundle.cfg, params, tok, pool, table, zeros, counts)
+            nxt = logits[torch.arange(B), counts.long() - 1].argmax(-1)
+            out, launches = {}, {}
+            for impl in ("pallas", "xla"):
+                cfg = dataclasses.replace(bundle.cfg, attn_impl=impl)
+                ops.reset_launches()
+                lg, _, _ = bundle.family.paged_step(
+                    cfg, params, nxt[:, None], pool, table, lengths,
+                    torch.ones_like(counts))
+                torch.cuda.synchronize()
+                out[impl] = lg.float().flatten()
+                launches[impl] = dict(ops.LAUNCHES)
+        del pool, logits
+        a, b = out["pallas"], out["xla"]
+        key = f"paged_decode_{kv}"
+        cos = F.cosine_similarity(a, b, dim=0).item()
+        row = dict(kv=kv, slots=B, max_pages=MP,
+                   lengths=[len(p) for p in reqs], cosine=cos,
+                   max_abs_diff=(a - b).abs().max().item(),
+                   top1_equal=bool((a.reshape(B, -1).argmax(-1) ==
+                                    b.reshape(B, -1).argmax(-1)).all()),
+                   finite=bool(torch.isfinite(a).all()),
+                   launches_kernel_path=launches["pallas"][key],
+                   launches_plain_path=launches["xla"][key])
+        emit("paged_step_check", **row)
+        require(row["finite"] and cos > 0.99,
+                f"paged kernel vs plain paged step logits ({kv}): {row}")
+        require(row["launches_kernel_path"] == L and
+                row["launches_plain_path"] == 0,
+                f"paged_step_check ({kv}): {key} launches {row}, want "
+                f"{L} on the kernel path and 0 on the plain one")
+        rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 5: train qwen3-4b at full width
 # ---------------------------------------------------------------------------
@@ -1095,6 +1197,7 @@ def main() -> int:
     emit("agreement", paged_vs_paged_int8=agreement(paged["results"],
                                                     int8["results"]))
     logits_check(params)
+    paged_step_check(params)
 
     # phase 5: train at full width (the served weights change in place)
     torch.cuda.empty_cache()

@@ -9,8 +9,10 @@ again with the same engine state reset: once on the host clock alone
 (``wall_s``, ``tok_per_s``) and once under ``torch.profiler`` for the
 device's kernels.  Prints one JSON line per mode: the device-busy time
 (the union of kernel intervals), the idle share of the profiled wall
-time, and device time by kernel group (the port's two kernels, GEMMs,
-everything else) and by kernel name.  The profiler adds host time, so
+time, device launches per generated token, and device time by kernel
+group (the flash kernels, the paged decode kernel with its split combine,
+GEMMs, everything else; ``paged_decode_share`` is that group's share of
+the device-busy time) and by kernel name.  The profiler adds host time, so
 the idle share it gives is an upper bound; ``idle_share_unprofiled``
 divides the same device-busy time by the unprofiled wall instead.
 """
@@ -34,7 +36,10 @@ import chip_smoke  # noqa: E402  (the workload is defined there)
 
 GROUPS = (("flash_fwd", "flash_fwd_"),
           ("flash_bwd", "flash_bwd_"),
-          ("paged_decode", "paged_decode_kernel"),
+          # the paged kernel's split pass and the combine it shares with
+          # dense flash_decode (which no serving mode runs: dense decode
+          # takes the plain path)
+          ("paged_decode", ("paged_decode_", "decode_combine")),
           # cuBLAS's GEMM / GEMV kernels (nvjet_* on Hopper, sm80_xmma_*,
           # cutlass_*, gemmSN_*, gemv*)
           ("gemm", ("nvjet", "gemm", "gemv", "xmma", "cutlass", "cublas")))
@@ -108,7 +113,9 @@ def profile_mode(mode: str, params) -> dict:
                idle_share=1.0 - busy_ms / (prof_wall * 1e3),
                idle_share_unprofiled=1.0 - busy_ms / (wall * 1e3),
                device_launches=len(evts),
+               launches_per_token=len(evts) / n_tok,
                device_ms_by_group=groups,
+               paged_decode_share=groups.get("paged_decode", 0.0) / busy_ms,
                top_kernels=[dict(name=n[:120], launches=c, ms=ms)
                             for n, (c, ms) in top])
     del engine

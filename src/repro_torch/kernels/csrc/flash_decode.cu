@@ -29,7 +29,8 @@
 //   * The groups of a CTA merge by their maxima (shuffles inside a warp,
 //     shared memory across warps), and the CTA writes its split's (m, l,
 //     acc) to an f32 workspace the wrapper allocates; a second kernel
-//     (`decode_combine_kernel`) forms sum_i e^(m_i - M) acc_i /
+//     (`decode_combine_kernel`, shared with the paged kernel through
+//     `decode_common.cuh`) forms sum_i e^(m_i - M) acc_i /
 //     sum_i e^(m_i - M) l_i over each sequence's live splits in split
 //     order.  With one split the CTA writes the output itself.
 //   * The caches are read through their (batch, head, seq) strides in
@@ -45,88 +46,11 @@
 // q (B, H, D), caches (B, Hkv, S, D) and out (B, H, D) with the last
 // dimension contiguous; lengths (B,) int32; for nsplit > 1, part_acc f32
 // (B, H, nsplit, D) and part_ml f32 (B, H, nsplit, 2), contiguous.
-#include "hopper.cuh"
+#include "decode_common.cuh"
 
 namespace {
 
-constexpr int MAX_G = 8;
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-// tokens a lane group takes a step: 4, or 2 where a lane holds 64 values
-// of q (G 8 at 8 per lane, or the scalar and two-vector f32 rows), whose
-// registers would otherwise spill
-template <int GM, int NV, int W>
-__host__ __device__ constexpr int unroll() {
-  return GM * NV * W >= 64 ? 2 : 4;
-}
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// W consecutive elements of a row (W = 16 bytes' worth, or 1): loaded raw,
-// so a load in flight holds 16 bytes of registers, and widened to f32
-// where they are used.
-template <typename T, int W>
-struct Vec;
-template <typename T>
-struct Vec<T, 1> {
-  T r;
-  __device__ __forceinline__ void load(const T* p) { r = p[0]; }
-  __device__ __forceinline__ void zero() { r = T(0.f); }
-  __device__ __forceinline__ void get(float (&x)[1]) const { x[0] = to_f(r); }
-};
-template <>
-struct Vec<__nv_bfloat16, 8> {
-  uint4 r;
-  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
-    r = __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  __device__ __forceinline__ void zero() { r = make_uint4(0, 0, 0, 0); }
-  __device__ __forceinline__ void get(float (&x)[8]) const {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(h[e]);
-      x[2 * e] = f.x;
-      x[2 * e + 1] = f.y;
-    }
-  }
-};
-template <>
-struct Vec<float, 4> {
-  float4 r;
-  __device__ __forceinline__ void load(const float* p) {
-    r = __ldg(reinterpret_cast<const float4*>(p));
-  }
-  __device__ __forceinline__ void zero() { r = make_float4(0, 0, 0, 0); }
-  __device__ __forceinline__ void get(float (&x)[4]) const {
-    x[0] = r.x;
-    x[1] = r.y;
-    x[2] = r.z;
-    x[3] = r.w;
-  }
-};
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// Merge (mb, lb, accb) into (ma, la, acca): both softmax partials taken
-// against their own maxima (log2 domain).  Two empty partials (m = -1e30)
-// stay empty; an empty one adds exactly 0 to a live one.
-__device__ __forceinline__ float merge_scale(float& ma, float mb,
-                                             float& fb) {
-  const float m = fmaxf(ma, mb);
-  const float fa = hopper::ex2(ma - m);
-  fb = hopper::ex2(mb - m);
-  ma = m;
-  return fa;
-}
+using namespace decode;
 
 // One CTA: split `blockIdx.x` of sequence `blockIdx.z`, kv head
 // `blockIdx.y`.  Lane group `grp` (L lanes) takes tokens t0 + grp,
@@ -141,14 +65,14 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     long long q_sh, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh) {
-  extern __shared__ float red[];   // [WARPS][GM][D] acc, then [WARPS][GM] m, l
+  extern __shared__ float red[];   // merge_and_store's
   const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int H = gridDim.y * G;
   const int len = min(max(lengths[b], 0), S);
   const int t0 = sp * block_k;
   if (t0 >= len && nsplit > 1) return;   // the combine skips this split
   const int t1 = min(t0 + block_k, len);
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tid = threadIdx.x;
   const int grp = tid / L, lig = tid % L, NG = THREADS / L;
 
   float qf[GM][NV][W];
@@ -266,98 +190,9 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     }
   }
 
-  // merge the lane groups of a warp (shuffles), then the warps (shared)
-#pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    for (int off = L; off < 32; off <<= 1) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
-      const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
-      float fb;
-      const float fa = merge_scale(m[g], mo, fb);
-      l[g] = l[g] * fa + lo * fb;
-#pragma unroll
-      for (int i = 0; i < NV; ++i)
-#pragma unroll
-        for (int e = 0; e < W; ++e) {
-          const float ao = __shfl_xor_sync(0xffffffffu, acc[g][i][e], off);
-          acc[g][i][e] = acc[g][i][e] * fa + ao * fb;
-        }
-    }
-  }
-  float* red_m = red + WARPS * GM * D;
-  float* red_l = red_m + WARPS * GM;
-  if (lane < L) {
-#pragma unroll
-    for (int g = 0; g < GM; ++g) {
-      if (g >= G) continue;
-#pragma unroll
-      for (int i = 0; i < NV; ++i)
-#pragma unroll
-        for (int e = 0; e < W; ++e) {
-          const int d = (lig + i * L) * W + e;
-          if (d < D) red[(warp * GM + g) * D + d] = acc[g][i][e];
-        }
-      if (lane == 0) {
-        red_m[warp * GM + g] = m[g];
-        red_l[warp * GM + g] = l[g];
-      }
-    }
-  }
-  __syncthreads();
-  for (int idx = tid; idx < G * D; idx += THREADS) {
-    const int g = idx / D, d = idx % D;
-    float M = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, red_m[w * GM + g]);
-    float a = 0.f, ls = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float f = hopper::ex2(red_m[w * GM + g] - M);
-      a += f * red[(w * GM + g) * D + d];
-      ls += f * red_l[w * GM + g];
-    }
-    const int hq = h * G + g;
-    if (nsplit == 1) {
-      store(&out[b * o_sb + (long long)hq * o_sh + d],
-            a / (ls == 0.f ? 1.f : ls));
-    } else {
-      const long long row = ((long long)b * H + hq) * nsplit + sp;
-      part_acc[row * D + d] = a;
-      if (d == 0) {
-        part_ml[2 * row] = M;
-        part_ml[2 * row + 1] = ls;
-      }
-    }
-  }
-}
-
-// out[b, hq] = sum_i e^(m_i - M) acc_i / sum_i e^(m_i - M) l_i over the
-// splits of sequence b that start before its length, in split order; no
-// live split (a length of 0) gives 0.  One CTA per (b, hq), one thread
-// per element of the row.
-template <typename T>
-__global__ void decode_combine_kernel(const float* __restrict__ part_acc,
-                                      const float* __restrict__ part_ml,
-                                      const int* __restrict__ lengths,
-                                      T* __restrict__ out, int H, int D,
-                                      int S, int block_k, int nsplit,
-                                      long long o_sb, long long o_sh) {
-  const int bh = blockIdx.x, b = bh / H, hq = bh % H;
-  const int len = min(max(lengths[b], 0), S);
-  const int live = min(nsplit, (len + block_k - 1) / block_k);
-  const float* ml = part_ml + (long long)bh * nsplit * 2;
-  float M = NEG_INF;
-  for (int i = 0; i < live; ++i) M = fmaxf(M, ml[2 * i]);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float a = 0.f, ls = 0.f;
-    for (int i = 0; i < live; ++i) {
-      const float f = hopper::ex2(ml[2 * i] - M);
-      a += f * part_acc[((long long)bh * nsplit + i) * D + d];
-      ls += f * ml[2 * i + 1];
-    }
-    store(&out[b * o_sb + (long long)hq * o_sh + d],
-          a / (ls == 0.f ? 1.f : ls));
-  }
+  merge_and_store<T, W, NV, GM>(
+      m, l, acc, red, G, D, L,
+      Dest<T>{out, part_acc, part_ml, o_sb, o_sh, b, h, H, sp, nsplit});
 }
 
 template <typename T, int W, int NV, int GM>
@@ -367,7 +202,7 @@ int launch_split(const void* q, const void* k, const void* v,
                  int L, float scale, const long long* st,
                  cudaStream_t stream) {
   auto kern = decode_split_kernel<T, W, NV, GM>;
-  const int smem = (int)sizeof(float) * WARPS * GM * (D + 2);
+  const int smem = (int)sizeof(float) * merge_floats(GM, D);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -383,12 +218,8 @@ int launch_split(const void* q, const void* k, const void* v,
       st[8], st[9]);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || nsplit == 1) return (int)e;
-  const int threads = min(256, (D + 31) / 32 * 32);
-  decode_combine_kernel<T><<<B * Hkv * G, threads, 0, stream>>>(
-      static_cast<const float*>(part_acc),
-      static_cast<const float*>(part_ml), static_cast<const int*>(lens),
-      static_cast<T*>(out), Hkv * G, D, S, block_k, nsplit, st[8], st[9]);
-  return (int)cudaGetLastError();
+  return launch_combine<T>(part_acc, part_ml, lens, out, B, Hkv * G, D, S,
+                           block_k, nsplit, st[8], st[9], stream);
 }
 
 template <typename T, int W, int NV>
@@ -405,10 +236,6 @@ int by_group(int G, const void* q, const void* k, const void* v,
 #undef ARGS
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* lens,
              void* out, void* pa, void* pm, int B, int Hkv, int G, int D,
@@ -419,8 +246,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* lens,
              aligned16(out);
   for (int i = 0; i < 10; ++i) vec = vec && st[i] % VW == 0;
   const int nvec = vec ? D / VW : D;
-  int L = 1;
-  while (L < nvec && L < 32) L <<= 1;
+  const int L = lanes_for(nvec);
   const int nv = (nvec + L - 1) / L;
 #define ARGS G, q, k, v, lens, out, pa, pm, B, Hkv, D, S, block_k, nsplit, L, \
              scale, st, s

@@ -255,17 +255,20 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     place; page_table (B, max_pages) physical page ids; lengths (B,) valid
     tokens (>= 1); optional int8-pool scales (P, page, Hkv).  Returns
     (B, H, D).  Unlike the reference wrapper, nothing is transposed or
-    replicated: the kernel walks the engine's layout directly."""
+    replicated: the kernel walks the engine's layout directly, its history
+    split by ``paged_attention.paged_decode_plan`` (shapes only, so no
+    host sync), and the CPU's plain version takes the same split."""
     B, _, _ = q.shape
-    P, page_size, _, _ = k_pages.shape
+    P, page_size, Hkv, _ = k_pages.shape
+    MP = int(page_table.shape[1])
     quant = k_scale is not None
     impl = _impl(q)
+    pps, nsplit = _paged_attention.paged_decode_plan(B, Hkv, MP, page_size)
     _record_dispatch("paged_flash_decode",
                      impl=impl if not quant else f"{impl}-int8",
-                     batch=B, pages=P, page_size=page_size,
-                     max_pages=int(page_table.shape[1]))
-    if impl == "cuda":
-        return _paged_attention.paged_flash_decode_cuda(
-            q, k_pages, v_pages, page_table, lengths, k_scale, v_scale)
-    return _paged_attention.paged_flash_decode_plain(
-        q, k_pages, v_pages, page_table, lengths, k_scale, v_scale)
+                     batch=B, pages=P, page_size=page_size, max_pages=MP,
+                     pages_per_split=pps, splits=nsplit)
+    fn = (_paged_attention.paged_flash_decode_cuda if impl == "cuda" else
+          _paged_attention.paged_flash_decode_plain)
+    return fn(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale,
+              pages_per_split=pps)

@@ -242,17 +242,42 @@ PAGED = [
     (5, 8, 8, 128, 8, 7, "f32"),
     (2, 4, 2, 16, 16, 4, "f32"),
     (2, 4, 2, 16, 16, 4, "int8"),
+    # G 1 and G 8, bf16 and int8 (int8 at G 8 takes 8-byte loads)
+    (4, 8, 8, 128, 16, 64, "bf16"),
+    (4, 8, 8, 128, 16, 64, "int8"),
+    (4, 64, 8, 128, 16, 40, "bf16"),
+    (4, 64, 8, 128, 16, 40, "int8"),
+    # D 64; pages of 8, 16 and 32 at the serving shape
+    (4, 32, 8, 64, 16, 33, "bf16"),
+    (4, 32, 8, 64, 16, 33, "int8"),
+    (4, 32, 8, 128, 8, 100, "bf16"),
+    (4, 32, 8, 128, 32, 24, "int8"),
+    # f32 D 20 (five float4 vectors a row) and D 256 (two a lane); bf16 and
+    # int8 D 20, whose rows are no 16-byte multiple: scalar loads
+    (3, 8, 2, 20, 16, 10, "f32"),
+    (2, 8, 2, 256, 16, 6, "f32"),
+    (3, 8, 2, 20, 16, 10, "bf16"),
+    (3, 8, 2, 20, 16, 10, "int8"),
 ]
 
 
-@pytest.mark.parametrize("case", PAGED, ids=lambda c: "-".join(map(str, c)))
-def test_paged_kernel_matches_plain(dev, case):
+def _paged_inputs(dev, case, seed=1, pps=None):
+    """q, pools (int8 with scales for ``int8``), a table of distinct pages
+    and lengths: one live token, a full table, and the rest at the edges
+    of the splits (``pps`` pages, default the kernel's plan) and between
+    them."""
     from repro_torch.kernels import paged_attention as kpa
     from repro_torch.models.layers import quantize_kv
     B, H, Hkv, D, page, MP, form = case
     P = B * MP + 1
-    g = torch.Generator(device="cpu").manual_seed(1)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    split = page * (pps or kpa.paged_decode_plan(B, Hkv, MP, page)[0])
+    edges = [n for e in range(split, MP * page, split)
+             for n in (e - 1, e, e + 1)]
     lens = torch.randint(1, MP * page + 1, (B,), generator=g)
+    for b in range(1, B - 1):
+        if edges:
+            lens[b] = edges[(b - 1) % len(edges)]
     lens[0] = 1                                    # one live token
     lens[-1] = MP * page                           # a full table
     table = torch.zeros((B, MP), dtype=torch.int32)
@@ -268,9 +293,64 @@ def test_paged_kernel_matches_plain(dev, case):
         (k, ks), (v, vs) = quantize_kv(kf), quantize_kv(vf)
     else:
         k, v, ks, vs = kf.to(qdt), vf.to(qdt), None, None
-    args = (q, k, v, table.to(dev), lens.to(dev, torch.int32), ks, vs)
+    return q, k, v, table.to(dev), lens.to(dev, torch.int32), ks, vs
+
+
+@pytest.mark.parametrize("case", PAGED, ids=lambda c: "-".join(map(str, c)))
+def test_paged_kernel_matches_plain(dev, case):
+    from repro_torch.kernels import paged_attention as kpa
+    args = _paged_inputs(dev, case)
+    qdt = args[0].dtype
     _ulp_close(kpa.paged_flash_decode_cuda(*args),
                kpa.paged_flash_decode_plain(*args), qdt, atol=1e-4)
+
+
+@pytest.mark.parametrize("pps", (1, 2, 4, 7, 128))
+@pytest.mark.parametrize("form", ("bf16", "int8"))
+def test_paged_kernel_splits_match_plain(dev, form, pps):
+    """Every split length, from one page to the whole table (one split,
+    no combine), against the plain version at the same split."""
+    from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.kernels import ops
+    args = _paged_inputs(dev, (4, 32, 8, 128, 16, 128, form), seed=3,
+                         pps=pps)
+    ops.reset_launches()
+    got = kpa.paged_flash_decode_cuda(*args, pages_per_split=pps)
+    assert ops.LAUNCHES["paged_decode_int8" if form == "int8" else
+                        "paged_decode_bf16"] == 1
+    _ulp_close(got, kpa.paged_flash_decode_plain(*args, pages_per_split=pps),
+               torch.bfloat16, atol=1e-4)
+
+
+@pytest.mark.parametrize("form", ("bf16", "int8"))
+def test_paged_kernel_gives_the_same_bits_twice(dev, form):
+    """No atomics: the splits combine in a fixed order."""
+    from repro_torch.kernels import paged_attention as kpa
+    args = _paged_inputs(dev, (4, 32, 8, 128, 16, 128, form), seed=4)
+    assert torch.equal(kpa.paged_flash_decode_cuda(*args),
+                       kpa.paged_flash_decode_cuda(*args))
+
+
+def test_paged_launchers_make_no_host_sync(dev):
+    """The split plan reads shapes only, and the workspace is allocated
+    without a sync: a launch through the launcher or ``ops`` never waits
+    for the card (the serving tick makes 36 of them)."""
+    from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.kernels import ops
+    calls = []
+    for form in ("bf16", "int8"):
+        args = _paged_inputs(dev, (4, 32, 8, 128, 16, 128, form), seed=5)
+        kpa.paged_flash_decode_cuda(*args)          # build and load first
+        calls.append(args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for args in calls:
+            kpa.paged_flash_decode_cuda(*args)
+            ops.paged_flash_decode(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
 
 
 def test_paged_kernel_reads_a_layer_slice_in_place(dev):
