@@ -10,7 +10,8 @@ shared memory of each), holds each kernel route on a main path against its
 plain PyTorch version at the serving, training and paper-workload paths'
 full-width shapes (the flash forward's and backward's wgmma routes; the
 matmul's wgmma route at GEMM_1K and its split-K GEMV at GEMM_FC; the
-conv2d wgmma implicit GEMM at DL_ATROUS4; dense decode split over the
+conv2d wgmma implicit GEMM at DL_ATROUS4; the correlation's wgmma
+row-pair products at FLOWNET_CORR; dense decode split over the
 history at qwen3-4b's decode shape), runs
 the paper's workload catalog (24 convolution, correlation and GEMM layers
 at their own shapes, bf16, batch 1) and qwen3-4b's dense decode shape
@@ -512,7 +513,7 @@ def case_calls(case: dict, seed: int) -> dict:
     tile, ``plain`` (the plain version) and ``library`` (one PyTorch call of
     the same function, or None); with the bytes and flops of its bound."""
     from repro_torch.core.cuda_bridge import (conv2d_a_tma, conv2d_plan,
-                                              gemv_plan,
+                                              correlation_plan, gemv_plan,
                                               matmul_block_shapes)
     from repro_torch.kernels import attention as katt
     from repro_torch.kernels import conv2d as kconv
@@ -577,16 +578,19 @@ def case_calls(case: dict, seed: int) -> dict:
     elif kind == "correlation":
         H, W, C, R = sh["H"], sh["W"], sh["C"], sh["radius"]
         i1, i2 = t((H, W, C), C ** -0.25), t((H, W, C), C ** -0.25)
-        by = min(8, H)
         D = 2 * R + 1
         out_numel, in_numel = H * W * D * D, 2 * H * W * C
-        calls = dict(
-            tile=dict(block_y=by, strip=32, channels=32),
-            main=lambda: ops.correlation(i1, i2, radius=R),
-            launch=lambda: kcorr.correlation_cuda(i1, i2, radius=R,
-                                                  block_y=by),
-            plain=lambda: kcorr.correlation_plain(i1, i2, radius=R),
-            library=None)
+        # the plan ops.correlation takes: rows, dy group, band, ring; the
+        # callers require the wgmma route
+        plan = correlation_plan(H, W, C, R)
+        route = kcorr.correlation_route(i1, i2, R)
+        calls = dict(tile=dict(route=route, **plan._asdict()),
+                     launch=lambda: kcorr.correlation_cuda(
+                         i1, i2, radius=R, plan=plan))
+        calls.update(key=route,
+                     main=lambda: ops.correlation(i1, i2, radius=R),
+                     plain=lambda: kcorr.correlation_plain(i1, i2, radius=R),
+                     library=None)
     else:
         B, H, Hkv, D, S = (sh[k] for k in ("B", "H", "Hkv", "D", "S"))
         q, kc, vc = t((B, H, D)), t((B, Hkv, S, D)), t((B, Hkv, S, D))
@@ -674,14 +678,17 @@ PAPER_LIBRARY = {"matmul": "torch.matmul (cuBLAS)",
 def check_paper_kernels(flush) -> list[dict]:
     """The kernel routes of the paper-workload path against their plain
     versions: the matmul's wgmma route at GEMM_1K and its GEMV route at
-    GEMM_FC, conv2d's wgmma route at DL_ATROUS4, correlation at
-    FLOWNET_CORR, flash decode at qwen3-4b's decode shape.  Each row is
+    GEMM_FC, conv2d's wgmma route at DL_ATROUS4, correlation's wgmma route
+    at FLOWNET_CORR, flash decode at qwen3-4b's decode shape.  Each row is
     named by its launch key."""
     by = {c["name"]: c for c in catalog_cases()}
     rows = []
     for i, case in enumerate((by["GEMM_1K"], by["GEMM_FC"], by["DL_ATROUS4"],
                               by["FLOWNET_CORR"], decode_case())):
         r = run_case(case, flush, SEED + 20 + i)
+        require(case["kernel"] != "correlation" or r["key"] == "correlation",
+                f"{case['name']} took route {r['key']}, not the wgmma "
+                f"correlation")
         source, replaces = PAPER_SOURCES[case["kernel"]]
         row = dict(name=r["key"], route="cuda", source=source,
                    replaces=replaces, workload=case["name"],
@@ -703,8 +710,9 @@ def paper_workloads(flush) -> dict:
     """Phase 3b: the 24 catalog workloads and qwen3-4b's decode shape
     through ``ops`` on the card, one line each (with the route and tile of
     each matmul, the tile, CTAs and K split of each conv, the splits of
-    the decode); every kernel route of the path must have launched, and
-    all 20 convs on the wgmma route."""
+    the decode, the plan of each correlation); every kernel route of the
+    path must have launched, all 20 convs and both correlations on their
+    wgmma routes."""
     cases = catalog_cases() + [decode_case()]
     total: dict[str, int] = {}
     t0 = time.perf_counter()
@@ -723,6 +731,12 @@ def paper_workloads(flush) -> dict:
             f"paper_workloads: {n_conv} convs launched conv2d "
             f"{total.get('conv2d')} and conv2d_simt "
             f"{total.get('conv2d_simt', 0)} times, want 20 and 0")
+    n_corr = sum(c["kernel"] == "correlation" for c in cases)
+    require(n_corr == 2 and total.get("correlation") == n_corr and
+            total.get("correlation_simt", 0) == 0,
+            f"paper_workloads: {n_corr} correlations launched correlation "
+            f"{total.get('correlation')} and correlation_simt "
+            f"{total.get('correlation_simt', 0)} times, want 2 and 0")
     return total
 
 

@@ -335,3 +335,136 @@ def conv2d_plan(N: int, OH: int, OW: int, CI: int, CO: int, KH: int,
         per = -(-steps // min(steps, -(-SM_COUNT // n)))
         splits = -(-steps // per)
     return ConvPlan(boh, bow, bco, splits, steps, n * splits)
+
+
+# route "correlation" (csrc/correlation.cu's wgmma kernel): a tile of
+# CORR_TX output columns (wgmma's M), the band of an I2 row window
+# block_n = 64 + 2R rounded up to 8 wide (the N the kernel instantiates,
+# CORR_BLOCK_N), channels in 64-wide chunks (one 128-byte swizzle row)
+CORR_TX = 64
+CORR_MAX_RADIUS = 31
+CORR_BLOCK_N = frozenset(range(64, 129, 8))
+CORR_ROWS = (1, 2)                   # consumer warpgroups: one I1 row each
+CORR_MAX_STAGES = 8
+# the kernel keeps 3 wgmma groups in flight a warpgroup, each holding a
+# ring stage: the ring needs at least that many
+CORR_MIN_STAGES = 3
+CORR_A_BYTES = CORR_TX * 128         # one I1 row's 64-channel chunk
+
+
+class CorrPlan(NamedTuple):
+    """A launch of the correlation wgmma route: output rows a CTA (one
+    consumer warpgroup each), the dy values a CTA (``dy_group``), the band
+    width N, the ring's stages of 64-channel I2 chunks, the chunks of a
+    channel pass and the passes, the CTAs, and the shared memory a CTA
+    takes."""
+
+    rows: int
+    dy_group: int
+    block_n: int
+    stages: int
+    chunks: int
+    passes: int
+    ctas: int
+    smem: int
+
+
+def correlation_block_n(radius: int) -> int:
+    """The narrowest band width the kernel is built for: the 64 + 2R I2
+    columns a 64-column tile's D displacements read, rounded up to 8."""
+    return round_up(CORR_TX + 2 * radius, 8)
+
+
+def correlation_smem(radius: int, rows: int, dy_group: int, block_n: int,
+                     stages: int, chunks: int) -> int:
+    """Shared memory of one CTA, as ``csrc/correlation.cu``'s
+    ``corr_layout`` sums it: the I1 rows' chunks, the ring of I2 chunks,
+    the f32 staging block of the CTA's outputs, the mbarriers (two a
+    stage, one an I1 chunk, one for I1's release) and 1024 bytes to align
+    the base."""
+    D = 2 * radius + 1
+    tiles = rows * chunks * CORR_A_BYTES + stages * block_n * 128
+    bars = round_up(tiles + rows * CORR_TX * dy_group * D * 4, 8)
+    return bars + (2 * stages + chunks + 1) * 8 + 1024
+
+
+def correlation_plan(H: int, W: int, C: int, radius: int, *,
+                     rows: int | None = None, dy_group: int | None = None,
+                     block_n: int | None = None,
+                     stages: int | None = None) -> CorrPlan:
+    """The tiling of the correlation ``wgmma`` route for (H, W, C) maps at
+    ``radius``, from shapes only:
+
+    * block_n: :func:`correlation_block_n` (FLOWNET_CORR 88, EVA2_MATCH 80);
+    * rows: 2 (an I2 row staged once serves both resident I1 rows), 1 for a
+      one-row map;
+    * dy_group: the dy values split into as many groups as keep the grid
+      (64-column tiles x row blocks x groups) within one wave of
+      ``SM_COUNT`` CTAs, at least one group (EVA2_MATCH: 13 row blocks x 9
+      groups of 2 = 117 CTAs).  A group one smaller is taken where only
+      its full groups fit one wave and the remainder group is at most half
+      a group: the remainder's CTAs come last in the grid and are cheap,
+      so they run as a short second wave (FLOWNET_CORR: 24 x 5 groups of 4
+      and 24 of 1 = 144 CTAs, 0.0264 ms against 0.0306 at 5 groups of 5,
+      ``scripts/sweep_correlation_torch.py``);
+    * stages: as many 64-channel I2 chunks in flight as ``SMEM_BUDGET``
+      leaves room for, at most ``CORR_MAX_STAGES`` and at least
+      ``CORR_MIN_STAGES``;
+    * while fewer stages fit: the dy group halves where the staged
+      outputs outweigh the I1 rows, else the channels are cut into passes
+      of fewer chunks (the I1 rows are reloaded each pass and the passes
+      add up in the staging block), then the dy group halves.
+
+    Values a caller names are kept; ones the kernel is not built for, a
+    radius above ``CORR_MAX_RADIUS`` and a plan that cannot fit raise."""
+    if not 0 <= radius <= CORR_MAX_RADIUS:
+        raise ValueError(f"correlation: radius {radius} not built (0.."
+                         f"{CORR_MAX_RADIUS})")
+    D = 2 * radius + 1
+    n = block_n or correlation_block_n(radius)
+    if n not in CORR_BLOCK_N or n < CORR_TX + 2 * radius:
+        raise ValueError(f"correlation: block_n {n} is not one "
+                         f"csrc/correlation.cu is built for at radius "
+                         f"{radius} (a multiple of 8 in "
+                         f"[{CORR_TX + 2 * radius}, 128])")
+    r = rows or (2 if H >= 2 else 1)
+    if r not in CORR_ROWS:
+        raise ValueError(f"correlation: rows {r} not built {CORR_ROWS}")
+    if dy_group is not None and not 1 <= dy_group <= D:
+        raise ValueError(f"correlation: dy_group {dy_group} not in 1..{D}")
+    if stages is not None and \
+            not CORR_MIN_STAGES <= stages <= CORR_MAX_STAGES:
+        raise ValueError(f"correlation: stages {stages} not in "
+                         f"{CORR_MIN_STAGES}..{CORR_MAX_STAGES}")
+    kc = -(-C // 64)
+    tiles = -(-W // CORR_TX) * -(-H // r)
+    g = dy_group or -(-D // max(1, min(D, SM_COUNT // tiles)))
+    if dy_group is None and g > 1 and (D // (g - 1)) * tiles <= SM_COUNT \
+            and 2 * (D % (g - 1)) <= g - 1:
+        g -= 1
+    kb = kc
+
+    def fit(g: int, kb: int) -> int:
+        if stages is not None:
+            return stages if correlation_smem(
+                radius, r, g, n, stages, kb) <= SMEM_BUDGET else 0
+        spare = SMEM_BUDGET - correlation_smem(radius, r, g, n, 0, kb)
+        return max(0, min(CORR_MAX_STAGES, spare // (n * 128 + 16)))
+
+    while fit(g, kb) < CORR_MIN_STAGES:
+        out_bytes = r * CORR_TX * g * D * 4
+        if dy_group is None and g > 1 and out_bytes >= r * kb * CORR_A_BYTES:
+            g = -(-g // 2)
+        elif kb > 1:
+            kb = -(-kb // 2)
+        elif dy_group is None and g > 1:
+            g = -(-g // 2)
+        else:
+            raise ValueError(f"correlation: no plan fits {SMEM_BUDGET} bytes "
+                             f"of shared memory at (H {H}, W {W}, C {C}, "
+                             f"radius {radius}, rows {r}, dy_group {g}, "
+                             f"block_n {n})")
+    s = fit(g, kb)
+    groups = -(-D // g)
+    return CorrPlan(r, g, n, s, kb, -(-kc // kb), tiles * groups,
+                    correlation_smem(radius, r, g, n, s, kb))

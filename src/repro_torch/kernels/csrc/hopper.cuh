@@ -96,6 +96,14 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 // --- TMA tile loads (global -> shared, completion on an mbarrier) ----------
 
+// Fetch a TMA descriptor (a __grid_constant__ parameter) ahead of its first
+// load, so that load does not wait for it.
+__device__ __forceinline__ void tma_prefetch_desc(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {
   asm volatile(
@@ -103,6 +111,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -339,6 +358,63 @@ struct Mma<256> {
         : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
   }
 };
+
+// d (64 x N, f32) += a (64 x 16, shared) . b (16 x N, shared) for the N
+// between 64 and 128 that are not powers of two: the correlation kernel's
+// band width, 64 + 2R rounded up to a multiple of 8.  HOPPER_R<n> is the
+// asm list of n accumulator registers, HOPPER_D<n> their operands; the
+// descriptors, scale and transpose bit follow as operands n .. n + 3.
+#define HOPPER_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define HOPPER_D32                                                        \
+  HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12), HOPPER_D4(16), \
+      HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28)
+#define HOPPER_D36 HOPPER_D32, HOPPER_D4(32)
+#define HOPPER_D40 HOPPER_D36, HOPPER_D4(36)
+#define HOPPER_D44 HOPPER_D40, HOPPER_D4(40)
+#define HOPPER_D48 HOPPER_D44, HOPPER_D4(44)
+#define HOPPER_D52 HOPPER_D48, HOPPER_D4(48)
+#define HOPPER_D56 HOPPER_D52, HOPPER_D4(52)
+#define HOPPER_D60 HOPPER_D56, HOPPER_D4(56)
+#define HOPPER_R32                                                        \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31"
+#define HOPPER_R36 HOPPER_R32 ", %32, %33, %34, %35"
+#define HOPPER_R40 HOPPER_R36 ", %36, %37, %38, %39"
+#define HOPPER_R44 HOPPER_R40 ", %40, %41, %42, %43"
+#define HOPPER_R48 HOPPER_R44 ", %44, %45, %46, %47"
+#define HOPPER_R52 HOPPER_R48 ", %48, %49, %50, %51"
+#define HOPPER_R56 HOPPER_R52 ", %52, %53, %54, %55"
+#define HOPPER_R60 HOPPER_R56 ", %56, %57, %58, %59"
+#define HOPPER_MMA_SS(N, REGS, OPS, DA, DB, SC, TB)                          \
+  template <>                                                              \
+  struct Mma<N> {                                                          \
+    template <int TRANS_B>                                                 \
+    static __device__ __forceinline__ void ss(float (&d)[N / 2],           \
+                                              uint64_t da, uint64_t db,    \
+                                              int scale_d) {               \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #SC ", 0;\n"       \
+                   "wgmma.mma_async.sync.aligned.m64n" #N                  \
+                   "k16.f32.bf16.bf16 {" REGS "}, %" #DA ", %" #DB         \
+                   ", p, 1, 1, 0, %" #TB ";\n}\n"                          \
+                   : OPS                                                   \
+                   : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));        \
+    }                                                                      \
+  };
+HOPPER_MMA_SS(72, HOPPER_R36, HOPPER_D36, 36, 37, 38, 39)
+HOPPER_MMA_SS(80, HOPPER_R40, HOPPER_D40, 40, 41, 42, 43)
+HOPPER_MMA_SS(88, HOPPER_R44, HOPPER_D44, 44, 45, 46, 47)
+HOPPER_MMA_SS(96, HOPPER_R48, HOPPER_D48, 48, 49, 50, 51)
+HOPPER_MMA_SS(104, HOPPER_R52, HOPPER_D52, 52, 53, 54, 55)
+HOPPER_MMA_SS(112, HOPPER_R56, HOPPER_D56, 56, 57, 58, 59)
+HOPPER_MMA_SS(120, HOPPER_R60, HOPPER_D60, 60, 61, 62, 63)
+
+// Barrier `id` (1..15; 0 is __syncthreads) over the first `threads`
+// threads of the CTA (a multiple of 32), e.g. the consumer warpgroups
+// without their producer warp.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 // 2^x on the special-function unit (the flash kernels' softmax works in
 // the log2 domain).

@@ -24,8 +24,10 @@ CUDA-core one (64 x 64) for f32 (``attention.flash_fwd_route``), and a
 block a caller names must be the route's; ``conv2d`` takes the ``wgmma``
 implicit GEMM for bf16, its tile and K split from
 ``cuda_bridge.conv2d_plan``, and the CUDA-core kernel for f32
-(``conv2d.conv2d_route``); ``correlation`` keeps the reference's
-``block_y`` and its clamping; dense decode splits the history into
+(``conv2d.conv2d_route``); ``correlation`` takes the ``wgmma`` row-pair
+kernel for bf16, tiled by ``cuda_bridge.correlation_plan``, and the
+CUDA-core one, with the reference's ``block_y`` and its clamp, for f32
+(``correlation.correlation_route``); dense decode splits the history into
 ``block_k``-token splits combined by their lse.  The flash backward
 kernels keep their route's blocks and paged decode one page a step.  The
 ragged edges are masked in the kernels: no wrapper pads by a copy.
@@ -34,7 +36,8 @@ from __future__ import annotations
 
 import torch
 
-from ..core.cuda_bridge import (conv2d_blocks_built, conv2d_plan, gemv_plan,
+from ..core.cuda_bridge import (conv2d_blocks_built, conv2d_plan,
+                                correlation_plan, gemv_plan,
                                 matmul_block_shapes)
 from . import attention as _attention
 from . import conv2d as _conv2d
@@ -158,11 +161,33 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
 def correlation(i1: torch.Tensor, i2: torch.Tensor, *, radius: int,
                 block_y: int = 8) -> torch.Tensor:
     """FlowNet correlation (Eq. 3): (H, W, C) x2 -> (H, W, D, D), D = 2R+1,
-    indexed [dy, dx] in the last two axes."""
-    block_y = min(block_y, i1.shape[0])
-    if _impl(i1) == "cuda":
-        return _correlation.correlation_cuda(i1, i2, radius=radius,
-                                             block_y=block_y)
+    indexed [dy, dx] in the last two axes.
+
+    The route (``correlation`` for bf16 with C % 8 == 0, ``correlation_simt``
+    for f32 or other C) follows from the operands
+    (``kernels.correlation.correlation_route``).  The wgmma route is tiled
+    by ``cuda_bridge.correlation_plan``; the CUDA-core route takes the
+    reference's ``block_y`` and its clamp.  On the CPU both routes run
+    ``correlation_plain``."""
+    H, W, C = i1.shape
+    impl = _impl(i1)
+    route = _correlation.correlation_route(i1, i2, radius)
+    if route == "correlation":
+        plan = correlation_plan(H, W, C, radius)
+        _record_dispatch("correlation", impl=impl, route=route, h=H, w=W,
+                         c=C, radius=radius, rows=plan.rows,
+                         dy_group=plan.dy_group, block_n=plan.block_n,
+                         stages=plan.stages, ctas=plan.ctas)
+        if impl == "cuda":
+            return _correlation.correlation_cuda(i1, i2, radius=radius,
+                                                 plan=plan)
+    else:
+        block_y = min(block_y, H)
+        _record_dispatch("correlation", impl=impl, route=route, h=H, w=W,
+                         c=C, radius=radius, block_y=block_y)
+        if impl == "cuda":
+            return _correlation.correlation_simt_cuda(i1, i2, radius=radius,
+                                                      block_y=block_y)
     return _correlation.correlation_plain(i1, i2, radius=radius)
 
 

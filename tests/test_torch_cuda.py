@@ -785,16 +785,90 @@ CORR = [
 
 @pytest.mark.parametrize("case", CORR, ids=lambda c: "-".join(map(str, c)))
 def test_correlation_kernel_matches_plain(dev, case):
-    """FLOWNET_CORR and EVA2_MATCH, ragged strips and channel chunks,
-    radius 0 and the largest built (31) on a map narrower than D."""
+    """The CUDA-core kernel (route ``correlation_simt``): FLOWNET_CORR and
+    EVA2_MATCH, ragged strips and channel chunks, radius 0 and the largest
+    built (31) on a map narrower than D."""
     from repro_torch.kernels import correlation as kcorr
     H, W, C, R, by, dt = case
     g = torch.Generator(device=dev).manual_seed(10)
     i1, i2 = (_randn(g, (H, W, C), dev, dt, C ** -0.25) for _ in range(2))
-    got = kcorr.correlation_cuda(i1, i2, radius=R, block_y=by)
+    got = kcorr.correlation_simt_cuda(i1, i2, radius=R, block_y=by)
     want = kcorr.correlation_plain(i1, i2, radius=R)
     assert got.shape == (H, W, 2 * R + 1, 2 * R + 1)
     _paper_close(got, want, dt, atol=1e-3)
+
+
+CORR_WGMMA = [
+    # (H, W, C, radius): the wgmma route's cases
+    (48, 64, 256, 10),   # FLOWNET_CORR
+    (26, 26, 64, 8),     # EVA2_MATCH: one ragged 64-column tile
+    (7, 45, 8, 0),       # radius 0 (N 64), W 45, C 8 (box past C)
+    (5, 33, 16, 31),     # radius 31 (N 128) on a map narrower than D
+    (9, 130, 72, 3),     # three column tiles, the last ragged; C 72
+    (1, 20, 8, 2),       # one row: rows 1
+    (6, 20, 1024, 4),    # channels in passes
+]
+
+
+@pytest.mark.parametrize("case", CORR_WGMMA,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_correlation_wgmma_matches_plain(dev, case):
+    """The wgmma kernel (route ``correlation``) through ``ops.correlation``
+    (``correlation_plan``'s tiling: one launch), then at other plans: one
+    row a CTA, all dy in one group, one dy a CTA, the widest band (N 128)
+    and the shortest ring (3 stages)."""
+    from repro_torch.core.cuda_bridge import SMEM_BUDGET, correlation_plan
+    from repro_torch.kernels import correlation as kcorr
+    from repro_torch.kernels import ops
+    H, W, C, R = case
+    g = torch.Generator(device=dev).manual_seed(17)
+    i1, i2 = (_randn(g, (H, W, C), dev, torch.bfloat16, C ** -0.25)
+              for _ in range(2))
+    want = kcorr.correlation_plain(i1, i2, radius=R)
+    assert kcorr.correlation_route(i1, i2, R) == "correlation"
+    ops.reset_launches()
+    got = ops.correlation(i1, i2, radius=R)
+    assert {k: n for k, n in ops.LAUNCHES.items() if n} == {"correlation": 1}
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _paper_close(got, want, torch.bfloat16, atol=1e-3)
+    D = 2 * R + 1
+    for kw in (dict(rows=1), dict(dy_group=D), dict(dy_group=1),
+               dict(block_n=128), dict(stages=3)):
+        try:
+            other = correlation_plan(H, W, C, R, **kw)
+        except ValueError:          # does not fit the budget
+            continue
+        assert other.smem <= SMEM_BUDGET
+        got = kcorr.correlation_cuda(i1, i2, radius=R, plan=other)
+        _paper_close(got, want, torch.bfloat16, atol=1e-3)
+
+
+def test_correlation_wgmma_writes_zeros_into_poisoned_memory(dev):
+    """A map whose first and last dy rows lie wholly outside the image (H 4
+    at radius 6): those outputs are written as zeros.  The output is
+    ``torch.empty``, so a same-size block is filled with NaN and freed
+    first: the caching allocator hands that block to the kernel, and a
+    skipped zero-write would leave NaN."""
+    from repro_torch.kernels import correlation as kcorr
+    H, W, C, R = 4, 40, 64, 6
+    D = 2 * R + 1
+    g = torch.Generator(device=dev).manual_seed(18)
+    i1, i2 = (_randn(g, (H, W, C), dev, torch.bfloat16, C ** -0.25)
+              for _ in range(2))
+    want = kcorr.correlation_plain(i1, i2, radius=R)
+    torch.cuda.synchronize()
+    poison = torch.full((H, W, D, D), float("nan"), dtype=torch.bfloat16,
+                        device=dev)
+    ptr = poison.data_ptr()
+    del poison
+    got = kcorr.correlation_cuda(i1, i2, radius=R)
+    assert got.data_ptr() == ptr          # the poisoned block, reused
+    assert torch.isfinite(got).all()
+    # the dy whose I2 rows lie above (dy < R - H + 1) or below (dy >= H + R)
+    # the image for every output row
+    for out_of_image in (got[:, :, :R - H + 1], got[:, :, H + R:]):
+        assert out_of_image.numel() and not out_of_image.any()
+    _paper_close(got, want, torch.bfloat16, atol=1e-3)
 
 
 DECODE = [
@@ -884,11 +958,13 @@ def test_paper_wrappers_launch_count_and_refuse_unbuilt_tiles(dev):
     ops.matmul(a8[:1], a8.t().contiguous())  # M 1: the GEMV
     ops.conv2d(x, w)                         # bf16: wgmma
     ops.conv2d(x.float(), w.float())         # f32: CUDA cores
-    ops.correlation(i, i, radius=2)
+    ops.correlation(i, i, radius=2)          # bf16, C 8: wgmma
+    ops.correlation(i.float(), i.float(), radius=2)   # f32: CUDA cores
     ops.flash_decode(q, kc, kc, ln)
     assert {k: n for k, n in ops.LAUNCHES.items() if n} == {
         "matmul_simt": 1, "matmul": 1, "matmul_gemv": 1, "conv2d": 1,
-        "conv2d_simt": 1, "correlation": 1, "flash_decode": 1}
+        "conv2d_simt": 1, "correlation": 1, "correlation_simt": 1,
+        "flash_decode": 1}
     with pytest.raises(ValueError, match="not one csrc/matmul.cu"):
         ops.matmul(a, a.t().contiguous(), block_m=32, block_n=32, block_k=64)
     with pytest.raises(ValueError, match="not one csrc/matmul.cu"):

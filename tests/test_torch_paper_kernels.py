@@ -148,6 +148,197 @@ def test_correlation_radius_8_on_a_10x10_map():
            **TOL)
 
 
+# The wgmma route's schedule on the CPU (``correlation_band_plain``: per
+# 64-column tile, row and dy the full row-pair product over the plan's band
+# width N, then its band) against the Pallas kernel in interpret mode.
+CORR_BAND = [
+    # (H, W, C, radius)
+    (3, 45, 8, 0),       # radius 0 (N 64); W not a multiple of 64; C 8
+    (2, 2, 8, 1),        # radius 1 on a 2 x 2 map, narrower than D 3
+    (10, 12, 72, 8),     # radius 8 (EVA2_MATCH's) narrower than D 17; C 72
+    (5, 33, 8, 31),      # radius 31 (N 128) narrower than D 63
+    (4, 70, 256, 2),     # two column tiles, the last ragged; C 256
+    (4, 20, 16, 6),      # the first and last dy rows wholly outside the map
+]
+
+
+@pytest.mark.parametrize("case", CORR_BAND,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_correlation_band_schedule_matches_reference(case):
+    """The band schedule at the plan's N and at the widest built (128)."""
+    from repro_torch.core.cuda_bridge import correlation_plan
+    H, W, C, R = case
+    i1, i2 = _normal(H, W, C), _normal(H, W, C)
+    want = ref_ops.correlation(jnp.asarray(i1), jnp.asarray(i2), radius=R,
+                               block_y=4)
+    plan = correlation_plan(H, W, C, R)
+    for n in sorted({plan.block_n, 128}):
+        got = pt_corr.correlation_band_plain(torch.from_numpy(i1),
+                                             torch.from_numpy(i2), radius=R,
+                                             block_n=n)
+        assert got.shape == (H, W, 2 * R + 1, 2 * R + 1)
+        _close(got, want, **TOL)
+
+
+def test_correlation_band_schedule_zeros_out_of_image_rows():
+    """H 4 at radius 6: the dy whose I2 rows lie above or below the map for
+    every output row are exactly 0."""
+    H, W, C, R = 4, 20, 16, 6
+    got = pt_corr.correlation_band_plain(
+        torch.from_numpy(_normal(H, W, C)), torch.from_numpy(_normal(H, W, C)),
+        radius=R)
+    assert not got[:, :, :R - H + 1].any() and not got[:, :, H + R:].any()
+    assert got[:, :, R, R].abs().min() > 0     # no displacement: I1 . I2
+
+
+def test_correlation_bf16_cpu_path_matches_the_oracle():
+    """``ops.correlation`` on bf16 CPU maps of the wgmma route runs the plain
+    version, as on every route; it agrees with the reference's oracle
+    within one bf16 rounding of the output."""
+    H, W, C, R = 6, 70, 16, 3
+    i1, i2 = _normal(H, W, C), _normal(H, W, C)
+    t1, t2 = (torch.from_numpy(a).to(torch.bfloat16) for a in (i1, i2))
+    assert pt_corr.correlation_route(t1, t2, R) == "correlation"
+    got = pt_ops.correlation(t1, t2, radius=R)
+    assert got.dtype == torch.bfloat16 and got.shape == (H, W, 7, 7)
+    torch.testing.assert_close(
+        got, pt_corr.correlation_plain(t1, t2, radius=R), rtol=0, atol=0)
+    want = ref_oracles.correlation_ref(
+        jnp.asarray(t1.float().numpy()), jnp.asarray(t2.float().numpy()),
+        radius=R)
+    _close(got, want, rtol=2.0 ** -7, atol=1e-3)
+
+
+def _unaligned(shape, dtype):
+    flat = torch.zeros(int(np.prod(shape)) + 1, dtype=dtype)
+    return flat[1:].view(shape)
+
+
+@pytest.mark.parametrize("dtype,C,radius,aligned,route", [
+    (torch.bfloat16, 8, 2, True, "correlation"),
+    (torch.bfloat16, 256, 10, True, "correlation"),
+    (torch.bfloat16, 64, 31, True, "correlation"),
+    (torch.float32, 256, 10, True, "correlation_simt"),
+    (torch.bfloat16, 5, 2, True, "correlation_simt"),
+    (torch.bfloat16, 12, 2, True, "correlation_simt"),
+    (torch.bfloat16, 64, 32, True, "correlation_simt"),
+    (torch.bfloat16, 64, 2, False, "correlation_simt"),
+])
+def test_correlation_route(dtype, C, radius, aligned, route):
+    """bf16 with C % 8 == 0, 16-byte aligned bases and radius <= 31 take the
+    wgmma kernel; f32, other C, a larger radius or an unaligned base the
+    CUDA-core one."""
+    shape = (4, 6, C)
+    i = torch.zeros(shape, dtype=dtype) if aligned else _unaligned(shape,
+                                                                   dtype)
+    assert pt_corr.correlation_route(i, i, radius) == route
+
+
+CATALOG_CORR_PLANS = {
+    # (H, W, C, radius): (rows, dy_group, block_n, ctas)
+    (48, 64, 256, 10): (2, 4, 88, 144),     # FLOWNET_CORR: 5 x 4 dy + 1
+    (26, 26, 64, 8): (2, 2, 80, 117),       # EVA2_MATCH: 8 x 2 dy + 1
+}
+
+
+@pytest.mark.parametrize("shape", sorted(CATALOG_CORR_PLANS))
+def test_correlation_plan_at_the_catalog_shapes(shape):
+    """The full dy groups' CTAs in one wave on 132 SMs (FLOWNET_CORR's
+    one-dy remainder group runs as a short second wave), both I1 rows of a
+    CTA sharing each staged I2 row, the narrowest band, the ring under the
+    budget."""
+    from repro_torch.core.cuda_bridge import (SM_COUNT, SMEM_BUDGET,
+                                              correlation_plan)
+    H, W, C, R = shape
+    p = correlation_plan(*shape)
+    assert (p.rows, p.dy_group, p.block_n, p.ctas) == \
+        CATALOG_CORR_PLANS[shape]
+    tiles = -(-H // p.rows)
+    assert (2 * R + 1) // p.dy_group * tiles <= SM_COUNT
+    assert p.smem <= SMEM_BUDGET and p.passes == 1 and p.stages >= 3
+
+
+@pytest.mark.parametrize("shape", [c for c in CORR_BAND] + [
+    (64, 64, 1024, 31), (1, 10, 8, 3), (300, 300, 64, 4),
+    (48, 64, 2048, 10), (6, 20, 1024, 4), (200, 8, 8, 0)])
+def test_correlation_plan_fits_and_covers_the_band(shape):
+    """Every plan fits ``SMEM_BUDGET`` with at least three ring stages, takes
+    a band of at least 64 + 2R built columns, covers all C in its passes
+    and all D dy in its groups, and counts its CTAs; where shared memory
+    does not force smaller groups, the full groups' CTAs stay within one
+    wave unless the row blocks alone exceed it, the remainder group is at
+    most half a group where it spills past the wave, and a group one
+    smaller would not fit the wave."""
+    from repro_torch.core.cuda_bridge import (CORR_BLOCK_N, SM_COUNT,
+                                              SMEM_BUDGET, correlation_plan,
+                                              correlation_smem)
+    H, W, C, R = shape
+    D = 2 * R + 1
+    p = correlation_plan(H, W, C, R)
+    assert p.smem == correlation_smem(R, p.rows, p.dy_group, p.block_n,
+                                      p.stages, p.chunks) <= SMEM_BUDGET
+    assert p.block_n in CORR_BLOCK_N and p.block_n >= 64 + 2 * R
+    assert p.stages >= 3 and p.chunks * p.passes >= -(-C // 64)
+    assert 1 <= p.dy_group <= D
+    tiles = -(-W // 64) * -(-H // p.rows)
+    assert p.ctas == tiles * -(-D // p.dy_group)
+    g = p.dy_group
+    unforced = correlation_plan(H, W, 64, R).dy_group == g
+    if unforced and tiles <= SM_COUNT:
+        assert tiles * (D // g) <= SM_COUNT
+        assert p.ctas <= SM_COUNT or 2 * (D % g) <= g
+        assert g == 1 or tiles * (D // (g - 1)) > SM_COUNT or \
+            2 * (D % (g - 1)) > g - 1
+
+
+def test_correlation_plan_smem_at_flownet():
+    """The shared-memory sum the kernel's ``corr_layout`` takes: two I1
+    rows of four chunks, seven 88-column ring stages, the f32 staging of 2 x
+    64 pixels x 4 dy x 21 dx, 19 mbarriers (two a stage, one an I1 chunk,
+    one for I1's release) and 1024 bytes of alignment."""
+    from repro_torch.core.cuda_bridge import correlation_plan
+    p = correlation_plan(48, 64, 256, 10)
+    assert p.stages == 7
+    assert p.smem == 2 * 4 * 8192 + 7 * 88 * 128 + 2 * 64 * 4 * 21 * 4 + \
+        19 * 8 + 1024
+
+
+@pytest.mark.parametrize("kw", [dict(radius=32), dict(radius=-1),
+                                dict(radius=10, block_n=80),
+                                dict(radius=10, block_n=130),
+                                dict(radius=10, block_n=92),
+                                dict(radius=10, rows=3),
+                                dict(radius=10, dy_group=22),
+                                dict(radius=10, stages=2),
+                                dict(radius=10, stages=9)])
+def test_correlation_plan_refuses_what_is_not_built(kw):
+    """Radius 32 and above (D > 63), a band narrower than 64 + 2R or not a
+    built width, rows other than 1 or 2, a dy group past D, a ring shorter
+    than the wgmma groups a warpgroup keeps in flight (each holds its
+    stage) or more stages than built."""
+    from repro_torch.core.cuda_bridge import correlation_plan
+    with pytest.raises(ValueError, match="correlation"):
+        correlation_plan(48, 64, 256, **kw)
+
+
+@pytest.mark.parametrize("no_math", [False, True],
+                         ids=["stamps", "no_math"])
+def test_correlation_probe_anchors_match_the_kernel(no_math):
+    """``scripts/probe_correlation_torch.py`` stamps the wgmma kernel at
+    lines of ``csrc/correlation.cu`` that must each occur once: a kernel
+    change that moves one must move the probe with it."""
+    spec = importlib.util.spec_from_file_location(
+        "probe_correlation_torch",
+        ROOT / "scripts" / "probe_correlation_torch.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" /
+           "correlation.cu").read_text()
+    out = probe.instrument(src, no_math)
+    assert "corr_probe_buf" in out and "corr_probe_trace_read" in out
+    assert ("if (false) Mma<N>" in out) == no_math
+
+
 # ---------------------------------------------------------------------------
 # flash_decode
 # ---------------------------------------------------------------------------
@@ -344,8 +535,11 @@ def test_cpu_calls_count_no_launch():
     q, kc, vc, ln = _decode_inputs(1, 4, 2, 8, 16, [5])
     pt_ops.flash_decode(*(torch.from_numpy(a) for a in (q, kc, vc, ln)))
     assert all(n == 0 for n in pt_ops.LAUNCHES.values())
+    j = torch.ones(4, 4, 8, dtype=torch.bfloat16)    # the wgmma route's
+    pt_ops.correlation(j, j, radius=1)
+    assert all(n == 0 for n in pt_ops.LAUNCHES.values())
     assert {"matmul", "matmul_gemv", "matmul_simt", "conv2d", "correlation",
-            "flash_decode"} <= set(pt_ops.LAUNCHES)
+            "correlation_simt", "flash_decode"} <= set(pt_ops.LAUNCHES)
 
 
 def test_cuda_launchers_refuse_cpu_tensors():
@@ -365,9 +559,11 @@ def test_cuda_launchers_refuse_cpu_tensors():
         pt_conv.conv2d_simt_cuda(torch.zeros(1, 8, 8, 4),
                                  torch.zeros(3, 3, 4, 8), block_oh=8,
                                  block_co=8)
-    i = torch.zeros(8, 8, 4)
+    i = torch.zeros(8, 8, 8)
     with pytest.raises(ValueError, match="CUDA"):
-        pt_corr.correlation_cuda(i, i, radius=2, block_y=8)
+        pt_corr.correlation_simt_cuda(i, i, radius=2, block_y=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        pt_corr.correlation_cuda(i.bfloat16(), i.bfloat16(), radius=2)
     q, kc, vc, ln = _decode_inputs(1, 4, 2, 8, 16, [5])
     with pytest.raises(ValueError, match="CUDA"):
         pt_att.flash_decode_cuda(*(torch.from_numpy(a)
