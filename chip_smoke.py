@@ -22,9 +22,11 @@ dense, paged and paged_int8 KV modes, holds one paged decode step through
 the paged kernel (history split by ``paged_decode_plan``) against the plain
 gather path over bf16 and int8 pools, holds the flash kernels' loss and
 gradients against the plain attention path, trains qwen3-4b at full width
-for a few AdamW steps through ``repro_torch.launch.train``, and checks what
-comes out.  Each phase prints JSON lines (``paper_workloads`` one per
-workload); a failed phase exits non-zero before the result line.  Each
+for a few AdamW steps through ``repro_torch.launch.train``, drills a kill
+and a restart of that training at full width through the loop's format-v2
+checkpoints (``recovery``: the restarted run must resume bit for bit), and
+checks what comes out.  Each phase prints JSON lines (``paper_workloads``
+one per workload); a failed phase exits non-zero before the result line.  Each
 kernel time is given twice: ``ms``, the span a caller waits for (the
 wrapper's host work included where it outlasts the flush before it), and
 ``device_ms``, the device work alone.  The last two lines are the card's
@@ -33,8 +35,11 @@ name and power limit (``nvidia-smi``) and ``{"ok": true, "device":
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
+import resource
+import shutil
 import subprocess
 import sys
 import time
@@ -1145,6 +1150,211 @@ def train(params) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 6: recovery — kill and restart the full-width training
+# ---------------------------------------------------------------------------
+
+# the checkpoint metrics the recovery phase reads from the registry
+CKPT_METRICS = ("checkpoint_snapshot_s", "checkpoint_save_s",
+                "checkpoint_crc_s", "checkpoint_verify_s",
+                "checkpoint_restore_s")
+
+
+def state_fingerprint(state) -> list[list[int]]:
+    """Per leaf of a train state (in flatten order), the int64 sum of its
+    raw words and their sum weighted by position (1, 2, ...), both
+    wrapping, taken on the card in slices: equal states give equal lists,
+    a changed word changes both sums and a moved one the second."""
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.optim.adamw import CHUNK
+    sums = []
+    for _, leaf in flatten_with_paths(state):
+        words = leaf.reshape(-1).view(
+            {2: torch.int16, 4: torch.int32}[leaf.element_size()])
+        s = torch.zeros(2, dtype=torch.int64, device=leaf.device)
+        for off in range(0, words.numel(), CHUNK):
+            w = words[off:off + CHUNK].long()
+            pos = torch.arange(off + 1, off + 1 + w.numel(),
+                               dtype=torch.int64, device=w.device)
+            s[0] += w.sum()
+            s[1] += (w * pos).sum()
+            del w, pos
+        sums.append(s)
+    return [s.tolist() for s in sums]
+
+
+def ckpt_seconds() -> dict:
+    """Sum and count of each checkpoint histogram since the last reset."""
+    from repro_torch.obs import REGISTRY
+    hists = REGISTRY.snapshot()["histograms"]
+    return {k: {"s": hists[k]["sum"], "n": hists[k]["count"]}
+            for k in CKPT_METRICS if k in hists}
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def recovery() -> dict:
+    """qwen3-4b at full width and depth (B 2 x S 2048, one microbatch,
+    bf16 params, f32 moments) through ``launch.train.run`` three times,
+    each from ``init_params(SEED)`` and freed before the next:
+
+    A, uninterrupted: 4 steps, ``nan@1`` (step 1 skipped on the card);
+    B, killed: the same with a checkpoint every 2 steps and ``kill@3``,
+       which lands the step-2 save and exits 43;
+    C, restarted: 2 steps from the same directory: restores step 2, runs
+       steps 2 and 3 and saves step 4.
+
+    B's losses must equal A's first three and C's A's last two, bit for
+    bit; C's final state (44 GB: params, moments, step) must equal A's by
+    ``state_fingerprint``; the step-4 save must verify.  No fallback: a
+    failed save, verify or restore fails the phase.  The checkpoints go to
+    ``build/recovery_ckpt`` (git-ignored), removed at the end; where the
+    disk holds one checkpoint but not two, step 2 is removed once C has
+    restored it, before C writes step 4."""
+    from repro_torch.checkpoint import latest_step, verify_checkpoint
+    from repro_torch.configs import get_bundle
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import run
+    from repro_torch.obs import REGISTRY
+    from repro_torch.runtime import KILL_EXIT_CODE, ChaosKilled
+    bundle = get_bundle(ARCH)
+    L = bundle.cfg.n_layers
+    n = bundle.param_count()
+    state_bytes = n * 2 + 2 * n * 4 + 4      # bf16 params, f32 mu/nu, step
+    kw = dict(smoke=False, seq_len=2048, global_batch=2, microbatches=1,
+              device="cuda")
+    ckpt = ROOT / "build" / "recovery_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    free = {"before": shutil.disk_usage(ckpt).free}
+    require(free["before"] >= 1.02 * state_bytes,
+            f"recovery: {free['before']} bytes free under {ckpt}, a "
+            f"checkpoint takes ~{state_bytes}")
+    row = {"state_bytes": state_bytes}
+
+    def flash(launches):
+        return {k: launches[k] for k in (
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_simt",
+            "flash_bwd_dq_simt", "flash_bwd_dkv_simt")}
+
+    def want_flash(steps):
+        return {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+                "flash_bwd_dkv": L * steps, "flash_fwd_simt": 0,
+                "flash_bwd_dq_simt": 0, "flash_bwd_dkv_simt": 0}
+
+    def start():
+        gc.collect()
+        torch.cuda.empty_cache()
+        REGISTRY.reset(CKPT_METRICS)
+        ops.reset_launches()
+        return time.perf_counter()
+
+    total = {}
+    try:
+        # A: uninterrupted
+        t0 = start()
+        out = run(ARCH, steps=4, chaos=["nan@1"], **kw)
+        row["a"] = dict(wall_s=time.perf_counter() - t0,
+                        losses=out["losses"],
+                        finite=[m["finite"] for m in out["metrics"]],
+                        opt_step=int(out["opt"]["step"]),
+                        launches=flash(ops.LAUNCHES))
+        total = dict(ops.LAUNCHES)
+        fp_a = state_fingerprint({"params": out["params"],
+                                  "opt": out["opt"]})
+        del out
+
+        # B: killed entering step 3, after the step-2 save has landed
+        seen = []
+
+        def log_b(i, p, o, m):
+            seen.append((i, m["loss"], m["finite"]))
+        t0 = start()
+        killed = None
+        try:
+            run(ARCH, steps=4, ckpt_dir=str(ckpt), ckpt_every=2,
+                chaos=["nan@1", "kill@3"], on_step=log_b, **kw)
+        except ChaosKilled as e:
+            killed = {"code": e.code, "step": e.step}
+        step_dir = ckpt / "step_00000002"
+        row["b"] = dict(wall_s=time.perf_counter() - t0, killed=killed,
+                        steps=[i for i, _, _ in seen],
+                        losses=[x for _, x, _ in seen],
+                        finite=[f for _, _, f in seen],
+                        latest_step=latest_step(str(ckpt)),
+                        checkpoint_bytes=dir_bytes(step_dir)
+                        if step_dir.is_dir() else None,
+                        seconds=ckpt_seconds(),
+                        launches=flash(ops.LAUNCHES))
+        total = {k: total.get(k, 0) + v for k, v in ops.LAUNCHES.items()}
+        free["after_step_2"] = shutil.disk_usage(ckpt).free
+        room = free["after_step_2"] >= 1.02 * state_bytes
+        row["step_2_removed_for_space"] = not room
+
+        # C: restarted from the step-2 checkpoint
+        def log_c(i, p, o, m):
+            if i == 2 and not room:
+                shutil.rmtree(step_dir)
+        t0 = start()
+        out = run(ARCH, steps=2, ckpt_dir=str(ckpt), ckpt_every=2,
+                  on_step=log_c, **kw)
+        row["c"] = dict(wall_s=time.perf_counter() - t0,
+                        steps=out["steps"], losses=out["losses"],
+                        finite=[m["finite"] for m in out["metrics"]],
+                        opt_step=int(out["opt"]["step"]),
+                        seconds=ckpt_seconds(),
+                        launches=flash(ops.LAUNCHES))
+        total = {k: total.get(k, 0) + v for k, v in ops.LAUNCHES.items()}
+        fp_c = state_fingerprint({"params": out["params"],
+                                  "opt": out["opt"]})
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ok4, why4 = verify_checkpoint(str(ckpt), 4)
+        row["verify_step_4"] = dict(ok=ok4, why=why4,
+                                    seconds=time.perf_counter() - t0,
+                                    checkpoint_bytes=dir_bytes(
+                                        ckpt / "step_00000004"))
+        free["with_checkpoints"] = shutil.disk_usage(ckpt).free
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        free["after_cleanup"] = shutil.disk_usage(ROOT / "build").free
+    row.update(fingerprint_equal=fp_a == fp_c,
+               fingerprint_leaves=len(fp_a),
+               host_peak_rss_bytes=resource.getrusage(
+                   resource.RUSAGE_SELF).ru_maxrss * 1024,
+               disk_free=free, launches=flash(total))
+    emit("recovery", **row)
+    a, b, c = row["a"], row["b"], row["c"]
+    require(all(math.isfinite(x) for x in a["losses"])
+            and a["finite"] == [1.0, 0.0, 1.0, 1.0] and a["opt_step"] == 3,
+            f"recovery A: nan@1 not skipped as it should be: {a}")
+    require(b["killed"] == {"code": KILL_EXIT_CODE, "step": 3}
+            and b["steps"] == [0, 1, 2] and b["latest_step"] == 2,
+            f"recovery B: not killed at step 3 after the step-2 save: {b}")
+    require(b["losses"] == a["losses"][:3]
+            and b["finite"] == a["finite"][:3],
+            f"recovery B: losses differ from A's: {b['losses']} vs "
+            f"{a['losses'][:3]}")
+    require(c["steps"] == [2, 3] and c["losses"] == a["losses"][2:]
+            and c["opt_step"] == 3,
+            f"recovery C: did not resume bit for bit: steps {c['steps']}, "
+            f"losses {c['losses']} vs {a['losses'][2:]}")
+    require(row["fingerprint_equal"],
+            f"recovery: C's final state differs from A's: "
+            f"{[i for i, (x, y) in enumerate(zip(fp_a, fp_c)) if x != y]}")
+    require(row["verify_step_4"]["ok"],
+            f"recovery: the step-4 save does not verify: {why4}")
+    for name, steps in (("a", 4), ("b", 3), ("c", 2)):
+        require(row[name]["launches"] == want_flash(steps),
+                f"recovery {name}: flash launches "
+                f"{row[name]['launches']}, want {want_flash(steps)}")
+    return total
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1221,10 +1431,13 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    # phase 6: the kernels line (one row per kernel route a main path runs),
-    # launches from the paper-workload, serve and train phases
+    # phase 6: kill and restart the full-width training from a checkpoint
+    recovered = recovery()
+
+    # phase 7: the kernels line (one row per kernel route a main path runs),
+    # launches from the paper-workload, serve, train and recovery phases
     phases = (paper, dense["launches"], paged["launches"], int8["launches"],
-              trained["launches"])
+              trained["launches"], recovered)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in rows}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -1237,7 +1450,7 @@ def main() -> int:
         require(r["launches"] > 0, f"{r['name']}: no launch on the main path")
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # phase 7: the card, then the result line
+    # phase 8: the card, then the result line
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -10,15 +10,34 @@ import numpy as np
 import torch
 
 
+BF16 = "bfloat16"     # numpy's (ml_dtypes') name, as the reference records it
+
+
+def bf16_from_words(words: np.ndarray) -> torch.Tensor:
+    """Raw 16-bit bfloat16 words -> a CPU bf16 tensor on the same memory,
+    bit for bit.  ``words`` is an ml_dtypes ``bfloat16`` array, which
+    ``torch.from_numpy`` does not take, or the ``V2`` array ``np.load``
+    gives for one; either is reinterpreted, never converted."""
+    return torch.from_numpy(words.view(np.int16)).view(torch.bfloat16)
+
+
+def to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
+    """A CPU tensor -> (a numpy array on its memory, the numpy dtype name
+    the reference records for it).  A bf16 tensor becomes its raw 16-bit
+    words under the name ``bfloat16``: the bytes an ml_dtypes array
+    holds."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy(), BF16
+    a = t.numpy()
+    return a, a.dtype.name
+
+
 def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        # ml_dtypes' bfloat16 is not a dtype torch.from_numpy takes: move
-        # the raw 16-bit words and reinterpret them
-        words = np.ascontiguousarray(a).view(np.uint16).view(np.int16)
-        t = torch.from_numpy(words.copy()).view(torch.bfloat16)
+    a = np.array(a, order="C")         # a writable copy the tensor owns
+    if a.dtype.name == BF16:
+        t = bf16_from_words(a)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+        t = torch.from_numpy(a)
     return t.to(device)
 
 

@@ -977,3 +977,124 @@ def test_paper_wrappers_launch_count_and_refuse_unbuilt_tiles(dev):
         ops.conv2d(x, w, block_oh=3)
     assert ops.LAUNCHES["matmul_simt"] == ops.LAUNCHES["conv2d"] == \
         ops.LAUNCHES["matmul"] == ops.LAUNCHES["conv2d_simt"] == 1
+
+
+# ---------------------------------------------------------------------------
+# checkpoints and the recovery loop on the card
+# ---------------------------------------------------------------------------
+
+def _card_state(dev, scale=1):
+    """A train state of the card's kind: bf16 params, f32 moments beside
+    them on the card, the int32 step on the host."""
+    from repro_torch.optim.adamw import tree_map
+    g = torch.Generator(device=dev).manual_seed(scale)
+    params = {"embed": torch.randn(512 * scale, 256, generator=g,
+                                   device=dev).bfloat16(),
+              "layers": {"wq": torch.randn(2, 256, 256 * scale, generator=g,
+                                           device=dev).bfloat16(),
+                         "ln1": torch.randn(2, 256, generator=g,
+                                            device=dev).bfloat16()}}
+    return {"params": params,
+            "opt": {"mu": tree_map(lambda t: torch.randn(
+                        t.shape, generator=g, device=dev), params),
+                    "nu": tree_map(lambda t: torch.rand(
+                        t.shape, generator=g, device=dev), params),
+                    "step": torch.tensor(5, dtype=torch.int32)}}
+
+
+def _same_bits(a, b):
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+    return len(fa) == len(fb) and all(
+        pa == pb and x.dtype == y.dtype and x.device == y.device
+        and torch.equal(x.view(torch.int16) if x.dtype == torch.bfloat16
+                        else x, y.view(torch.int16)
+                        if y.dtype == torch.bfloat16 else y)
+        for (pa, x), (pb, y) in zip(fa, fb))
+
+
+def test_checkpoint_round_trips_a_bf16_card_state(dev, tmp_path):
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.runtime import tree_fingerprint
+    state = _card_state(dev)
+    save_checkpoint(str(tmp_path), 3, state)
+    like = tree_map(torch.zeros_like, state)
+    assert restore_checkpoint(str(tmp_path), 3, like) is like
+    assert like["params"]["embed"].is_cuda and _same_bits(like, state)
+    assert tree_fingerprint(like) == tree_fingerprint(state)
+
+
+def test_in_place_update_after_save_async_does_not_reach_the_file(
+        dev, tmp_path):
+    """The train step's in-place updates are queued on the card right
+    after ``save_async`` returns: the file holds the state at the save."""
+    from repro_torch.checkpoint import CheckpointManager, restore_checkpoint
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    state = _card_state(dev)
+    want = tree_map(torch.clone, state)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_async(2, state)
+    for t in tree_leaves(state):
+        t.add_(1)
+    mgr.wait()
+    got = restore_checkpoint(str(tmp_path), 2, tree_map(torch.zeros_like,
+                                                        state))
+    assert _same_bits(got, want) and not _same_bits(got, state)
+
+
+def test_restore_copies_into_the_existing_cuda_tensors(dev, tmp_path):
+    """Restore writes each leaf into the tensor already on the card: the
+    tensors keep their storage and the card's peak memory does not grow
+    by the state's size (here ~84 MB)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    state = _card_state(dev, scale=32)
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_async(4, state)
+    mgr.wait()
+    like = tree_map(torch.zeros_like, state)
+    ptrs = [t.data_ptr() for _, t in flatten_with_paths(like)]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step, out = mgr.restore(like)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - before
+    assert step == 4 and out is like and _same_bits(like, state)
+    assert [t.data_ptr() for _, t in flatten_with_paths(like)] == ptrs
+    assert grew < nbytes // 8, (grew, nbytes)
+
+
+def test_kill_restart_resumes_bitwise_on_the_card(dev, tmp_path,
+                                                  monkeypatch):
+    """A small bf16 config through the wgmma flash kernels (2 layers, d
+    256, 4/2 heads, head_dim 64, S 256): 6 steps uninterrupted against a
+    run killed entering step 3 (after the step-2 save) and restarted; the
+    losses from step 2 on and the final states are equal bit for bit."""
+    from repro_torch.configs.base import ArchBundle
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import TransformerConfig, transformer
+    from repro_torch.runtime import ChaosKilled, tree_fingerprint
+    cfg = TransformerConfig(name="card-train", n_layers=2, d_model=256,
+                            n_heads=4, n_kv_heads=2, d_ff=512, vocab=512,
+                            head_dim=64, qk_norm=True, attn_impl="pallas")
+    monkeypatch.setattr(train, "get_bundle", lambda arch, smoke: ArchBundle(
+        arch, "dense", cfg, transformer))
+    kw = dict(seq_len=256, global_batch=2, log_every=100, device="cuda")
+    ops.reset_launches()
+    full = train.run("card-train", steps=6, chaos=["nan@1"], **kw)
+    assert ops.LAUNCHES["flash_bwd_dq"] == 6 * cfg.n_layers
+    with pytest.raises(ChaosKilled):
+        train.run("card-train", steps=6, ckpt_dir=str(tmp_path),
+                  ckpt_every=2, chaos=["nan@1", "kill@3"], **kw)
+    resumed = train.run("card-train", steps=4, ckpt_dir=str(tmp_path),
+                        ckpt_every=2, **kw)
+    assert resumed["steps"] == [2, 3, 4, 5]
+    assert resumed["losses"] == full["losses"][2:]
+    assert tree_fingerprint({"params": resumed["params"],
+                             "opt": resumed["opt"]}) == \
+        tree_fingerprint({"params": full["params"], "opt": full["opt"]})

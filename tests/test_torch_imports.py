@@ -1,7 +1,7 @@
 """The port stands alone: importing it loads no JAX, no file of it (or of
-chip_smoke.py) imports ``jax`` or the reference package, and its entry
-points refuse to run on a machine without a CUDA card unless asked for the
-CPU."""
+chip_smoke.py) imports ``jax``, ``ml_dtypes`` or the reference package, and
+its entry points refuse to run on a machine without a CUDA card unless
+asked for the CPU."""
 import ast
 import os
 import subprocess
@@ -20,7 +20,9 @@ MODULES = ["repro_torch", "repro_torch.launch.serve", "repro_torch.weights",
            "repro_torch.configs", "repro_torch.obs",
            "repro_torch.launch.train", "repro_torch.training",
            "repro_torch.optim", "repro_torch.data", "repro_torch.core",
-           "repro_torch.sim"]
+           "repro_torch.sim", "repro_torch.checkpoint",
+           "repro_torch.runtime", "repro_torch.runtime.chaos",
+           "repro_torch.runtime.fault", "repro_torch.runtime.fleet"]
 
 
 def test_import_leaves_jax_out():
@@ -48,7 +50,7 @@ def _imports(path: Path):
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     bad = [m for m in _imports(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro")]
     assert not bad, f"{path}: imports {bad}"
 
 
