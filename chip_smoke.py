@@ -20,7 +20,11 @@ GEMM_FC's N and K for M below 64, serves qwen3-4b at full width (bf16,
 random weights from a seed) through ``repro_torch.launch.serve`` in the
 dense, paged and paged_int8 KV modes, holds one paged decode step through
 the paged kernel (history split by ``paged_decode_plan``) against the plain
-gather path over bf16 and int8 pools, holds the flash kernels' loss and
+gather path over bf16 and int8 pools, does the same for olmoe-1b-7b, a
+top-8-of-64 MoE (``serve_moe``: the flash forward at MHA, the paged decode
+at 16 kv heads, the share of expert assignments the capacity drops; the
+two kernels are also checked alone at olmoe's and granite-moe's heads),
+holds the flash kernels' loss and
 gradients against the plain attention path, trains qwen3-4b at full width
 for a few AdamW steps through ``repro_torch.launch.train``, drills a kill
 and a restart of that training at full width through the loop's format-v2
@@ -60,6 +64,7 @@ PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 ARCH = "qwen3-4b"
+MOE_ARCH = "olmoe-1b-7b"
 SEED = 0
 
 
@@ -182,11 +187,22 @@ def bound(bytes_: float, ops: float, peak_ops: float) -> tuple[float, str]:
 # phase 3: each kernel against its plain version at full-width shapes
 # ---------------------------------------------------------------------------
 
-def check_flash(flush) -> dict:
-    """The forward kernel at the train phase's shape (B 2, S 2048, 32/8
-    heads), (B, S, H, D) tensors read through transposed views."""
+# the flash forward's shape on the train path (qwen3-4b: 32/8 heads), and
+# at the MoE configs' heads (olmoe-1b-7b: MHA 16/16; granite-moe: 24/8,
+# head_dim 64), which the card had not run at full width before
+FLASH_SHAPE = dict(B=2, S=2048, H=32, Hkv=8, D=128)
+FLASH_MOE_SHAPES = {"olmoe-1b-7b": dict(B=2, S=2048, H=16, Hkv=16, D=128),
+                    "granite-moe-3b-a800m": dict(B=2, S=2048, H=24, Hkv=8,
+                                                 D=64)}
+
+
+def check_flash(flush, shape: dict = FLASH_SHAPE,
+                arch: str | None = None) -> dict:
+    """The forward kernel at ``shape`` (default the train phase's: B 2, S
+    2048, 32/8 heads), (B, S, H, D) tensors read through transposed views.
+    ``arch`` names the config whose heads an extra shape takes."""
     from repro_torch.kernels import attention as katt
-    B, S, H, Hkv, D = 2, 2048, 32, 8, 128
+    B, S, H, Hkv, D = (shape[k] for k in ("B", "S", "H", "Hkv", "D"))
     g = torch.Generator(device="cuda").manual_seed(SEED)
     q, k, v = (torch.randn((B, S, h, D), generator=g, device="cuda")
                .to(torch.bfloat16) for h in (H, Hkv, Hkv))
@@ -234,7 +250,8 @@ def check_flash(flush) -> dict:
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                library_ms=lib_ms, library_device_ms=lib_dev_ms,
                blocks=[bq, bk],
-               shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D, causal=True))
+               shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D, causal=True),
+               **({} if arch is None else {"arch": arch}))
     emit("kernel_check", **row)
     return row
 
@@ -351,15 +368,21 @@ def check_flash_bwd(flush) -> list[dict]:
 PAGED_SHAPE = dict(B=4, H=32, Hkv=8, D=128, page=16, max_pages=128)
 
 
+# the MoE configs' paged decode shapes (olmoe-1b-7b: 16 kv heads, G 1;
+# granite-moe: 8 kv heads, G 3, head_dim 64) at the same slots and view
+PAGED_MOE_SHAPES = {"olmoe-1b-7b": dict(PAGED_SHAPE, H=16, Hkv=16),
+                    "granite-moe-3b-a800m": dict(PAGED_SHAPE, H=24, D=64)}
+
+
 def paged_inputs(quant: bool, lens_np: np.ndarray, max_pages: int,
-                 seed: int) -> tuple:
-    """Operands of the paged decode kernel at qwen3-4b's widths
-    (``PAGED_SHAPE``, one slot a length of ``lens_np``): q, bf16 pools or
-    int8 pools with scales (``models.layers.quantize_kv``), each slot's
-    pages drawn at random from the pool, unmapped columns on trash page
-    0."""
+                 seed: int, shape: dict = PAGED_SHAPE) -> tuple:
+    """Operands of the paged decode kernel at ``shape`` (default qwen3-4b's
+    widths, ``PAGED_SHAPE``; one slot a length of ``lens_np``): q, bf16
+    pools or int8 pools with scales (``models.layers.quantize_kv``), each
+    slot's pages drawn at random from the pool, unmapped columns on trash
+    page 0."""
     from repro_torch.models.layers import quantize_kv
-    sh = PAGED_SHAPE
+    sh = shape
     B, H, Hkv, D, page = (sh[k] for k in ("B", "H", "Hkv", "D", "page"))
     P = B * max_pages + 1
     rng = np.random.default_rng(seed)
@@ -397,14 +420,15 @@ def paged_bound(args: tuple, lens_np: np.ndarray) -> tuple[float, str]:
     return bound(bytes_, 4 * D * H * n_tok, PEAK_INT8 if quant else PEAK_BF16)
 
 
-def check_paged(quant: bool, flush) -> dict:
+def check_paged(quant: bool, flush, shape: dict = PAGED_SHAPE,
+                arch: str | None = None) -> dict:
     from repro_torch.kernels import paged_attention as kpa
-    sh = PAGED_SHAPE
+    sh = shape
     B, H, Hkv, D, page, MP = (sh[k] for k in ("B", "H", "Hkv", "D", "page",
                                               "max_pages"))
     rng = np.random.default_rng(SEED + 1)
     lens_np = rng.integers(1, MP * page + 1, B).astype(np.int32)
-    args = paged_inputs(quant, lens_np, MP, SEED + 2)
+    args = paged_inputs(quant, lens_np, MP, SEED + 2, shape)
     # the split plan (shapes only), and the CTAs these lengths keep live
     pps, nsplit = kpa.paged_decode_plan(B, Hkv, MP, page)
     live = Hkv * sum(min(nsplit, -(-int(n) // (pps * page)))
@@ -433,7 +457,8 @@ def check_paged(quant: bool, flush) -> dict:
                shape=dict(B=B, H=H, Hkv=Hkv, D=D, page=page, max_pages=MP,
                           lengths=lens_np.tolist()),
                plan=dict(pages_per_split=pps, splits=nsplit,
-                         ctas=B * Hkv * nsplit, live_ctas=live))
+                         ctas=B * Hkv * nsplit, live_ctas=live),
+               **({} if arch is None else {"arch": arch}))
     emit("kernel_check", **row)
     return row
 
@@ -843,10 +868,12 @@ class FiniteWatch:
         return self._watch(self._bundle.paged_step(*a, **kw))
 
 
-def prompts(n: int, lo: int, hi: int, seed: int, share: float = 0.0,
-            vocab: int = 151936) -> list[np.ndarray]:
-    """``n`` random prompts of lengths in [lo, hi]; a ``share`` fraction of
-    them start with one common prefix of lo // 2 tokens."""
+def prompts(n: int, lo: int, hi: int, seed: int, vocab: int,
+            share: float = 0.0) -> list[np.ndarray]:
+    """``n`` random prompts of lengths in [lo, hi] over ids below
+    ``vocab`` (the config's: an id past the embedding is an out-of-bounds
+    gather on the card); a ``share`` fraction of them start with one
+    common prefix of lo // 2 tokens."""
     rng = np.random.default_rng(seed)
     common = rng.integers(0, vocab, lo // 2)
     out = []
@@ -858,32 +885,80 @@ def prompts(n: int, lo: int, hi: int, seed: int, share: float = 0.0,
     return out
 
 
-def workload(mode: str) -> tuple[list[np.ndarray], dict]:
+def workload(mode: str, vocab: int) -> tuple[list[np.ndarray], dict]:
     """The serve phase's requests and engine settings for one KV mode:
     dense takes 4 long prompts (the flash kernel's prefill path), the
     paged modes 8 shorter ones over 4 slots, half sharing a prefix."""
     if mode == "dense":
-        return prompts(4, 1024, 1900, SEED + 3), dict(max_new=16, slots=4)
-    return (prompts(8, 256, 1024, SEED + 4, share=0.5),
+        return (prompts(4, 1024, 1900, SEED + 3, vocab),
+                dict(max_new=16, slots=4))
+    return (prompts(8, 256, 1024, SEED + 4, vocab, share=0.5),
             dict(max_new=32, slots=4, page_size=16, prefill_chunk=256,
                  prefill_token_budget=1024))
 
 
-def serve(mode: str, params) -> dict:
+class DropWatch:
+    """Counts, on the card, the MoE assignments the expert capacity drops:
+    wraps ``models.layers._moe_slots`` while it is entered and sums its
+    ``keep`` per call (two small launches a layer, no host read).  A call
+    of ``slots`` rows is a decode tick (one token a row, idle slots
+    included), any other a prefill."""
+
+    def __init__(self, slots: int):
+        from repro_torch.models import layers
+        self._layers, self._slots_fn, self.slots = layers, None, slots
+        self.kept = {k: torch.zeros((), dtype=torch.long, device="cuda")
+                     for k in ("decode", "prefill")}
+        self.total = {"decode": 0, "prefill": 0}
+
+    def __enter__(self):
+        self._slots_fn = inner = self._layers._moe_slots
+
+        def counted(gate_idx, E, C):
+            pos, keep = inner(gate_idx, E, C)
+            kind = "decode" if gate_idx.shape[0] == self.slots else "prefill"
+            self.kept[kind] += keep.sum()
+            self.total[kind] += keep.numel()
+            return pos, keep
+        self._layers._moe_slots = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._layers._moe_slots = self._slots_fn
+
+    def shares(self) -> dict:
+        out = {}
+        for k, n in self.total.items():
+            dropped = n - int(self.kept[k].item())
+            out[k] = dict(assignments=n, dropped=dropped,
+                          dropped_share=dropped / n if n else None)
+        return out
+
+
+def serve(mode: str, params, arch: str = ARCH) -> dict:
+    """Serve ``workload(mode)`` at ``arch``'s full width; for a MoE config
+    the row also gives the share of assignments the capacity dropped."""
+    import contextlib
+
+    from repro_torch.configs import get_bundle
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_engine
-    reqs, kw = workload(mode)
+    cfg = get_bundle(arch).cfg
+    reqs, kw = workload(mode, cfg.vocab)
     max_new = kw["max_new"]
-    engine, _ = build_engine(ARCH, smoke=False, max_len=2048, kv_mode=mode,
+    engine, _ = build_engine(arch, smoke=False, max_len=2048, kv_mode=mode,
                              params=params, device="cuda", **kw)
     watch = FiniteWatch(engine.bundle)
     engine.bundle = watch
+    drops = DropWatch(engine.cfg.batch) if cfg.moe else None
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    for p in reqs:
-        engine.submit(p)
-    results = engine.run()
+    with drops or contextlib.nullcontext():
+        for p in reqs:
+            engine.submit(p)
+        results = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
@@ -894,12 +969,16 @@ def serve(mode: str, params) -> dict:
             all(o == "ok" for o in engine.outcomes.values()),
             f"{mode}: a request ended short of {max_new} tokens")
     require(bool(watch.finite.item()), f"{mode}: non-finite logits")
-    row = dict(mode=mode, requests=len(reqs), slots=engine.cfg.batch,
+    row = dict(arch=arch, mode=mode, requests=len(reqs),
+               slots=engine.cfg.batch,
                prompt_tokens=int(sum(len(p) for p in reqs)),
                generated_tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
                steps=watch.steps, launches=launches,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
                kv=engine.kv_stats(), prefix=engine.prefix_stats())
-    emit("serve", **row)
+    if drops is not None:
+        row["moe_capacity_drops"] = drops.shares()
+    emit("serve_moe" if cfg.moe else "serve", **row)
     del engine, watch
     torch.cuda.empty_cache()
     return {"row": row, "results": results, "launches": launches}
@@ -914,7 +993,7 @@ def agreement(a: dict, b: dict) -> float:
     return same / max(1, total)
 
 
-def logits_check(params) -> dict:
+def logits_check(params, arch: str = ARCH) -> dict:
     """Full-width prefill logits of one 1536-token prompt through the flash
     kernel against the plain attention path (the reference's XLA path):
     bf16 at full width is not bit-stable across attention paths, so this
@@ -922,8 +1001,9 @@ def logits_check(params) -> dict:
     import dataclasses
 
     from repro_torch.configs import get_bundle
-    bundle = get_bundle(ARCH)
-    tok = torch.from_numpy(prompts(1, 1536, 1536, SEED + 9)[0][None]) \
+    bundle = get_bundle(arch)
+    tok = torch.from_numpy(prompts(1, 1536, 1536, SEED + 9,
+                                   bundle.cfg.vocab)[0][None]) \
         .long().to("cuda")
     out = {}
     with torch.no_grad():
@@ -935,7 +1015,8 @@ def logits_check(params) -> dict:
             del cache
     a, b = out["pallas"], out["xla"]
     cos = F.cosine_similarity(a, b, dim=0).item()
-    row = dict(cosine=cos, max_abs_diff=(a - b).abs().max().item(),
+    row = dict(arch=arch, cosine=cos,
+               max_abs_diff=(a - b).abs().max().item(),
                top1_equal=bool(a.argmax() == b.argmax()),
                finite=bool(torch.isfinite(a).all()))
     emit("logits_check", **row)
@@ -944,7 +1025,7 @@ def logits_check(params) -> dict:
     return row
 
 
-def paged_step_check(params) -> list[dict]:
+def paged_step_check(params, arch: str = ARCH) -> list[dict]:
     """One full-width T = 1 ``paged_step`` over bf16 and int8 pools that a
     prefill step of 4 prompts (256-1024 tokens) filled, through the paged
     kernel (``attn_impl="pallas"``) and through the plain gather path
@@ -957,9 +1038,9 @@ def paged_step_check(params) -> list[dict]:
 
     from repro_torch.configs import get_bundle
     from repro_torch.kernels import ops
-    bundle = get_bundle(ARCH)
+    bundle = get_bundle(arch)
     L, page = bundle.cfg.n_layers, 16
-    reqs = prompts(4, 256, 1024, SEED + 12)
+    reqs = prompts(4, 256, 1024, SEED + 12, bundle.cfg.vocab)
     B, T = len(reqs), max(len(p) for p in reqs)
     MP = 1 << (-(-(T + 1) // page) - 1).bit_length()   # the engine's view
     table = (1 + torch.arange(B * MP, dtype=torch.int32, device="cuda")
@@ -993,7 +1074,7 @@ def paged_step_check(params) -> list[dict]:
         a, b = out["pallas"], out["xla"]
         key = f"paged_decode_{kv}"
         cos = F.cosine_similarity(a, b, dim=0).item()
-        row = dict(kv=kv, slots=B, max_pages=MP,
+        row = dict(arch=arch, kv=kv, slots=B, max_pages=MP,
                    lengths=[len(p) for p in reqs], cosine=cos,
                    max_abs_diff=(a - b).abs().max().item(),
                    top1_equal=bool((a.reshape(B, -1).argmax(-1) ==
@@ -1014,12 +1095,94 @@ def paged_step_check(params) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: serve olmoe-1b-7b (MoE) at full width
+# ---------------------------------------------------------------------------
+
+MODES = ("dense", "paged", "paged_int8")
+# the launch key each mode's serve run must reach: the flash forward on the
+# dense prefill, the paged kernel on the paged decode ticks
+MODE_KEYS = {"dense": "flash_fwd", "paged": "paged_decode_bf16",
+             "paged_int8": "paged_decode_int8"}
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def init_params(arch: str) -> dict:
+    """``arch``'s full-width random bf16 weights from ``SEED`` on the
+    card, with a line of their count and bytes."""
+    from repro_torch.configs import get_bundle
+    bundle = get_bundle(arch)
+    t0 = time.perf_counter()
+    params = bundle.init_params(SEED, device="cuda")
+    torch.cuda.synchronize()
+    emit("init_params", arch=arch, seconds=time.perf_counter() - t0,
+         params=bundle.param_count(),
+         active_params=bundle.active_param_count(),
+         bytes=tree_bytes(params))
+    return params
+
+
+def serve_all(params, arch: str) -> dict:
+    """Serve ``arch`` in the three KV modes; each mode must launch its
+    kernel (``MODE_KEYS``).  -> {mode: serve()'s result}."""
+    with torch.no_grad():
+        runs = {m: serve(m, params, arch) for m in MODES}
+    for m, key in MODE_KEYS.items():
+        require(runs[m]["launches"][key] > 0,
+                f"{arch}: {m} mode never launched {key}")
+    emit("agreement", arch=arch, paged_vs_paged_int8=agreement(
+        runs["paged"]["results"], runs["paged_int8"]["results"]))
+    return runs
+
+
+def serve_moe() -> dict:
+    """olmoe-1b-7b at full width (16 layers, d 2048, MHA 16/16 heads,
+    head_dim 128, 64 experts top 8, vocab 50304; random bf16 weights from
+    ``SEED``) served in the three KV modes with qwen3-4b's request shapes,
+    then the paged modes again (same tokens and drops required), its
+    flash-vs-plain prefill logits and one paged step through the kernel
+    against the gather path.  The serve runs must launch ``flash_fwd``,
+    ``paged_decode_bf16`` and ``paged_decode_int8`` more than once each.
+    -> the first serve runs' launches, summed."""
+    params = init_params(MOE_ARCH)
+    runs = serve_all(params, MOE_ARCH)
+    launches: dict[str, int] = {}
+    for r in runs.values():
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    for key in MODE_KEYS.values():
+        require(launches.get(key, 0) > 1,
+                f"serve_moe: {key} launched {launches.get(key, 0)} times, "
+                f"want more than once")
+    # the capacity couples a tick's rows, pad and idle ones included: the
+    # paged modes served again must give the same tokens and drops
+    with torch.no_grad():
+        for m in ("paged", "paged_int8"):
+            again = serve(m, params, MOE_ARCH)
+            same = (again["results"] == runs[m]["results"] and
+                    again["row"]["moe_capacity_drops"] ==
+                    runs[m]["row"]["moe_capacity_drops"])
+            emit("serve_moe_repeat", arch=MOE_ARCH, mode=m, equal=same)
+            require(same, f"serve_moe: {m} served again gave other tokens "
+                    f"or drops")
+    logits_check(params, MOE_ARCH)
+    paged_step_check(params, MOE_ARCH)
+    del params, runs
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: train qwen3-4b at full width
 # ---------------------------------------------------------------------------
 
-def token_batch(B: int, S: int, seed: int) -> dict:
-    t = torch.from_numpy(np.stack(prompts(B, S + 1, S + 1, seed))).long() \
-        .to("cuda")
+def token_batch(B: int, S: int, seed: int, vocab: int) -> dict:
+    t = torch.from_numpy(np.stack(prompts(B, S + 1, S + 1, seed, vocab))) \
+        .long().to("cuda")
     return {"tokens": t[:, :-1], "labels": t[:, 1:]}
 
 
@@ -1043,7 +1206,7 @@ def train_check(params) -> dict:
     from repro_torch.models import transformer
     from repro_torch.training import loss_fn
     bundle = get_bundle(ARCH)
-    batch = token_batch(1, 2048, SEED + 11)
+    batch = token_batch(1, 2048, SEED + 11, bundle.cfg.vocab)
     L = bundle.cfg.n_layers
     names = ("wq", "wk", "wv")
     leaves = [params["embed"], *(params["layers"][n] for n in names)]
@@ -1392,6 +1555,13 @@ def main() -> int:
                                    check_paged(False, flush),
                                    check_paged(True, flush),
                                    *check_paper_kernels(flush))}
+    # the same routes at the MoE configs' heads: lines of their own (with
+    # ``arch``), not rows of the kernels line
+    for arch, shape in FLASH_MOE_SHAPES.items():
+        check_flash(flush, shape, arch)
+    for arch, shape in PAGED_MOE_SHAPES.items():
+        check_paged(False, flush, shape, arch)
+        check_paged(True, flush, shape, arch)
 
     # phase 3b: the paper's workloads at their own shapes; 3c: M < 64
     paper = paper_workloads(flush)
@@ -1400,28 +1570,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phase 4: serve qwen3-4b at full width in the three KV modes
-    from repro_torch.configs import get_bundle
-    t0 = time.perf_counter()
-    params = get_bundle(ARCH).init_params(SEED, device="cuda")
-    torch.cuda.synchronize()
-    emit("init_params", seconds=time.perf_counter() - t0,
-         params=get_bundle(ARCH).param_count(),
-         bytes=sum(t.numel() * t.element_size() for t in
-                   [params["embed"], params["ln_f"], params["lm_head"],
-                    *params["layers"].values()]))
-    with torch.no_grad():
-        dense, paged, int8 = (serve(m, params)
-                              for m in ("dense", "paged", "paged_int8"))
-    require(dense["launches"]["flash_fwd"] > 0,
-            "dense mode never launched the wgmma flash_fwd")
-    require(paged["launches"]["paged_decode_bf16"] > 0,
-            "paged mode never launched paged_decode_bf16")
-    require(int8["launches"]["paged_decode_int8"] > 0,
-            "paged_int8 mode never launched paged_decode_int8")
-    emit("agreement", paged_vs_paged_int8=agreement(paged["results"],
-                                                    int8["results"]))
+    params = init_params(ARCH)
+    served = serve_all(params, ARCH)
     logits_check(params)
     paged_step_check(params)
+
+    # phase 4b: serve olmoe-1b-7b at full width (qwen3-4b's weights stay)
+    moe = serve_moe()
 
     # phase 5: train at full width (the served weights change in place)
     torch.cuda.empty_cache()
@@ -1435,8 +1590,9 @@ def main() -> int:
     recovered = recovery()
 
     # phase 7: the kernels line (one row per kernel route a main path runs),
-    # launches from the paper-workload, serve, train and recovery phases
-    phases = (paper, dense["launches"], paged["launches"], int8["launches"],
+    # launches from the paper-workload, serve, serve_moe, train and
+    # recovery phases
+    phases = (paper, *(r["launches"] for r in served.values()), moe,
               trained["launches"], recovered)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in rows}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

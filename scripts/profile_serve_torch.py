@@ -2,9 +2,11 @@
 """Where the time goes in the PyTorch port's serving run, on one CUDA card.
 
     python3 scripts/profile_serve_torch.py [--modes dense,paged,paged_int8]
+        [--arch qwen3-4b | olmoe-1b-7b | ...]
 
-Serves the workload of ``chip_smoke.py`` (qwen3-4b at full width, bf16,
-random weights from seed 0) once per KV mode to warm up, then serves it
+Serves the workload of ``chip_smoke.py`` (``--arch`` at full width,
+default qwen3-4b; bf16, random weights from seed 0) once per KV mode to
+warm up, then serves it
 again with the same engine state reset: once on the host clock alone
 (``wall_s``, ``tok_per_s``) and once under ``torch.profiler`` for the
 device's kernels.  Prints one JSON line per mode: the device-busy time
@@ -73,10 +75,11 @@ def _union_us(evts) -> float:
     return total
 
 
-def profile_mode(mode: str, params) -> dict:
+def profile_mode(mode: str, params, arch: str) -> dict:
+    from repro_torch.configs import get_bundle
     from repro_torch.launch.serve import build_engine
-    reqs, kw = chip_smoke.workload(mode)
-    engine, _ = build_engine(chip_smoke.ARCH, smoke=False, max_len=2048,
+    reqs, kw = chip_smoke.workload(mode, get_bundle(arch).cfg.vocab)
+    engine, _ = build_engine(arch, smoke=False, max_len=2048,
                              kv_mode=mode, params=params, device="cuda",
                              **kw)
 
@@ -107,7 +110,7 @@ def profile_mode(mode: str, params) -> dict:
     for name, (_, ms) in by_name.items():
         groups[_group(name)] = groups.get(_group(name), 0.0) + ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    row = dict(mode=mode, wall_s=wall, tok_per_s=n_tok / wall,
+    row = dict(arch=arch, mode=mode, wall_s=wall, tok_per_s=n_tok / wall,
                generated_tokens=n_tok, profiled_wall_s=prof_wall,
                device_busy_ms=busy_ms,
                idle_share=1.0 - busy_ms / (prof_wall * 1e3),
@@ -126,17 +129,17 @@ def profile_mode(mode: str, params) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--modes", default="dense,paged,paged_int8")
+    ap.add_argument("--arch", default=chip_smoke.ARCH)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serve_torch: no CUDA device", file=sys.stderr)
         return 2
     print(chip_smoke.smi(), flush=True)
     from repro_torch.configs import get_bundle
-    params = get_bundle(chip_smoke.ARCH).init_params(chip_smoke.SEED,
-                                                     device="cuda")
+    params = get_bundle(a.arch).init_params(chip_smoke.SEED, device="cuda")
     with torch.no_grad():
         for mode in a.modes.split(","):
-            print(json.dumps(profile_mode(mode, params)), flush=True)
+            print(json.dumps(profile_mode(mode, params, a.arch)), flush=True)
     return 0
 
 

@@ -3,9 +3,13 @@ from __future__ import annotations
 
 from .base import (DEFAULT_FLASH_POLICY, FLASH_MODES, ArchBundle,
                    FlashAttnPolicy, decide_flash, flash_attn_policy)
-from . import qwen3_4b
+from . import (granite_moe_3b, olmoe_1b_7b, qwen1_5_32b, qwen2_5_14b,
+               qwen3_4b, yi_9b)
 
-_MODULES = (qwen3_4b,)
+# the reference's order; internvl2-26b (vlm) and the ssm, audio and hybrid
+# families are not ported yet
+_MODULES = (qwen3_4b, qwen2_5_14b, qwen1_5_32b, yi_9b, granite_moe_3b,
+            olmoe_1b_7b)
 
 REGISTRY = {m.ARCH_ID: m for m in _MODULES}
 ARCH_IDS = tuple(REGISTRY)

@@ -1,7 +1,8 @@
 """Architecture bundles and the flash-attention policy.
 
 Counterpart of ``repro.configs.base`` for the families this port has
-(the dense transformer).  A bundle wires a model family to the server:
+(the transformer, dense or MoE).  A bundle wires a model family to the
+server:
 
   * ``init_params(seed, device)``  — random weights drawn on the device
   * ``forward(params, batch)``     — (logits, aux)
@@ -79,9 +80,11 @@ def decide_flash(policy: FlashAttnPolicy, *, seq_len: int, kv_len: int,
 @dataclasses.dataclass
 class ArchBundle:
     arch_id: str
-    kind: str                   # dense (the only kind ported so far)
+    kind: str                   # dense | moe (the kinds ported so far)
     cfg: Any
     family: Any                 # model module
+    kv_dtype_decode: Any = None  # e.g. torch.int8 for big dense decode
+    extras: dict = dataclasses.field(default_factory=dict)
 
     # -- params ------------------------------------------------------------
     def init_params(self, seed: int = 0, device=None) -> dict:
@@ -94,6 +97,9 @@ class ArchBundle:
 
     def param_count(self) -> int:
         return self.cfg.param_count()
+
+    def active_param_count(self) -> int:
+        return self.cfg.active_param_count()
 
     # -- steps -------------------------------------------------------------
     def forward(self, params, batch):

@@ -1,7 +1,7 @@
 """Shared neural layers (plain functions over tensors and param dicts).
 
-Counterpart of ``repro.models.layers`` for the dense GQA decoder, on one
-device (no mesh):
+Counterpart of ``repro.models.layers`` for the GQA decoder and its
+top-k MoE MLP, on one device (no mesh):
 
   * params are plain dicts of tensors; layer stacks carry a leading layer
     axis.
@@ -11,11 +11,12 @@ device (no mesh):
     CUDA kernels (:mod:`repro_torch.kernels`) are the card's path, chosen
     by the flash policy (``configs.base``).
 
-No MoE or ring path yet; ``shard_seq`` / ``gather_seq`` are left out
-because they are no-ops without a mesh.
+No ring path yet; ``shard_seq`` / ``gather_seq`` are left out because
+they are no-ops without a mesh.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -310,3 +311,98 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
 def swiglu(x, w_gate, w_up, w_down):
     h = F.silu(x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (token-choice top-k, capacity-bounded dispatch)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int                    # per-expert hidden
+    capacity_factor: float = 1.25
+
+
+def _moe_route(xt, router, K):
+    """Shared routing math. xt: (T, D) -> gate_vals/gate_idx (T, K), probs.
+
+    The top k by a stable descending sort: on ties the lower expert index
+    comes first, as ``jax.lax.top_k`` gives it (``torch.topk`` promises no
+    order), and a zero router ties every expert."""
+    logits = xt.float() @ router.float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
+                                     stable=True)
+    gate_vals, gate_idx = gate_vals[:, :K], gate_idx[:, :K]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    return gate_vals, gate_idx, probs
+
+
+def _moe_aux(probs, gate_idx, E, T, K):
+    """The load-balance loss.  The expert counts are a scatter-add, not
+    ``torch.bincount``, which reads its input's maximum back to the host
+    on the card."""
+    me = probs.mean(0)
+    idx = gate_idx.reshape(-1)
+    counts = torch.zeros(E, dtype=torch.float32, device=probs.device) \
+        .index_add_(0, idx, torch.ones(idx.shape, device=probs.device))
+    return E * torch.sum(me * counts / (T * K))
+
+
+def _moe_slots(gate_idx, E: int, C: int):
+    """Each assignment's slot in its expert: the exclusive cumsum of the
+    (T*K, E) one-hot in token-major, then k, order.  An assignment whose
+    slot is >= C is dropped.  -> (pos (T, K), keep (T, K))."""
+    T, K = gate_idx.shape
+    onehot = F.one_hot(gate_idx, E)                          # (T, K, E)
+    flat = onehot.reshape(T * K, E)
+    pos = ((flat.cumsum(0) - flat).reshape(T, K, E) * onehot).sum(-1)
+    return pos, pos < C
+
+
+def _moe_local(x, params, cfg: MoEConfig):
+    """Single-device MoE: capacity-bounded scatter dispatch.  C counts
+    every row of the call (pads and idle slots included), so which
+    assignments drop depends on the rows a call batches together."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    xt = x.reshape(T, D)
+    gate_vals, gate_idx, probs = _moe_route(xt, params["router"], K)
+
+    C = max(1, int(cfg.capacity_factor * T * K / E))
+    pos, keep = _moe_slots(gate_idx, E, C)
+    gate_vals = gate_vals * keep
+
+    e_idx = gate_idx.reshape(-1)
+    keep_f = keep.reshape(-1)
+    c_idx = torch.where(keep_f, pos.reshape(-1), 0)
+    t_idx = torch.arange(T * K, device=x.device) // K       # token of each
+    contrib = torch.where(keep_f[:, None], xt[t_idx], 0)
+    disp = torch.zeros((E, C, D), dtype=x.dtype, device=x.device)
+    disp.index_put_((e_idx, c_idx), contrib, accumulate=True)
+
+    h = F.silu(torch.bmm(disp, params["w_gate"])) * \
+        torch.bmm(disp, params["w_up"])
+    eo = torch.bmm(h, params["w_down"])                      # (E, C, D)
+
+    gathered = eo[e_idx, c_idx].float() * gate_vals.reshape(-1)[:, None]
+    # the scatter-add over t_idx: its rows are token t's K assignments in
+    # k order, so it is a sum over K, in a fixed order (no atomics)
+    out = gathered.reshape(T, K, D).sum(1)
+    aux = _moe_aux(probs, gate_idx, E, T, K)
+    return out.reshape(B, S, D).to(x.dtype), aux
+
+
+def moe_layer(x: torch.Tensor, params: dict,
+              cfg: MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D); params: router (D, E), w_gate/w_up (E, D, F),
+    w_down (E, F, D). Returns (out, aux_loss).
+
+    Always the local capacity dispatch: the port has no mesh.  The
+    reference's expert-parallel and TP-in-expert branches come with the
+    multi-card slice (ROADMAP queue 1, item 8)."""
+    return _moe_local(x, params, cfg)

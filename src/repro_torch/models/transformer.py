@@ -1,12 +1,13 @@
-"""Decoder-only transformer (dense GQA): training forward and serving.
+"""Decoder-only transformer (dense GQA and top-k MoE MLPs): training
+forward and serving.
 
-Counterpart of ``repro.models.transformer`` for dense configs such as
-qwen3-4b (qk_norm) on one device.  Layers are stacked on a leading axis,
-as in the reference, unbound once per call and traversed with a Python
-loop.  Under autograd ``forward`` checkpoints each layer, as the
-reference's default ``remat=True`` does: the backward recomputes the layer,
-flash forward kernel included.  A MoE config raises ``NotImplementedError``;
-MoE comes with a later slice of the port.
+Counterpart of ``repro.models.transformer`` on one device, for qwen3-4b
+(qk_norm), qwen2.5-14b / qwen1.5-32b (QKV bias), yi-9b, and granite-moe
+and olmoe (MoE MLPs).  Layers are stacked on a leading axis, as in the
+reference, unbound once per call and traversed with a Python loop.  Under
+autograd ``forward`` checkpoints each layer, as the reference's default
+``remat=True`` does: the backward recomputes the layer, flash forward
+kernel included.
 
 The caches and the page pool are written IN PLACE (``index_put_`` /
 slice assignment): a functional copy of a 1.2 GB pool per layer and tick
@@ -17,7 +18,6 @@ given, updated.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -25,8 +25,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
-from .layers import (apply_rope, attention, decode_attention,
-                     paged_decode_attention, quantize_kv, rms_norm, swiglu)
+from .layers import (MoEConfig, apply_rope, attention, decode_attention,
+                     moe_layer, paged_decode_attention, quantize_kv,
+                     rms_norm, swiglu)
 
 # Serving-engine capability flags (see configs/base.py and
 # serving/engine.py): prefill accepts ``true_lengths`` for length-bucketed
@@ -51,7 +52,7 @@ class TransformerConfig:
     qkv_bias: bool = False
     rope_theta: float = 1e6
     norm_eps: float = 1e-6
-    moe: Any = None                   # not ported yet: raises if set
+    moe: MoEConfig | None = None
     window: int | None = None         # sliding-window attention (None = full)
     dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "auto"           # auto | xla | pallas (flash policy)
@@ -64,14 +65,22 @@ class TransformerConfig:
         D, H, Kv, Dh, F, V, L = (self.d_model, self.n_heads, self.n_kv_heads,
                                  self.dh, self.d_ff, self.vocab, self.n_layers)
         attn = D * H * Dh + 2 * D * Kv * Dh + H * Dh * D
-        mlp = 3 * D * F
+        if self.moe:
+            mlp = D * self.moe.n_experts + \
+                3 * self.moe.n_experts * D * self.moe.d_ff
+        else:
+            mlp = 3 * D * F
         return L * (attn + mlp + 2 * D) + 2 * V * D + D
 
-
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported to repro_torch yet")
+    def active_param_count(self) -> int:
+        """Per-token active params (MoE uses top_k experts)."""
+        if not self.moe:
+            return self.param_count()
+        D, H, Kv, Dh, L = (self.d_model, self.n_heads, self.n_kv_heads,
+                           self.dh, self.n_layers)
+        attn = D * H * Dh + 2 * D * Kv * Dh + H * Dh * D
+        mlp = D * self.moe.n_experts + 3 * self.moe.top_k * D * self.moe.d_ff
+        return L * (attn + mlp + 2 * D) + 2 * self.vocab * D + D
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
@@ -79,7 +88,6 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     """Random weights (normal, std 0.02) drawn on ``device`` from
     ``generator`` (which must live on that device), in the reference's
     key names and stacked layout."""
-    _dense_only(cfg)
     D, H, Kv, Dh, F, V, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh,
                              cfg.d_ff, cfg.vocab, cfg.n_layers)
     dt = cfg.dtype
@@ -110,9 +118,16 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     if cfg.qk_norm:
         layers["q_norm"] = ones((L, Dh))
         layers["k_norm"] = ones((L, Dh))
-    layers["w_gate"] = nrm((L, D, F))
-    layers["w_up"] = nrm((L, D, F))
-    layers["w_down"] = nrm((L, F, D))
+    if cfg.moe:
+        E, Fe = cfg.moe.n_experts, cfg.moe.d_ff
+        layers["router"] = nrm((L, D, E))
+        layers["w_gate"] = nrm((L, E, D, Fe))
+        layers["w_up"] = nrm((L, E, D, Fe))
+        layers["w_down"] = nrm((L, E, Fe, D))
+    else:
+        layers["w_gate"] = nrm((L, D, F))
+        layers["w_up"] = nrm((L, D, F))
+        layers["w_down"] = nrm((L, F, D))
     return {
         "embed": nrm((V, D)),
         "layers": layers,
@@ -149,9 +164,12 @@ def _qkv(cfg: TransformerConfig, lp: dict, x: torch.Tensor, positions):
     return q, k, v
 
 
-def _mlp(cfg: TransformerConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+def _mlp(cfg: TransformerConfig, lp: dict, x: torch.Tensor):
+    """-> (the MLP's output, its aux loss: 0.0 for a dense MLP)."""
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+    if cfg.moe:
+        return moe_layer(h, lp, cfg.moe)
+    return swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), 0.0
 
 
 def _positions(S: int, device) -> torch.Tensor:
@@ -159,36 +177,40 @@ def _positions(S: int, device) -> torch.Tensor:
 
 
 def _block_train(cfg: TransformerConfig, x: torch.Tensor, lp: dict,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor):
+    """-> (the layer's output, its MLP's aux loss)."""
     B, S, _ = x.shape
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = _qkv(cfg, lp, h, positions)
     o = attention(q, k, v, causal=True, window=cfg.window,
                   impl=cfg.attn_impl)
     x = x + o.reshape(B, S, -1) @ lp["wo"]
-    return x + _mlp(cfg, lp, x)
+    mo, aux = _mlp(cfg, lp, x)
+    return x + mo, aux
 
 
 def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor):
-    """tokens: (B, S) int -> (logits (B, S, vocab), aux_loss 0.0).
+    """tokens: (B, S) int -> (logits (B, S, vocab), aux_loss): the MoE
+    layers' aux losses summed (0.0 for a dense config).
 
     With grad enabled each layer runs under ``torch.utils.checkpoint``
     (the reference's ``remat``): only its input is kept, and the backward
-    recomputes it; at full width nothing else fits beside the optimizer
-    state.  (The reference also saves the attention output across
-    the recompute; here the flash forward runs again.)"""
-    _dense_only(cfg)
+    recomputes it, aux included; at full width nothing else fits beside
+    the optimizer state.  (The reference also saves the attention output
+    across the recompute; here the flash forward runs again.)"""
     x = F.embedding(tokens, params["embed"])
     positions = _positions(x.shape[1], x.device)
     remat = torch.is_grad_enabled()
+    aux = 0.0
     for lp in _layers(params):
         if remat:
-            x = checkpoint(_block_train, cfg, x, lp, positions,
-                           use_reentrant=False)
+            x, a = checkpoint(_block_train, cfg, x, lp, positions,
+                              use_reentrant=False)
         else:
-            x = _block_train(cfg, x, lp, positions)
+            x, a = _block_train(cfg, x, lp, positions)
+        aux = aux + a
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return x @ params["lm_head"], 0.0
+    return x @ params["lm_head"], aux
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +250,6 @@ def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     < true_lengths[b] is unaffected by the padding.  The cache length is
     set to the true length and the returned logits are taken at position
     ``true_lengths - 1``."""
-    _dense_only(cfg)
     x = F.embedding(tokens, params["embed"])
     B, S, _ = x.shape
     positions = _positions(S, x.device)
@@ -239,7 +260,7 @@ def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
         o = attention(q, k, v, causal=True, window=cfg.window,
                       impl=cfg.attn_impl)
         x = x + o.reshape(B, S, -1) @ lp["wo"]
-        x = x + _mlp(cfg, lp, x)
+        x = x + _mlp(cfg, lp, x)[0]
         if quantized:
             kq, ks = quantize_kv(k)
             vq, vs = quantize_kv(v)
@@ -267,7 +288,6 @@ def decode_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
                 cache: dict):
     """tokens: (B, 1) -> (logits (B, 1, V), cache): one serving step that
     writes each slot's new K/V at its own length, in place."""
-    _dense_only(cfg)
     x = F.embedding(tokens, params["embed"])
     B = x.shape[0]
     length = cache["length"]
@@ -295,7 +315,7 @@ def decode_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
             vc[rows, pos] = v[:, 0].to(vc.dtype)
             o = decode_attention(q, kc, vc, length + 1)
         x = x + o.reshape(B, 1, -1) @ lp["wo"]
-        x = x + _mlp(cfg, lp, x)
+        x = x + _mlp(cfg, lp, x)[0]
     cache["length"] += 1
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x @ params["lm_head"], cache
@@ -328,6 +348,20 @@ def init_paged_pool(cfg: TransformerConfig, num_pages: int, page_size: int,
     return pool
 
 
+def _trash_last_writer(phys: torch.Tensor, off: torch.Tensor,
+                       page: int) -> torch.Tensor:
+    """For each of a paged step's (B, T) K/V writes, the row-major index
+    of the write whose value it stores: its own, or, on trash page 0, the
+    last write to the same slot.  -> (B * T,) long."""
+    phys, off = phys.reshape(-1), off.reshape(-1)
+    order = torch.arange(phys.numel(), device=phys.device)
+    trash = phys == 0
+    key = torch.where(trash, off, page)        # live writes share slot page
+    last = torch.full((page + 1,), -1, dtype=torch.long, device=phys.device)
+    last.scatter_reduce_(0, key, order, reduce="amax")
+    return torch.where(trash, last[key], order)
+
+
 def paged_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
                pool: dict, page_table: torch.Tensor, lengths: torch.Tensor,
                counts: torch.Tensor):
@@ -345,7 +379,6 @@ def paged_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     routed to trash page 0.
 
     Returns (logits (B, T, vocab), pool, lengths + counts)."""
-    _dense_only(cfg)
     x = F.embedding(tokens, params["embed"])
     B, T, _ = x.shape
     page = pool["k"].shape[2]
@@ -360,29 +393,40 @@ def paged_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     # the kernel path is decode-only; chunked prefill stays on the gather
     # path (its q block is the whole chunk, a different schedule)
     impl = cfg.attn_impl if T == 1 else "xla"
+    # rows of one slot never collide (consecutive positions), distinct
+    # slots own distinct pages, and every invalid token lands on trash
+    # page 0, where writes collide.  The card stores colliding writes in
+    # racing order.  No live row of a dense model reads the trash page,
+    # but a MoE's capacity couples a call's rows, and pad and idle rows do
+    # read it: there each colliding write carries its last writer's value,
+    # so any order stores what an in-order scatter (the CPU's) stores.
+    src = _trash_last_writer(phys, off, page) if cfg.moe else None
+
+    def put(dst, val):
+        if src is not None:
+            val = val.reshape(B * T, *val.shape[2:])[src].reshape(val.shape)
+        dst[phys, off] = val
+
     for i, lp in enumerate(_layers(params)):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = _qkv(cfg, lp, h, positions)
         kc, vc = pool["k"][i], pool["v"][i]
-        # rows of one slot never collide (consecutive positions), distinct
-        # slots own distinct pages, and every invalid token lands on trash
-        # page 0
         if quantized:
             kq, ks = quantize_kv(k)
             vq, vs = quantize_kv(v)
             ksc, vsc = pool["k_scale"][i], pool["v_scale"][i]
-            kc[phys, off] = kq
-            vc[phys, off] = vq
-            ksc[phys, off] = ks
-            vsc[phys, off] = vs
+            put(kc, kq)
+            put(vc, vq)
+            put(ksc, ks)
+            put(vsc, vs)
             o = paged_decode_attention(q, kc, vc, page_table, lengths,
                                        ksc, vsc, impl=impl)
         else:
-            kc[phys, off] = k.to(kc.dtype)
-            vc[phys, off] = v.to(vc.dtype)
+            put(kc, k.to(kc.dtype))
+            put(vc, v.to(vc.dtype))
             o = paged_decode_attention(q, kc, vc, page_table, lengths,
                                        impl=impl)
         x = x + o.reshape(B, T, -1) @ lp["wo"]
-        x = x + _mlp(cfg, lp, x)
+        x = x + _mlp(cfg, lp, x)[0]
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x @ params["lm_head"], pool, lengths + counts

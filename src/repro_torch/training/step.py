@@ -70,6 +70,9 @@ def make_train_step(forward: Callable, hyper: TrainHyper) -> Callable:
                                   aux_weight=hyper.aux_weight,
                                   z_weight=hyper.z_weight)
         grads = torch.autograd.grad(loss, leaves)
+        # a MoE forward's aux is a tensor of the graph: keep none of it
+        if torch.is_tensor(aux):
+            aux = aux.detach()
         return loss.detach(), ce.detach(), aux, list(grads)
 
     def compute_grads(params, leaves, batch):

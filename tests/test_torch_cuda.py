@@ -77,6 +77,10 @@ FLASH = [
     (1, 1000, 1000, 16, 2, 128, True, 300, torch.bfloat16),
     (1, 64, 64, 4, 2, 64, True, 3, torch.float32),
     (1, 257, 257, 16, 4, 128, True, None, torch.float32),
+    # olmoe-1b-7b's MHA (16/16 heads, G 1, D 128) and granite-moe's
+    # (24/8 heads, G 3, D 64) at the serve phase's prefill lengths
+    (1, 1900, 1900, 16, 16, 128, True, None, torch.bfloat16),
+    (1, 1900, 1900, 24, 8, 64, True, None, torch.bfloat16),
 ]
 
 
@@ -258,6 +262,12 @@ PAGED = [
     (2, 8, 2, 256, 16, 6, "f32"),
     (3, 8, 2, 20, 16, 10, "bf16"),
     (3, 8, 2, 20, 16, 10, "int8"),
+    # olmoe-1b-7b (16 kv heads, G 1, D 128) and granite-moe (8 kv heads,
+    # G 3, D 64) at the serve phase's 4 slots and 2048-token view
+    (4, 16, 16, 128, 16, 128, "bf16"),
+    (4, 16, 16, 128, 16, 128, "int8"),
+    (4, 24, 8, 64, 16, 128, "bf16"),
+    (4, 24, 8, 64, 16, 128, "int8"),
 ]
 
 
@@ -469,6 +479,65 @@ def test_smoke_engine_on_the_card_matches_cpu(dev, kv_mode):
         key = "paged_decode_int8" if kv_mode == "paged_int8" \
             else "paged_decode_bf16"
         assert ops.LAUNCHES[key] > 0
+
+
+@pytest.mark.parametrize("kv_mode", ["dense", "paged", "paged_int8"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m"])
+def test_moe_smoke_engine_on_the_card_matches_cpu(dev, arch, kv_mode):
+    """The MoE smoke configs (f32; MHA and G 3) likewise: the routing's
+    stable sort and the dispatch give the CPU's tokens on the card."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_engine, make_prompts
+    params = get_bundle(arch, smoke=True).init_params(0, device="cpu")
+    prompts = make_prompts(256, n_requests=4, prompt_len=20,
+                           prefix_share=0.5, seed=3)
+    out = {}
+    for device in ("cpu", "cuda"):
+        engine, _ = build_engine(arch, slots=2, max_len=64, max_new=6,
+                                 kv_mode=kv_mode, page_size=8, params=params,
+                                 device=device)
+        for p in prompts:
+            engine.submit(p)
+        ops.reset_launches()
+        out[device] = engine.run()
+    assert out["cuda"] == out["cpu"]
+    if kv_mode != "dense":
+        key = "paged_decode_int8" if kv_mode == "paged_int8" \
+            else "paged_decode_bf16"
+        assert ops.LAUNCHES[key] > 0
+
+
+@pytest.mark.parametrize("kv_mode", ["paged", "paged_int8"])
+def test_moe_paged_engine_at_capacity_1_25_repeats_on_the_card(dev,
+                                                               kv_mode):
+    """At capacity 1.25 a decode tick's assignments collide and its pad
+    and idle rows, which read trash page 0, take capacity: the card must
+    serve the same tokens twice, and the CPU's."""
+    import dataclasses
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.serving import ServeConfig, ServingEngine
+    bundle = get_bundle("olmoe-1b-7b", smoke=True)
+    bundle = dataclasses.replace(bundle, cfg=dataclasses.replace(
+        bundle.cfg, moe=dataclasses.replace(bundle.cfg.moe,
+                                            capacity_factor=1.25)))
+    params = bundle.init_params(0, device="cpu")
+    prompts = make_prompts(256, n_requests=4, prompt_len=20,
+                           prefix_share=0.5, seed=3)
+    out = []
+    for device in ("cpu", "cuda", "cuda"):
+        p = {k: ({n: t.to(device) for n, t in v.items()}
+                 if isinstance(v, dict) else v.to(device))
+             for k, v in params.items()}
+        engine = ServingEngine(bundle, p, ServeConfig(
+            batch=2, max_len=64, max_new_tokens=6, kv_mode=kv_mode,
+            page_size=8), device=torch.device(device))
+        for q in prompts:
+            engine.submit(q)
+        out.append(engine.run())
+    assert out[1] == out[2] == out[0]
 
 
 def test_train_step_on_the_card_matches_cpu(dev):

@@ -18,6 +18,10 @@ MODULES = ["repro_torch", "repro_torch.launch.serve", "repro_torch.weights",
            "repro_torch.kernels.ops", "repro_torch.kernels._build",
            "repro_torch.models.transformer", "repro_torch.serving",
            "repro_torch.configs", "repro_torch.obs",
+           "repro_torch.models.layers", "repro_torch.configs.olmoe_1b_7b",
+           "repro_torch.configs.granite_moe_3b",
+           "repro_torch.configs.qwen2_5_14b", "repro_torch.configs.yi_9b",
+           "repro_torch.configs.qwen1_5_32b",
            "repro_torch.launch.train", "repro_torch.training",
            "repro_torch.optim", "repro_torch.data", "repro_torch.core",
            "repro_torch.sim", "repro_torch.checkpoint",

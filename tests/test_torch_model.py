@@ -123,11 +123,24 @@ def test_paged_step_chunk_then_decode(models, kv):
             _close(pl_[b], rl[b])
 
 
-def test_moe_config_is_not_ported():
-    pb = pt_get_bundle(ARCH, smoke=True)
-    cfg = dataclasses.replace(pb.cfg, moe=object())
-    with pytest.raises(NotImplementedError):
-        pb.family.init_params(cfg, torch.Generator(), torch.device("cpu"))
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m"])
+def test_moe_init_params_match_reference_leaves(arch):
+    """A MoE config draws the reference's leaves: router (L, D, E) and the
+    experts' (L, E, D, Fe) / (L, E, Fe, D) products in place of the dense
+    MLP, under the same names, shapes and dtypes."""
+    want = jax.tree.map(np.asarray, ref_get_bundle(arch, smoke=True)
+                        .init_params(jax.random.PRNGKey(0)))
+    got = pt_get_bundle(arch, smoke=True).init_params(0, device="cpu")
+    flat_w = {jax.tree_util.keystr(k): v for k, v in
+              jax.tree_util.tree_flatten_with_path(want)[0]}
+    flat_g = {jax.tree_util.keystr(k): v for k, v in
+              jax.tree_util.tree_flatten_with_path(got)[0]}
+    assert sorted(flat_g) == sorted(flat_w)
+    assert "['layers']['router']" in flat_g
+    for k, w in flat_w.items():
+        g = flat_g[k]
+        assert tuple(g.shape) == w.shape, k
+        assert str(g.dtype).split(".")[-1] == str(w.dtype), k
 
 
 def test_weights_bf16_round_trip():
