@@ -24,7 +24,14 @@ gather path over bf16 and int8 pools, does the same for olmoe-1b-7b, a
 top-8-of-64 MoE (``serve_moe``: the flash forward at MHA, the paged decode
 at 16 kv heads, the share of expert assignments the capacity drops; the
 two kernels are also checked alone at olmoe's and granite-moe's heads),
-holds the flash kernels' loss and
+serves internvl2-26b (vlm: a 256-token vision prefix, GQA group 6),
+recurrentgemma-9b (hybrid: RG-LRU and local MQA at head_dim 256 through the
+flash forward's CUDA-core route, one prompt past its 2048-token window),
+whisper-medium (audio: a non-causal encoder over 1500 frames and
+cross-attention to them) and mamba2-370m (ssm: no kernel) at full width in
+the dense KV mode, one family's weights at a time (``serve_families``,
+each with its flash-vs-plain ``logits_check``; the flash forward is also
+checked alone at their shapes), holds the flash kernels' loss and
 gradients against the plain attention path, trains qwen3-4b at full width
 for a few AdamW steps through ``repro_torch.launch.train``, drills a kill
 and a restart of that training at full width through the loop's format-v2
@@ -194,55 +201,94 @@ FLASH_SHAPE = dict(B=2, S=2048, H=32, Hkv=8, D=128)
 FLASH_MOE_SHAPES = {"olmoe-1b-7b": dict(B=2, S=2048, H=16, Hkv=16, D=128),
                     "granite-moe-3b-a800m": dict(B=2, S=2048, H=24, Hkv=8,
                                                  D=64)}
+# the model zoo's prefill shapes (serve_families): internvl2-26b's G 6;
+# whisper-medium's non-causal encoder over 1500 frames and its
+# cross-attention from a prompt to them (Sq != Sk, Sk not a multiple of
+# 128); recurrentgemma-9b's local MQA at head_dim 256, the CUDA-core route
+# (its kernels-line row)
+FLASH_ZOO_SHAPES = {
+    "internvl2-26b": dict(B=2, S=2048, H=48, Hkv=8, D=128),
+    "whisper-medium encoder": dict(B=1, S=1500, H=16, Hkv=16, D=64,
+                                   causal=False),
+    "whisper-medium cross 1024": dict(B=1, S=1024, Sk=1500, H=16, Hkv=16,
+                                      D=64, causal=False),
+    "whisper-medium cross 16": dict(B=1, S=16, Sk=1500, H=16, Hkv=16, D=64,
+                                    causal=False),
+}
+FLASH_SIMT_SHAPE = dict(B=1, S=4096, H=16, Hkv=1, D=256, window=2048)
+
+
+def attended_pairs(Sq: int, Sk: int, causal: bool,
+                   window: int | None) -> int:
+    """(q, k) pairs a query head attends under the kernels' masks (local
+    positions: k <= q when causal, q - k < window)."""
+    q = np.arange(Sq)
+    hi = np.minimum(q + 1, Sk) if causal else np.full(Sq, Sk)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(Sq, int)
+    return int(np.maximum(hi - lo, 0).sum())
 
 
 def check_flash(flush, shape: dict = FLASH_SHAPE,
                 arch: str | None = None) -> dict:
     """The forward kernel at ``shape`` (default the train phase's: B 2, S
-    2048, 32/8 heads), (B, S, H, D) tensors read through transposed views.
+    2048, 32/8 heads, causal), (B, S, H, D) tensors read through transposed
+    views; ``shape`` may give ``Sk`` (default S), ``causal`` (default True)
+    and ``window``.  bf16 at head_dim 64 or 128 must take the wgmma route,
+    head_dim 256 the CUDA-core one; the row is named by its route.
     ``arch`` names the config whose heads an extra shape takes."""
     from repro_torch.kernels import attention as katt
     B, S, H, Hkv, D = (shape[k] for k in ("B", "S", "H", "Hkv", "D"))
+    Sk = shape.get("Sk", S)
+    causal, window = shape.get("causal", True), shape.get("window")
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    q, k, v = (torch.randn((B, S, h, D), generator=g, device="cuda")
-               .to(torch.bfloat16) for h in (H, Hkv, Hkv))
+    q, k, v = (torch.randn((B, n, h, D), generator=g, device="cuda")
+               .to(torch.bfloat16) for n, h in ((S, H), (Sk, Hkv), (Sk, Hkv)))
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     route = katt.flash_fwd_route(qt, kt, vt)
-    require(route == "flash_fwd", f"flash_fwd: the bf16 train shape takes "
-            f"route {route}, not the wgmma kernel")
+    want = "flash_fwd" if D in (64, 128) else "flash_fwd_simt"
+    require(route == want, f"flash forward: bf16 at {shape} takes route "
+            f"{route}, not {want}")
     bq, bk = katt.flash_fwd_blocks(route)
+    kw = dict(causal=causal, window=window)
     with torch.no_grad():
-        o, lse = katt.flash_attention_fwd_cuda(qt, kt, vt, causal=True)
+        o, lse = katt.flash_attention_fwd_cuda(qt, kt, vt, **kw)
         o_ref, lse_ref = katt.flash_attention_fwd_plain(
-            qt.reshape(B * H, S, D), kt.reshape(B * Hkv, S, D),
-            vt.reshape(B * Hkv, S, D), causal=True, block_q=bq, block_k=bk)
+            qt.reshape(B * H, S, D), kt.reshape(B * Hkv, Sk, D),
+            vt.reshape(B * Hkv, Sk, D), **kw, block_q=bq, block_k=bk)
         torch.cuda.synchronize()
         # atol 2e-3 covers p's bf16 rounding before PV flipping where the
         # two score sums differ in their last f32 bits
         close = closeness(o.reshape(B * H, S, D), o_ref, atol=2e-3)
         lse_err = (lse - lse_ref).abs().max().item()
         lse_tol = 1e-4
-        require(bool(torch.isfinite(o).all()), "flash_fwd: non-finite out")
+        require(bool(torch.isfinite(o).all()), f"{route}: non-finite out")
         require(close["within_tol"] and lse_err <= lse_tol,
-                f"flash_fwd disagrees: {close}, max|lse| err {lse_err} "
+                f"{route} disagrees: {close}, max|lse| err {lse_err} "
                 f"(tol {lse_tol})")
         fwd = lambda: katt.flash_attention_fwd_cuda(  # noqa: E731
-            qt, kt, vt, causal=True)
+            qt, kt, vt, **kw)
         ms, ms_spread = time_ms(fwd, 20, flush)
         dev_ms = device_ms(fwd, 20, flush)
         plain_ms, _ = time_ms(lambda: katt.flash_attention_fwd_plain(
-            qt.reshape(B * H, S, D), kt.reshape(B * Hkv, S, D),
-            vt.reshape(B * Hkv, S, D), causal=True, block_q=bq, block_k=bk),
+            qt.reshape(B * H, S, D), kt.reshape(B * Hkv, Sk, D),
+            vt.reshape(B * Hkv, Sk, D), **kw, block_q=bq, block_k=bk),
             3, flush)
+        if window is None:
+            sdpa_kw = dict(is_causal=causal)
+        else:       # a bool mask (True = attend) of the kernels' band
+            qp = torch.arange(S, device="cuda")[:, None]
+            kp = torch.arange(Sk, device="cuda")[None, :]
+            sdpa_kw = dict(attn_mask=(qp - kp < window) &
+                           ((qp >= kp) if causal else True))
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, enable_gqa=True, **sdpa_kw)
         lib_ms, _ = time_ms(sdpa, 20, flush)
         lib_dev_ms = device_ms(sdpa, 20, flush)
-    pairs = B * H * S * (S + 1) // 2               # unmasked (q, k) pairs
+    pairs = B * H * attended_pairs(S, Sk, causal, window)
     bytes_ = 2 * (q.numel() + k.numel() + v.numel() + o.numel()) + \
         4 * lse.numel()
     b_ms, b_by = bound(bytes_, 4 * D * pairs, PEAK_BF16)
-    row = dict(name="flash_fwd", route="cuda",
+    row = dict(name=route, route="cuda",
                source="src/repro_torch/kernels/csrc/flash_fwd.cu",
                replaces="src/repro/kernels/attention.py:153",
                **close, lse_max_abs_err=lse_err, lse_tol=lse_tol,
@@ -250,7 +296,8 @@ def check_flash(flush, shape: dict = FLASH_SHAPE,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                library_ms=lib_ms, library_device_ms=lib_dev_ms,
                blocks=[bq, bk],
-               shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D, causal=True),
+               shape=dict(B=B, S=S, Sk=Sk, H=H, Hkv=Hkv, D=D,
+                          causal=causal, window=window),
                **({} if arch is None else {"arch": arch}))
     emit("kernel_check", **row)
     return row
@@ -993,35 +1040,44 @@ def agreement(a: dict, b: dict) -> float:
     return same / max(1, total)
 
 
-def logits_check(params, arch: str = ARCH) -> dict:
-    """Full-width prefill logits of one 1536-token prompt through the flash
-    kernel against the plain attention path (the reference's XLA path):
-    bf16 at full width is not bit-stable across attention paths, so this
-    asserts a cosine similarity, not equality."""
+def logits_check(params, arch: str = ARCH, n: int = 1536,
+                 top1: bool = False) -> dict:
+    """Full-width prefill logits of one ``n``-token prompt (after a VLM's
+    zero vision prefix, beside an audio model's zero frames, as served)
+    through the flash kernel against the plain attention path (the
+    reference's XLA path): bf16 at full width is not bit-stable across
+    attention paths, so this asserts a cosine similarity, not equality,
+    and with ``top1`` the same top token."""
     import dataclasses
 
     from repro_torch.configs import get_bundle
+    from repro_torch.launch.serve import serve_extras
     bundle = get_bundle(arch)
-    tok = torch.from_numpy(prompts(1, 1536, 1536, SEED + 9,
+    tok = torch.from_numpy(prompts(1, n, n, SEED + 9,
                                    bundle.cfg.vocab)[0][None]) \
         .long().to("cuda")
+    extras = serve_extras(bundle, 1, "cuda") or None
+    max_len = n + getattr(bundle.cfg, "vision_tokens", 0)
     out = {}
     with torch.no_grad():
         for impl in ("pallas", "xla"):
-            cfg = dataclasses.replace(bundle.cfg, attn_impl=impl)
-            cache = bundle.family.init_cache(cfg, 1, 1536, device="cuda")
-            logits, _ = bundle.family.prefill(cfg, params, tok, cache)
+            b = dataclasses.replace(bundle, cfg=dataclasses.replace(
+                bundle.cfg, attn_impl=impl))
+            cache = b.init_cache(1, max_len, device="cuda")
+            logits, _ = b.prefill(params, tok, cache, batch_extras=extras)
             out[impl] = logits.float().flatten()
             del cache
     a, b = out["pallas"], out["xla"]
     cos = F.cosine_similarity(a, b, dim=0).item()
-    row = dict(arch=arch, cosine=cos,
+    row = dict(arch=arch, prompt=n, cosine=cos,
                max_abs_diff=(a - b).abs().max().item(),
                top1_equal=bool(a.argmax() == b.argmax()),
                finite=bool(torch.isfinite(a).all()))
     emit("logits_check", **row)
     require(row["finite"] and cos > 0.99,
             f"flash vs plain prefill logits: cosine {cos}")
+    require(row["top1_equal"] or not top1,
+            f"{arch}: flash vs plain prefill top-1 differs: {row}")
     return row
 
 
@@ -1108,7 +1164,7 @@ MODE_KEYS = {"dense": "flash_fwd", "paged": "paged_decode_bf16",
 def tree_bytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(tree_bytes(v) for v in tree.values())
-    return tree.numel() * tree.element_size()
+    return 0 if tree is None else tree.numel() * tree.element_size()
 
 
 def init_params(arch: str) -> dict:
@@ -1174,6 +1230,130 @@ def serve_moe() -> dict:
     del params, runs
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: serve the vlm, hybrid, audio and ssm families at full width
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("internvl2-26b", "recurrentgemma-9b", "whisper-medium",
+            "mamba2-370m")
+# the flash route each family's prefill must launch (mamba2 runs no kernel)
+FAMILY_ROUTE = {"internvl2-26b": "flash_fwd",
+                "recurrentgemma-9b": "flash_fwd_simt",
+                "whisper-medium": "flash_fwd", "mamba2-370m": None}
+# internvl2: the 256-token vision prefix + a 2048 prompt bucket + 16 new
+# tokens; recurrentgemma: its 2600-token prompt + 16 (its ring cache holds
+# the 2048-token window)
+FAMILY_MAX_LEN = {"internvl2-26b": 2320, "recurrentgemma-9b": 2616,
+                  "whisper-medium": 2048, "mamba2-370m": 2048}
+# logits_check's prompt: recurrentgemma's is longer than its window
+FAMILY_CHECK_LEN = {"internvl2-26b": 1536, "recurrentgemma-9b": 3072,
+                    "whisper-medium": 1536}
+
+
+def family_workload(arch: str) -> tuple[list[np.ndarray], dict]:
+    """A family's requests and engine settings: 4 prompts of 1024-1900
+    tokens (recurrentgemma's last one 2600, past its window), 16 new
+    tokens each, 4 slots."""
+    from repro_torch.configs import get_bundle
+    vocab = get_bundle(arch).cfg.vocab
+    reqs = prompts(4, 1024, 1900, SEED + 3, vocab)
+    if arch == "recurrentgemma-9b":
+        reqs[-1] = prompts(1, 2600, 2600, SEED + 13, vocab)[0]
+    return reqs, dict(max_new=16, slots=4, max_len=FAMILY_MAX_LEN[arch])
+
+
+class PrefillClock(FiniteWatch):
+    """FiniteWatch that also brackets each prefill with CUDA events (no
+    host sync): the device-timeline span of every admission."""
+
+    def __init__(self, bundle):
+        super().__init__(bundle)
+        self.spans = []
+
+    def prefill(self, *a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = super().prefill(*a, **kw)
+        ev[1].record()
+        self.spans.append(ev)
+        return out
+
+    def prefill_ms(self) -> list[float]:
+        return [a.elapsed_time(b) for a, b in self.spans]
+
+
+def serve_family(arch: str) -> dict:
+    """Serve 4 requests of 16 new tokens (prompts of 1024-1900 tokens;
+    recurrentgemma's last one 2600, past its window) at ``arch``'s full
+    width in the dense KV mode (the only one these kinds have), random
+    bf16 weights from ``SEED``; every request must reach its count with
+    finite logits and the family's flash route must launch.  Then
+    ``logits_check`` for the families that run attention.  The weights are
+    freed before the next family.  -> the serve run's launches."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_engine
+    reqs, kw = family_workload(arch)
+    params = init_params(arch)
+    engine, _ = build_engine(arch, smoke=False, kv_mode="dense",
+                             params=params, device="cuda", **kw)
+    clock = PrefillClock(engine.bundle)
+    engine.bundle = clock
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for p in reqs:
+            engine.submit(p)
+        results = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    n_tok = sum(len(v) for v in results.values())
+    pre = clock.prefill_ms()
+    row = dict(arch=arch, kind=get_bundle(arch).kind, mode="dense",
+               requests=len(reqs), slots=engine.cfg.batch,
+               prompt_lengths=[len(p) for p in reqs],
+               generated_tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
+               prefill_ms=pre, prefill_ms_total=sum(pre),
+               steps=clock.steps,
+               flash_launches={k: launches[k] for k in
+                               ("flash_fwd", "flash_fwd_simt")},
+               launches=launches,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               kv=engine.kv_stats())
+    emit("serve_families", **row)
+    require(sorted(results) == list(range(len(reqs))),
+            f"{arch}: {len(results)} of {len(reqs)} requests completed")
+    require(all(len(v) == 16 for v in results.values()) and
+            all(o == "ok" for o in engine.outcomes.values()),
+            f"{arch}: a request ended short of 16 tokens")
+    require(bool(clock.finite.item()), f"{arch}: non-finite logits")
+    route = FAMILY_ROUTE[arch]
+    flash = sum(row["flash_launches"].values())
+    require(flash == 0 if route is None else launches[route] > 0,
+            f"{arch}: flash launches {row['flash_launches']}, want "
+            f"{route or 'none'}")
+    del engine, clock
+    torch.cuda.empty_cache()
+    if arch in FAMILY_CHECK_LEN:
+        logits_check(params, arch, n=FAMILY_CHECK_LEN[arch], top1=True)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_families() -> dict:
+    """Each family of ``FAMILIES`` in turn (qwen3-4b's weights stay
+    resident).  -> the serve runs' launches, summed."""
+    total: dict[str, int] = {}
+    for arch in FAMILIES:
+        for k, n in serve_family(arch).items():
+            total[k] = total.get(k, 0) + n
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1551,13 +1731,16 @@ def main() -> int:
     # phase 3: kernels against their plain versions
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     rows = {r["name"]: r for r in (check_flash(flush),
+                                   check_flash(flush, FLASH_SIMT_SHAPE,
+                                               "recurrentgemma-9b"),
                                    *check_flash_bwd(flush),
                                    check_paged(False, flush),
                                    check_paged(True, flush),
                                    *check_paper_kernels(flush))}
     # the same routes at the MoE configs' heads: lines of their own (with
     # ``arch``), not rows of the kernels line
-    for arch, shape in FLASH_MOE_SHAPES.items():
+    for arch, shape in (*FLASH_MOE_SHAPES.items(),
+                        *FLASH_ZOO_SHAPES.items()):
         check_flash(flush, shape, arch)
     for arch, shape in PAGED_MOE_SHAPES.items():
         check_paged(False, flush, shape, arch)
@@ -1578,6 +1761,9 @@ def main() -> int:
     # phase 4b: serve olmoe-1b-7b at full width (qwen3-4b's weights stay)
     moe = serve_moe()
 
+    # phase 4c: serve the vlm, hybrid, audio and ssm families at full width
+    families = serve_families()
+
     # phase 5: train at full width (the served weights change in place)
     torch.cuda.empty_cache()
     train_check(params)
@@ -1590,10 +1776,10 @@ def main() -> int:
     recovered = recovery()
 
     # phase 7: the kernels line (one row per kernel route a main path runs),
-    # launches from the paper-workload, serve, serve_moe, train and
-    # recovery phases
+    # launches from the paper-workload, serve, serve_moe, serve_families,
+    # train and recovery phases
     phases = (paper, *(r["launches"] for r in served.values()), moe,
-              trained["launches"], recovered)
+              families, trained["launches"], recovered)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in rows}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

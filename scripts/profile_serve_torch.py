@@ -3,10 +3,13 @@
 
     python3 scripts/profile_serve_torch.py [--modes dense,paged,paged_int8]
         [--arch qwen3-4b | olmoe-1b-7b | ...]
+    python3 scripts/profile_serve_torch.py --modes dense \
+        --arch internvl2-26b | recurrentgemma-9b | whisper-medium | mamba2-370m
 
 Serves the workload of ``chip_smoke.py`` (``--arch`` at full width,
-default qwen3-4b; bf16, random weights from seed 0) once per KV mode to
-warm up, then serves it
+default qwen3-4b; bf16, random weights from seed 0; for the vlm, hybrid,
+audio and ssm families, ``serve_families``'s dense workload) once per KV
+mode to warm up, then serves it
 again with the same engine state reset: once on the host clock alone
 (``wall_s``, ``tok_per_s``) and once under ``torch.profiler`` for the
 device's kernels.  Prints one JSON line per mode: the device-busy time
@@ -78,10 +81,13 @@ def _union_us(evts) -> float:
 def profile_mode(mode: str, params, arch: str) -> dict:
     from repro_torch.configs import get_bundle
     from repro_torch.launch.serve import build_engine
-    reqs, kw = chip_smoke.workload(mode, get_bundle(arch).cfg.vocab)
-    engine, _ = build_engine(arch, smoke=False, max_len=2048,
-                             kv_mode=mode, params=params, device="cuda",
-                             **kw)
+    if arch in chip_smoke.FAMILIES:
+        reqs, kw = chip_smoke.family_workload(arch)
+    else:
+        reqs, kw = chip_smoke.workload(mode, get_bundle(arch).cfg.vocab)
+        kw["max_len"] = 2048
+    engine, _ = build_engine(arch, smoke=False, kv_mode=mode, params=params,
+                             device="cuda", **kw)
 
     def serve():
         engine.reset_serving_state()

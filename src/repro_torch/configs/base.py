@@ -1,13 +1,14 @@
 """Architecture bundles and the flash-attention policy.
 
-Counterpart of ``repro.configs.base`` for the families this port has
-(the transformer, dense or MoE).  A bundle wires a model family to the
-server:
+Counterpart of ``repro.configs.base``.  A bundle wires a model family
+(transformer — dense, MoE or the vision-prefix backbone — / mamba2 /
+recurrentgemma / whisper) to the server and the trainer:
 
   * ``init_params(seed, device)``  — random weights drawn on the device
   * ``forward(params, batch)``     — (logits, aux)
   * ``prefill`` / ``decode_step``  — dense-cache serving steps
   * ``init_paged_pool`` / ``paged_step`` — paged serving steps
+  * ``supports(shape)``            — long_500k only for sub-quadratic archs
 """
 from __future__ import annotations
 
@@ -80,9 +81,10 @@ def decide_flash(policy: FlashAttnPolicy, *, seq_len: int, kv_len: int,
 @dataclasses.dataclass
 class ArchBundle:
     arch_id: str
-    kind: str                   # dense | moe (the kinds ported so far)
+    kind: str                   # dense | moe | vlm | ssm | audio | hybrid
     cfg: Any
     family: Any                 # model module
+    sub_quadratic: bool = False
     kv_dtype_decode: Any = None  # e.g. torch.int8 for big dense decode
     extras: dict = dataclasses.field(default_factory=dict)
 
@@ -99,10 +101,18 @@ class ArchBundle:
         return self.cfg.param_count()
 
     def active_param_count(self) -> int:
-        return self.cfg.active_param_count()
+        if hasattr(self.cfg, "active_param_count"):
+            return self.cfg.active_param_count()
+        return self.param_count()
 
     # -- steps -------------------------------------------------------------
     def forward(self, params, batch):
+        if self.kind == "audio":
+            return self.family.forward(self.cfg, params, batch["tokens"],
+                                       batch["frames"])
+        if self.kind == "vlm":
+            return self.family.forward(self.cfg, params, batch["tokens"],
+                                       vision_embeds=batch["vision"])
         return self.family.forward(self.cfg, params, batch["tokens"])
 
     def init_cache(self, batch: int, max_len: int, kv_dtype=None,
@@ -110,11 +120,27 @@ class ArchBundle:
         return self.family.init_cache(self.cfg, batch, max_len,
                                       kv_dtype=kv_dtype, device=device)
 
-    def prefill(self, params, tokens, cache, true_lengths=None):
+    def prefill(self, params, tokens, cache, batch_extras=None,
+                true_lengths=None):
         if true_lengths is not None and not self.prefill_supports_true_lengths:
             raise ValueError(
                 f"{self.arch_id}: family does not support bucketed "
                 "(true_lengths) prefill")
+        extras = batch_extras or {}
+        if self.kind == "audio":
+            return self.family.prefill(self.cfg, params, tokens, cache,
+                                       extras["frames"])
+        if self.kind == "vlm":
+            kw = {}
+            if true_lengths is not None:
+                # the vision prefix is prepended inside prefill, so true
+                # sequence lengths shift by the (fixed) prefix size
+                vis = extras.get("vision")
+                off = vis.shape[1] if vis is not None else 0
+                kw["true_lengths"] = true_lengths + off
+            return self.family.prefill(self.cfg, params, tokens, cache,
+                                       vision_embeds=extras.get("vision"),
+                                       **kw)
         kw = {} if true_lengths is None else {"true_lengths": true_lengths}
         return self.family.prefill(self.cfg, params, tokens, cache, **kw)
 
@@ -124,11 +150,17 @@ class ArchBundle:
     # -- serving capabilities ---------------------------------------------
     @property
     def prefill_supports_true_lengths(self) -> bool:
-        return bool(getattr(self.family, "PREFILL_TRUE_LENGTHS", False))
+        """Whether prefill accepts length-bucketed padded prompts (KV
+        caches with per-position writes; SSM states do not qualify)."""
+        return bool(getattr(self.family, "PREFILL_TRUE_LENGTHS", False)) \
+            and self.kind != "audio"
 
     @property
     def supports_paged_kv(self) -> bool:
-        return bool(getattr(self.family, "SUPPORTS_PAGED_KV", False))
+        # vlm excluded: the vision prefix enters through dense prefill's
+        # embedding concat; the paged chunked-prefill path is token-only.
+        return bool(getattr(self.family, "SUPPORTS_PAGED_KV", False)) \
+            and self.kind != "vlm"
 
     def init_paged_pool(self, num_pages: int, page_size: int, kv_dtype=None,
                         device=None):
@@ -146,3 +178,11 @@ class ArchBundle:
         declared = getattr(self.family, "CACHE_BATCH_AXES", {})
         return {k: declared.get(k, 0 if v.dim() == 1 else 1)
                 for k, v in cache.items()}
+
+    # -- shapes ------------------------------------------------------------
+    def supports(self, shape_name: str) -> tuple[bool, str]:
+        if shape_name == "long_500k" and not self.sub_quadratic:
+            return False, ("full quadratic attention: 512k decode cache "
+                           "infeasible; run on SSM/hybrid archs only "
+                           "(see DESIGN.md §Arch-applicability)")
+        return True, ""

@@ -15,7 +15,8 @@ and column by column (dk/dv).
 The forward has two routes (:func:`flash_fwd_route`): ``"flash_fwd"``, the
 tensor-core (``wgmma``) kernel with 128 x 128 blocks, for bf16 at head_dim
 64 or 128 with strides TMA can read; and ``"flash_fwd_simt"``, the
-CUDA-core kernel with 64 x 64 blocks, for f32 and anything else.  The
+CUDA-core kernel with 64 x 64 blocks, for f32, head_dim 256 (bf16 or f32)
+and anything else.  The backward takes head_dim 64 or 128 only.  The
 backward has two routes of its own (:func:`flash_bwd_route`), decided on
 q, k, v and do: ``"flash_bwd"``, the wgmma dq kernel (128 q rows x 64-key
 blocks) and dk/dv kernel (64-row q blocks x 128 keys), which round p and ds
@@ -38,7 +39,8 @@ from . import _build
 NEG_INF = -1e30  # avoid nan from (-inf) - (-inf)
 
 # Block shape of the CUDA-core forward and backward kernels (64 x 64 score
-# tile at head_dim 64 or 128; see csrc/flash_fwd.cu, flash_bwd.cu).
+# tile at head_dim 64 or 128, and 256 for the forward; see
+# csrc/flash_fwd.cu, flash_bwd.cu).
 BLOCK_Q = 64
 BLOCK_K = 64
 # Block shape of the wgmma forward: 128 q rows (two warpgroups of 64) by
@@ -445,7 +447,8 @@ def flash_fwd_route(q: torch.Tensor, k: torch.Tensor,
     """The forward kernel's route (module docstring), a pure function of
     the inputs' dtype, head_dim and strides on any device: ``"flash_fwd"``
     (wgmma) for bf16 q/k/v at head_dim 64 or 128 that TMA can read
-    (:func:`_tma_readable`), ``"flash_fwd_simt"`` otherwise."""
+    (:func:`_tma_readable`), ``"flash_fwd_simt"`` otherwise (head_dim 256
+    among them)."""
     ok = all(_tma_readable(t) for t in (q, k, v)) and q.shape[-1] in (64, 128)
     return "flash_fwd" if ok else "flash_fwd_simt"
 
@@ -535,11 +538,18 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     return o, lse
 
 
+# head dims each direction's kernels are built for (csrc/flash_fwd.cu's
+# CUDA-core route takes 256; csrc/flash_bwd.cu does not)
+FWD_HEAD_DIMS = (64, 128, 256)
+BWD_HEAD_DIMS = (64, 128)
+
+
 def _check_inputs(what: str, q: torch.Tensor, k: torch.Tensor,
-                  v: torch.Tensor, window: int | None) -> None:
+                  v: torch.Tensor, window: int | None,
+                  head_dims: tuple[int, ...] = FWD_HEAD_DIMS) -> None:
     """What the kernels take: q (B, H, Sq, D), k/v (B, Hkv, Sk, D) on one
-    sm_90 device, bf16 or f32 of one dtype, head_dim 64 or 128, the head
-    dim contiguous."""
+    sm_90 device, bf16 or f32 of one dtype, a head_dim in ``head_dims``
+    (the forward's by default), the head dim contiguous."""
     B, H, Sq, D = q.shape
     Bk, Hkv, Sk, Dk = k.shape
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
@@ -549,10 +559,10 @@ def _check_inputs(what: str, q: torch.Tensor, k: torch.Tensor,
         raise TypeError(f"{what} takes bf16 or f32 q/k/v of one dtype, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     if (Bk, Dk) != (B, D) or v.shape != k.shape or H % Hkv or \
-            D not in (64, 128):
+            D not in head_dims:
         raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)} "
-                         "(head_dim 64 or 128)")
+                         f"(head_dim one of {head_dims})")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError(f"{what}: the head dim must be contiguous")
     if window is not None and window <= 0:
@@ -561,7 +571,8 @@ def _check_inputs(what: str, q: torch.Tensor, k: torch.Tensor,
 
 
 def _check_bwd(q, k, v, do, lse, delta, window) -> None:
-    _check_inputs("flash_attention_bwd_cuda", q, k, v, window)
+    _check_inputs("flash_attention_bwd_cuda", q, k, v, window,
+                  BWD_HEAD_DIMS)
     B, H, Sq, _ = q.shape
     if do.shape != q.shape or do.dtype != q.dtype or \
             do.device != q.device or do.stride(-1) != 1:

@@ -26,10 +26,14 @@
 //     the other's products.  Only the blocks a mask can reach (the
 //     diagonal, the window edge, the ragged last key block) are masked.
 //     The CTAs of the longest rows start first.
-//   * `flash_fwd_simt` (route "flash_fwd_simt"): f32, or strides TMA cannot
-//     take.  The first port's CUDA-core kernel: 64 x 64 score tile in f32
-//     from shared memory, 4 x 4 register tile per thread, 16 x 4 threads per
-//     row reduction, K then V loaded after each block's math.
+//   * `flash_fwd_simt` (route "flash_fwd_simt"): f32, head_dim 256 (bf16 or
+//     f32: recurrentgemma's local attention), or strides TMA cannot take.
+//     The first port's CUDA-core kernel: 64 x 64 score tile in f32 from
+//     shared memory, 4 x 4 register tile per thread, 16 x 4 threads per row
+//     reduction, K then V loaded after each block's math.  A thread holds 4
+//     rows x D / 16 output columns; at D 256 that is 64 f32 accumulators, and
+//     the Q, K/V and P tiles take 4 x (64 x 257 + 64 x 257 + 64 x 65) =
+//     148,224 B of shared memory (of the 227 KB opt-in), one CTA an SM.
 //
 // Both walk exactly the k-block range [lo, hi] of their q block in the
 // pruned pair schedule, which the host builds with the copied
@@ -510,7 +514,7 @@ extern "C" int flash_fwd_wgmma(const void* q, const void* k, const void* v,
 }
 
 
-// dtype: 0 = bf16, 1 = f32; D: 64 or 128; window <= 0 means none.
+// dtype: 0 = bf16, 1 = f32; D: 64, 128 or 256; window <= 0 means none.
 // ranges: (nq, 2) int32 inclusive k-block range of each q block.
 // Returns cudaGetLastError(), or -1 for a shape this file does not build.
 extern "C" int flash_fwd_simt(const void* q, const void* k, const void* v, void* o,
@@ -526,8 +530,10 @@ extern "C" int flash_fwd_simt(const void* q, const void* k, const void* v, void*
 #define ARGS                                                                 \
   q, k, v, o, lse, ranges, B, H, G, Sq, Sk, nq, causal, window, q_sb, q_sh, \
       q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale, s
+  if (dtype == 0 && D == 256) return launch<__nv_bfloat16, 256>(ARGS);
   if (dtype == 0 && D == 128) return launch<__nv_bfloat16, 128>(ARGS);
   if (dtype == 0 && D == 64) return launch<__nv_bfloat16, 64>(ARGS);
+  if (dtype == 1 && D == 256) return launch<float, 256>(ARGS);
   if (dtype == 1 && D == 128) return launch<float, 128>(ARGS);
   if (dtype == 1 && D == 64) return launch<float, 64>(ARGS);
 #undef ARGS

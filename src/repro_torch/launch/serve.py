@@ -8,7 +8,9 @@ bundle, on the CUDA card.
 Counterpart of ``repro.launch.serve`` for a single engine (the fleet,
 worker and supervisor modes are not ported yet).  Every entry point runs
 on the CUDA card unless the caller passes ``device="cpu"`` (``--device
-cpu``), and raises when it finds no card.
+cpu``), and raises when it finds no card.  Paged modes need a
+transformer-family arch (attention KV, no vision prefix); the SSM, hybrid,
+audio and VLM families serve on the dense path.
 """
 from __future__ import annotations
 
@@ -16,10 +18,67 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
-from repro_torch.configs import get_bundle
+from repro_torch.configs import ARCH_IDS, get_bundle
 from repro_torch.device import resolve_device
 from repro_torch.serving import ServeConfig, ServingEngine
+
+
+class _BundleAdapter:
+    """Adapts an ArchBundle to the ServingEngine interface: binds the
+    family's prefill extras (a VLM's ``vision`` prefix, an audio model's
+    ``frames``), sized to each prefill's batch, and forwards the
+    serving-capability surface."""
+
+    def __init__(self, bundle, extras=None):
+        self.bundle = bundle
+        self.extras = extras or {}
+        self.cfg = bundle.cfg
+        self.supports_paged_kv = bundle.supports_paged_kv
+        self.prefill_supports_true_lengths = \
+            bundle.prefill_supports_true_lengths
+
+    def init_cache(self, batch, max_len, device=None):
+        return self.bundle.init_cache(batch, max_len, device=device)
+
+    def prefill(self, params, tokens, cache, true_lengths=None):
+        return self.bundle.prefill(params, tokens, cache,
+                                   batch_extras=self._sized(tokens.shape[0]),
+                                   true_lengths=true_lengths)
+
+    def _sized(self, b):
+        return {k: v[:b] for k, v in self.extras.items()} or None
+
+    def decode_step(self, params, tokens, cache):
+        return self.bundle.decode_step(params, tokens, cache)
+
+    def cache_batch_axes(self, cache):
+        return self.bundle.cache_batch_axes(cache)
+
+    def init_paged_pool(self, num_pages, page_size, kv_dtype=None,
+                        device=None):
+        return self.bundle.init_paged_pool(num_pages, page_size,
+                                           kv_dtype=kv_dtype, device=device)
+
+    def paged_step(self, params, tokens, pool, page_table, lengths, counts):
+        return self.bundle.paged_step(params, tokens, pool, page_table,
+                                      lengths, counts)
+
+
+def serve_extras(bundle, slots: int, device) -> dict:
+    """The zero prefill extras of the stub frontends, one row a slot, on
+    ``device`` in the model's dtype: ``frames`` (slots, n_audio_ctx, D)
+    for an audio model, ``vision`` (slots, vision_tokens, D) for a VLM."""
+    cfg = bundle.cfg
+    if bundle.kind == "audio":
+        return {"frames": torch.zeros((slots, cfg.n_audio_ctx, cfg.d_model),
+                                      dtype=cfg.dtype, device=device)}
+    if bundle.kind == "vlm":
+        return {"vision": torch.zeros((slots, cfg.vision_tokens,
+                                       cfg.d_model), dtype=cfg.dtype,
+                                      device=device)}
+    return {}
 
 
 def build_engine(arch: str, *, smoke: bool = True, slots: int = 4,
@@ -42,7 +101,7 @@ def build_engine(arch: str, *, smoke: bool = True, slots: int = 4,
     else:
         params = _to(params, dev)
     engine = ServingEngine(
-        bundle, params,
+        _BundleAdapter(bundle, serve_extras(bundle, slots, dev)), params,
         ServeConfig(batch=slots, max_len=max_len, max_new_tokens=max_new,
                     kv_mode=kv_mode, page_size=page_size,
                     num_pages=num_pages, prefill_chunk=prefill_chunk,
@@ -55,7 +114,7 @@ def build_engine(arch: str, *, smoke: bool = True, slots: int = 4,
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
-    return tree.to(dev)
+    return None if tree is None else tree.to(dev)
 
 
 def make_prompts(vocab: int, *, n_requests: int, prompt_len: int,
@@ -132,7 +191,7 @@ def run(arch: str, *, smoke: bool = True, n_requests: int = 6,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=8)

@@ -1,7 +1,8 @@
 """Shared neural layers (plain functions over tensors and param dicts).
 
-Counterpart of ``repro.models.layers`` for the GQA decoder and its
-top-k MoE MLP, on one device (no mesh):
+Counterpart of ``repro.models.layers`` for the model zoo (the GQA decoder
+and its top-k MoE MLP, Mamba-2, RecurrentGemma, Whisper), on one device
+(no mesh):
 
   * params are plain dicts of tensors; layer stacks carry a leading layer
     axis.
@@ -25,12 +26,40 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 
 
+def unstack(tree: dict | None) -> list[dict]:
+    """A stacked param dict (leaves with a leading layer axis, nested dicts
+    allowed) -> one dict per layer; ``None`` (an absent stack) -> [].  Each
+    leaf is unbound ONCE: indexing it per layer would give each layer a
+    full-size zero gradient of the whole stack under autograd."""
+    if tree is None:
+        return []
+    cols = {k: unstack(v) if isinstance(v, dict) else v.unbind(0)
+            for k, v in tree.items()}
+    n = len(next(iter(cols.values())))
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+def seq_positions(S: int, device) -> torch.Tensor:
+    """(1, S) int32 positions 0 .. S - 1."""
+    return torch.arange(S, dtype=torch.int32, device=device)[None, :]
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
     return (x * weight.float()).to(dt)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -305,12 +334,26 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLPs
 # ---------------------------------------------------------------------------
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
 
 def swiglu(x, w_gate, w_up, w_down):
     h = F.silu(x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+def geglu(x, w_gate, w_up, w_down):
+    h = gelu(x @ w_gate) * (x @ w_up)
+    return h @ w_down
+
+
+def gelu_mlp(x, w_in, b_in, w_out, b_out):
+    return gelu(x @ w_in + b_in) @ w_out + b_out
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 forward and serving.
 
 Counterpart of ``repro.models.transformer`` on one device, for qwen3-4b
-(qk_norm), qwen2.5-14b / qwen1.5-32b (QKV bias), yi-9b, and granite-moe
-and olmoe (MoE MLPs).  Layers are stacked on a leading axis, as in the
+(qk_norm), qwen2.5-14b / qwen1.5-32b (QKV bias), yi-9b, internvl2-26b
+(vision-prefix backbone; the ViT frontend is a stub — ``vision_embeds``
+arrive precomputed), and granite-moe and olmoe (MoE MLPs).  Layers are stacked on a leading axis, as in the
 reference, unbound once per call and traversed with a Python loop.  Under
 autograd ``forward`` checkpoints each layer, as the reference's default
 ``remat=True`` does: the backward recomputes the layer, flash forward
@@ -26,8 +27,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 
 from .layers import (MoEConfig, apply_rope, attention, decode_attention,
-                     moe_layer, paged_decode_attention, quantize_kv,
-                     rms_norm, swiglu)
+                     moe_layer, paged_decode_attention, seq_positions,
+                     quantize_kv, rms_norm, swiglu, unstack)
 
 # Serving-engine capability flags (see configs/base.py and
 # serving/engine.py): prefill accepts ``true_lengths`` for length-bucketed
@@ -54,6 +55,7 @@ class TransformerConfig:
     norm_eps: float = 1e-6
     moe: MoEConfig | None = None
     window: int | None = None         # sliding-window attention (None = full)
+    vision_tokens: int = 0            # VLM prefix length (stub frontend)
     dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "auto"           # auto | xla | pallas (flash policy)
 
@@ -95,7 +97,7 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     def nrm(shape, scale=0.02):
         x = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32)
-        return (x * scale).to(dt)
+        return x.mul_(scale).to(dt)     # one f32 temporary, not two
 
     def ones(shape):
         return torch.ones(shape, dtype=dt, device=device)
@@ -136,15 +138,6 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     }
 
 
-def _layers(params: dict) -> list[dict]:
-    """Per-layer param dicts, each stacked leaf unbound ONCE: indexing it
-    per layer would give each of the layers a full-size zero gradient of
-    the whole stack under autograd."""
-    names = list(params["layers"])
-    cols = [params["layers"][k].unbind(0) for k in names]
-    return [dict(zip(names, vals)) for vals in zip(*cols)]
-
-
 def _qkv(cfg: TransformerConfig, lp: dict, x: torch.Tensor, positions):
     B, S, D = x.shape
     H, Kv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
@@ -172,10 +165,6 @@ def _mlp(cfg: TransformerConfig, lp: dict, x: torch.Tensor):
     return swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), 0.0
 
 
-def _positions(S: int, device) -> torch.Tensor:
-    return torch.arange(S, dtype=torch.int32, device=device)[None, :]
-
-
 def _block_train(cfg: TransformerConfig, x: torch.Tensor, lp: dict,
                  positions: torch.Tensor):
     """-> (the layer's output, its MLP's aux loss)."""
@@ -189,20 +178,32 @@ def _block_train(cfg: TransformerConfig, x: torch.Tensor, lp: dict,
     return x + mo, aux
 
 
-def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor):
-    """tokens: (B, S) int -> (logits (B, S, vocab), aux_loss): the MoE
-    layers' aux losses summed (0.0 for a dense config).
+def _embed(params: dict, tokens: torch.Tensor,
+           vision_embeds: torch.Tensor | None) -> torch.Tensor:
+    """Token embeddings, with a VLM's ``vision_embeds`` (B, P, D)
+    prepended in the activations' dtype (the stub ViT)."""
+    x = F.embedding(tokens, params["embed"])
+    if vision_embeds is not None:
+        x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
+            vision_embeds: torch.Tensor | None = None):
+    """tokens: (B, S_text) int -> (logits (B, S, vocab), aux_loss): the MoE
+    layers' aux losses summed (0.0 for a dense config).  For VLM configs,
+    ``vision_embeds`` (B, P, D) is prepended (S = P + S_text).
 
     With grad enabled each layer runs under ``torch.utils.checkpoint``
     (the reference's ``remat``): only its input is kept, and the backward
     recomputes it, aux included; at full width nothing else fits beside
     the optimizer state.  (The reference also saves the attention output
     across the recompute; here the flash forward runs again.)"""
-    x = F.embedding(tokens, params["embed"])
-    positions = _positions(x.shape[1], x.device)
+    x = _embed(params, tokens, vision_embeds)
+    positions = seq_positions(x.shape[1], x.device)
     remat = torch.is_grad_enabled()
     aux = 0.0
-    for lp in _layers(params):
+    for lp in unstack(params["layers"]):
         if remat:
             x, a = checkpoint(_block_train, cfg, x, lp, positions,
                               use_reentrant=False)
@@ -241,20 +242,22 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
 
 
 def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
-            cache: dict, true_lengths: torch.Tensor | None = None):
-    """Run the prompt through the model, writing its K/V into ``cache`` in
-    place.  Returns (logits_last (B, 1, vocab), cache).
+            cache: dict, vision_embeds: torch.Tensor | None = None,
+            true_lengths: torch.Tensor | None = None):
+    """Run the prompt (after a VLM's ``vision_embeds`` prefix, when given)
+    through the model, writing its K/V into ``cache`` in place.  Returns
+    (logits_last (B, 1, vocab), cache).
 
     ``true_lengths`` (B,) supports length-BUCKETED prompts: tokens may be
     right-padded to a bucket size, and causality guarantees every position
     < true_lengths[b] is unaffected by the padding.  The cache length is
     set to the true length and the returned logits are taken at position
-    ``true_lengths - 1``."""
-    x = F.embedding(tokens, params["embed"])
+    ``true_lengths - 1`` (lengths that count the prefix)."""
+    x = _embed(params, tokens, vision_embeds)
     B, S, _ = x.shape
-    positions = _positions(S, x.device)
+    positions = seq_positions(S, x.device)
     quantized = cache["k"].dtype == torch.int8
-    for i, lp in enumerate(_layers(params)):
+    for i, lp in enumerate(unstack(params["layers"])):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = _qkv(cfg, lp, h, positions)
         o = attention(q, k, v, causal=True, window=cfg.window,
@@ -297,7 +300,7 @@ def decode_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     # row, as the reference's dynamic_update_slice does
     pos = torch.clamp(length.long(), max=cache["k"].shape[2] - 1)
     quantized = "k_scale" in cache
-    for i, lp in enumerate(_layers(params)):
+    for i, lp in enumerate(unstack(params["layers"])):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = _qkv(cfg, lp, h, positions)
         kc, vc = cache["k"][i], cache["v"][i]
@@ -407,7 +410,7 @@ def paged_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
             val = val.reshape(B * T, *val.shape[2:])[src].reshape(val.shape)
         dst[phys, off] = val
 
-    for i, lp in enumerate(_layers(params)):
+    for i, lp in enumerate(unstack(params["layers"])):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = _qkv(cfg, lp, h, positions)
         kc, vc = pool["k"][i], pool["v"][i]

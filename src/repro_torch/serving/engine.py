@@ -690,10 +690,11 @@ class ServingEngine:
         reports the up-front reservation."""
         if self.cfg.kv_mode != "dense":
             return self.kv.stats()
-        mcfg = self.bundle.cfg
-        item = torch.empty((), dtype=mcfg.dtype).element_size()
-        total = 2 * mcfg.n_layers * self.cfg.batch * self.cfg.max_len * \
-            mcfg.n_kv_heads * mcfg.dh * item + 4 * self.cfg.batch
+        if self._dense_cache is None:         # the first tick builds it
+            self._dense_cache = self.bundle.init_cache(
+                self.cfg.batch, self.cfg.max_len, device=self.device)
+        total = sum(t.numel() * t.element_size()
+                    for t in self._dense_cache.values())
         return {"bytes_resident": total, "peak_bytes": total,
                 "pages_total": 0, "pages_used": 0, "utilization": 1.0,
                 "fragmentation": 0.0, "evictions": 0}

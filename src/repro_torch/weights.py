@@ -43,7 +43,10 @@ def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
 
 def from_jax_params(tree: Any, device="cpu") -> Any:
     """Nested dicts of numpy arrays -> the same nesting of torch tensors
-    on ``device``."""
+    on ``device``; a ``None`` leaf (recurrentgemma's ``rec_tail`` when no
+    recurrent block trails the groups) stays ``None``."""
     if isinstance(tree, dict):
         return {k: from_jax_params(v, device) for k, v in tree.items()}
+    if tree is None:
+        return None
     return _to_tensor(tree, device)

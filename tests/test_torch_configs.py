@@ -1,5 +1,7 @@
-"""The port's transformer configs beyond qwen3-4b against the reference's:
-parameter counts at full width for every ported arch id; the dense smoke
+"""The port's configs against the reference's: the registry (all ten arch
+ids, in the reference's order), parameter counts at full width and the
+serving surface (capabilities, ``supports``, cache shapes and batch axes)
+for every arch id; the dense smoke
 bundles that differ from qwen3-4b only in fields the port already had
 (qwen2.5-14b: QKV bias; yi-9b: plain GQA; qwen1.5-32b: MHA with QKV bias
 and an int8 decode cache) through forward and prefill + decode (atol 1e-4,
@@ -15,6 +17,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.configs import ARCH_IDS as REF_ARCH_IDS  # noqa: E402
+from repro.configs import SHAPES as REF_SHAPES  # noqa: E402
 from repro.configs import get_bundle as ref_get_bundle  # noqa: E402
 from repro.optim import AdamWConfig as RefAdamWConfig  # noqa: E402
 from repro.optim import adamw_init as ref_adamw_init  # noqa: E402
@@ -32,18 +36,37 @@ DENSE = ("qwen2.5-14b", "yi-9b", "qwen1.5-32b")
 
 
 def test_registry_is_the_reference_order():
-    assert ARCH_IDS == ("qwen3-4b", "qwen2.5-14b", "qwen1.5-32b", "yi-9b",
-                        "granite-moe-3b-a800m", "olmoe-1b-7b")
+    assert ARCH_IDS == REF_ARCH_IDS
+    assert len(ARCH_IDS) == 10
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_param_counts_equal_reference_at_full_width(arch):
     rb, pb = ref_get_bundle(arch), pt_get_bundle(arch)
     assert pb.kind == rb.kind
+    assert pb.sub_quadratic == rb.sub_quadratic
     assert pb.param_count() == rb.param_count()
     assert pb.active_param_count() == rb.active_param_count()
     assert pb.extras == rb.extras
     assert (pb.kv_dtype_decode is None) == (rb.kv_dtype_decode is None)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_serving_surface_equals_reference(arch):
+    """Capabilities, the shape table's answers and the pooled-cache batch
+    axes of each arch's smoke bundle."""
+    rb, pb = ref_get_bundle(arch, smoke=True), pt_get_bundle(arch,
+                                                             smoke=True)
+    assert pb.prefill_supports_true_lengths == \
+        rb.prefill_supports_true_lengths
+    assert pb.supports_paged_kv == rb.supports_paged_kv
+    for shape in REF_SHAPES:
+        assert pb.supports(shape) == rb.supports(shape)
+    rc = rb.init_cache(2, 16)
+    pc = pb.init_cache(2, 16, device="cpu")
+    assert {k: tuple(v.shape) for k, v in pc.items()} == \
+        {k: v.shape for k, v in rc.items()}
+    assert pb.cache_batch_axes(pc) == rb.cache_batch_axes(rc)
 
 
 def _models(arch):

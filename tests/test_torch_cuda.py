@@ -114,6 +114,91 @@ def test_flash_kernel_matches_plain(dev, case):
     torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
 
 
+# the model zoo's prefill shapes (bf16): internvl2-26b's G 6 (48 / 8
+# heads, D 128); recurrentgemma-9b's local MQA (16 / 1 heads, D 256,
+# window 2048 at full width, the CUDA-core route; also in f32); whisper's
+# non-causal encoder (1500 x 1500, 16 / 16 heads, D 64) and its cross
+# attention from a prompt of 1024 or 16 tokens to 1500 frames
+FLASH_ZOO = [
+    (1, 1100, 1100, 48, 8, 128, True, None, torch.bfloat16),
+    (1, 2600, 2600, 16, 1, 256, True, 2048, torch.bfloat16),
+    (1, 700, 700, 16, 1, 256, True, 300, torch.bfloat16),
+    (1, 500, 500, 4, 1, 256, True, 200, torch.float32),
+    (1, 1500, 1500, 16, 16, 64, False, None, torch.bfloat16),
+    (1, 1024, 1500, 16, 16, 64, False, None, torch.bfloat16),
+    (1, 16, 1500, 16, 16, 64, False, None, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_ZOO,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_kernel_at_zoo_shapes_matches_plain(dev, case):
+    """bf16 at head_dim 64 or 128 takes the wgmma kernel; head_dim 256 (and
+    f32) the CUDA-core one, which it launches (no fallback to the plain
+    version), held against the plain version at its own blocks."""
+    from repro_torch.kernels import attention as katt
+    from repro_torch.kernels import ops
+    B, S, Sk, H, Hkv, D, causal, window, dt = case
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((B, S, H, D), generator=g, device=dev).to(dt)
+    k = torch.randn((B, Sk, Hkv, D), generator=g, device=dev).to(dt)
+    v = torch.randn((B, Sk, Hkv, D), generator=g, device=dev).to(dt)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    route = katt.flash_fwd_route(qt, kt, vt)
+    assert route == ("flash_fwd" if dt == torch.bfloat16 and D in (64, 128)
+                     else "flash_fwd_simt")
+    ops.reset_launches()
+    with torch.no_grad():
+        o = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
+        o2, lse = katt.flash_attention_fwd_cuda(qt, kt, vt, causal=causal,
+                                                window=window)
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == {route: 2}
+    assert torch.equal(o, o2)
+    bq, bk = katt.flash_fwd_blocks(route)
+    o_ref, lse_ref = katt.flash_attention_fwd_plain(
+        qt.reshape(B * H, S, D), kt.reshape(B * Hkv, Sk, D),
+        vt.reshape(B * Hkv, Sk, D), causal=causal, window=window,
+        block_q=bq, block_k=bk)
+    _ulp_close(o.reshape(B * H, S, D), o_ref, dt, atol=2e-3)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+
+
+def test_flash_backward_refuses_head_dim_256(dev):
+    """The forward takes head_dim 256 on the CUDA-core route; the backward
+    kernels are not built for it, so a gradient call raises naming the
+    head dims it takes."""
+    from repro_torch.kernels import ops
+    q, k, v = (torch.randn((1, h, 128, 256), device=dev,
+                           dtype=torch.bfloat16).requires_grad_(True)
+               for h in (4, 1, 1))
+    ops.reset_launches()
+    o = ops.flash_attention(q, k, v, causal=True, window=64)
+    assert ops.LAUNCHES["flash_fwd_simt"] == 1
+    with pytest.raises(ValueError, match=r"head_dim one of \(64, 128\)"):
+        o.float().sum().backward()
+
+
+@pytest.mark.parametrize("arch", ["internvl2-26b", "mamba2-370m",
+                                  "recurrentgemma-9b", "whisper-medium"])
+def test_zoo_smoke_engine_on_the_card_matches_cpu(dev, arch):
+    """The vlm, ssm, hybrid and audio smoke configs (f32) serve the CPU's
+    greedy tokens on the card, recurrentgemma past its 64-token window."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.launch.serve import build_engine, make_prompts
+    params = get_bundle(arch, smoke=True).init_params(0, device="cpu")
+    prompts = make_prompts(256, n_requests=4, prompt_len=40, seed=3) + \
+        make_prompts(256, n_requests=2, prompt_len=90, seed=4)
+    out = {}
+    for device in ("cpu", "cuda"):
+        # max_len holds internvl2's 8-token prefix before a 128 bucket
+        engine, _ = build_engine(arch, slots=2, max_len=256, max_new=6,
+                                 params=params, device=device)
+        for p in prompts:
+            engine.submit(p)
+        out[device] = engine.run()
+    assert out["cuda"] == out["cpu"]
+
+
 def _bwd_close(got, want):
     diff = (got - want).abs()
     tol = 2.0 ** -10 * want.abs() + 1e-5 * want.abs().max()

@@ -22,6 +22,13 @@ MODULES = ["repro_torch", "repro_torch.launch.serve", "repro_torch.weights",
            "repro_torch.configs.granite_moe_3b",
            "repro_torch.configs.qwen2_5_14b", "repro_torch.configs.yi_9b",
            "repro_torch.configs.qwen1_5_32b",
+           "repro_torch.configs.internvl2_26b",
+           "repro_torch.configs.mamba2_370m",
+           "repro_torch.configs.recurrentgemma_9b",
+           "repro_torch.configs.whisper_medium",
+           "repro_torch.models.mamba2", "repro_torch.models.recurrentgemma",
+           "repro_torch.models.whisper", "repro_torch.sim.archs",
+           "repro_torch.sim.simulator",
            "repro_torch.launch.train", "repro_torch.training",
            "repro_torch.optim", "repro_torch.data", "repro_torch.core",
            "repro_torch.sim", "repro_torch.checkpoint",
