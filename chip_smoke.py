@@ -26,12 +26,17 @@ at 16 kv heads, the share of expert assignments the capacity drops; the
 two kernels are also checked alone at olmoe's and granite-moe's heads),
 serves internvl2-26b (vlm: a 256-token vision prefix, GQA group 6),
 recurrentgemma-9b (hybrid: RG-LRU and local MQA at head_dim 256 through the
-flash forward's CUDA-core route, one prompt past its 2048-token window),
+flash forward's head_dim-256 wgmma route, one prompt past its 2048-token
+window),
 whisper-medium (audio: a non-causal encoder over 1500 frames and
 cross-attention to them) and mamba2-370m (ssm: no kernel) at full width in
 the dense KV mode, one family's weights at a time (``serve_families``,
 each with its flash-vs-plain ``logits_check``; the flash forward is also
-checked alone at their shapes), holds the flash kernels' loss and
+checked alone at their shapes; every flash route, forward and backward,
+is also held against its plain version at nonzero q / k position offsets,
+and each CUDA-core route, which no main path takes, is timed at its
+sibling's shape in f32 beside its library call), holds the flash kernels'
+loss and
 gradients against the plain attention path, trains qwen3-4b at full width
 for a few AdamW steps through ``repro_torch.launch.train``, drills a kill
 and a restart of that training at full width through the loop's format-v2
@@ -66,9 +71,10 @@ import torch.nn.functional as F  # noqa: E402
 import repro_torch  # noqa: E402,F401  (fails at once outside a checkout)
 
 # H100 SXM published peaks (dense): bf16 tensor cores, int8 tensor cores,
-# HBM3 bandwidth.
+# f32 outside the tensor cores, HBM3 bandwidth.
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
+PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 ARCH = "qwen3-4b"
 MOE_ARCH = "olmoe-1b-7b"
@@ -139,22 +145,35 @@ def device_ms(fn, iters: int, flush: torch.Tensor | None) -> float:
     return time_ms(fn, iters, flush, covered=True)[0]
 
 
-def closeness(got: torch.Tensor, want: torch.Tensor, atol: float) -> dict:
-    """How far a bf16 kernel output lies from its f32-arithmetic plain
-    version, row by row over the last axis.  Each element must satisfy
-    |got - want| <= 2^-7 |want| + atol (one bf16 ulp of the value, since
-    the two sum in different orders before rounding, plus ``atol``), and
-    each row's relative L2 error must stay under 2^-6, which a wrong
-    score or PV accumulation in any row exceeds by far."""
+def closeness(got: torch.Tensor, want: torch.Tensor, atol: float,
+              rel: float = 2.0 ** -7, row: float = 2.0 ** -6) -> dict:
+    """How far a kernel output lies from its f32-arithmetic plain version,
+    row by row over the last axis.  For a bf16 output each element must
+    satisfy |got - want| <= 2^-7 |want| + atol (one bf16 ulp of the value,
+    since the two sum in different orders before rounding, plus ``atol``),
+    and each row's relative L2 error must stay under 2^-6, which a wrong
+    score or PV accumulation in any row exceeds by far.  An f32 output,
+    where nothing is rounded, gives its own ``rel`` and ``row``."""
     got, want = got.float(), want.float()
     diff = (got - want).abs()
-    ratio = (diff / (2.0 ** -7 * want.abs() + atol)).max().item()
+    ratio = (diff / (rel * want.abs() + atol)).max().item()
     row_rel = (diff.norm(dim=-1) /
                want.norm(dim=-1).clamp_min(1e-30)).max().item()
     return dict(max_abs_err=diff.max().item(), worst_tol_ratio=ratio,
                 max_row_rel_l2=row_rel, mean_abs_out=want.abs().mean().item(),
-                tol=f"|err| <= 2^-7|want| + {atol}; row rel L2 <= 2^-6",
-                within_tol=ratio <= 1.0 and row_rel <= 2.0 ** -6)
+                tol=f"|err| <= {rel:g}|want| + {atol:g}; row rel L2 <= "
+                    f"{row:g}",
+                within_tol=ratio <= 1.0 and row_rel <= row)
+
+
+def closeness_f32(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """An f32 kernel output against its plain version, nothing rounded:
+    the two sum f32 products in other orders, so each element within
+    2^-10 |want| + 1e-5 max|want| (a floor for sums that cancel) and each
+    row's relative L2 error under 2^-10, as the card tests hold the
+    CUDA-core backward."""
+    atol = 1e-5 * want.abs().max().item()
+    return closeness(got, want, atol, rel=2.0 ** -10, row=2.0 ** -10)
 
 
 def closeness_rounded(got: torch.Tensor, want: torch.Tensor) -> dict:
@@ -185,6 +204,10 @@ def closeness_rounded(got: torch.Tensor, want: torch.Tensor) -> dict:
                 rel <= 2.0 ** -10)
 
 
+def peak_ops(dtype: torch.dtype) -> float:
+    return PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+
+
 def bound(bytes_: float, ops: float, peak_ops: float) -> tuple[float, str]:
     t_bytes, t_ops = bytes_ / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -204,8 +227,8 @@ FLASH_MOE_SHAPES = {"olmoe-1b-7b": dict(B=2, S=2048, H=16, Hkv=16, D=128),
 # the model zoo's prefill shapes (serve_families): internvl2-26b's G 6;
 # whisper-medium's non-causal encoder over 1500 frames and its
 # cross-attention from a prompt to them (Sq != Sk, Sk not a multiple of
-# 128); recurrentgemma-9b's local MQA at head_dim 256, the CUDA-core route
-# (its kernels-line row)
+# 128); recurrentgemma-9b's local MQA at head_dim 256, the head_dim-256
+# wgmma route (its kernels-line row)
 FLASH_ZOO_SHAPES = {
     "internvl2-26b": dict(B=2, S=2048, H=48, Hkv=8, D=128),
     "whisper-medium encoder": dict(B=1, S=1500, H=16, Hkv=16, D=64,
@@ -215,7 +238,7 @@ FLASH_ZOO_SHAPES = {
     "whisper-medium cross 16": dict(B=1, S=16, Sk=1500, H=16, Hkv=16, D=64,
                                     causal=False),
 }
-FLASH_SIMT_SHAPE = dict(B=1, S=4096, H=16, Hkv=1, D=256, window=2048)
+FLASH_D256_SHAPE = dict(B=1, S=4096, H=16, Hkv=1, D=256, window=2048)
 
 
 def attended_pairs(Sq: int, Sk: int, causal: bool,
@@ -228,25 +251,45 @@ def attended_pairs(Sq: int, Sk: int, causal: bool,
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def check_flash(flush, shape: dict = FLASH_SHAPE,
-                arch: str | None = None) -> dict:
+def flash_inputs(shape: dict, dtype: torch.dtype, seed: int):
+    """(B, H, S, D) q and (B, Hkv, Sk, D) k, v views of (B, S, H, D)
+    tensors, as the model hands them; ``shape["pad"]`` widens each
+    buffer's seq stride by that many elements (4: a stride TMA cannot
+    read, so bf16 takes the CUDA-core route)."""
+    B, S, H, Hkv, D = (shape[k] for k in ("B", "S", "H", "Hkv", "D"))
+    Sk, pad = shape.get("Sk", S), shape.get("pad", 0)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn((B, n, h * D + pad), generator=g, device="cuda")
+                 .to(dtype)[..., :h * D].unflatten(-1, (h, D)).transpose(1, 2)
+                 for n, h in ((S, H), (Sk, Hkv), (Sk, Hkv)))
+
+
+def fwd_route_of(shape: dict, dtype: torch.dtype) -> str:
+    """The forward route a shape must take: f32 or a padded seq stride the
+    CUDA-core kernel, bf16 a wgmma kernel by head_dim."""
+    if dtype != torch.bfloat16 or shape.get("pad", 0) % 8:
+        return "flash_fwd_simt"
+    return "flash_fwd" if shape["D"] in (64, 128) else "flash_fwd_d256"
+
+
+def check_flash(flush, shape: dict = FLASH_SHAPE, arch: str | None = None,
+                dtype: torch.dtype = torch.bfloat16) -> dict:
     """The forward kernel at ``shape`` (default the train phase's: B 2, S
     2048, 32/8 heads, causal), (B, S, H, D) tensors read through transposed
-    views; ``shape`` may give ``Sk`` (default S), ``causal`` (default True)
-    and ``window``.  bf16 at head_dim 64 or 128 must take the wgmma route,
-    head_dim 256 the CUDA-core one; the row is named by its route.
-    ``arch`` names the config whose heads an extra shape takes."""
+    views; ``shape`` may give ``Sk`` (default S), ``causal`` (default True),
+    ``window`` and ``pad`` (:func:`flash_inputs`).  bf16 at head_dim 64 or
+    128 must take the wgmma route ``flash_fwd``, at 256 the wgmma route
+    ``flash_fwd_d256``; f32 and padded strides the CUDA-core one; the row is
+    named by its route.  ``arch`` names the config whose heads an extra
+    shape takes."""
     from repro_torch.kernels import attention as katt
     B, S, H, Hkv, D = (shape[k] for k in ("B", "S", "H", "Hkv", "D"))
     Sk = shape.get("Sk", S)
     causal, window = shape.get("causal", True), shape.get("window")
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    q, k, v = (torch.randn((B, n, h, D), generator=g, device="cuda")
-               .to(torch.bfloat16) for n, h in ((S, H), (Sk, Hkv), (Sk, Hkv)))
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    qt, kt, vt = flash_inputs(shape, dtype, SEED)
     route = katt.flash_fwd_route(qt, kt, vt)
-    want = "flash_fwd" if D in (64, 128) else "flash_fwd_simt"
-    require(route == want, f"flash forward: bf16 at {shape} takes route "
+    want = fwd_route_of(shape, dtype)
+    require(route == want, f"flash forward: {dtype} at {shape} takes route "
             f"{route}, not {want}")
     bq, bk = katt.flash_fwd_blocks(route)
     kw = dict(causal=causal, window=window)
@@ -256,9 +299,12 @@ def check_flash(flush, shape: dict = FLASH_SHAPE,
             qt.reshape(B * H, S, D), kt.reshape(B * Hkv, Sk, D),
             vt.reshape(B * Hkv, Sk, D), **kw, block_q=bq, block_k=bk)
         torch.cuda.synchronize()
-        # atol 2e-3 covers p's bf16 rounding before PV flipping where the
-        # two score sums differ in their last f32 bits
-        close = closeness(o.reshape(B * H, S, D), o_ref, atol=2e-3)
+        # bf16: atol 2e-3 covers p's bf16 rounding before PV flipping where
+        # the two score sums differ in their last f32 bits; f32 rounds
+        # nothing
+        close = (closeness(o.reshape(B * H, S, D), o_ref, atol=2e-3)
+                 if dtype == torch.bfloat16 else
+                 closeness_f32(o.reshape(B * H, S, D), o_ref))
         lse_err = (lse - lse_ref).abs().max().item()
         lse_tol = 1e-4
         require(bool(torch.isfinite(o).all()), f"{route}: non-finite out")
@@ -285,9 +331,9 @@ def check_flash(flush, shape: dict = FLASH_SHAPE,
         lib_ms, _ = time_ms(sdpa, 20, flush)
         lib_dev_ms = device_ms(sdpa, 20, flush)
     pairs = B * H * attended_pairs(S, Sk, causal, window)
-    bytes_ = 2 * (q.numel() + k.numel() + v.numel() + o.numel()) + \
-        4 * lse.numel()
-    b_ms, b_by = bound(bytes_, 4 * D * pairs, PEAK_BF16)
+    bytes_ = qt.element_size() * (qt.numel() + kt.numel() + vt.numel() +
+                                  o.numel()) + 4 * lse.numel()
+    b_ms, b_by = bound(bytes_, 4 * D * pairs, peak_ops(dtype))
     row = dict(name=route, route="cuda",
                source="src/repro_torch/kernels/csrc/flash_fwd.cu",
                replaces="src/repro/kernels/attention.py:153",
@@ -295,21 +341,24 @@ def check_flash(flush, shape: dict = FLASH_SHAPE,
                ms=ms, ms_spread=ms_spread, device_ms=dev_ms,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                library_ms=lib_ms, library_device_ms=lib_dev_ms,
-               blocks=[bq, bk],
+               blocks=[bq, bk], dtype=str(dtype).split(".")[-1],
                shape=dict(B=B, S=S, Sk=Sk, H=H, Hkv=Hkv, D=D,
-                          causal=causal, window=window),
+                          causal=causal, window=window,
+                          pad=shape.get("pad", 0)),
                **({} if arch is None else {"arch": arch}))
     emit("kernel_check", **row)
     return row
 
 
-def check_flash_bwd(flush) -> list[dict]:
+def check_flash_bwd(flush, dtype: torch.dtype = torch.bfloat16
+                    ) -> list[dict]:
     """The dq and dk/dv kernels at the train phase's shape (B 2, S 2048,
     32/8 heads), reached as the train path reaches them: the grads that
     ``flash_attention_train``'s backward returns for (B, S, H, D) leaves
-    fed a transposed ``do``.  The shape must take the wgmma route.  That
-    backward is ``flash_attention_bwd`` (delta from the strided o and do,
-    then the kernels) cast to bf16, so its f32 results on the same
+    fed a transposed ``do``.  bf16 must take the wgmma route, f32 the
+    CUDA-core one (its rows are named by its keys).  That backward is
+    ``flash_attention_bwd`` (delta from the strided o and do, then the
+    kernels) cast to the inputs' dtype, so its f32 results on the same
     residuals are held against the plain backward at the route's blocks
     and rounding, and the autograd grads must equal them cast, bit for bit
     (no atomics: every run sums in one order)."""
@@ -317,13 +366,16 @@ def check_flash_bwd(flush) -> list[dict]:
     B, S, H, Hkv, D = 2, 2048, 32, 8, 128
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     q, do = (torch.randn((B, S, H, D), generator=g, device="cuda")
-             .to(torch.bfloat16) for _ in range(2))
+             .to(dtype) for _ in range(2))
     k, v = (torch.randn((B, S, Hkv, D), generator=g, device="cuda")
-            .to(torch.bfloat16) for _ in range(2))
+            .to(dtype) for _ in range(2))
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     route = katt.flash_bwd_route(qt, kt, vt, dot)
-    require(route == "flash_bwd", f"flash backward: the bf16 train shape "
-            f"takes route {route}, not the wgmma kernels")
+    want = "flash_bwd" if dtype == torch.bfloat16 else "flash_bwd_simt"
+    require(route == want, f"flash backward: the {dtype} train shape "
+            f"takes route {route}, not {want}")
+    sfx = "" if route == "flash_bwd" else "_simt"
+    close_fn = closeness_rounded if route == "flash_bwd" else closeness_f32
     plain_kw = dict(causal=True, **katt.flash_bwd_plain_kw(route))
     leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
     o_fn = katt.flash_attention_train(*(x.transpose(1, 2) for x in leaves),
@@ -340,14 +392,12 @@ def check_flash_bwd(flush) -> list[dict]:
             *flat, lse, delta, **plain_kw)
         torch.cuda.synchronize()
         dq, dk, dv = f32
-        close = {"flash_bwd_dq": closeness_rounded(dq.reshape(B * H, S, D),
-                                                   dq_ref)}
-        ck = closeness_rounded(dk.reshape(B * Hkv, S, D), dk_ref)
-        cv = closeness_rounded(dv.reshape(B * Hkv, S, D), dv_ref)
+        close = {"flash_bwd_dq": close_fn(dq.reshape(B * H, S, D), dq_ref)}
+        ck = close_fn(dk.reshape(B * Hkv, S, D), dk_ref)
+        cv = close_fn(dv.reshape(B * Hkv, S, D), dv_ref)
         close["flash_bwd_dkv"] = {
-            **{key: max(ck[key], cv[key]) for key in
-               ("max_abs_err", "worst_tol_ratio", "worst_row_tol_ratio",
-                "tensor_rel_l2")},
+            **{key: max(ck[key], cv[key]) for key in ck
+               if isinstance(ck[key], float) and key != "mean_abs_out"},
             "mean_abs_out": ck["mean_abs_out"],
             "mean_abs_dv": cv["mean_abs_out"], "tol": ck["tol"],
             "within_tol": ck["within_tol"] and cv["within_tol"]}
@@ -356,7 +406,7 @@ def check_flash_bwd(flush) -> list[dict]:
         require(all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv)),
                 "flash backward: non-finite out")
         # the autograd grads are the f32 results cast, leaf by leaf
-        cast_err = [(gr.float() - f.transpose(1, 2).to(torch.bfloat16)
+        cast_err = [(gr.float() - f.transpose(1, 2).to(dtype)
                      .float()).abs().max().item()
                     for gr, f in zip(grads, f32)]
         require(torch.equal(o_fn, o) and all(e == 0.0 for e in cast_err),
@@ -387,14 +437,15 @@ def check_flash_bwd(flush) -> list[dict]:
     lib_dev_ms = device_ms(sdpa_bwd, 20, flush)
     del out, qs, ks, vs
     pairs = B * H * S * (S + 1) // 2               # unmasked (q, k) pairs
-    inputs = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + \
+    inputs = q.element_size() * (q.numel() + k.numel() + v.numel() +
+                                 do.numel()) + \
         4 * (lse.numel() + delta.numel())
     rows = []
     for name, flops, out_bytes in (
             ("flash_bwd_dq", 6 * D * pairs, 4 * dq.numel()),
             ("flash_bwd_dkv", 8 * D * pairs, 4 * (dk.numel() + dv.numel()))):
-        b_ms, b_by = bound(inputs + out_bytes, flops, PEAK_BF16)
-        row = dict(name=name, route="cuda",
+        b_ms, b_by = bound(inputs + out_bytes, flops, peak_ops(dtype))
+        row = dict(name=name + sfx, route="cuda",
                    source="src/repro_torch/kernels/csrc/flash_bwd.cu",
                    replaces="src/repro/kernels/attention.py:" +
                    ("311" if name == "flash_bwd_dq" else "360"),
@@ -406,10 +457,125 @@ def check_flash_bwd(flush) -> list[dict]:
                    library="SDPA backward (causal, GQA), dq+dk+dv in one call",
                    blocks=(plain_kw["block_q"], plain_kw["block_k"])
                    if name == "flash_bwd_dq" else plain_kw["dkv_blocks"],
+                   dtype=str(dtype).split(".")[-1],
                    shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D, causal=True))
         emit("kernel_check", **row)
         rows.append(row)
     return rows
+
+
+# every flash route at two q / k offset pairs (a ring's per-hop fold): q
+# ahead by 384 inside a window of 768 (an earlier shard's keys), and q
+# behind by 512 (its first 512 rows see no key)
+OFFSET_PAIRS = ((1408, 1024), (0, 512))
+OFFSET_SHAPE = dict(B=1, S=1024, H=16, Hkv=4, D=128)
+OFFSET_FWD = {"flash_fwd": (OFFSET_SHAPE, torch.bfloat16),
+              "flash_fwd_d256": (dict(OFFSET_SHAPE, Hkv=1, D=256),
+                                 torch.bfloat16),
+              "flash_fwd_simt": (OFFSET_SHAPE, torch.float32)}
+OFFSET_BWD = {"flash_bwd": torch.bfloat16, "flash_bwd_simt": torch.float32}
+OFFSET_WINDOW = 768
+
+
+def check_flash_offsets() -> dict:
+    """Each flash route, forward and backward, at ``OFFSET_PAIRS`` against
+    its plain version at the route's blocks and the same offsets, with the
+    tolerances of ``check_flash`` (forward; lse within 1e-4) and
+    ``check_flash_bwd`` (backward: the wgmma pair against the rounded plain
+    version, the CUDA-core pair against the unrounded one).  Rows that see
+    no key must drain o = 0, lse = -1e30 and dq = 0.  One kernel_check
+    line of records, none a row of the kernels line."""
+    from repro_torch.kernels import attention as katt
+    from repro_torch.kernels import ops
+    records = []
+    for route, (shape, dt) in OFFSET_FWD.items():
+        B, S, H, Hkv, D = (shape[k] for k in ("B", "S", "H", "Hkv", "D"))
+        qt, kt, vt = flash_inputs(shape, dt, SEED + 7)
+        require(katt.flash_fwd_route(qt, kt, vt) == route,
+                f"flash_offsets: {shape} {dt} does not take {route}")
+        bq, bk = katt.flash_fwd_blocks(route)
+        for qo, ko in OFFSET_PAIRS:
+            kw = dict(causal=True, window=OFFSET_WINDOW, q_offset=qo,
+                      k_offset=ko)
+            ops.reset_launches()
+            with torch.no_grad():
+                o, lse = katt.flash_attention_fwd_cuda(qt, kt, vt, **kw)
+                torch.cuda.synchronize()
+                n = dict(ops.LAUNCHES)
+                o_ref, lse_ref = katt.flash_attention_fwd_plain(
+                    qt.reshape(B * H, S, D), kt.reshape(B * Hkv, S, D),
+                    vt.reshape(B * Hkv, S, D), block_q=bq, block_k=bk, **kw)
+            o = o.reshape(B * H, S, D)
+            close = (closeness(o, o_ref, atol=2e-3) if dt == torch.bfloat16
+                     else closeness_f32(o, o_ref))
+            dead = lse_ref == -1e30
+            rec = dict(route=route, q_offset=qo, k_offset=ko,
+                       dead_rows=int(dead.sum()), **close,
+                       lse_max_abs_err=(lse - lse_ref).abs().max().item())
+            records.append(rec)
+            require(n[route] == 1 and sum(n.values()) == 1,
+                    f"flash_offsets: launches {n}, want one {route}")
+            require(close["within_tol"] and rec["lse_max_abs_err"] <= 1e-4
+                    and (qo >= ko or dead.any())
+                    and bool((o[dead] == 0).all())
+                    and bool((lse[dead] == -1e30).all()),
+                    f"flash_offsets: {route} disagrees: {rec}")
+    for route, dt in OFFSET_BWD.items():
+        B, S, H, Hkv, D = (OFFSET_SHAPE[k] for k in
+                           ("B", "S", "H", "Hkv", "D"))
+        g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+        q, do = (torch.randn((B, S, H, D), generator=g, device="cuda")
+                 .to(dt) for _ in range(2))
+        k, v = (torch.randn((B, S, Hkv, D), generator=g, device="cuda")
+                .to(dt) for _ in range(2))
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        require(katt.flash_bwd_route(qt, kt, vt, dot) == route,
+                f"flash_offsets: {dt} does not take {route}")
+        keys = (("flash_bwd_dq", "flash_bwd_dkv") if route == "flash_bwd"
+                else ("flash_bwd_dq_simt", "flash_bwd_dkv_simt"))
+        close_fn = (closeness_rounded if route == "flash_bwd"
+                    else closeness_f32)
+        flat = (qt.reshape(B * H, S, D), kt.reshape(B * Hkv, S, D),
+                vt.reshape(B * Hkv, S, D), dot.reshape(B * H, S, D))
+        for qo, ko in OFFSET_PAIRS:
+            kw = dict(causal=True, window=OFFSET_WINDOW, q_offset=qo,
+                      k_offset=ko)
+            with torch.no_grad():
+                o, lse = katt.flash_attention_fwd_cuda(qt, kt, vt, **kw)
+                delta = (o.float() * dot.float()).sum(-1) \
+                    .reshape(B * H, S).contiguous()
+                ops.reset_launches()
+                got = katt.flash_attention_bwd_cuda(qt, kt, vt, dot, lse,
+                                                    delta, **kw)
+                torch.cuda.synchronize()
+                n = dict(ops.LAUNCHES)
+                want = katt.flash_attention_bwd_plain(
+                    *flat, lse, delta, **kw, **katt.flash_bwd_plain_kw(route))
+            closes = [close_fn(x.reshape(w.shape), w)
+                      for x, w in zip(got, want)]
+            dead = lse == -1e30
+            rec = dict(route=route, q_offset=qo, k_offset=ko,
+                       dead_rows=int(dead.sum()),
+                       **{f"{name}_{key}": c[key]
+                          for name, c in zip(("dq", "dk", "dv"), closes)
+                          for key in ("max_abs_err", "worst_tol_ratio")},
+                       within_tol=all(c["within_tol"] for c in closes))
+            records.append(rec)
+            require(all(n[key] == 1 for key in keys) and
+                    sum(n.values()) == 2,
+                    f"flash_offsets: launches {n}, want one of each {keys}")
+            require(rec["within_tol"] and
+                    bool((got[0].reshape(want[0].shape)[dead] == 0).all()),
+                    f"flash_offsets: {route} disagrees: {rec}")
+    row = dict(name="flash_offsets", route="cuda",
+               source="src/repro_torch/kernels/csrc/flash_fwd.cu, "
+                      "src/repro_torch/kernels/csrc/flash_bwd.cu",
+               replaces="src/repro/kernels/attention.py:153, 311, 360",
+               window=OFFSET_WINDOW, records=records,
+               max_abs_err=max(r.get("max_abs_err", 0.0) for r in records),
+               within_tol=all(r["within_tol"] for r in records))
+    emit("kernel_check", **row)
+    return row
 
 
 PAGED_SHAPE = dict(B=4, H=32, Hkv=8, D=128, page=16, max_pages=128)
@@ -583,12 +749,15 @@ def decode_case() -> dict:
                 macs=2 * H * D * int(lens.sum()))
 
 
-def case_calls(case: dict, seed: int) -> dict:
-    """Inputs of one case (numpy, from ``seed``, bf16 on the card, scaled so
-    every output has unit variance), and its calls: ``main`` through
-    ``ops`` as a user calls it, ``launch`` of the kernel alone with the same
-    tile, ``plain`` (the plain version) and ``library`` (one PyTorch call of
-    the same function, or None); with the bytes and flops of its bound."""
+def case_calls(case: dict, seed: int,
+               dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Inputs of one case (numpy, from ``seed``, ``dtype`` on the card,
+    scaled so every output has unit variance), and its calls: ``main``
+    through ``ops`` as a user calls it, ``launch`` of the kernel alone with
+    the same tile (f32: ``main``, the CUDA-core route with the tile ``ops``
+    gives it), ``plain`` (the plain version) and ``library`` (one PyTorch
+    call of the same function, or None); with the bytes and flops of its
+    bound."""
     from repro_torch.core.cuda_bridge import (conv2d_a_tma, conv2d_plan,
                                               correlation_plan, gemv_plan,
                                               matmul_block_shapes)
@@ -601,7 +770,7 @@ def case_calls(case: dict, seed: int) -> dict:
 
     def t(shape, scale=1.0):
         x = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
-        return torch.from_numpy(x).to("cuda", torch.bfloat16)
+        return torch.from_numpy(x).to("cuda", dtype)
 
     sh, kind = case["shapes"], case["kernel"]
     if kind == "matmul":
@@ -692,13 +861,17 @@ def case_calls(case: dict, seed: int) -> dict:
         # the live K/V rows, q and out once each, the lengths
         calls["bytes"] = 2 * (2 * n_tok * Hkv * D + 2 * B * H * D) + 4 * B
     calls.setdefault("key", kind)
+    if dtype != torch.bfloat16:
+        calls["launch"] = calls["main"]
     if "bytes" not in calls:
-        calls["bytes"] = 2 * (in_numel + out_numel)
+        calls["bytes"] = torch.finfo(dtype).bits // 8 * (in_numel +
+                                                         out_numel)
     calls["flops"] = 2 * case["macs"]
     return calls
 
 
-def run_case(case: dict, flush, seed: int, iters: int = 20) -> dict:
+def run_case(case: dict, flush, seed: int, iters: int = 20,
+             dtype: torch.dtype = torch.bfloat16) -> dict:
     """One case through ``ops`` on the card, with the launch counts reset
     just before and read just after (exactly one launch, of the case's
     route); then its output against the plain version, and the kernel's,
@@ -707,7 +880,7 @@ def run_case(case: dict, flush, seed: int, iters: int = 20) -> dict:
     ``device_ms`` the device work alone: ``time_ms``)."""
     from repro_torch.kernels import ops
     kind = case["kernel"]
-    calls = case_calls(case, seed)
+    calls = case_calls(case, seed, dtype)
     key = calls["key"]
     torch.cuda.synchronize()
     ops.reset_launches()
@@ -720,7 +893,8 @@ def run_case(case: dict, flush, seed: int, iters: int = 20) -> dict:
                 f"launch of {key}")
         ref = calls["plain"]()
         torch.cuda.synchronize()
-        close = closeness(out, ref, atol=PAPER_ATOL[kind])
+        close = (closeness(out, ref, atol=PAPER_ATOL[kind])
+                 if dtype == torch.bfloat16 else closeness_f32(out, ref))
         require(bool(torch.isfinite(out).all()),
                 f"{case['name']}: non-finite out")
         require(close["within_tol"], f"{case['name']} ({kind}) disagrees: "
@@ -732,7 +906,7 @@ def run_case(case: dict, flush, seed: int, iters: int = 20) -> dict:
         lib_ms, lib_dev_ms = ((time_ms(lib, iters, flush)[0],
                                device_ms(lib, iters, flush))
                               if lib is not None else (None, None))
-    b_ms, b_by = bound(calls["bytes"], calls["flops"], PEAK_BF16)
+    b_ms, b_by = bound(calls["bytes"], calls["flops"], peak_ops(dtype))
     tile = calls["tile"]
     del calls, out, ref
     return dict(workload=case["name"], kernel=kind, key=key,
@@ -752,24 +926,33 @@ PAPER_LIBRARY = {"matmul": "torch.matmul (cuBLAS)",
                  "flash_decode": "SDPA with a boolean length mask, GQA"}
 
 
-def check_paper_kernels(flush) -> list[dict]:
+def check_paper_kernels(flush, dtype: torch.dtype = torch.bfloat16
+                        ) -> list[dict]:
     """The kernel routes of the paper-workload path against their plain
     versions: the matmul's wgmma route at GEMM_1K and its GEMV route at
     GEMM_FC, conv2d's wgmma route at DL_ATROUS4, correlation's wgmma route
-    at FLOWNET_CORR, flash decode at qwen3-4b's decode shape.  Each row is
-    named by its launch key."""
+    at FLOWNET_CORR, flash decode at qwen3-4b's decode shape.  In f32 the
+    CUDA-core routes of the first three at GEMM_1K, DL_ATROUS4 and
+    FLOWNET_CORR.  Each row is named by its launch key."""
     by = {c["name"]: c for c in catalog_cases()}
+    bf16 = dtype == torch.bfloat16
+    cases = ((by["GEMM_1K"], by["GEMM_FC"], by["DL_ATROUS4"],
+              by["FLOWNET_CORR"], decode_case()) if bf16 else
+             (by["GEMM_1K"], by["DL_ATROUS4"], by["FLOWNET_CORR"]))
     rows = []
-    for i, case in enumerate((by["GEMM_1K"], by["GEMM_FC"], by["DL_ATROUS4"],
-                              by["FLOWNET_CORR"], decode_case())):
-        r = run_case(case, flush, SEED + 20 + i)
-        require(case["kernel"] != "correlation" or r["key"] == "correlation",
-                f"{case['name']} took route {r['key']}, not the wgmma "
-                f"correlation")
+    for i, case in enumerate(cases):
+        r = run_case(case, flush, SEED + 20 + i, dtype=dtype)
+        # bf16: the correlation must take its wgmma route (the matmul's
+        # route depends on M); f32: every case the CUDA-core route
+        want = case["kernel"] if bf16 else f"{case['kernel']}_simt"
+        require(r["key"] == want or (bf16 and case["kernel"] != "correlation"),
+                f"{case['name']} ({dtype}) took route {r['key']}, not "
+                f"{want}")
         source, replaces = PAPER_SOURCES[case["kernel"]]
         row = dict(name=r["key"], route="cuda", source=source,
                    replaces=replaces, workload=case["name"],
                    library=PAPER_LIBRARY[case["kernel"]],
+                   dtype=str(dtype).split(".")[-1],
                    **{k: v for k, v in r.items()
                       if k not in ("workload", "kernel", "key", "launches")})
         emit("kernel_check", **row)
@@ -1238,10 +1421,12 @@ def serve_moe() -> dict:
 
 FAMILIES = ("internvl2-26b", "recurrentgemma-9b", "whisper-medium",
             "mamba2-370m")
-# the flash route each family's prefill must launch (mamba2 runs no kernel)
+# the flash route each family's prefill must launch (mamba2 runs no
+# kernel); none may launch the CUDA-core forward
 FAMILY_ROUTE = {"internvl2-26b": "flash_fwd",
-                "recurrentgemma-9b": "flash_fwd_simt",
+                "recurrentgemma-9b": "flash_fwd_d256",
                 "whisper-medium": "flash_fwd", "mamba2-370m": None}
+FWD_KEYS = ("flash_fwd", "flash_fwd_d256", "flash_fwd_simt")
 # internvl2: the 256-token vision prefix + a 2048 prompt bucket + 16 new
 # tokens; recurrentgemma: its 2600-token prompt + 16 (its ring cache holds
 # the 2048-token window)
@@ -1320,8 +1505,7 @@ def serve_family(arch: str) -> dict:
                generated_tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
                prefill_ms=pre, prefill_ms_total=sum(pre),
                steps=clock.steps,
-               flash_launches={k: launches[k] for k in
-                               ("flash_fwd", "flash_fwd_simt")},
+               flash_launches={k: launches[k] for k in FWD_KEYS},
                launches=launches,
                max_memory_allocated=torch.cuda.max_memory_allocated(),
                kv=engine.kv_stats())
@@ -1334,9 +1518,10 @@ def serve_family(arch: str) -> dict:
     require(bool(clock.finite.item()), f"{arch}: non-finite logits")
     route = FAMILY_ROUTE[arch]
     flash = sum(row["flash_launches"].values())
-    require(flash == 0 if route is None else launches[route] > 0,
+    require(flash == 0 if route is None else
+            launches[route] == flash > 0,
             f"{arch}: flash launches {row['flash_launches']}, want "
-            f"{route or 'none'}")
+            f"{route or 'none'} alone")
     del engine, clock
     torch.cuda.empty_cache()
     if arch in FAMILY_CHECK_LEN:
@@ -1731,12 +1916,23 @@ def main() -> int:
     # phase 3: kernels against their plain versions
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     rows = {r["name"]: r for r in (check_flash(flush),
-                                   check_flash(flush, FLASH_SIMT_SHAPE,
+                                   check_flash(flush, FLASH_D256_SHAPE,
                                                "recurrentgemma-9b"),
                                    *check_flash_bwd(flush),
                                    check_paged(False, flush),
                                    check_paged(True, flush),
                                    *check_paper_kernels(flush))}
+    # the CUDA-core routes, which no main path takes: each once at its
+    # sibling's shape in f32 beside its library call in f32, and the
+    # forward's also at recurrentgemma's shape in bf16 through a padded
+    # stride (the kernel the D-256 route replaced on that path); lines of
+    # their own, not rows of the kernels line
+    check_flash(flush, FLASH_SHAPE, dtype=torch.float32)
+    check_flash(flush, dict(FLASH_D256_SHAPE, pad=4), "recurrentgemma-9b")
+    check_flash_bwd(flush, torch.float32)
+    check_paper_kernels(flush, torch.float32)
+    # every flash route at nonzero q / k offsets
+    check_flash_offsets()
     # the same routes at the MoE configs' heads: lines of their own (with
     # ``arch``), not rows of the kernels line
     for arch, shape in (*FLASH_MOE_SHAPES.items(),

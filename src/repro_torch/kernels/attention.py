@@ -12,17 +12,27 @@ reference's, so the CUDA kernels' per-CTA block ranges are the reference's
 pruned pair table at each kernel's block shape, row by row (forward, dq)
 and column by column (dk/dv).
 
-The forward has two routes (:func:`flash_fwd_route`): ``"flash_fwd"``, the
-tensor-core (``wgmma``) kernel with 128 x 128 blocks, for bf16 at head_dim
-64 or 128 with strides TMA can read; and ``"flash_fwd_simt"``, the
-CUDA-core kernel with 64 x 64 blocks, for f32, head_dim 256 (bf16 or f32)
-and anything else.  The backward takes head_dim 64 or 128 only.  The
-backward has two routes of its own (:func:`flash_bwd_route`), decided on
-q, k, v and do: ``"flash_bwd"``, the wgmma dq kernel (128 q rows x 64-key
-blocks) and dk/dv kernel (64-row q blocks x 128 keys), which round p and ds
-to bf16 before their second products; and ``"flash_bwd_simt"``, the
-CUDA-core pair at 64 x 64 in f32.  Each backward route reads only o and
-the per-row lse, whose layouts do not depend on the forward's route.
+The forward has three routes (:func:`flash_fwd_route`): ``"flash_fwd"``,
+the tensor-core (``wgmma``) kernel with 128 x 128 blocks, for bf16 at
+head_dim 64 or 128 with strides TMA can read; ``"flash_fwd_d256"``, the
+wgmma kernel for bf16 at head_dim 256 with such strides, with 128 x 64
+blocks; and ``"flash_fwd_simt"``, the CUDA-core kernel with 64 x 64
+blocks, for f32 and anything else.  The backward takes head_dim 64 or 128
+only.  The backward has two routes of its own (:func:`flash_bwd_route`),
+decided on q, k, v and do: ``"flash_bwd"``, the wgmma dq kernel (128 q
+rows x 64-key blocks) and dk/dv kernel (64-row q blocks x 128 keys), which
+round p and ds to bf16 before their second products; and
+``"flash_bwd_simt"``, the CUDA-core pair at 64 x 64 in f32.  Each backward
+route reads only o and the per-row lse, whose layouts do not depend on the
+forward's route.
+
+Every kernel, plain version and schedule takes ``q_offset`` / ``k_offset``,
+the global positions of q row 0 and key 0, as the reference's kernels do
+for the ring's per-hop fold: the causal and window masks compare
+``q_offset + q`` with ``k_offset + k``, while the padding tests stay local
+(keys past ``kv_len``, q blocks past ``q_len``).  The pruned schedule is
+the band shifted by ``q_offset - k_offset``; ``prune=False`` walks the
+dense grid, whose extra blocks the masks zero.
 """
 from __future__ import annotations
 
@@ -47,6 +57,9 @@ BLOCK_K = 64
 # 128 keys, which keeps a 2-stage K/V ring in shared memory at head_dim 128.
 WGMMA_BLOCK_Q = 128
 WGMMA_BLOCK_K = 128
+# Block shape of the wgmma forward at head_dim 256: 128 q rows by 64 keys,
+# which keeps Q resident and a 2-stage K/V ring in 192 KB of shared memory.
+WGMMA_D256_BLOCKS = (128, 64)
 # Block shapes of the wgmma backward (csrc/flash_bwd.cu): dq holds 128 q
 # rows (two warpgroups of 64) against 64-key K / V blocks; dk/dv holds 128
 # keys (two warpgroups of 64) against 64-row Q / dO steps, which keeps
@@ -61,27 +74,33 @@ WGMMA_BWD_DKV_BLOCKS = (64, 128)
 
 def _row_range(iq: int, *, nk: int, block_q: int, block_k: int,
                causal: bool, window: int | None, kv_len: int,
-               q_len: int) -> tuple[int, int]:
+               q_len: int, q_offset: int = 0,
+               k_offset: int = 0) -> tuple[int, int]:
     """Inclusive [lo, hi] k-block range that q-block ``iq`` touches, or
-    (0, -1) when the whole row is masked (padded q rows / empty bands)."""
+    (0, -1) when the whole row is masked (padded q rows / empty bands).
+    The band compares global positions: local q + ``q_offset - k_offset``
+    against local k."""
     q_lo = iq * block_q
     q_hi = min(q_lo + block_q, q_len) - 1
     if q_hi < q_lo:                       # fully-padded q block
         return 0, -1
+    shift = q_offset - k_offset
     lo, hi = 0, nk - 1
     hi = min(hi, (kv_len - 1) // block_k)    # never stream padded k blocks
     if causal:
-        hi = min(hi, q_hi // block_k)
+        hi = min(hi, (q_hi + shift) // block_k)
     if window is not None:
-        # need some kpos with q_lo - kpos < window, i.e. k_hi > q_lo - window
-        lo = max(lo, -(-(q_lo - window + 2 - block_k) // block_k))
+        # need some kpos with q_lo + shift - kpos < window, i.e.
+        # k_hi > q_lo + shift - window
+        lo = max(lo, -(-(q_lo + shift - window + 2 - block_k) // block_k))
     return lo, hi
 
 
 @functools.lru_cache(maxsize=None)
 def _pair_schedule(nq: int, nk: int, block_q: int, block_k: int,
                    causal: bool, window: int | None, kv_len: int,
-                   q_len: int, order: str) -> tuple[np.ndarray, int]:
+                   q_len: int, order: str, q_offset: int = 0,
+                   k_offset: int = 0) -> tuple[np.ndarray, int]:
     """Static (n_pairs, 4) int32 schedule of surviving (q-block, k-block)
     grid steps: columns are (iq, ik, first, last).
 
@@ -94,13 +113,14 @@ def _pair_schedule(nq: int, nk: int, block_q: int, block_k: int,
     kernels zeroes its contribution.
 
     Returns (table, n_scheduled) where n_scheduled counts the REAL pairs
-    (sentinels excluded)."""
+    (sentinels excluded).  The offsets shift the band (``_row_range``)."""
     rows: list[list[int]] = []
     n_real = 0
     for iq in range(nq):
         lo, hi = _row_range(iq, nk=nk, block_q=block_q, block_k=block_k,
                             causal=causal, window=window, kv_len=kv_len,
-                            q_len=q_len)
+                            q_len=q_len, q_offset=q_offset,
+                            k_offset=k_offset)
         if hi < lo:
             rows.append([iq, 0, -1, -1])  # sentinel: fully masked
         else:
@@ -146,32 +166,35 @@ def scheduled_block_counts(Sq: int, Sk: int, *, block_q: int, block_k: int,
 
 
 def row_block_ranges(Sq: int, Sk: int, *, block_q: int, block_k: int,
-                     causal: bool, window: int | None) -> np.ndarray:
+                     causal: bool, window: int | None, q_offset: int = 0,
+                     k_offset: int = 0) -> np.ndarray:
     """(nq, 2) int32 inclusive [lo, hi] k-block range of each q block: the
     span of that q block's pairs in the row-ordered ``_pair_schedule``
-    table, both being ``_row_range``.  A fully masked row gets the empty
-    range (0, -1), which the kernel skips where the table holds one
-    masked sentinel pair."""
+    table, both being ``_row_range`` (at the offsets).  A fully masked row
+    gets the empty range (0, -1), which the kernel skips where the table
+    holds one masked sentinel pair."""
     nq = -(-Sq // block_q)
     nk = -(-Sk // block_k)
     ranges = np.zeros((nq, 2), np.int32)
     for iq in range(nq):
         lo, hi = _row_range(iq, nk=nk, block_q=block_q, block_k=block_k,
                             causal=bool(causal), window=window, kv_len=Sk,
-                            q_len=Sq)
+                            q_len=Sq, q_offset=q_offset, k_offset=k_offset)
         ranges[iq] = (lo, hi) if hi >= lo else (0, -1)
     return ranges
 
 
 def col_block_ranges(Sq: int, Sk: int, *, block_q: int, block_k: int,
-                     causal: bool, window: int | None) -> np.ndarray:
+                     causal: bool, window: int | None, q_offset: int = 0,
+                     k_offset: int = 0) -> np.ndarray:
     """(nk, 2) int32 inclusive [lo, hi] q-block range of each k block: the
     span of that column's real pairs in the column-ordered
     ``_pair_schedule`` table.  A column no q block touches gets the empty
     range (0, -1), which the dk/dv kernel drains as zeros where the table
     holds one masked sentinel pair."""
     rows = row_block_ranges(Sq, Sk, block_q=block_q, block_k=block_k,
-                            causal=causal, window=window)
+                            causal=causal, window=window, q_offset=q_offset,
+                            k_offset=k_offset)
     nk = -(-Sk // block_k)
     ranges = np.tile(np.asarray([[0, -1]], np.int32), (nk, 1))
     for ik in range(nk):
@@ -188,17 +211,36 @@ def col_block_ranges(Sq: int, Sk: int, *, block_q: int, block_k: int,
 # ---------------------------------------------------------------------------
 
 def _block_mask(q0: int, k0: int, block_q: int, block_k: int, causal: bool,
-                window: int | None, kv_len: int, dev) -> torch.Tensor:
+                window: int | None, kv_len: int, dev, q_offset: int = 0,
+                k_offset: int = 0) -> torch.Tensor:
     """(block_q, block_k) mask of one (q block, k block) pair, as the
-    kernels build it: keys past ``kv_len`` never attend."""
+    kernels build it: keys past ``kv_len`` (local) never attend; the band
+    compares the global positions ``q_offset + q`` and ``k_offset + k``."""
     loc_k = k0 + torch.arange(block_k, device=dev)[None, :]
-    qpos = q0 + torch.arange(block_q, device=dev)[:, None]
+    qpos = q_offset + q0 + torch.arange(block_q, device=dev)[:, None]
+    kpos = k_offset + loc_k
     mask = (loc_k < kv_len).expand(block_q, block_k)
     if causal:
-        mask = mask & (qpos >= loc_k)
+        mask = mask & (qpos >= kpos)
     if window is not None:
-        mask = mask & ((qpos - loc_k) < window)
+        mask = mask & ((qpos - kpos) < window)
     return mask
+
+
+def _schedule(nq: int, nk: int, block_q: int, block_k: int, causal: bool,
+              window: int | None, kv_len: int, q_len: int, order: str,
+              prune: bool, q_offset: int, k_offset: int) -> list:
+    """The plain versions' pair table: the band pruned at the offsets, or
+    (``prune=False``) the reference's dense grid (every k block below
+    ``kv_len`` of every q block below ``q_len``)."""
+    if prune:
+        sched, _ = _pair_schedule(nq, nk, block_q, block_k, bool(causal),
+                                  window, kv_len, q_len, order, q_offset,
+                                  k_offset)
+    else:
+        sched, _ = _pair_schedule(nq, nk, block_q, block_k, False, None,
+                                  kv_len, q_len, order)
+    return sched.tolist()
 
 
 def _rows(x: torch.Tensor, r0: int, n: int) -> torch.Tensor:
@@ -217,7 +259,9 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
                               block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
                               scale: float | None = None,
                               kv_len: int | None = None,
-                              q_len: int | None = None
+                              q_len: int | None = None,
+                              q_offset: int = 0, k_offset: int = 0,
+                              prune: bool = True
                               ) -> tuple[torch.Tensor, torch.Tensor]:
     """q: (BH, Sq, D); k, v: (BHkv, Sk, D), head h of q using kv head
     h // (BH // BHkv).  Returns ``(o, lse)`` with ``lse`` f32 (BH, Sq).
@@ -226,7 +270,9 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
     k block) step at a time over all heads at once, with the kernel's
     arithmetic: f32 scores, the mask guard before exp, p rounded to v's
     dtype before PV, l == 0 drained as 1.  ``kv_len`` / ``q_len`` bound the
-    valid region when Sk / Sq carry padding."""
+    valid region when Sk / Sq carry padding; ``q_offset`` / ``k_offset``
+    shift the band (module docstring); ``prune=False`` walks the dense
+    grid."""
     BH, Sq, Dh = q.shape
     BHkv, Sk, _ = k.shape
     if BH % BHkv:
@@ -236,15 +282,15 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
     kv_len = Sk if kv_len is None else kv_len
     q_len = Sq if q_len is None else q_len
     nq, nk = -(-Sq // block_q), -(-Sk // block_k)
-    sched, _ = _pair_schedule(nq, nk, block_q, block_k, bool(causal),
-                              window, kv_len, q_len, "row")
+    sched = _schedule(nq, nk, block_q, block_k, causal, window, kv_len,
+                      q_len, "row", prune, q_offset, k_offset)
     k = k.repeat_interleave(group, dim=0)
     v = v.repeat_interleave(group, dim=0)
     dev = q.device
     o = torch.zeros((BH, Sq, Dh), dtype=q.dtype, device=dev)
     lse = torch.zeros((BH, Sq), dtype=torch.float32, device=dev)
     m = l = acc = None
-    for iq, ik, first, last in sched.tolist():
+    for iq, ik, first, last in sched:
         if first:
             m = torch.full((BH, block_q), NEG_INF, device=dev)
             l = torch.zeros((BH, block_q), device=dev)
@@ -260,7 +306,7 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
             vb = torch.nn.functional.pad(vb, (0, 0, 0, block_k - nkr))
         s = torch.einsum("hqd,hkd->hqk", qb, kb) * scale
         mask = _block_mask(q0, k0, block_q, block_k, causal, window, kv_len,
-                           dev)
+                           dev, q_offset, k_offset)
         s = torch.where(mask, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
@@ -283,10 +329,12 @@ class _BwdPairs:
     otherwise come back as exp(0)), ``ds = p * (dp - delta) * scale``.
     ``rounded`` rounds p and ds to bf16 after ds is formed from the f32 p,
     as the wgmma route feeds them to its second products (dv += p^T . do,
-    dq += ds . k, dk += ds^T . q)."""
+    dq += ds . k, dk += ds^T . q).  The offsets shift the band, ``prune``
+    picks the pruned or the dense pair table, as in the forward."""
 
     def __init__(self, q, k, v, do, lse, delta, causal, window, block_q,
-                 block_k, scale, kv_len, q_len, rounded=False):
+                 block_k, scale, kv_len, q_len, rounded=False, q_offset=0,
+                 k_offset=0, prune=True):
         BH, Sq, Dh = q.shape
         BHkv, Sk, _ = k.shape
         if BH % BHkv:
@@ -302,12 +350,13 @@ class _BwdPairs:
         self.q_len = Sq if q_len is None else q_len
         self.nq, self.nk = -(-Sq // block_q), -(-Sk // block_k)
         self.rounded = rounded
+        self.q_offset, self.k_offset = q_offset, k_offset
+        self.prune = prune
 
     def schedule(self, order: str) -> list:
-        sched, _ = _pair_schedule(self.nq, self.nk, self.block_q,
-                                  self.block_k, self.causal, self.window,
-                                  self.kv_len, self.q_len, order)
-        return sched.tolist()
+        return _schedule(self.nq, self.nk, self.block_q, self.block_k,
+                         self.causal, self.window, self.kv_len, self.q_len,
+                         order, self.prune, self.q_offset, self.k_offset)
 
     def pair(self, iq: int, ik: int):
         bq, bk, g = self.block_q, self.block_k, self.group
@@ -316,7 +365,8 @@ class _BwdPairs:
         kb = _rows(self.k, k0, bk).repeat_interleave(g, dim=0)
         vb = _rows(self.v, k0, bk).repeat_interleave(g, dim=0)
         mask = _block_mask(q0, k0, bq, bk, self.causal, self.window,
-                           self.kv_len, self.q.device)
+                           self.kv_len, self.q.device, self.q_offset,
+                           self.k_offset)
         s = torch.einsum("hqd,hkd->hqk", qb, kb) * self.scale
         lse = _rows(self.lse, q0, bq)[..., None]
         p = torch.where(mask, torch.exp(s - lse), 0.0)
@@ -330,12 +380,12 @@ class _BwdPairs:
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, causal=True, window=None,
                        block_q=BLOCK_Q, block_k=BLOCK_K, scale=None,
-                       kv_len=None, q_len=None,
-                       rounded=False) -> torch.Tensor:
+                       kv_len=None, q_len=None, rounded=False, q_offset=0,
+                       k_offset=0, prune=True) -> torch.Tensor:
     """dq (f32, q's shape) of :func:`flash_attention_bwd_plain`: the
     row-ordered pair table, ``dq += ds . k`` per step."""
     w = _BwdPairs(q, k, v, do, lse, delta, causal, window, block_q, block_k,
-                  scale, kv_len, q_len, rounded)
+                  scale, kv_len, q_len, rounded, q_offset, k_offset, prune)
     BH, Sq, Dh = q.shape
     dq = torch.zeros((BH, Sq, Dh), dtype=torch.float32, device=q.device)
     acc = None
@@ -352,13 +402,14 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, causal=True, window=None,
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal=True,
                         window=None, block_q=BLOCK_Q, block_k=BLOCK_K,
-                        scale=None, kv_len=None, q_len=None, rounded=False
+                        scale=None, kv_len=None, q_len=None, rounded=False,
+                        q_offset=0, k_offset=0, prune=True
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) (f32, k's shape) of :func:`flash_attention_bwd_plain`: the
     column-ordered pair table, ``dv += p^T . do`` and ``dk += ds^T . q``
     per step, a GQA group's heads and q rows folded in one sum."""
     w = _BwdPairs(q, k, v, do, lse, delta, causal, window, block_q, block_k,
-                  scale, kv_len, q_len, rounded)
+                  scale, kv_len, q_len, rounded, q_offset, k_offset, prune)
     BHkv, Sk, Dh = k.shape
     g = w.group
 
@@ -393,7 +444,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               kv_len: int | None = None,
                               q_len: int | None = None,
                               dkv_blocks: tuple[int, int] | None = None,
-                              rounded: bool = False
+                              rounded: bool = False, q_offset: int = 0,
+                              k_offset: int = 0, prune: bool = True
                               ) -> tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """Flash backward from the saved residuals.  q/do: (BH, Sq, D); k/v:
@@ -405,11 +457,12 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     step at a time over all heads at once, with the kernels' arithmetic
     (:class:`_BwdPairs`; ``rounded``: p and ds in bf16 before their second
     products, as the wgmma route).  :func:`flash_bwd_plain_kw` gives a
-    route's blocks and rounding.  Sentinel pairs are computed like any
-    other, so where they are fully masked they drain 0, as in the
-    reference."""
+    route's blocks and rounding; the offsets and ``prune`` as in the
+    forward.  Sentinel pairs are computed like any other, so where they
+    are fully masked they drain 0, as in the reference."""
     kw = dict(causal=causal, window=window, scale=scale, kv_len=kv_len,
-              q_len=q_len, rounded=rounded)
+              q_len=q_len, rounded=rounded, q_offset=q_offset,
+              k_offset=k_offset, prune=prune)
     dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, block_q=block_q,
                             block_k=block_k, **kw)
     bq, bk = dkv_blocks or (block_q, block_k)
@@ -445,12 +498,16 @@ def _tma_readable(t: torch.Tensor) -> bool:
 def flash_fwd_route(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> str:
     """The forward kernel's route (module docstring), a pure function of
-    the inputs' dtype, head_dim and strides on any device: ``"flash_fwd"``
-    (wgmma) for bf16 q/k/v at head_dim 64 or 128 that TMA can read
-    (:func:`_tma_readable`), ``"flash_fwd_simt"`` otherwise (head_dim 256
-    among them)."""
-    ok = all(_tma_readable(t) for t in (q, k, v)) and q.shape[-1] in (64, 128)
-    return "flash_fwd" if ok else "flash_fwd_simt"
+    the inputs' dtype, head_dim and strides on any device: for bf16 q/k/v
+    that TMA can read (:func:`_tma_readable`), ``"flash_fwd"`` (wgmma) at
+    head_dim 64 or 128 and ``"flash_fwd_d256"`` (wgmma) at head_dim 256;
+    ``"flash_fwd_simt"`` otherwise."""
+    if all(_tma_readable(t) for t in (q, k, v)):
+        if q.shape[-1] in (64, 128):
+            return "flash_fwd"
+        if q.shape[-1] == 256:
+            return "flash_fwd_d256"
+    return "flash_fwd_simt"
 
 
 def flash_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -482,24 +539,29 @@ def flash_fwd_blocks(route: str) -> tuple[int, int]:
     """(block_q, block_k) of a forward route's kernel."""
     if route == "flash_fwd":
         return WGMMA_BLOCK_Q, WGMMA_BLOCK_K
+    if route == "flash_fwd_d256":
+        return WGMMA_D256_BLOCKS
     return BLOCK_Q, BLOCK_K
 
 
 def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True,
-                             window: int | None = None, prune: bool = True
+                             window: int | None = None, prune: bool = True,
+                             q_offset: int = 0, k_offset: int = 0
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel of ``csrc/flash_fwd.cu`` that
-    :func:`flash_fwd_route` names: the wgmma kernel (launch key
-    ``flash_fwd``) or the CUDA-core one (``flash_fwd_simt``).  q: (B, H, Sq,
-    D), k/v: (B, Hkv, Sk, D) — any strides with a contiguous last
-    dimension, e.g. the ``transpose(1, 2)`` views of the engine's (B, S, H,
-    D) tensors, which are read in place.  Returns ``(o, lse)``: o has q's
-    shape and memory layout, lse is f32 (B * H, Sq).  The launch carries no
-    gradient, so it refuses inputs that autograd wants one of: those go
-    through :func:`flash_attention_train`.  ``prune=False`` walks the dense
-    grid (:func:`_ranges_on`)."""
+    :func:`flash_fwd_route` names: a wgmma kernel (launch key
+    ``flash_fwd``, or ``flash_fwd_d256`` at head_dim 256) or the CUDA-core
+    one (``flash_fwd_simt``).  q: (B, H, Sq, D), k/v: (B, Hkv, Sk, D) — any
+    strides with a contiguous last dimension, e.g. the ``transpose(1, 2)``
+    views of the engine's (B, S, H, D) tensors, which are read in place.
+    Returns ``(o, lse)``: o has q's shape and memory layout, lse is f32
+    (B * H, Sq).  The launch carries no gradient, so it refuses inputs that
+    autograd wants one of: those go through :func:`flash_attention_train`.
+    ``prune=False`` walks the dense grid (:func:`_ranges_on`); the offsets
+    shift the band (module docstring)."""
     _check_inputs("flash_attention_fwd_cuda", q, k, v, window)
+    _check_offsets("flash_attention_fwd_cuda", q_offset, k_offset)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise RuntimeError(
@@ -510,17 +572,19 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     Hkv, Sk = k.shape[1], k.shape[2]
     route = flash_fwd_route(q, k, v)
     ranges = _ranges_on(q.device, Sq, Sk, bool(causal), window, "row",
-                        *flash_fwd_blocks(route), prune)
+                        *flash_fwd_blocks(route), prune, q_offset, k_offset)
     o = torch.empty_like(q)          # keeps q's (B, S, H, D) memory layout
     lse = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
     nq = ranges.shape[0]
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), ranges.data_ptr())
     shape = (B, H, H // Hkv, Sq, Sk, D, nq, int(bool(causal)),
-             0 if window is None else int(window))
-    if route == "flash_fwd":
-        fn = _build.bind("flash_fwd", "flash_fwd_wgmma",
-                         *[ctypes.c_void_p] * 6, *[ctypes.c_int] * 9,
+             0 if window is None else int(window), int(q_offset),
+             int(k_offset))
+    if route in ("flash_fwd", "flash_fwd_d256"):
+        entry = "flash_fwd_wgmma" if route == "flash_fwd" else route
+        fn = _build.bind("flash_fwd", entry,
+                         *[ctypes.c_void_p] * 6, *[ctypes.c_int] * 11,
                          ctypes.POINTER(ctypes.c_longlong), ctypes.c_float)
         st = (ctypes.c_longlong * 12)(
             *[x for t in (q, k, v) for x in _tma_strides(t)],
@@ -528,7 +592,7 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
         err = fn(*head, *shape, st, 1.0 / math.sqrt(D), _build.stream_ptr(q))
     else:
         fn = _build.bind("flash_fwd", "flash_fwd_simt",
-                         *[ctypes.c_void_p] * 6, *[ctypes.c_int] * 10,
+                         *[ctypes.c_void_p] * 6, *[ctypes.c_int] * 12,
                          *[ctypes.c_longlong] * 12, ctypes.c_float)
         err = fn(*head, _DTYPE_CODE[q.dtype], *shape,
                  *[x for t in (q, k, v, o) for x in t.stride()[:3]],
@@ -538,8 +602,9 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     return o, lse
 
 
-# head dims each direction's kernels are built for (csrc/flash_fwd.cu's
-# CUDA-core route takes 256; csrc/flash_bwd.cu does not)
+# head dims each direction's kernels are built for (csrc/flash_fwd.cu
+# takes 256 on its own wgmma route and the CUDA-core one; csrc/flash_bwd.cu
+# does not)
 FWD_HEAD_DIMS = (64, 128, 256)
 BWD_HEAD_DIMS = (64, 128)
 
@@ -570,6 +635,15 @@ def _check_inputs(what: str, q: torch.Tensor, k: torch.Tensor,
     _build.check_device(q)
 
 
+def _check_offsets(what: str, q_offset: int, k_offset: int) -> None:
+    """The kernels take the offsets as 32-bit ints and form q + shift:
+    Python ints within 2^30 of 0 keep that in range for any length."""
+    for name, x in (("q_offset", q_offset), ("k_offset", k_offset)):
+        if not isinstance(x, int) or not -2 ** 30 < x < 2 ** 30:
+            raise ValueError(f"{what}: {name} must be an int within 2^30 "
+                             f"of 0, got {x!r}")
+
+
 def _check_bwd(q, k, v, do, lse, delta, window) -> None:
     _check_inputs("flash_attention_bwd_cuda", q, k, v, window,
                   BWD_HEAD_DIMS)
@@ -595,7 +669,7 @@ def _strides(*ts) -> ctypes.Array:
 
 
 def _bwd_call(name: str, q, k, v, do, lse, delta, outs, ranges, causal,
-              window, route: str) -> None:
+              window, route: str, q_offset: int, k_offset: int) -> None:
     """Launch kernel ``name`` ('dq' or 'dkv') of ``route`` and count it."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -603,13 +677,14 @@ def _bwd_call(name: str, q, k, v, do, lse, delta, outs, ranges, causal,
             lse.data_ptr(), delta.data_ptr(), *[o.data_ptr() for o in outs],
             ranges.data_ptr())
     shape = (B, H, H // Hkv, Sq, Sk, D, ranges.shape[0], int(bool(causal)),
-             0 if window is None else int(window))
+             0 if window is None else int(window), int(q_offset),
+             int(k_offset))
     tail = (ctypes.POINTER(ctypes.c_longlong), ctypes.c_float)
     if route == "flash_bwd":
         key = f"flash_bwd_{name}"
         fn = _build.bind("flash_bwd", f"{key}_wgmma",
                          *[ctypes.c_void_p] * len(ptrs),
-                         *[ctypes.c_int] * 9, *tail)
+                         *[ctypes.c_int] * 11, *tail)
         st = [x for t in (q, k, v, do) for x in _tma_strides(t)]
         st += [x for o in outs for x in o.stride()[:3]]
         err = fn(*ptrs, *shape, (ctypes.c_longlong * len(st))(*st),
@@ -617,7 +692,7 @@ def _bwd_call(name: str, q, k, v, do, lse, delta, outs, ranges, causal,
     else:
         key = f"flash_bwd_{name}_simt"
         fn = _build.bind("flash_bwd", key, *[ctypes.c_void_p] * len(ptrs),
-                         *[ctypes.c_int] * 10, *tail)
+                         *[ctypes.c_int] * 12, *tail)
         err = fn(*ptrs, _DTYPE_CODE[q.dtype], *shape,
                  _strides(q, k, v, do, *outs), 1.0 / math.sqrt(D),
                  _build.stream_ptr(q))
@@ -626,24 +701,27 @@ def _bwd_call(name: str, q, k, v, do, lse, delta, outs, ranges, causal,
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal=True,
-                      window=None, prune=True) -> torch.Tensor:
+                      window=None, prune=True, q_offset=0,
+                      k_offset=0) -> torch.Tensor:
     """Launch the dq kernel of ``csrc/flash_bwd.cu`` that
     :func:`flash_bwd_route` names (launch key ``flash_bwd_dq`` or
     ``flash_bwd_dq_simt``); arguments as :func:`flash_attention_bwd_cuda`.
     Returns dq in f32 with q's memory layout."""
     _check_bwd(q, k, v, do, lse, delta, window)
+    _check_offsets("flash_bwd_dq_cuda", q_offset, k_offset)
     route = flash_bwd_route(q, k, v, do)
     kw = flash_bwd_plain_kw(route)
     rows = _ranges_on(q.device, q.shape[2], k.shape[2], bool(causal), window,
-                      "row", kw["block_q"], kw["block_k"], prune)
+                      "row", kw["block_q"], kw["block_k"], prune, q_offset,
+                      k_offset)
     dq = torch.empty_like(q, dtype=torch.float32)
     _bwd_call("dq", q, k, v, do, lse, delta, (dq,), rows, causal, window,
-              route)
+              route, q_offset, k_offset)
     return dq
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal=True,
-                       window=None, prune=True
+                       window=None, prune=True, q_offset=0, k_offset=0
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the dk/dv kernel of ``csrc/flash_bwd.cu`` that
     :func:`flash_bwd_route` names (launch key ``flash_bwd_dkv`` or
@@ -651,13 +729,15 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal=True,
     :func:`flash_attention_bwd_cuda`.  Returns (dk, dv) in f32 with k's and
     v's memory layouts."""
     _check_bwd(q, k, v, do, lse, delta, window)
+    _check_offsets("flash_bwd_dkv_cuda", q_offset, k_offset)
     route = flash_bwd_route(q, k, v, do)
     cols = _ranges_on(q.device, q.shape[2], k.shape[2], bool(causal), window,
-                      "col", *flash_bwd_plain_kw(route)["dkv_blocks"], prune)
+                      "col", *flash_bwd_plain_kw(route)["dkv_blocks"], prune,
+                      q_offset, k_offset)
     dk = torch.empty_like(k, dtype=torch.float32)
     dv = torch.empty_like(v, dtype=torch.float32)
     _bwd_call("dkv", q, k, v, do, lse, delta, (dk, dv), cols, causal, window,
-              route)
+              route, q_offset, k_offset)
     return dk, dv
 
 
@@ -665,7 +745,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, do: torch.Tensor,
                              lse: torch.Tensor, delta: torch.Tensor, *,
                              causal: bool = True, window: int | None = None,
-                             prune: bool = True
+                             prune: bool = True, q_offset: int = 0,
+                             k_offset: int = 0
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """Launch the two kernels of ``csrc/flash_bwd.cu`` on the route
@@ -674,7 +755,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     (``do`` arrives as the gradient of a transposed view); lse/delta: f32
     (B * H, Sq) contiguous.  Returns (dq, dk, dv) in f32, each with its
     input's memory layout."""
-    kw = dict(causal=causal, window=window, prune=prune)
+    kw = dict(causal=causal, window=window, prune=prune, q_offset=q_offset,
+              k_offset=k_offset)
     dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
     return (dq, *flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw))
 
@@ -684,18 +766,22 @@ _RANGES: dict[tuple, torch.Tensor] = {}
 
 def _ranges_on(dev: torch.device, Sq: int, Sk: int, causal: bool,
                window: int | None, order: str, block_q: int,
-               block_k: int, prune: bool = True) -> torch.Tensor:
+               block_k: int, prune: bool = True, q_offset: int = 0,
+               k_offset: int = 0) -> torch.Tensor:
     """The kernels' per-CTA block ranges (``order`` 'row': k blocks of each
-    q block; 'col': q blocks of each k block) at a kernel's block shape, on
-    the device, built once per shape.  ``prune=False`` gives every q block
-    every k block (the dense grid): the kernels mask the blocks a pruned
-    range leaves out, so they add exactly 0."""
-    key = (dev, Sq, Sk, causal, window, order, block_q, block_k, prune)
+    q block; 'col': q blocks of each k block) at a kernel's block shape and
+    the band shifted by the offsets, on the device, built once per shape.
+    ``prune=False`` gives every q block every k block (the dense grid): the
+    kernels mask the blocks a pruned range leaves out, so they add exactly
+    0."""
+    shift = q_offset - k_offset if prune else 0
+    key = (dev, Sq, Sk, causal, window, order, block_q, block_k, prune,
+           shift)
     t = _RANGES.get(key)
     if t is None:
         build = row_block_ranges if order == "row" else col_block_ranges
         r = build(Sq, Sk, block_q=block_q, block_k=block_k, causal=causal,
-                  window=window)
+                  window=window, q_offset=shift)
         if not prune:       # every block of the other axis
             r[:] = (0, -(-Sk // block_k) - 1 if order == "row"
                     else -(-Sq // block_q) - 1)
@@ -712,7 +798,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         *, causal: bool = True, window: int | None = None,
                         prune: bool = True,
-                        blocks: tuple[int, int] | None = None
+                        blocks: tuple[int, int] | None = None,
+                        q_offset: int = 0, k_offset: int = 0
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward of :class:`FlashAttention` from its residuals, before
     the cast to the inputs' dtypes.  q/o/do: (B, H, Sq, D), k/v: (B, Hkv,
@@ -722,14 +809,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`flash_bwd_route` on CUDA tensors (or raises) and runs the plain
     versions at that route's blocks and rounding on CPU tensors (at
     ``blocks`` for both kernels, where given).  ``prune=False`` hands the
-    kernels the dense grid.  Returns (dq, dk, dv) in f32 with q's, k's and
-    v's shapes."""
+    kernels the dense grid; the offsets shift the band.  Returns (dq, dk,
+    dv) in f32 with q's, k's and v's shapes."""
     B, H, Sq, D = q.shape
     if do.stride(-1) != 1:                 # e.g. an expanded gradient
         do = do.contiguous()
     delta = (o.float() * do.float()).sum(-1).reshape(B * H, Sq) \
         .contiguous()
-    kw = dict(causal=causal, window=window)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              k_offset=k_offset)
     if q.is_cuda:
         return flash_attention_bwd_cuda(q, k, v, do, lse, delta, **kw,
                                         prune=prune)
@@ -739,34 +827,37 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dkv_blocks=tuple(blocks))
     dq, dk, dv = flash_attention_bwd_plain(
         q.reshape(B * H, Sq, D), *_kv_rows(k, v), do.reshape(B * H, Sq, D),
-        lse, delta, **kw, **plain_kw)
+        lse, delta, **kw, **plain_kw, prune=prune)
     return dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape)
 
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention, the counterpart of the reference's
     custom VJP ``flash_attention_train``.  q: (B, H, Sq, D), k/v: (B, Hkv,
-    Sk, D).  The forward saves (q, k, v, o, lse); the backward is
-    :func:`flash_attention_bwd`, cast to the inputs' dtypes.  On CUDA
-    tensors each half launches its kernels (or raises) on the dense grid
-    when ``prune`` is False; on CPU tensors it runs the plain versions, at
-    ``blocks`` where given."""
+    Sk, D).  The forward saves (q, k, v, o, lse) and the offsets; the
+    backward is :func:`flash_attention_bwd`, cast to the inputs' dtypes.
+    On CUDA tensors each half launches its kernels (or raises) on the
+    dense grid when ``prune`` is False; on CPU tensors it runs the plain
+    versions, at ``blocks`` where given."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, prune=True, blocks=None):
+    def forward(ctx, q, k, v, causal, window, prune=True, blocks=None,
+                q_offset=0, k_offset=0):
+        offs = dict(q_offset=q_offset, k_offset=k_offset)
         if q.is_cuda:
             o, lse = flash_attention_fwd_cuda(q, k, v, causal=causal,
-                                              window=window, prune=prune)
+                                              window=window, prune=prune,
+                                              **offs)
         else:
             B, H, Sq, D = q.shape
             bq, bk = blocks or flash_fwd_blocks(flash_fwd_route(q, k, v))
             o, lse = flash_attention_fwd_plain(
                 q.reshape(B * H, Sq, D), *_kv_rows(k, v), causal=causal,
-                window=window, block_q=bq, block_k=bk)
+                window=window, block_q=bq, block_k=bk, prune=prune, **offs)
             o = o.reshape(q.shape)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
-        ctx.prune, ctx.blocks = prune, blocks
+        ctx.prune, ctx.blocks, ctx.offs = prune, blocks, offs
         return o
 
     @staticmethod
@@ -775,9 +866,9 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
                                          causal=ctx.causal,
                                          window=ctx.window, prune=ctx.prune,
-                                         blocks=ctx.blocks)
+                                         blocks=ctx.blocks, **ctx.offs)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
-                None, None)
+                None, None, None, None)
 
 
 def _kv_rows(k: torch.Tensor, v: torch.Tensor):
@@ -788,11 +879,13 @@ def _kv_rows(k: torch.Tensor, v: torch.Tensor):
 def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           window: int | None = None, prune: bool = True,
-                          blocks: tuple[int, int] | None = None
+                          blocks: tuple[int, int] | None = None,
+                          q_offset: int = 0, k_offset: int = 0
                           ) -> torch.Tensor:
     """Trainable flash attention on (B, H, S, D) q and (B, Hkv, Sk, D) k/v
-    (see :class:`FlashAttention`)."""
-    return FlashAttention.apply(q, k, v, causal, window, prune, blocks)
+    (see :class:`FlashAttention`); the offsets shift the band."""
+    return FlashAttention.apply(q, k, v, causal, window, prune, blocks,
+                                q_offset, k_offset)
 
 
 # ---------------------------------------------------------------------------

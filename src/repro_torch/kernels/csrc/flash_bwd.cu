@@ -23,7 +23,12 @@
 // (B, S, H, D) layout through strides; rows past Sq and keys past Sk load
 // as zeros and are masked, never padded by a copy.  The mask guard comes
 // before exp: a fully masked row has lse = -1e30 and would otherwise come
-// back as exp(0).
+// back as exp(0).  Positions: the causal and window masks compare global
+// positions q_offset + local q and k_offset + local k (the ring's per-hop
+// fold), as the TPU kernels' `offs_ref` does; only their difference
+// `shift` enters (flash_band.cuh: each thread forms its rows' intervals
+// once), the host prunes the band it shifts, and the padding tests stay
+// local (rows past Sq, keys past Sk).
 //
 // Route "flash_bwd" (launch keys flash_bwd_dq, flash_bwd_dkv): bf16,
 // head_dim 64 or 128, the strides and bases TMA can take.  Tensor cores
@@ -74,19 +79,14 @@
 // cannot take.  The first port's CUDA-core kernels: f32 from shared
 // memory (64 x 64 tiles, 4 x 4 register tile per thread), p and ds
 // unrounded, more than 48 KB of dynamic shared memory per CTA.
+#include "flash_band.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr float LOG2E = 1.4426950408889634f;
+using flash_band::Span;
 
-// Whether the (q, k) pair is unmasked; rows past Sq and keys past Sk
-// never are.
-__device__ __forceinline__ bool live(int qpos, int kpos, int Sq, int Sk,
-                                     int causal, int window) {
-  return qpos < Sq && kpos < Sk && (!causal || qpos >= kpos) &&
-         (window <= 0 || qpos - kpos < window);
-}
+constexpr float LOG2E = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
 // route "flash_bwd": wgmma + TMA rings
@@ -119,8 +119,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1) flash_bwd_dq_wgmma_kernel(
     const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dq,
     const int* __restrict__ ranges, int H, int G, int Sq, int Sk, int nq,
-    int causal, int window, float scale, long long dq_sb, long long dq_sh,
-    long long dq_ss) {
+    int causal, int window, int shift, float scale, long long dq_sb,
+    long long dq_sh, long long dq_ss) {
   using L = DqSmem<D>;
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
@@ -193,6 +193,10 @@ __global__ void __launch_bounds__(WG_THREADS, 1) flash_bwd_dq_wgmma_kernel(
   const float l1 = qpos1 < Sq ? lse[row + qpos1] * LOG2E : 0.f;
   const float dl0 = qpos0 < Sq ? delta[row + qpos0] : 0.f;
   const float dl1 = qpos1 < Sq ? delta[row + qpos1] : 0.f;
+  const Span keys0 =
+      flash_band::key_span(qpos0, Sq, Sk, causal, window, shift);
+  const Span keys1 =
+      flash_band::key_span(qpos1, Sq, Sk, causal, window, shift);
   float dqacc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dqacc[i] = 0.f;
@@ -233,8 +237,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1) flash_bwd_dq_wgmma_kernel(
     // P under the mask guard (edge blocks only), dS = P (dP - delta) scale,
     // dS in bf16: the A operand of dQ += dS K
     const bool edge = (k0 + DQ_BK > Sk) ||
-                      (causal && k0 + DQ_BK - 1 > qw0) ||
-                      (window > 0 && qw0 + 63 - k0 >= window);
+                      (causal && k0 + DQ_BK - 1 > qw0 + shift) ||
+                      (window > 0 && qw0 + shift + 63 - k0 >= window);
     uint32_t dsa[DQ_BK / 16][4];
 #pragma unroll
     for (int j = 0; j < DQ_BK / 8; ++j) {
@@ -243,8 +247,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1) flash_bwd_dq_wgmma_kernel(
       for (int e = 0; e < 4; ++e) {
         float p = ex2(sacc[4 * j + e] * scale2 - (e < 2 ? l0 : l1));
         if (edge)
-          p = live(e < 2 ? qpos0 : qpos1, k0 + 8 * j + 2 * t4 + (e & 1), Sq,
-                   Sk, causal, window)
+          p = (e < 2 ? keys0 : keys1).holds(k0 + 8 * j + 2 * t4 + (e & 1))
                   ? p
                   : 0.f;
         d[e] = p * (pacc[4 * j + e] - (e < 2 ? dl0 : dl1)) * scale;
@@ -298,9 +301,9 @@ __global__ void __launch_bounds__(KV_THREADS, 1) flash_bwd_dkv_wgmma_kernel(
     const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dk,
     float* __restrict__ dv, const int* __restrict__ ranges, int H, int G,
-    int Sq, int Sk, int causal, int window, float scale, long long dk_sb,
-    long long dk_sh, long long dk_ss, long long dv_sb, long long dv_sh,
-    long long dv_ss) {
+    int Sq, int Sk, int causal, int window, int shift, float scale,
+    long long dk_sb, long long dk_sh, long long dk_ss, long long dv_sb,
+    long long dv_sh, long long dv_ss) {
   using L = DkvSmem<D>;
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
@@ -384,6 +387,8 @@ __global__ void __launch_bounds__(KV_THREADS, 1) flash_bwd_dkv_wgmma_kernel(
   const int t4 = lane % 4;
   const int kw0 = k0 + wg * 64;
   const int kpos0 = kw0 + warp * 16 + lane / 4, kpos1 = kpos0 + 8;
+  const Span qs0 = flash_band::q_span(kpos0, Sq, Sk, causal, window, shift);
+  const Span qs1 = flash_band::q_span(kpos1, Sq, Sk, causal, window, shift);
   const float scale2 = scale * LOG2E;
   float dkacc[D / 2], dvacc[D / 2];
 #pragma unroll
@@ -426,8 +431,8 @@ __global__ void __launch_bounds__(KV_THREADS, 1) flash_bwd_dkv_wgmma_kernel(
 
     // P^T under the mask guard (edge steps only), dS^T; lse and delta vary
     // along the columns (q rows)
-    const bool edge = (kw0 + 64 > Sk) || (causal && kw0 + 63 > q0) ||
-                      (window > 0 && q0 + KV_BQ - 1 - kw0 >= window);
+    const bool edge = (kw0 + 64 > Sk) || (causal && kw0 + 63 > q0 + shift) ||
+                      (window > 0 && q0 + shift + KV_BQ - 1 - kw0 >= window);
     uint32_t pa[KV_BQ / 16][4], dsa[KV_BQ / 16][4];
 #pragma unroll
     for (int j = 0; j < KV_BQ / 8; ++j) {
@@ -439,10 +444,8 @@ __global__ void __launch_bounds__(KV_THREADS, 1) flash_bwd_dkv_wgmma_kernel(
       for (int e = 0; e < 4; ++e) {
         float x = ex2(st[4 * j + e] * scale2 - ((e & 1) ? l2.y : l2.x));
         if (edge)
-          x = live(q0 + 8 * j + 2 * t4 + (e & 1), e < 2 ? kpos0 : kpos1, Sq,
-                   Sk, causal, window)
-                  ? x
-                  : 0.f;
+          x = (e < 2 ? qs0 : qs1).holds(q0 + 8 * j + 2 * t4 + (e & 1)) ? x
+                                                                       : 0.f;
         p[e] = x;
         d[e] = x * (dpt[4 * j + e] - ((e & 1) ? dl.y : dl.x)) * scale;
       }
@@ -495,7 +498,7 @@ template <int D>
 int launch_dq_wgmma(const CUtensorMap* maps, const void* lse,
                     const void* delta, void* dq, const void* ranges, int B,
                     int H, int G, int Sq, int Sk, int nq, int causal,
-                    int window, float scale, const long long* st,
+                    int window, int shift, float scale, const long long* st,
                     cudaStream_t stream) {
   auto kern = flash_bwd_dq_wgmma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -506,7 +509,7 @@ int launch_dq_wgmma(const CUtensorMap* maps, const void* lse,
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dq),
       static_cast<const int*>(ranges), H, G, Sq, Sk, nq, causal, window,
-      scale, st[0], st[1], st[2]);
+      shift, scale, st[0], st[1], st[2]);
   return (int)cudaGetLastError();
 }
 
@@ -514,7 +517,7 @@ template <int D>
 int launch_dkv_wgmma(const CUtensorMap* maps, const void* lse,
                      const void* delta, void* dk, void* dv,
                      const void* ranges, int B, int H, int G, int Sq, int Sk,
-                     int nk, int causal, int window, float scale,
+                     int nk, int causal, int window, int shift, float scale,
                      const long long* st, cudaStream_t stream) {
   auto kern = flash_bwd_dkv_wgmma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -525,7 +528,8 @@ int launch_dkv_wgmma(const CUtensorMap* maps, const void* lse,
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dk),
       static_cast<float*>(dv), static_cast<const int*>(ranges), H, G, Sq, Sk,
-      causal, window, scale, st[0], st[1], st[2], st[3], st[4], st[5]);
+      causal, window, shift, scale, st[0], st[1], st[2], st[3], st[4],
+      st[5]);
   return (int)cudaGetLastError();
 }
 
@@ -608,10 +612,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dq,
     const int* __restrict__ ranges, int H, int G, int Sq, int Sk, int causal,
-    int window, float scale, long long q_sb, long long q_sh, long long q_ss,
-    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
-    long long v_sh, long long v_ss, long long do_sb, long long do_sh,
-    long long do_ss, long long dq_sb, long long dq_sh, long long dq_ss) {
+    int window, int shift, float scale, long long q_sb, long long q_sh,
+    long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss, long long do_sb,
+    long long do_sh, long long do_ss, long long dq_sb, long long dq_sh,
+    long long dq_ss) {
   constexpr int NJ = D / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* q_s = smem;                  // [BQ][D + 1]
@@ -657,12 +662,12 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     tile_dot<D>(dp, do_s, v_s, tx, ty);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
+      const Span keys = flash_band::key_span(q0 + ty + 16 * i, Sq, Sk,
+                                             causal, window, shift);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
         // mask guard before exp: a masked entry adds exactly 0
-        const float p = live(qpos, kpos, Sq, Sk, causal, window)
+        const float p = keys.holds(k0 + tx + 16 * j)
                             ? expf(s[i][j] * scale - lse_r[i])
                             : 0.f;
         ds_s[(ty + 16 * i) * (BK + 1) + tx + 16 * j] =
@@ -698,8 +703,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dk,
     float* __restrict__ dv, const int* __restrict__ ranges, int H, int G,
-    int Sq, int Sk, int causal, int window, float scale, long long q_sb,
-    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+    int Sq, int Sk, int causal, int window, int shift, float scale,
+    long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+    long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
     long long do_sb, long long do_sh, long long do_ss, long long dk_sb,
     long long dk_sh, long long dk_ss, long long dv_sb, long long dv_sh,
@@ -749,10 +755,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
         const int qpos = q0 + ty + 16 * i;
         const float l = qpos < Sq ? lse[bh * Sq + qpos] : 0.f;
         const float dl = qpos < Sq ? delta[bh * Sq + qpos] : 0.f;
+        const Span keys =
+            flash_band::key_span(qpos, Sq, Sk, causal, window, shift);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int kpos = k0 + tx + 16 * j;
-          const float p = live(qpos, kpos, Sq, Sk, causal, window)
+          const float p = keys.holds(k0 + tx + 16 * j)
                               ? expf(s[i][j] * scale - l)
                               : 0.f;
           const int at = (ty + 16 * i) * (BK + 1) + tx + 16 * j;
@@ -801,7 +808,7 @@ template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq,
               const void* ranges, int B, int H, int G, int Sq, int Sk,
-              int nq, int causal, int window, const long long* st,
+              int nq, int causal, int window, int shift, const long long* st,
               float scale, cudaStream_t stream) {
   const int smem =
       (int)sizeof(float) * (4 * 64 * (D + 1) + BQ * (BK + 1));
@@ -815,8 +822,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dq), static_cast<const int*>(ranges), H, G, Sq, Sk,
-      causal, window, scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14]);
+      causal, window, shift, scale, st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14]);
   return (int)cudaGetLastError();
 }
 
@@ -824,8 +831,8 @@ template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                const void* ranges, int B, int H, int G, int Sq, int Sk,
-               int nk, int causal, int window, const long long* st,
-               float scale, cudaStream_t stream) {
+               int nk, int causal, int window, int shift,
+               const long long* st, float scale, cudaStream_t stream) {
   const int smem =
       (int)sizeof(float) * (4 * 64 * (D + 1) + 2 * BQ * (BK + 1));
   cudaError_t err = cudaFuncSetAttribute(
@@ -838,16 +845,18 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dk), static_cast<float*>(dv),
-      static_cast<const int*>(ranges), H, G, Sq, Sk, causal, window, scale,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      st[10], st[11], st[12], st[13], st[14], st[15], st[16], st[17]);
+      static_cast<const int*>(ranges), H, G, Sq, Sk, causal, window, shift,
+      scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      st[9], st[10], st[11], st[12], st[13], st[14], st[15], st[16], st[17]);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = bf16, 1 = f32 (q, k, v, do); D: 64 or 128; window <= 0 means
-// none.  lse, delta: f32 (B * H, Sq) contiguous.  dq: f32, written through
+// none; q_off / k_off: the global positions of q row 0 and key 0 (the
+// masks compare q_off + q with k_off + k).  lse, delta: f32 (B * H, Sq)
+// contiguous.  dq: f32, written through
 // its strides.  ranges: (nq, 2) int32 inclusive k-block range of each q
 // block (empty: lo > hi).  strides: (batch, head, seq) of q, k, v, do, dq.
 // Returns cudaGetLastError(), or -1 for a shape this file does not build.
@@ -855,13 +864,13 @@ extern "C" int flash_bwd_dq_simt(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, const void* ranges,
                             int dtype, int B, int H, int G, int Sq, int Sk,
-                            int D, int nq, int causal, int window,
-                            const long long* strides, float scale,
+                            int D, int nq, int causal, int window, int q_off,
+                            int k_off, const long long* strides, float scale,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ARGS                                                              \
   q, k, v, dout, lse, delta, dq, ranges, B, H, G, Sq, Sk, nq, causal, \
-      window, strides, scale, s
+      window, q_off - k_off, strides, scale, s
   if (dtype == 0 && D == 128) return launch_dq<__nv_bfloat16, 128>(ARGS);
   if (dtype == 0 && D == 64) return launch_dq<__nv_bfloat16, 64>(ARGS);
   if (dtype == 1 && D == 128) return launch_dq<float, 128>(ARGS);
@@ -878,13 +887,13 @@ extern "C" int flash_bwd_dkv_simt(const void* q, const void* k, const void* v,
                              const void* delta, void* dk, void* dv,
                              const void* ranges, int dtype, int B, int H,
                              int G, int Sq, int Sk, int D, int nk,
-                             int causal, int window,
+                             int causal, int window, int q_off, int k_off,
                              const long long* strides, float scale,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ARGS                                                                \
   q, k, v, dout, lse, delta, dk, dv, ranges, B, H, G, Sq, Sk, nk, causal, \
-      window, strides, scale, s
+      window, q_off - k_off, strides, scale, s
   if (dtype == 0 && D == 128) return launch_dkv<__nv_bfloat16, 128>(ARGS);
   if (dtype == 0 && D == 64) return launch_dkv<__nv_bfloat16, 64>(ARGS);
   if (dtype == 1 && D == 128) return launch_dkv<float, 128>(ARGS);
@@ -897,6 +906,7 @@ extern "C" int flash_bwd_dkv_simt(const void* q, const void* k, const void* v,
 // `st` holds the (batch, head, seq) TMA strides in elements of q, k, v and
 // do (12; each a multiple of 8, bases 16-byte aligned), then those of dq
 // (3).  D 64 or 128.  lse, delta: f32 (B * H, Sq) contiguous.  dq: f32.
+// q_off / k_off as flash_bwd_dq_simt.
 // ranges: (nq, 2) int32 inclusive k-block range of each 128-row q block
 // over 64-key blocks.  Returns cudaGetLastError(), -1 for a D this file
 // does not build, -2 when a TMA descriptor cannot be encoded.
@@ -905,9 +915,9 @@ extern "C" int flash_bwd_dq_wgmma(const void* q, const void* k,
                                   const void* lse, const void* delta,
                                   void* dq, const void* ranges, int B, int H,
                                   int G, int Sq, int Sk, int D, int nq,
-                                  int causal, int window,
-                                  const long long* st, float scale,
-                                  void* stream) {
+                                  int causal, int window, int q_off,
+                                  int k_off, const long long* st,
+                                  float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D != 64 && D != 128) return -1;
   CUtensorMap maps[4];
@@ -916,7 +926,7 @@ extern "C" int flash_bwd_dq_wgmma(const void* q, const void* k,
     return -2;
 #define ARGS                                                          \
   maps, lse, delta, dq, ranges, B, H, G, Sq, Sk, nq, causal, window, \
-      scale, st + 12, s
+      q_off - k_off, scale, st + 12, s
   if (D == 128) return launch_dq_wgmma<128>(ARGS);
   return launch_dq_wgmma<64>(ARGS);
 #undef ARGS
@@ -931,9 +941,9 @@ extern "C" int flash_bwd_dkv_wgmma(const void* q, const void* k,
                                    const void* lse, const void* delta,
                                    void* dk, void* dv, const void* ranges,
                                    int B, int H, int G, int Sq, int Sk, int D,
-                                   int nk, int causal, int window,
-                                   const long long* st, float scale,
-                                   void* stream) {
+                                   int nk, int causal, int window, int q_off,
+                                   int k_off, const long long* st,
+                                   float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D != 64 && D != 128) return -1;
   CUtensorMap maps[4];
@@ -942,7 +952,7 @@ extern "C" int flash_bwd_dkv_wgmma(const void* q, const void* k,
     return -2;
 #define ARGS                                                              \
   maps, lse, delta, dk, dv, ranges, B, H, G, Sq, Sk, nk, causal, window, \
-      scale, st + 12, s
+      q_off - k_off, scale, st + 12, s
   if (D == 128) return launch_dkv_wgmma<128>(ARGS);
   return launch_dkv_wgmma<64>(ARGS);
 #undef ARGS

@@ -19,9 +19,10 @@ the ``wgmma`` kernel for bf16 with M > 1, the split-K GEMV for bf16 with
 M = 1, the CUDA-core kernel for f32 or operands TMA cannot read), and the
 tiled routes' blocks come from the paper's tile search re-targeted to one
 H100 CTA (``repro_torch.core.cuda_bridge.matmul_block_shapes``); the flash
-forward takes the ``wgmma`` kernel (128 x 128 blocks) for bf16 and the
-CUDA-core one (64 x 64) for f32 (``attention.flash_fwd_route``), and a
-block a caller names must be the route's; ``conv2d`` takes the ``wgmma``
+forward takes a ``wgmma`` kernel for bf16 (128 x 128 blocks at head_dim 64
+or 128, 128 x 64 at 256) and the CUDA-core one (64 x 64) for f32
+(``attention.flash_fwd_route``), and a block a caller names must be the
+route's; ``conv2d`` takes the ``wgmma``
 implicit GEMM for bf16, its tile and K split from
 ``cuda_bridge.conv2d_plan``, and the CUDA-core kernel for f32
 (``conv2d.conv2d_route``); ``correlation`` takes the ``wgmma`` row-pair
@@ -219,8 +220,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     ) -> torch.Tensor:
     """q: (B, H, S, D), k/v: (B, Hkv, Sk, D) -> (B, H, S, D).
 
-    The forward kernel's route (wgmma or CUDA-core) and its blocks follow
-    from the inputs (``attention.flash_fwd_route``,
+    The forward kernel's route (a wgmma kernel or the CUDA-core one) and
+    its blocks follow from the inputs (``attention.flash_fwd_route``,
     ``attention.flash_fwd_blocks``).  On the card a ``block_q`` /
     ``block_k`` given must be the route's, or the call raises naming the
     route; the plain version on the CPU runs any blocks.  When

@@ -116,7 +116,8 @@ def test_flash_kernel_matches_plain(dev, case):
 
 # the model zoo's prefill shapes (bf16): internvl2-26b's G 6 (48 / 8
 # heads, D 128); recurrentgemma-9b's local MQA (16 / 1 heads, D 256,
-# window 2048 at full width, the CUDA-core route; also in f32); whisper's
+# window 2048 at full width, the head_dim-256 wgmma route; in f32 the
+# CUDA-core route); whisper's
 # non-causal encoder (1500 x 1500, 16 / 16 heads, D 64) and its cross
 # attention from a prompt of 1024 or 16 tokens to 1500 frames
 FLASH_ZOO = [
@@ -133,9 +134,10 @@ FLASH_ZOO = [
 @pytest.mark.parametrize("case", FLASH_ZOO,
                          ids=lambda c: "-".join(map(str, c)))
 def test_flash_kernel_at_zoo_shapes_matches_plain(dev, case):
-    """bf16 at head_dim 64 or 128 takes the wgmma kernel; head_dim 256 (and
-    f32) the CUDA-core one, which it launches (no fallback to the plain
-    version), held against the plain version at its own blocks."""
+    """bf16 at head_dim 64 or 128 takes the wgmma kernel ``flash_fwd``, at
+    head_dim 256 the wgmma kernel ``flash_fwd_d256`` (128 x 64 blocks); f32
+    the CUDA-core one.  Each launches its kernel (no fallback to the plain
+    version) and is held against the plain version at its own blocks."""
     from repro_torch.kernels import attention as katt
     from repro_torch.kernels import ops
     B, S, Sk, H, Hkv, D, causal, window, dt = case
@@ -145,8 +147,8 @@ def test_flash_kernel_at_zoo_shapes_matches_plain(dev, case):
     v = torch.randn((B, Sk, Hkv, D), generator=g, device=dev).to(dt)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     route = katt.flash_fwd_route(qt, kt, vt)
-    assert route == ("flash_fwd" if dt == torch.bfloat16 and D in (64, 128)
-                     else "flash_fwd_simt")
+    assert route == ("flash_fwd_simt" if dt != torch.bfloat16 else
+                     "flash_fwd_d256" if D == 256 else "flash_fwd")
     ops.reset_launches()
     with torch.no_grad():
         o = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
@@ -164,7 +166,7 @@ def test_flash_kernel_at_zoo_shapes_matches_plain(dev, case):
 
 
 def test_flash_backward_refuses_head_dim_256(dev):
-    """The forward takes head_dim 256 on the CUDA-core route; the backward
+    """The forward takes head_dim 256 on its wgmma route; the backward
     kernels are not built for it, so a gradient call raises naming the
     head dims it takes."""
     from repro_torch.kernels import ops
@@ -173,7 +175,7 @@ def test_flash_backward_refuses_head_dim_256(dev):
                for h in (4, 1, 1))
     ops.reset_launches()
     o = ops.flash_attention(q, k, v, causal=True, window=64)
-    assert ops.LAUNCHES["flash_fwd_simt"] == 1
+    assert ops.LAUNCHES["flash_fwd_d256"] == 1
     with pytest.raises(ValueError, match=r"head_dim one of \(64, 128\)"):
         o.float().sum().backward()
 
@@ -246,16 +248,18 @@ def _bwd_inputs(dev, case, seed=3):
     return tuple(x.transpose(1, 2) for x in (q, k, v, do))
 
 
-def _bwd_check(qt, kt, vt, dot, causal, window, route):
+def _bwd_check(qt, kt, vt, dot, causal, window, route, q_offset=0,
+               k_offset=0):
     """The backward kernels fed the forward kernel's own o and lse, as
     ``FlashAttention`` feeds them, against the plain backward on the same
-    residuals at the route's blocks and rounding."""
+    residuals at the route's blocks and rounding (and offsets)."""
     from repro_torch.kernels import attention as katt
     from repro_torch.kernels import ops
     B, H, S, D = qt.shape
     Hkv, Sk = kt.shape[1], kt.shape[2]
     assert katt.flash_bwd_route(qt, kt, vt, dot) == route
-    kw = dict(causal=causal, window=window)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              k_offset=k_offset)
     o, lse = katt.flash_attention_fwd_cuda(qt, kt, vt, **kw)
     o = o.reshape(B * H, S, D)
     delta = (o.float() * dot.reshape(B * H, S, D).float()).sum(-1)
@@ -279,6 +283,8 @@ def _bwd_check(qt, kt, vt, dot, causal, window, route):
     if not causal and window is not None and S > Sk - 1 + window:
         dead = (lse == -1e30)        # q rows that see no key: dq is 0
         assert dead.any() and (got[0].reshape(want[0].shape)[dead] == 0).all()
+    dead = (lse == -1e30)
+    assert (got[0].reshape(want[0].shape)[dead] == 0).all()
     return got
 
 
@@ -321,6 +327,121 @@ def test_flash_bwd_wgmma_is_deterministic(dev):
     first = katt.flash_attention_bwd_cuda(qt, kt, vt, dot, lse, delta)
     second = katt.flash_attention_bwd_cuda(qt, kt, vt, dot, lse, delta)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# q / k position offsets (the ring's per-hop fold) on every route: shifts
+# of +100 and +348 inside a window, -256 (q rows 0-255 see no key), -512
+# (a future shard: every row sees none), +300 against a window of 100, and
+# -200 non-causal
+FLASH_OFFSETS = [
+    # (B, S, Sk, H, Hkv, D, causal, window, dtype, q_offset, k_offset)
+    (1, 1000, 1000, 16, 2, 128, True, 300, torch.bfloat16, 1000, 900),
+    (2, 300, 500, 8, 2, 128, True, None, torch.bfloat16, 0, 256),
+    (1, 700, 700, 16, 1, 256, True, 300, torch.bfloat16, 2048, 1700),
+    (1, 512, 512, 8, 1, 256, True, None, torch.bfloat16, 512, 1024),
+    (1, 300, 300, 8, 2, 128, True, 100, torch.float32, 300, 0),
+    (1, 400, 400, 4, 1, 64, False, 150, torch.bfloat16, 100, 300),
+    (1, 500, 500, 8, 1, 256, True, 200, torch.float32, 700, 600),
+]
+
+
+def _padded_view(g, dev, B, S, h, D, dt):
+    """A (B, h, S, D) view of a (B, S, h * D + 4) buffer: a seq stride
+    that is not a multiple of 8 elements, which TMA cannot read."""
+    wide = torch.randn((B, S, h * D + 4), generator=g, device=dev).to(dt)
+    return wide[..., :h * D].unflatten(-1, (h, D)).transpose(1, 2)
+
+
+@pytest.mark.parametrize("padded", [False, True], ids=["tma", "padded"])
+@pytest.mark.parametrize("case", FLASH_OFFSETS,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_fwd_routes_at_offsets_match_plain(dev, case, padded):
+    """Each forward route at nonzero offsets (bf16 views TMA can read: the
+    wgmma kernels; f32, or a padded seq stride: the CUDA-core one) against
+    the plain version at the route's blocks and the same offsets; rows
+    that see no key drain o = 0, lse = -1e30."""
+    from repro_torch.kernels import attention as katt
+    from repro_torch.kernels import ops
+    B, S, Sk, H, Hkv, D, causal, window, dt, qo, ko = case
+    g = torch.Generator(device=dev).manual_seed(11)
+    if padded:
+        qt, kt, vt = (_padded_view(g, dev, B, n, h, D, dt)
+                      for n, h in ((S, H), (Sk, Hkv), (Sk, Hkv)))
+    else:
+        qt, kt, vt = (torch.randn((B, n, h, D), generator=g, device=dev)
+                      .to(dt).transpose(1, 2)
+                      for n, h in ((S, H), (Sk, Hkv), (Sk, Hkv)))
+    route = katt.flash_fwd_route(qt, kt, vt)
+    assert route == ("flash_fwd_simt" if padded or dt != torch.bfloat16 else
+                     "flash_fwd_d256" if D == 256 else "flash_fwd")
+    kw = dict(causal=causal, window=window, q_offset=qo, k_offset=ko)
+    ops.reset_launches()
+    o, lse = katt.flash_attention_fwd_cuda(qt, kt, vt, **kw)
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == {route: 1}
+    bq, bk = katt.flash_fwd_blocks(route)
+    o_ref, lse_ref = katt.flash_attention_fwd_plain(
+        qt.reshape(B * H, S, D), kt.reshape(B * Hkv, Sk, D),
+        vt.reshape(B * Hkv, Sk, D), block_q=bq, block_k=bk, **kw)
+    _ulp_close(o.reshape(B * H, S, D), o_ref, dt, atol=2e-3)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+    dead = lse_ref == -1e30
+    if causal and qo < ko:
+        assert dead.any()
+    assert (o.reshape(B * H, S, D)[dead] == 0).all() and \
+        (lse[dead] == -1e30).all()
+
+
+FLASH_BWD_OFFSETS = [
+    # (B, S, Sk, H, Hkv, D, causal, window, dtype, q_offset, k_offset)
+    (1, 1000, 1000, 16, 2, 128, True, 300, torch.bfloat16, 1000, 900),
+    (2, 300, 500, 8, 2, 128, True, None, torch.bfloat16, 0, 256),
+    (1, 384, 384, 16, 4, 64, True, 200, torch.bfloat16, 512, 256),
+    (1, 300, 300, 8, 2, 128, True, 100, torch.float32, 300, 0),
+    (1, 256, 256, 4, 2, 64, False, 100, torch.float32, 64, 128),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_OFFSETS,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_bwd_routes_at_offsets_match_plain(dev, case):
+    """Both backward routes at nonzero offsets (bf16: the wgmma pair
+    against the rounded plain version; f32: the CUDA-core pair against the
+    unrounded one), fed the forward kernel's o and lse at the same
+    offsets; rows that see no key get dq = 0."""
+    B, S, Sk, H, Hkv, D, causal, window, dt, qo, ko = case
+    route = "flash_bwd" if dt == torch.bfloat16 else "flash_bwd_simt"
+    _bwd_check(*_bwd_inputs(dev, case[:9]), causal, window, route,
+               q_offset=qo, k_offset=ko)
+
+
+def test_flash_fwd_d256_is_deterministic(dev):
+    """Two launches of the head_dim-256 wgmma kernel on the same inputs
+    give the same bits."""
+    from repro_torch.kernels import attention as katt
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(21)
+    qt, kt, vt = (torch.randn((1, 1100, h, 256), generator=g, device=dev)
+                  .to(torch.bfloat16).transpose(1, 2) for h in (16, 1, 1))
+    ops.reset_launches()
+    first = katt.flash_attention_fwd_cuda(qt, kt, vt, window=700)
+    second = katt.flash_attention_fwd_cuda(qt, kt, vt, window=700)
+    assert ops.LAUNCHES["flash_fwd_d256"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_fwd_wgmma_kernels_build_without_spills(dev):
+    """``ptxas`` reports no spill for the wgmma kernels of
+    csrc/flash_fwd.cu: the head_dim-256 kernel holds a 64 x 256 f32 O
+    accumulator a warpgroup, 128 registers a thread of its 255."""
+    from repro_torch.kernels import _build
+    _build.load("flash_fwd")
+    report = _build.ptxas_report(_build.build_log("flash_fwd"))
+    d256 = [r for r in report if "flash_fwd_d256_kernel" in r["kernel"]]
+    assert len(d256) == 1 and d256[0]["registers"] <= 255, report
+    wgmma = [r for r in report if "wgmma_kernel" in r["kernel"]] + d256
+    assert len(wgmma) == 3
+    for r in wgmma:
+        assert r["spill_stores"] == r["spill_loads"] == 0, r
 
 
 PAGED = [

@@ -190,11 +190,13 @@ def test_flash_plain_at_head_dim_256_matches_pallas():
     np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=1e-5)
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), atol=1e-5)
     # the same call through the wrapper, at the (B, H, S, D) layout of
-    # layers.attention: head_dim 256 takes the CUDA-core route
+    # layers.attention: head_dim 256 in f32 takes the CUDA-core route, in
+    # bf16 the head_dim-256 wgmma route at 128 x 64 blocks
     qt, kt, vt = (torch.from_numpy(a)[None] for a in (q, k, v))
     assert pt_att.flash_fwd_route(qt, kt, vt) == "flash_fwd_simt"
     assert pt_att.flash_fwd_route(*(t.bfloat16() for t in (qt, kt, vt))) \
-        == "flash_fwd_simt"
+        == "flash_fwd_d256"
+    assert pt_att.flash_fwd_blocks("flash_fwd_d256") == (128, 64)
     got = pt_ops.flash_attention(qt, kt, vt, causal=True, window=64)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(o_ref), atol=1e-5)
 

@@ -187,20 +187,32 @@ FLASH_ROUTES = [
     ("bf16 seq stride 68",
      lambda: (_t((1, 64, 68))[..., :64].unsqueeze(1), _bshd(1, 64, 1, 64)),
      "flash_fwd_simt"),
+    # recurrentgemma-9b's local MQA (16 / 1 heads at head_dim 256)
+    ("bf16 D 256", lambda: (_bshd(1, 300, 16, 256), _bshd(1, 300, 1, 256)),
+     "flash_fwd_d256"),
+    ("f32 D 256", lambda: (_bshd(1, 64, 4, 256, torch.float32),
+                           _bshd(1, 64, 1, 256, torch.float32)),
+     "flash_fwd_simt"),
+    ("bf16 D 256 seq stride 260",
+     lambda: (_t((1, 64, 260))[..., :256].unsqueeze(1),
+              _bshd(1, 64, 1, 256)), "flash_fwd_simt"),
 ]
+
+FWD_BLOCKS = {"flash_fwd": (128, 128), "flash_fwd_d256": (128, 64),
+              "flash_fwd_simt": (64, 64)}
 
 
 @pytest.mark.parametrize("case", FLASH_ROUTES,
                          ids=[c[0] for c in FLASH_ROUTES])
 def test_flash_fwd_route(case):
-    """bf16 at head_dim 64 or 128 with (batch, head, seq) strides that are
-    16-byte multiples -> the wgmma kernel, with 128 x 128 blocks; anything
-    else -> the CUDA-core kernel, with 64 x 64 blocks."""
+    """bf16 with (batch, head, seq) strides that are 16-byte multiples ->
+    a wgmma kernel: at head_dim 64 or 128 ``flash_fwd`` with 128 x 128
+    blocks, at 256 ``flash_fwd_d256`` with 128 x 64; anything else -> the
+    CUDA-core kernel, with 64 x 64 blocks."""
     _, operands, want = case
     q, kv = operands()
     assert pt_att.flash_fwd_route(q, kv, kv) == want
-    assert pt_att.flash_fwd_blocks(want) == \
-        ((128, 128) if want == "flash_fwd" else (64, 64))
+    assert pt_att.flash_fwd_blocks(want) == FWD_BLOCKS[want]
 
 
 def test_tma_strides_of_size_one_dims():
@@ -266,6 +278,50 @@ def test_flash_plain_at_wgmma_blocks_matches_pallas(case):
                                np.asarray(o_ref)[:, :q_len], atol=1e-5)
     np.testing.assert_allclose(lse[:, :q_len].numpy(),
                                np.asarray(lse_ref)[:, :q_len], atol=1e-5)
+
+
+def test_flash_plain_at_d256_blocks_matches_pallas():
+    """The plain forward at the head_dim-256 wgmma kernel's 128 x 64 blocks,
+    4 q heads over 1 kv head, causal with a window of 100 over ragged rows
+    (S 256 of which 200 valid), against the reference's Pallas forward
+    (interpret mode) at the same blocks, f32: o and lse within 1e-5."""
+    rng = np.random.default_rng(256)
+    q, k, v = (rng.normal(size=(h, 256, 256)).astype(np.float32)
+               for h in (4, 1, 1))
+    kw = dict(causal=True, window=100, q_len=200, kv_len=200,
+              block_q=128, block_k=64)
+    assert pt_att.WGMMA_D256_BLOCKS == (128, 64)
+    o_ref, lse_ref = ref_att.flash_attention_fwd_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True, **kw)
+    o, lse = pt_att.flash_attention_fwd_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), **kw)
+    np.testing.assert_allclose(o[:, :200].numpy(),
+                               np.asarray(o_ref)[:, :200], atol=1e-5)
+    np.testing.assert_allclose(lse[:, :200].numpy(),
+                               np.asarray(lse_ref)[:, :200], atol=1e-5)
+
+
+def test_ops_flash_attention_d256_takes_its_blocks_on_cpu():
+    """bf16 at head_dim 256 on the CPU (forward-only and under autograd)
+    runs the plain forward at the head_dim-256 wgmma route's 128 x 64
+    blocks, with p rounded to bf16 before PV: bit for bit that plain
+    version, and no launch."""
+    B, H, Hkv, S, D = 1, 4, 1, 200, 256
+    q = torch.from_numpy(_normal(B, S, H, D)).to(BF16).transpose(1, 2)
+    k = torch.from_numpy(_normal(B, S, Hkv, D)).to(BF16).transpose(1, 2)
+    assert pt_att.flash_fwd_route(q, k, k) == "flash_fwd_d256"
+    pt_ops.reset_launches()
+    want, _ = pt_att.flash_attention_fwd_plain(
+        q.reshape(B * H, S, D), k.reshape(B * Hkv, S, D),
+        k.reshape(B * Hkv, S, D), causal=True, window=64, block_q=128,
+        block_k=64)
+    with torch.no_grad():
+        got = pt_ops.flash_attention(q, k, k, causal=True, window=64)
+    assert torch.equal(got, want.reshape(B, H, S, D))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, k)]
+    got = pt_ops.flash_attention(*leaves, causal=True, window=64)
+    assert torch.equal(got.detach(), want.reshape(B, H, S, D))
+    assert all(n == 0 for n in pt_ops.LAUNCHES.values())
 
 
 def test_ops_flash_attention_takes_the_route_blocks_on_cpu():
@@ -487,11 +543,14 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     first = _build._target("k")
     (tmp_path / "b.cuh").write_text("// b, edited\n")
     assert _build._target("k") != first
-    # the port's sources: the tensor-core kernels include hopper.cuh
+    # the port's sources: the tensor-core kernels include hopper.cuh, the
+    # flash kernels also the band of their masks (flash_band.cuh)
     monkeypatch.undo()
-    for name in ("matmul", "flash_fwd"):
+    assert _build._headers(_build.CSRC / "matmul.cu") == \
+        [_build.CSRC / "hopper.cuh"]
+    for name in ("flash_fwd", "flash_bwd"):
         assert _build._headers(_build.CSRC / f"{name}.cu") == \
-            [_build.CSRC / "hopper.cuh"]
+            [_build.CSRC / "flash_band.cuh", _build.CSRC / "hopper.cuh"]
 
 
 def test_ptxas_report_reads_each_kernel():
