@@ -38,7 +38,12 @@ and each CUDA-core route, which no main path takes, is timed at its
 sibling's shape in f32 beside its library call), holds the flash kernels'
 loss and
 gradients against the plain attention path, trains qwen3-4b at full width
-for a few AdamW steps through ``repro_torch.launch.train``, drills a kill
+for a few AdamW steps through ``repro_torch.launch.train``, then the four
+families (``train_families``: internvl2-26b and recurrentgemma-9b cut to
+8 layers, whisper-medium and mamba2-370m whole, every width the config's
+own; recurrentgemma's attention backward at head_dim 256 runs the
+CUDA-core pair, held end to end against the plain path by its own
+``train_check`` and alone at its shape in bf16), drills a kill
 and a restart of that training at full width through the loop's format-v2
 checkpoints (``recovery``: the restarted run must resume bit for bit), and
 checks what comes out.  Each phase prints JSON lines (``paper_workloads``
@@ -238,7 +243,23 @@ FLASH_ZOO_SHAPES = {
     "whisper-medium cross 16": dict(B=1, S=16, Sk=1500, H=16, Hkv=16, D=64,
                                     causal=False),
 }
+# (the backward's too: recurrentgemma-9b's train_families batch, where
+# bf16 takes the CUDA-core pair)
 FLASH_D256_SHAPE = dict(B=1, S=4096, H=16, Hkv=1, D=256, window=2048)
+# the backward's shape on the train path (qwen3-4b, B 2, S 2048, 32/8)
+FLASH_BWD_SHAPE = dict(B=2, S=2048, H=32, Hkv=8, D=128)
+# the wgmma backward at the model zoo's train shapes (train_families, B 2):
+# internvl2-26b's G 6 over its 2304 positions (256 vision + 2048 text);
+# whisper-medium's non-causal encoder over 1500 frames (Sk not a multiple
+# of the blocks), its cross-attention (1024 x 1500) and its causal decoder
+FLASH_ZOO_BWD_SHAPES = {
+    "internvl2-26b": dict(B=2, S=2304, H=48, Hkv=8, D=128),
+    "whisper-medium encoder": dict(B=2, S=1500, H=16, Hkv=16, D=64,
+                                   causal=False),
+    "whisper-medium cross": dict(B=2, S=1024, Sk=1500, H=16, Hkv=16, D=64,
+                                 causal=False),
+    "whisper-medium decoder": dict(B=2, S=1024, H=16, Hkv=16, D=64),
+}
 
 
 def attended_pairs(Sq: int, Sk: int, causal: bool,
@@ -270,6 +291,24 @@ def fwd_route_of(shape: dict, dtype: torch.dtype) -> str:
     if dtype != torch.bfloat16 or shape.get("pad", 0) % 8:
         return "flash_fwd_simt"
     return "flash_fwd" if shape["D"] in (64, 128) else "flash_fwd_d256"
+
+
+def bwd_route_of(shape: dict, dtype: torch.dtype) -> str:
+    """The backward route a shape must take: bf16 at head_dim 64 or 128
+    the wgmma pair, f32 and head_dim 256 the CUDA-core pair."""
+    return ("flash_bwd" if dtype == torch.bfloat16 and shape["D"] in (64, 128)
+            else "flash_bwd_simt")
+
+
+def band_mask(S: int, Sk: int, causal: bool, window: int | None):
+    """SDPA's arguments for the kernels' band: ``is_causal`` without a
+    window, else a bool mask (True = attend)."""
+    if window is None:
+        return dict(is_causal=causal)
+    qp = torch.arange(S, device="cuda")[:, None]
+    kp = torch.arange(Sk, device="cuda")[None, :]
+    return dict(attn_mask=(qp - kp < window) & ((qp >= kp) if causal
+                                                else True))
 
 
 def check_flash(flush, shape: dict = FLASH_SHAPE, arch: str | None = None,
@@ -319,13 +358,7 @@ def check_flash(flush, shape: dict = FLASH_SHAPE, arch: str | None = None,
             qt.reshape(B * H, S, D), kt.reshape(B * Hkv, Sk, D),
             vt.reshape(B * Hkv, Sk, D), **kw, block_q=bq, block_k=bk),
             3, flush)
-        if window is None:
-            sdpa_kw = dict(is_causal=causal)
-        else:       # a bool mask (True = attend) of the kernels' band
-            qp = torch.arange(S, device="cuda")[:, None]
-            kp = torch.arange(Sk, device="cuda")[None, :]
-            sdpa_kw = dict(attn_mask=(qp - kp < window) &
-                           ((qp >= kp) if causal else True))
+        sdpa_kw = band_mask(S, Sk, causal, window)
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, enable_gqa=True, **sdpa_kw)
         lib_ms, _ = time_ms(sdpa, 20, flush)
@@ -350,42 +383,49 @@ def check_flash(flush, shape: dict = FLASH_SHAPE, arch: str | None = None,
     return row
 
 
-def check_flash_bwd(flush, dtype: torch.dtype = torch.bfloat16
+def check_flash_bwd(flush, dtype: torch.dtype = torch.bfloat16,
+                    shape: dict = FLASH_BWD_SHAPE, arch: str | None = None
                     ) -> list[dict]:
-    """The dq and dk/dv kernels at the train phase's shape (B 2, S 2048,
-    32/8 heads), reached as the train path reaches them: the grads that
+    """The dq and dk/dv kernels at ``shape`` (default the train phase's:
+    B 2, S 2048, 32/8 heads, causal; ``shape`` may give ``Sk`` (default
+    S), ``causal`` (default True) and ``window``), reached as
+    the train path reaches them: the grads that
     ``flash_attention_train``'s backward returns for (B, S, H, D) leaves
-    fed a transposed ``do``.  bf16 must take the wgmma route, f32 the
-    CUDA-core one (its rows are named by its keys).  That backward is
+    fed a transposed ``do``.  bf16 at head_dim 64 or 128 must take the
+    wgmma route, f32 and head_dim 256 the CUDA-core one (its rows are
+    named by its keys).  That backward is
     ``flash_attention_bwd`` (delta from the strided o and do, then the
     kernels) cast to the inputs' dtype, so its f32 results on the same
     residuals are held against the plain backward at the route's blocks
     and rounding, and the autograd grads must equal them cast, bit for bit
     (no atomics: every run sums in one order)."""
     from repro_torch.kernels import attention as katt
-    B, S, H, Hkv, D = 2, 2048, 32, 8, 128
+    B, S, H, Hkv, D = (shape[k] for k in ("B", "S", "H", "Hkv", "D"))
+    Sk = shape.get("Sk", S)
+    causal, window = shape.get("causal", True), shape.get("window")
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     q, do = (torch.randn((B, S, H, D), generator=g, device="cuda")
              .to(dtype) for _ in range(2))
-    k, v = (torch.randn((B, S, Hkv, D), generator=g, device="cuda")
+    k, v = (torch.randn((B, Sk, Hkv, D), generator=g, device="cuda")
             .to(dtype) for _ in range(2))
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     route = katt.flash_bwd_route(qt, kt, vt, dot)
-    want = "flash_bwd" if dtype == torch.bfloat16 else "flash_bwd_simt"
-    require(route == want, f"flash backward: the {dtype} train shape "
-            f"takes route {route}, not {want}")
+    want = bwd_route_of(shape, dtype)
+    require(route == want, f"flash backward: {dtype} at {shape} takes "
+            f"route {route}, not {want}")
     sfx = "" if route == "flash_bwd" else "_simt"
     close_fn = closeness_rounded if route == "flash_bwd" else closeness_f32
-    plain_kw = dict(causal=True, **katt.flash_bwd_plain_kw(route))
+    band = dict(causal=causal, window=window)
+    plain_kw = dict(band, **katt.flash_bwd_plain_kw(route))
     leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
     o_fn = katt.flash_attention_train(*(x.transpose(1, 2) for x in leaves),
-                                      causal=True)
+                                      **band)
     grads = torch.autograd.grad(o_fn, leaves, dot)
-    flat = (qt.reshape(B * H, S, D), kt.reshape(B * Hkv, S, D),
-            vt.reshape(B * Hkv, S, D), dot.reshape(B * H, S, D))
+    flat = (qt.reshape(B * H, S, D), kt.reshape(B * Hkv, Sk, D),
+            vt.reshape(B * Hkv, Sk, D), dot.reshape(B * H, S, D))
     with torch.no_grad():
-        o, lse = katt.flash_attention_fwd_cuda(qt, kt, vt, causal=True)
-        f32 = katt.flash_attention_bwd(qt, kt, vt, o, lse, dot, causal=True)
+        o, lse = katt.flash_attention_fwd_cuda(qt, kt, vt, **band)
+        f32 = katt.flash_attention_bwd(qt, kt, vt, o, lse, dot, **band)
         delta = (o.float() * dot.float()).sum(-1).reshape(B * H, S) \
             .contiguous()
         dq_ref, dk_ref, dv_ref = katt.flash_attention_bwd_plain(
@@ -393,8 +433,8 @@ def check_flash_bwd(flush, dtype: torch.dtype = torch.bfloat16
         torch.cuda.synchronize()
         dq, dk, dv = f32
         close = {"flash_bwd_dq": close_fn(dq.reshape(B * H, S, D), dq_ref)}
-        ck = close_fn(dk.reshape(B * Hkv, S, D), dk_ref)
-        cv = close_fn(dv.reshape(B * Hkv, S, D), dv_ref)
+        ck = close_fn(dk.reshape(B * Hkv, Sk, D), dk_ref)
+        cv = close_fn(dv.reshape(B * Hkv, Sk, D), dv_ref)
         close["flash_bwd_dkv"] = {
             **{key: max(ck[key], cv[key]) for key in ck
                if isinstance(ck[key], float) and key != "mean_abs_out"},
@@ -414,12 +454,12 @@ def check_flash_bwd(flush, dtype: torch.dtype = torch.bfloat16
                 f"grads vs f32 results cast, max|err| {cast_err}")
         args = (qt, kt, vt, dot, lse, delta)
         launch = {"flash_bwd_dq": lambda: katt.flash_bwd_dq_cuda(
-            *args, causal=True), "flash_bwd_dkv": lambda:
-            katt.flash_bwd_dkv_cuda(*args, causal=True)}
+            *args, **band), "flash_bwd_dkv": lambda:
+            katt.flash_bwd_dkv_cuda(*args, **band)}
         ms = {n: time_ms(f, 20, flush) for n, f in launch.items()}
         dev_ms = {n: device_ms(f, 20, flush) for n, f in launch.items()}
-        dq_kw = {k: plain_kw[k] for k in ("causal", "block_q", "block_k",
-                                          "rounded")}
+        dq_kw = {k: plain_kw[k] for k in ("causal", "window", "block_q",
+                                          "block_k", "rounded")}
         bq, bk = plain_kw["dkv_blocks"]
         dkv_kw = dict(dq_kw, block_q=bq, block_k=bk)
         plain = {"flash_bwd_dq": time_ms(lambda: katt.flash_bwd_dq_plain(
@@ -429,14 +469,14 @@ def check_flash_bwd(flush, dtype: torch.dtype = torch.bfloat16
     del grads, o_fn, f32, dq_ref, dk_ref, dv_ref
     # the library's yardstick: SDPA's backward alone, one call for the pair
     qs, ks, vs = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
-    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                         enable_gqa=True)
+    out = F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True,
+                                         **band_mask(S, Sk, causal, window))
     sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
         out, (qs, ks, vs), dot, retain_graph=True)
     lib_ms, _ = time_ms(sdpa_bwd, 20, flush)
     lib_dev_ms = device_ms(sdpa_bwd, 20, flush)
     del out, qs, ks, vs
-    pairs = B * H * S * (S + 1) // 2               # unmasked (q, k) pairs
+    pairs = B * H * attended_pairs(S, Sk, causal, window)  # unmasked
     inputs = q.element_size() * (q.numel() + k.numel() + v.numel() +
                                  do.numel()) + \
         4 * (lse.numel() + delta.numel())
@@ -454,11 +494,16 @@ def check_flash_bwd(flush, dtype: torch.dtype = torch.bfloat16
                    device_ms=dev_ms[name], plain_ms=plain[name],
                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                    library_device_ms=lib_dev_ms,
-                   library="SDPA backward (causal, GQA), dq+dk+dv in one call",
+                   library="SDPA backward (" +
+                   ("causal, " if causal else "") + "GQA" +
+                   (", bool band mask" if window else "") +
+                   "), dq+dk+dv in one call",
                    blocks=(plain_kw["block_q"], plain_kw["block_k"])
                    if name == "flash_bwd_dq" else plain_kw["dkv_blocks"],
                    dtype=str(dtype).split(".")[-1],
-                   shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D, causal=True))
+                   shape=dict(B=B, S=S, Sk=Sk, H=H, Hkv=Hkv, D=D,
+                              causal=causal, window=window),
+                   **({} if arch is None else {"arch": arch}))
         emit("kernel_check", **row)
         rows.append(row)
     return rows
@@ -1234,12 +1279,11 @@ def logits_check(params, arch: str = ARCH, n: int = 1536,
     import dataclasses
 
     from repro_torch.configs import get_bundle
-    from repro_torch.launch.serve import serve_extras
     bundle = get_bundle(arch)
     tok = torch.from_numpy(prompts(1, n, n, SEED + 9,
                                    bundle.cfg.vocab)[0][None]) \
         .long().to("cuda")
-    extras = serve_extras(bundle, 1, "cuda") or None
+    extras = bundle.zero_extras(1, bundle.cfg.dtype, "cuda") or None
     max_len = n + getattr(bundle.cfg, "vision_tokens", 0)
     out = {}
     with torch.no_grad():
@@ -1558,31 +1602,32 @@ def token_batch(B: int, S: int, seed: int, vocab: int) -> dict:
 NORM_TOL = 5e-3
 
 
-def train_check(params) -> dict:
-    """Loss and gradients of one B 1, S 2048 batch through the flash
-    kernels (forward and backward) against the plain attention path, both
-    under per-layer recompute: bf16 over 36 layers is not bit-stable across
-    attention paths, so this asserts a relative loss difference under 1e-3
-    and, per leaf, a cosine over 0.99 and a norm within ``NORM_TOL`` of
-    the plain path's."""
+def train_check(params, bundle=None, B: int = 1, S: int = 2048) -> dict:
+    """Loss and gradients of one (B, S) batch through the flash kernels
+    (forward and backward) against the plain attention path, both under
+    per-layer recompute, for ``bundle`` (default qwen3-4b's): bf16 over
+    many layers is not bit-stable across attention paths, so this asserts
+    a relative loss difference under 1e-3 and, per leaf, a cosine over
+    0.99 and a norm within ``NORM_TOL`` of the plain path's.  The leaves:
+    the embedding, and wq, wk and wv of the first and the last attention
+    layer (recurrentgemma: of its attention groups)."""
     import dataclasses
 
     from repro_torch.configs import get_bundle
-    from repro_torch.models import transformer
     from repro_torch.training import loss_fn
-    bundle = get_bundle(ARCH)
-    batch = token_batch(1, 2048, SEED + 11, bundle.cfg.vocab)
-    L = bundle.cfg.n_layers
+    bundle = bundle or get_bundle(ARCH)
+    stack = params["attn_groups" if bundle.kind == "hybrid" else "layers"]
+    batch = token_batch(B, S, SEED + 11, bundle.cfg.vocab)
+    L = stack["wq"].shape[0]
     names = ("wq", "wk", "wv")
-    leaves = [params["embed"], *(params["layers"][n] for n in names)]
+    leaves = [params["embed"], *(stack[n] for n in names)]
     out = {}
     for impl in ("pallas", "xla"):
-        cfg = dataclasses.replace(bundle.cfg, attn_impl=impl)
+        b = dataclasses.replace(bundle, cfg=dataclasses.replace(
+            bundle.cfg, attn_impl=impl))
         for p in leaves:
             p.requires_grad_(True)
-        loss, _ = loss_fn(lambda p, b: transformer.forward(cfg, p,
-                                                           b["tokens"]),
-                          params, batch)
+        loss, _ = loss_fn(b.forward, params, batch)
         grads = torch.autograd.grad(loss, leaves)
         for p in leaves:
             p.requires_grad_(False)
@@ -1599,7 +1644,8 @@ def train_check(params) -> dict:
     ratio = {k: (ga[k].float().norm() / gb[k].float().norm()).item()
              for k in ga}
     rel = abs(la - lb) / abs(lb)
-    row = dict(loss_flash=la, loss_plain=lb, loss_rel_diff=rel, cosine=cos,
+    row = dict(arch=bundle.cfg.name, n_layers=bundle.cfg.n_layers, B=B, S=S,
+               loss_flash=la, loss_plain=lb, loss_rel_diff=rel, cosine=cos,
                norm_ratio=ratio,
                tol=f"loss rel diff < 1e-3; per leaf cosine > 0.99 and "
                    f"|norm ratio - 1| < {NORM_TOL}")
@@ -1676,6 +1722,178 @@ def train(params) -> dict:
             f"CUDA-core flash kernel")
     del out
     return row
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: train the vlm, hybrid, audio and ssm families at full width
+# ---------------------------------------------------------------------------
+
+# per family: the depth run (None: the config's own), the batch, why a
+# depth is cut (the state, bf16 params and grads with f32 moments, is 12
+# bytes a param: the full recurrentgemma-9b needs 125 GB, internvl2-26b
+# 238 GB, one card 80), and three probes (the embedding, a leaf of the
+# first unit and one of the last) that must move with every step
+TRAIN_FAMILIES = {
+    "recurrentgemma-9b": dict(
+        n_layers=8, B=1, S=4096,
+        cut="8 of 38 layers: 2 (rec, rec, attn) groups and the 2-layer "
+            "rec tail; the full 10.45 B params need 125 GB of state",
+        probes=(("embed",), ("attn_groups", "wq", 0),
+                ("rec_tail", "mlp_down", -1))),
+    "internvl2-26b": dict(
+        n_layers=8, B=2, S=2048,
+        cut="8 of 48 layers; the full 19.86 B params need 238 GB of state",
+        probes=(("embed",), ("layers", "wq", 0), ("layers", "w_gate", -1))),
+    "whisper-medium": dict(
+        n_layers=None, B=2, S=1024, cut=None,
+        probes=(("embed",), ("enc", "attn", "wq", 0),
+                ("dec", "mlp_w1", -1))),
+    "mamba2-370m": dict(
+        n_layers=None, B=2, S=2048, cut=None,
+        probes=(("embed",), ("layers", "in_proj", 0),
+                ("layers", "out_proj", -1))),
+}
+TRAIN_STEPS = 3
+FLASH_KEYS = ("flash_fwd", "flash_fwd_d256", "flash_fwd_simt",
+              "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_simt",
+              "flash_bwd_dkv_simt")
+
+
+def family_bundle(arch: str):
+    """``arch``'s full-width bundle, cut in depth where TRAIN_FAMILIES
+    says so (every width is the config's own)."""
+    import dataclasses
+
+    from repro_torch.configs import get_bundle
+    bundle = get_bundle(arch)
+    n = TRAIN_FAMILIES[arch]["n_layers"]
+    if n is None:
+        return bundle
+    return dataclasses.replace(bundle, cfg=dataclasses.replace(
+        bundle.cfg, n_layers=n))
+
+
+def attention_calls(bundle) -> int:
+    """Flash attention calls of one forward: recurrentgemma's attention
+    groups, the transformer's layers, whisper's encoder self-attention and
+    decoder self- and cross-attention (all at or above the flash policy's
+    1024-token threshold here), none in mamba2."""
+    if bundle.kind == "hybrid":
+        return bundle.cfg.n_groups
+    if bundle.kind == "audio":
+        return 3 * bundle.cfg.n_layers
+    return bundle.cfg.n_layers if bundle.kind == "vlm" else 0
+
+
+def want_flash(bundle, steps: int) -> dict:
+    """The flash launches ``steps`` train steps must make: the forward
+    twice per attention call (the step's forward and the per-layer
+    recompute), each backward kernel once, all on the family's routes."""
+    n = attention_calls(bundle) * steps
+    want = dict.fromkeys(FLASH_KEYS, 0)
+    if bundle.kind == "hybrid":         # head_dim 256
+        want.update(flash_fwd_d256=2 * n, flash_bwd_dq_simt=n,
+                    flash_bwd_dkv_simt=n)
+    elif n:
+        want.update(flash_fwd=2 * n, flash_bwd_dq=n, flash_bwd_dkv=n)
+    return want
+
+
+def train_family(arch: str) -> dict:
+    """``TRAIN_STEPS`` AdamW steps of ``arch`` at full width (depth cut as
+    ``TRAIN_FAMILIES`` says, random bf16 weights from ``SEED``, one
+    microbatch, zero extras) through ``launch.train.run``; recurrentgemma
+    first holds its flash path against the plain one (``train_check`` at
+    its train batch, the head_dim-256 backward end to end).  Requires
+    finite losses, every probe moved after step 1 and after the last,
+    ``opt_step`` equal to the steps, peak memory under 80 GB and the
+    family's flash launches (``want_flash``).  -> the row."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import run
+    spec = TRAIN_FAMILIES[arch]
+    bundle = family_bundle(arch)
+    B, S = spec["B"], spec["S"]
+    t0 = time.perf_counter()
+    params = bundle.init_params(SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if arch == "recurrentgemma-9b":
+        train_check(params, bundle, B=B, S=S)
+        torch.cuda.empty_cache()
+
+    def probe(path):
+        t = params
+        for key in path:        # dict keys, then a layer index
+            t = t[key]
+        return t[:64, :64]
+
+    def probes():
+        return {"/".join(map(str, p)): probe(p) for p in spec["probes"]}
+
+    def moved():
+        return {k: not torch.equal(before[k], v) for k, v in probes().items()}
+
+    after_first = {}
+
+    def on_step(i, p, opt, m):
+        if i == 0:
+            after_first.update(moved())
+
+    before = {k: v.clone() for k, v in probes().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = run(bundle, steps=TRAIN_STEPS, seq_len=S, global_batch=B,
+              microbatches=1, device="cuda", params=params,
+              on_step=on_step)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    changed = moved()
+    steps_s = out["seconds"]
+    want = want_flash(bundle, TRAIN_STEPS)
+    row = dict(arch=arch, kind=bundle.kind, n_layers=bundle.cfg.n_layers,
+               cut=spec["cut"], params=bundle.param_count(),
+               state_bytes=12 * bundle.param_count(), init_s=init_s,
+               B=B, S=S, steps=len(steps_s), losses=out["losses"],
+               finite=[m["finite"] for m in out["metrics"]],
+               grad_norm=[m["grad_norm"] for m in out["metrics"]],
+               s_per_step=steps_s,
+               tok_per_s_after_first=B * S * (len(steps_s) - 1) /
+               sum(steps_s[1:]), wall_s=wall, max_memory_allocated=peak,
+               params_changed_after_step_1=after_first,
+               params_changed=changed, opt_step=int(out["opt"]["step"]),
+               flash_launches={k: launches[k] for k in FLASH_KEYS},
+               want_flash_launches=want, launches=launches)
+    emit("train_families", **row)
+    require(all(math.isfinite(x) for x in out["losses"]) and
+            all(f == 1.0 for f in row["finite"]) and
+            len(steps_s) == TRAIN_STEPS,
+            f"train_families {arch}: a loss or finite flag is bad: {row}")
+    require(len(after_first) == len(changed) == len(spec["probes"]) and
+            all(after_first.values()) and all(changed.values()) and
+            row["opt_step"] == TRAIN_STEPS,
+            f"train_families {arch}: params did not change: after step 1 "
+            f"{after_first}, after step {TRAIN_STEPS} {changed}")
+    require(peak < 80e9, f"train_families {arch}: peak memory {peak} B")
+    require(row["flash_launches"] == want,
+            f"train_families {arch}: flash launches "
+            f"{row['flash_launches']}, want {want}")
+    del out, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_families() -> dict:
+    """Each family of ``TRAIN_FAMILIES`` in turn on an empty card.  -> the
+    train runs' launches, summed."""
+    total: dict[str, int] = {}
+    for arch in TRAIN_FAMILIES:
+        for k, n in train_family(arch)["launches"].items():
+            total[k] = total.get(k, 0) + n
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1919,17 +2137,23 @@ def main() -> int:
                                    check_flash(flush, FLASH_D256_SHAPE,
                                                "recurrentgemma-9b"),
                                    *check_flash_bwd(flush),
+                                   *check_flash_bwd(
+                                       flush, shape=FLASH_D256_SHAPE,
+                                       arch="recurrentgemma-9b"),
                                    check_paged(False, flush),
                                    check_paged(True, flush),
                                    *check_paper_kernels(flush))}
-    # the CUDA-core routes, which no main path takes: each once at its
-    # sibling's shape in f32 beside its library call in f32, and the
-    # forward's also at recurrentgemma's shape in bf16 through a padded
-    # stride (the kernel the D-256 route replaced on that path); lines of
-    # their own, not rows of the kernels line
+    # the CUDA-core routes at their sibling's shape in f32 beside its
+    # library call in f32, and the forward's also at recurrentgemma's
+    # shape in bf16 through a padded stride (the kernel the D-256 route
+    # replaced on that path); lines of their own, not rows of the kernels
+    # line (the backward pair's rows there are recurrentgemma's bf16
+    # head_dim-256 ones, which train_families launches)
     check_flash(flush, FLASH_SHAPE, dtype=torch.float32)
     check_flash(flush, dict(FLASH_D256_SHAPE, pad=4), "recurrentgemma-9b")
     check_flash_bwd(flush, torch.float32)
+    for arch, shape in FLASH_ZOO_BWD_SHAPES.items():
+        check_flash_bwd(flush, shape=shape, arch=arch)
     check_paper_kernels(flush, torch.float32)
     # every flash route at nonzero q / k offsets
     check_flash_offsets()
@@ -1968,14 +2192,17 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    # phase 5b: train the vlm, hybrid, audio and ssm families at full width
+    families_trained = train_families()
+
     # phase 6: kill and restart the full-width training from a checkpoint
     recovered = recovery()
 
     # phase 7: the kernels line (one row per kernel route a main path runs),
     # launches from the paper-workload, serve, serve_moe, serve_families,
-    # train and recovery phases
+    # train, train_families and recovery phases
     phases = (paper, *(r["launches"] for r in served.values()), moe,
-              families, trained["launches"], recovered)
+              families, trained["launches"], families_trained, recovered)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in rows}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's training step, on one CUDA card.
 
-    python3 scripts/profile_train_torch.py [--steps 3]
+    python3 scripts/profile_train_torch.py [--steps 3] [--arch ARCH]
 
 Takes the ``train`` phase of ``chip_smoke.py``: qwen3-4b at full width,
 bf16, random weights from seed 0, AdamW steps of B 2 x S 2048 synthetic
-tokens with one microbatch and per-layer recompute, through
+tokens with one microbatch and per-layer recompute (or, with ``--arch``
+one of ``chip_smoke.TRAIN_FAMILIES``, that family as ``train_families``
+runs it: its depth cut, its batch and the launcher's zero extras), through
 ``training.make_train_step`` as ``launch.train.run`` builds it.  After one
 warm-up step it times ``--steps`` steps on the host clock (each ending in a
 device synchronise) and profiles one more under ``torch.profiler``.
@@ -36,12 +38,12 @@ import chip_smoke  # noqa: E402
 from profile_serve_torch import (_device_events, _group,  # noqa: E402
                                  _union_us)
 
-B, S = 2, 2048
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--arch", default=chip_smoke.ARCH,
+                    help="qwen3-4b (B 2 x S 2048) or an arch of "
+                         "chip_smoke.TRAIN_FAMILIES")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train_torch: no CUDA device", file=sys.stderr)
@@ -49,9 +51,14 @@ def main(argv=None) -> int:
     print(chip_smoke.smi(), flush=True)
     from repro_torch.configs import get_bundle
     from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.train import make_extras
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.training import TrainHyper, make_train_step
-    bundle = get_bundle(chip_smoke.ARCH)
+    if a.arch in chip_smoke.TRAIN_FAMILIES:
+        bundle = chip_smoke.family_bundle(a.arch)
+        B, S = (chip_smoke.TRAIN_FAMILIES[a.arch][k] for k in "BS")
+    else:
+        bundle, B, S = get_bundle(a.arch), 2, 2048
     params = bundle.init_params(chip_smoke.SEED, device="cuda")
     opt = adamw_init(params)
     n = a.steps + 2
@@ -59,8 +66,10 @@ def main(argv=None) -> int:
         optimizer=AdamWConfig(warmup_steps=5, total_steps=max(n, 10))))
     data = SyntheticLM(DataConfig(vocab=bundle.cfg.vocab, seq_len=S,
                                   global_batch=B))
-    batches = [{k: torch.from_numpy(v).to("cuda", torch.long)
-                for k, v in data.batch(i, 0, B).items()} for i in range(n)]
+    extras = make_extras(bundle, B, "cuda")
+    batches = [{**{k: torch.from_numpy(v).to("cuda", torch.long)
+                   for k, v in data.batch(i, 0, B).items()}, **extras}
+               for i in range(n)]
 
     def step(i):
         torch.cuda.synchronize()
@@ -91,7 +100,8 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     secs = [t for t, _ in timed]
     mean_s = sum(secs) / len(secs)
-    row = dict(batch=B, seq_len=S, step_s=secs,
+    row = dict(arch=a.arch, n_layers=bundle.cfg.n_layers, batch=B,
+               seq_len=S, step_s=secs,
                losses=[loss for _, loss in timed],
                tok_per_s=B * S / mean_s,
                max_memory_allocated=torch.cuda.max_memory_allocated(),

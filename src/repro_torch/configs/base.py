@@ -106,6 +106,21 @@ class ArchBundle:
         return self.param_count()
 
     # -- steps -------------------------------------------------------------
+    def zero_extras(self, batch: int, dtype: torch.dtype, device) -> dict:
+        """The stub frontends' zero inputs for ``batch`` rows, of ``dtype``
+        on ``device``: ``frames`` (batch, n_audio_ctx, d_model) for the
+        audio kind, ``vision`` (batch, vision_tokens, d_model) for the vlm
+        kind, none otherwise."""
+        cfg = self.cfg
+        if self.kind == "audio":
+            name, n = "frames", cfg.n_audio_ctx
+        elif self.kind == "vlm":
+            name, n = "vision", cfg.vision_tokens
+        else:
+            return {}
+        return {name: torch.zeros((batch, n, cfg.d_model), dtype=dtype,
+                                  device=device)}
+
     def forward(self, params, batch):
         if self.kind == "audio":
             return self.family.forward(self.cfg, params, batch["tokens"],

@@ -17,12 +17,14 @@ the tensor-core (``wgmma``) kernel with 128 x 128 blocks, for bf16 at
 head_dim 64 or 128 with strides TMA can read; ``"flash_fwd_d256"``, the
 wgmma kernel for bf16 at head_dim 256 with such strides, with 128 x 64
 blocks; and ``"flash_fwd_simt"``, the CUDA-core kernel with 64 x 64
-blocks, for f32 and anything else.  The backward takes head_dim 64 or 128
-only.  The backward has two routes of its own (:func:`flash_bwd_route`),
-decided on q, k, v and do: ``"flash_bwd"``, the wgmma dq kernel (128 q
-rows x 64-key blocks) and dk/dv kernel (64-row q blocks x 128 keys), which
-round p and ds to bf16 before their second products; and
-``"flash_bwd_simt"``, the CUDA-core pair at 64 x 64 in f32.  Each backward
+blocks, for f32 and anything else.  The backward takes head_dim 64, 128
+or 256 and has two routes of its own (:func:`flash_bwd_route`), decided
+on q, k, v and do: ``"flash_bwd"``, the wgmma dq kernel (128 q rows x
+64-key blocks) and dk/dv kernel (64-row q blocks x 128 keys) at head_dim
+64 or 128, which round p and ds to bf16 before their second products; and
+``"flash_bwd_simt"``, the CUDA-core pair at 64 x 64 in f32, which takes
+head_dim 256 in both dtypes (its streamed operand in two passes of 128
+columns).  Each backward
 route reads only o and the per-row lse, whose layouts do not depend on the
 forward's route.
 
@@ -49,8 +51,7 @@ from . import _build
 NEG_INF = -1e30  # avoid nan from (-inf) - (-inf)
 
 # Block shape of the CUDA-core forward and backward kernels (64 x 64 score
-# tile at head_dim 64 or 128, and 256 for the forward; see
-# csrc/flash_fwd.cu, flash_bwd.cu).
+# tile at head_dim 64, 128 and 256; see csrc/flash_fwd.cu, flash_bwd.cu).
 BLOCK_Q = 64
 BLOCK_K = 64
 # Block shape of the wgmma forward: 128 q rows (two warpgroups of 64) by
@@ -517,7 +518,8 @@ def flash_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pair, launch keys ``flash_bwd_dq`` and ``flash_bwd_dkv``) for bf16 q,
     k, v and do at head_dim 64 or 128 that TMA can read,
     ``"flash_bwd_simt"`` (keys ``flash_bwd_dq_simt``,
-    ``flash_bwd_dkv_simt``) otherwise."""
+    ``flash_bwd_dkv_simt``) otherwise, head_dim 256 in either dtype
+    included."""
     ok = (all(_tma_readable(t) for t in (q, k, v, do))
           and q.shape[-1] in (64, 128))
     return "flash_bwd" if ok else "flash_bwd_simt"
@@ -604,9 +606,9 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
 
 # head dims each direction's kernels are built for (csrc/flash_fwd.cu
 # takes 256 on its own wgmma route and the CUDA-core one; csrc/flash_bwd.cu
-# does not)
+# on the CUDA-core route only)
 FWD_HEAD_DIMS = (64, 128, 256)
-BWD_HEAD_DIMS = (64, 128)
+BWD_HEAD_DIMS = (64, 128, 256)
 
 
 def _check_inputs(what: str, q: torch.Tensor, k: torch.Tensor,

@@ -75,10 +75,26 @@
 //   k blocks from the first (dk/dv), so the longest CTAs start first.
 //
 // Route "flash_bwd_simt" (launch keys flash_bwd_dq_simt,
-// flash_bwd_dkv_simt): f32, other head dims of the build, or strides TMA
+// flash_bwd_dkv_simt): f32, head_dim 256 (bf16 too), or strides TMA
 // cannot take.  The first port's CUDA-core kernels: f32 from shared
 // memory (64 x 64 tiles, 4 x 4 register tile per thread), p and ds
 // unrounded, more than 48 KB of dynamic shared memory per CTA.
+//   Head dim 256 (recurrentgemma-9b's local MQA): whole f32 tiles of all
+//   four operands at a row pitch of D + 1 would take 279,808 bytes (dq)
+//   and 296,448 (dk/dv), above the 232,448 a block may opt into.  So the
+//   operand a kernel streams (K and V in dq, Q and dO in dk/dv) comes in
+//   two passes of 128 columns, while the resident pair stays whole: S and
+//   dP sum over the passes in registers (in the order of the head dim, as
+//   one pass would), then dq += dS K (dk/dv: dV += P^T dO, dK += dS^T Q)
+//   runs pass by pass from the second back to the first, which is staged
+//   again once a block (a step).  Shared memory 214,272 bytes (dq) and
+//   230,912 (dk/dv), one CTA an SM; accumulators 4 x 16 floats a thread
+//   (dq) and twice that (dk/dv).  Bound by operations like the rest: at
+//   B 1, S 4096, 16/1 heads and a 2048 window, 6 x D flops a pair for dq
+//   and 8 x D for dk/dv are 0.156 and 0.209 ms at the bf16 tensor-core
+//   peak; on CUDA cores they take tens of times that (PERF.md), and with
+//   one kv head the dk/dv grid is 64 CTAs on 132 SMs, the 16 q heads
+//   folded in each.
 #include "flash_band.cuh"
 #include "hopper.cuh"
 
@@ -567,38 +583,62 @@ constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NT = 256;  // 16 x 16 threads
 
+// Columns of the streamed operand (K and V in dq, Q and dO in dk/dv) that
+// one pass stages: the whole head dim up to 128, two passes at 256 (the
+// file's header says why).
+__host__ __device__ constexpr int pass_cols(int D) {
+  return D > 128 ? 128 : D;
+}
+
+// Dynamic shared memory of the CUDA-core kernels (f32): the resident
+// operand pair whole at a row pitch of D + 1, the streamed pair at one
+// pass's DC + 1, and the 64 x 65 score tiles (ds; dk/dv also p).  At head
+// dim 256: 214,272 bytes (dq) and 230,912 (dk/dv).
+template <int D, int N_SCORE>
+constexpr int simt_smem() {
+  return (int)sizeof(float) * (2 * 64 * (D + 1) +
+                               2 * 64 * (pass_cols(D) + 1) +
+                               N_SCORE * BQ * (BK + 1));
+}
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// Load a (64, D) tile of rows [row0, row0 + 64) into shared memory with a
-// row pitch of D + 1 floats; rows at or past n_rows load as zeros.
-template <typename T, int D>
+// Load columns [0, W) of rows [row0, row0 + 64) of `src` (row stride s_row)
+// into shared memory with a row pitch of W + 1 floats; rows at or past
+// n_rows load as zeros.
+template <typename T, int W>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           long long s_row, int row0,
                                           int n_rows) {
-  for (int i = threadIdx.x; i < 64 * D; i += NT) {
-    const int r = i / D, e = i % D;
+  for (int i = threadIdx.x; i < 64 * W; i += NT) {
+    const int r = i / W, e = i % W;
     const int row = row0 + r;
-    dst[r * (D + 1) + e] = row < n_rows ? to_f(src[row * s_row + e]) : 0.f;
+    dst[r * (W + 1) + e] = row < n_rows ? to_f(src[row * s_row + e]) : 0.f;
   }
 }
 
-// s[i][j] = sum_e a[ty + 16 i][e] * b[tx + 16 j][e] for two (64, D) tiles.
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* a,
-                                         const float* b, int tx, int ty) {
+__device__ __forceinline__ void zero(float (&s)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  for (int e = 0; e < D; ++e) {
+}
+
+// s[i][j] += sum_{e < W} a[ty + 16 i][e] * b[tx + 16 j][e] for two 64-row
+// tiles of row pitches PA and PB floats.  Over the passes of a head dim
+// the terms add in the order of e, as one pass over the whole dim would.
+template <int W, int PA, int PB>
+__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* a,
+                                         const float* b, int tx, int ty) {
+  for (int e = 0; e < W; ++e) {
     float x[4], y[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = a[(ty + 16 * i) * (D + 1) + e];
+    for (int i = 0; i < 4; ++i) x[i] = a[(ty + 16 * i) * PA + e];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = b[(tx + 16 * j) * (D + 1) + e];
+    for (int j = 0; j < 4; ++j) y[j] = b[(tx + 16 * j) * PB + e];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -606,6 +646,11 @@ __device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* a,
   }
 }
 
+// dq: Q and dO stay whole in shared memory; each K / V block streams in
+// passes of DC columns, S and dP summing over the passes in registers.
+// dq += dS K then runs pass by pass from the last (still staged) back to
+// the first, each earlier pass's K columns staged again (at head_dim 256
+// one extra K pass a block).
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -617,13 +662,16 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     long long v_sb, long long v_sh, long long v_ss, long long do_sb,
     long long do_sh, long long do_ss, long long dq_sb, long long dq_sh,
     long long dq_ss) {
-  constexpr int NJ = D / 16;  // output columns per thread
+  constexpr int NJ = D / 16;           // output columns per thread
+  constexpr int DC = pass_cols(D);     // K / V columns a pass
+  constexpr int NC = D / DC;           // passes over the head dim
+  constexpr int NJC = DC / 16;         // output columns per thread a pass
   extern __shared__ float smem[];
-  float* q_s = smem;                  // [BQ][D + 1]
-  float* do_s = q_s + BQ * (D + 1);   // [BQ][D + 1]
-  float* k_s = do_s + BQ * (D + 1);   // [BK][D + 1]
-  float* v_s = k_s + BK * (D + 1);    // [BK][D + 1]
-  float* ds_s = v_s + BK * (D + 1);   // [BQ][BK + 1]
+  float* q_s = smem;                   // [BQ][D + 1]
+  float* do_s = q_s + BQ * (D + 1);    // [BQ][D + 1]
+  float* k_s = do_s + BQ * (D + 1);    // [BK][DC + 1]
+  float* v_s = k_s + BK * (DC + 1);    // [BK][DC + 1]
+  float* ds_s = v_s + BK * (DC + 1);   // [BQ][BK + 1]
 
   const int iq = blockIdx.x;
   const int bh = blockIdx.y;
@@ -652,14 +700,18 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   }
   for (int ik = lo; ik <= hi; ++ik) {
     const int k0 = ik * BK;
-    __syncthreads();  // q_s / do_s written; last block's k_s, ds_s reads done
-    load_tile<T, D>(k_s, kb, k_ss, k0, Sk);
-    load_tile<T, D>(v_s, vb, v_ss, k0, Sk);
-    __syncthreads();
-
     float s[4][4], dp[4][4];
-    tile_dot<D>(s, q_s, k_s, tx, ty);
-    tile_dot<D>(dp, do_s, v_s, tx, ty);
+    zero(s);
+    zero(dp);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      __syncthreads();  // q_s / do_s written; last reads of k_s, v_s, ds_s
+      load_tile<T, DC>(k_s, kb + c * DC, k_ss, k0, Sk);
+      load_tile<T, DC>(v_s, vb + c * DC, v_ss, k0, Sk);
+      __syncthreads();
+      tile_dot<DC, D + 1, DC + 1>(s, q_s + c * DC, k_s, tx, ty);
+      tile_dot<DC, D + 1, DC + 1>(dp, do_s + c * DC, v_s, tx, ty);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const Span keys = flash_band::key_span(q0 + ty + 16 * i, Sq, Sk,
@@ -674,16 +726,24 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
             p * (dp[i][j] - delta_r[i]) * scale;
       }
     }
-    __syncthreads();
-    for (int c = 0; c < BK; ++c) {
-      float dsv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = ds_s[(ty + 16 * i) * (BK + 1) + c];
+    for (int c = NC - 1; c >= 0; --c) {
+      __syncthreads();  // ds_s written; the last pass's reads of k_s done
+      if (c < NC - 1) {
+        load_tile<T, DC>(k_s, kb + c * DC, k_ss, k0, Sk);
+        __syncthreads();
+      }
+      for (int kk = 0; kk < BK; ++kk) {
+        float dsv[4];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float kv = k_s[c * (D + 1) + tx + 16 * j];
+        for (int i = 0; i < 4; ++i)
+          dsv[i] = ds_s[(ty + 16 * i) * (BK + 1) + kk];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] += dsv[i] * kv;
+        for (int j = 0; j < NJC; ++j) {
+          const float kv = k_s[kk * (DC + 1) + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[i][c * NJC + j] += dsv[i] * kv;
+        }
       }
     }
   }
@@ -697,6 +757,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   }
 }
 
+// dk/dv: K and V stay whole in shared memory; each (q block, head) step
+// streams Q and dO in passes of DC columns, as dq streams K and V, and
+// dV += P^T dO, dK += dS^T Q run pass by pass from the last back to the
+// first (at head_dim 256 one extra Q and dO pass a step).
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -711,13 +775,16 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
     long long dk_sh, long long dk_ss, long long dv_sb, long long dv_sh,
     long long dv_ss) {
   constexpr int NJ = D / 16;
+  constexpr int DC = pass_cols(D);     // Q / dO columns a pass
+  constexpr int NC = D / DC;
+  constexpr int NJC = DC / 16;
   extern __shared__ float smem[];
-  float* k_s = smem;                  // [BK][D + 1]
-  float* v_s = k_s + BK * (D + 1);    // [BK][D + 1]
-  float* q_s = v_s + BK * (D + 1);    // [BQ][D + 1]
-  float* do_s = q_s + BQ * (D + 1);   // [BQ][D + 1]
-  float* p_s = do_s + BQ * (D + 1);   // [BQ][BK + 1]
-  float* ds_s = p_s + BQ * (BK + 1);  // [BQ][BK + 1]
+  float* k_s = smem;                   // [BK][D + 1]
+  float* v_s = k_s + BK * (D + 1);     // [BK][D + 1]
+  float* q_s = v_s + BK * (D + 1);     // [BQ][DC + 1]
+  float* do_s = q_s + BQ * (DC + 1);   // [BQ][DC + 1]
+  float* p_s = do_s + BQ * (DC + 1);   // [BQ][BK + 1]
+  float* ds_s = p_s + BQ * (BK + 1);   // [BQ][BK + 1]
 
   const int ik = blockIdx.x;
   const int Hkv = H / G;
@@ -742,14 +809,21 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
     for (int g = 0; g < G; ++g) {
       const int h = hk * G + g;
       const long long bh = (long long)b * H + h;
-      __syncthreads();  // k_s / v_s written; last tile's reads done
-      load_tile<T, D>(q_s, q + b * q_sb + h * q_sh, q_ss, q0, Sq);
-      load_tile<T, D>(do_s, dout + b * do_sb + h * do_sh, do_ss, q0, Sq);
-      __syncthreads();
-
+      const T* qb = q + b * q_sb + h * q_sh;
+      const T* dob = dout + b * do_sb + h * do_sh;
       float s[4][4], dp[4][4];
-      tile_dot<D>(s, q_s, k_s, tx, ty);   // q row ty + 16 i, key tx + 16 j
-      tile_dot<D>(dp, do_s, v_s, tx, ty);
+      zero(s);
+      zero(dp);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        __syncthreads();  // k_s / v_s written; last reads of q_s .. ds_s
+        load_tile<T, DC>(q_s, qb + c * DC, q_ss, q0, Sq);
+        load_tile<T, DC>(do_s, dob + c * DC, do_ss, q0, Sq);
+        __syncthreads();
+        // q row ty + 16 i, key tx + 16 j
+        tile_dot<DC, DC + 1, D + 1>(s, q_s, k_s + c * DC, tx, ty);
+        tile_dot<DC, DC + 1, D + 1>(dp, do_s, v_s + c * DC, tx, ty);
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int qpos = q0 + ty + 16 * i;
@@ -767,23 +841,31 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
           ds_s[at] = p * (dp[i][j] - dl) * scale;
         }
       }
-      __syncthreads();
-      // dv += p^T do, dk += ds^T q over the tile's 64 q rows
-      for (int r = 0; r < BQ; ++r) {
-        float pv[4], dsv[4];
+      // dv += p^T do, dk += ds^T q over the tile's 64 q rows, pass by pass
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = p_s[r * (BK + 1) + ty + 16 * i];
-          dsv[i] = ds_s[r * (BK + 1) + ty + 16 * i];
+      for (int c = NC - 1; c >= 0; --c) {
+        __syncthreads();  // p_s, ds_s written; last pass's reads of q_s done
+        if (c < NC - 1) {
+          load_tile<T, DC>(q_s, qb + c * DC, q_ss, q0, Sq);
+          load_tile<T, DC>(do_s, dob + c * DC, do_ss, q0, Sq);
+          __syncthreads();
         }
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float dov = do_s[r * (D + 1) + tx + 16 * j];
-          const float qv = q_s[r * (D + 1) + tx + 16 * j];
+        for (int r = 0; r < BQ; ++r) {
+          float pv[4], dsv[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            acc_v[i][j] += pv[i] * dov;
-            acc_k[i][j] += dsv[i] * qv;
+            pv[i] = p_s[r * (BK + 1) + ty + 16 * i];
+            dsv[i] = ds_s[r * (BK + 1) + ty + 16 * i];
+          }
+#pragma unroll
+          for (int j = 0; j < NJC; ++j) {
+            const float dov = do_s[r * (DC + 1) + tx + 16 * j];
+            const float qv = q_s[r * (DC + 1) + tx + 16 * j];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              acc_v[i][c * NJC + j] += pv[i] * dov;
+              acc_k[i][c * NJC + j] += dsv[i] * qv;
+            }
           }
         }
       }
@@ -810,8 +892,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* ranges, int B, int H, int G, int Sq, int Sk,
               int nq, int causal, int window, int shift, const long long* st,
               float scale, cudaStream_t stream) {
-  const int smem =
-      (int)sizeof(float) * (4 * 64 * (D + 1) + BQ * (BK + 1));
+  constexpr int smem = simt_smem<D, 1>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -833,8 +914,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* ranges, int B, int H, int G, int Sq, int Sk,
                int nk, int causal, int window, int shift,
                const long long* st, float scale, cudaStream_t stream) {
-  const int smem =
-      (int)sizeof(float) * (4 * 64 * (D + 1) + 2 * BQ * (BK + 1));
+  constexpr int smem = simt_smem<D, 2>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -853,8 +933,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype: 0 = bf16, 1 = f32 (q, k, v, do); D: 64 or 128; window <= 0 means
-// none; q_off / k_off: the global positions of q row 0 and key 0 (the
+// dtype: 0 = bf16, 1 = f32 (q, k, v, do); D: 64, 128 or 256; window <= 0
+// means none; q_off / k_off: the global positions of q row 0 and key 0 (the
 // masks compare q_off + q with k_off + k).  lse, delta: f32 (B * H, Sq)
 // contiguous.  dq: f32, written through
 // its strides.  ranges: (nq, 2) int32 inclusive k-block range of each q
@@ -871,8 +951,10 @@ extern "C" int flash_bwd_dq_simt(const void* q, const void* k, const void* v,
 #define ARGS                                                              \
   q, k, v, dout, lse, delta, dq, ranges, B, H, G, Sq, Sk, nq, causal, \
       window, q_off - k_off, strides, scale, s
+  if (dtype == 0 && D == 256) return launch_dq<__nv_bfloat16, 256>(ARGS);
   if (dtype == 0 && D == 128) return launch_dq<__nv_bfloat16, 128>(ARGS);
   if (dtype == 0 && D == 64) return launch_dq<__nv_bfloat16, 64>(ARGS);
+  if (dtype == 1 && D == 256) return launch_dq<float, 256>(ARGS);
   if (dtype == 1 && D == 128) return launch_dq<float, 128>(ARGS);
   if (dtype == 1 && D == 64) return launch_dq<float, 64>(ARGS);
 #undef ARGS
@@ -894,8 +976,10 @@ extern "C" int flash_bwd_dkv_simt(const void* q, const void* k, const void* v,
 #define ARGS                                                                \
   q, k, v, dout, lse, delta, dk, dv, ranges, B, H, G, Sq, Sk, nk, causal, \
       window, q_off - k_off, strides, scale, s
+  if (dtype == 0 && D == 256) return launch_dkv<__nv_bfloat16, 256>(ARGS);
   if (dtype == 0 && D == 128) return launch_dkv<__nv_bfloat16, 128>(ARGS);
   if (dtype == 0 && D == 64) return launch_dkv<__nv_bfloat16, 64>(ARGS);
+  if (dtype == 1 && D == 256) return launch_dkv<float, 256>(ARGS);
   if (dtype == 1 && D == 128) return launch_dkv<float, 128>(ARGS);
   if (dtype == 1 && D == 64) return launch_dkv<float, 64>(ARGS);
 #undef ARGS

@@ -18,7 +18,6 @@ import argparse
 import time
 
 import numpy as np
-import torch
 
 from repro_torch.configs import ARCH_IDS, get_bundle
 from repro_torch.device import resolve_device
@@ -66,21 +65,6 @@ class _BundleAdapter:
                                       lengths, counts)
 
 
-def serve_extras(bundle, slots: int, device) -> dict:
-    """The zero prefill extras of the stub frontends, one row a slot, on
-    ``device`` in the model's dtype: ``frames`` (slots, n_audio_ctx, D)
-    for an audio model, ``vision`` (slots, vision_tokens, D) for a VLM."""
-    cfg = bundle.cfg
-    if bundle.kind == "audio":
-        return {"frames": torch.zeros((slots, cfg.n_audio_ctx, cfg.d_model),
-                                      dtype=cfg.dtype, device=device)}
-    if bundle.kind == "vlm":
-        return {"vision": torch.zeros((slots, cfg.vision_tokens,
-                                       cfg.d_model), dtype=cfg.dtype,
-                                      device=device)}
-    return {}
-
-
 def build_engine(arch: str, *, smoke: bool = True, slots: int = 4,
                  max_len: int = 64, max_new: int = 8, kv_mode: str = "dense",
                  page_size: int = 16, num_pages: int | None = None,
@@ -100,8 +84,9 @@ def build_engine(arch: str, *, smoke: bool = True, slots: int = 4,
         params = bundle.init_params(seed, device=dev)
     else:
         params = _to(params, dev)
+    extras = bundle.zero_extras(slots, bundle.cfg.dtype, dev)
     engine = ServingEngine(
-        _BundleAdapter(bundle, serve_extras(bundle, slots, dev)), params,
+        _BundleAdapter(bundle, extras), params,
         ServeConfig(batch=slots, max_len=max_len, max_new_tokens=max_new,
                     kv_mode=kv_mode, page_size=page_size,
                     num_pages=num_pages, prefill_chunk=prefill_chunk,

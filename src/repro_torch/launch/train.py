@@ -27,7 +27,9 @@ exercised by injected faults (``repro_torch.runtime.chaos``) in tests::
         --smoke --total-steps 12 --ckpt-dir /tmp/ckpt --device cpu
 
 It runs the step-indexed synthetic data stream with its prefetch thread
-(a restart or a re-mesh replays the exact global batches),
+(a restart or a re-mesh replays the exact global batches), merged with
+the reference's zero extras (``make_extras``: ``frames`` for the audio
+kind, ``vision`` for the vlm kind, on the run's device),
 ``make_train_step`` (forward under per-layer recompute, CE + aux + z-loss,
 backward through the flash kernels, AdamW with the nonfinite skip, all in
 place), ``GradGuard``, format-v2 checkpoints written asynchronously with a
@@ -41,8 +43,7 @@ the run's global horizon (``warmup_steps=5``, ``total_steps=max(end_step,
 10)``), so a killed and restarted run resumes bit for bit.
 
 Not ported yet: the reference's worker mode (``--process-id`` /
-``--num-processes``, heartbeat files, striped restore, the supervisor)
-and its audio / VLM extras (the port has the dense decoder only).
+``--num-processes``, heartbeat files, striped restore, the supervisor).
 
 The run takes the CUDA card unless given ``device="cpu"``.
 """
@@ -56,7 +57,7 @@ import torch
 
 import repro_torch.obs as obs
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs import get_bundle
+from repro_torch.configs import ArchBundle, get_bundle
 from repro_torch.data import DataConfig, make_train_iterator
 from repro_torch.device import resolve_device
 from repro_torch.optim import AdamWConfig, adamw_init
@@ -69,7 +70,14 @@ from repro_torch.training import (GradGuard, GuardPolicy, TrainHyper,
 SEED = 0              # the reference's PRNGKey(0)
 
 
-def run(arch: str, *, smoke: bool = True, steps: int = 20,
+def make_extras(bundle, per_host_batch: int, device) -> dict:
+    """The reference launcher's zero extras of one host's batch: f32
+    ``frames`` for the audio kind, ``vision`` for the vlm kind
+    (``ArchBundle.zero_extras``), on ``device``."""
+    return bundle.zero_extras(per_host_batch, torch.float32, device)
+
+
+def run(arch, *, smoke: bool = True, steps: int = 20,
         seq_len: int = 128, global_batch: int = 8, microbatches: int = 1,
         lr: float = 3e-4, log_every: int = 1, device=None,
         ckpt_dir: str | None = None, ckpt_every: int = 10, chaos=None,
@@ -81,22 +89,26 @@ def run(arch: str, *, smoke: bool = True, steps: int = 20,
         trace_out: str | None = None, metrics_out: str | None = None,
         telemetry=None, total_steps: int | None = None,
         params=None, on_step=None) -> dict:
-    """Train from random weights drawn from seed 0 (or from ``params``,
+    """Train ``arch``, a config name (its smoke config with ``smoke``) or
+    an ``ArchBundle`` taken as it is (e.g. a config cut in depth; ``smoke``
+    does not apply), from random weights drawn from seed 0 (or from ``params``,
     which are updated in place), or from the newest intact checkpoint in
     ``ckpt_dir``, restored into them; ``steps`` more steps, or up to
     ``total_steps`` in all.  ``chaos`` is a ``ChaosInjector`` or a list of
     spec strings.  ``on_step(i, params, opt, metrics)``, if given, is
     called after each step the loop keeps (not one it rolls back or
-    re-meshes over).  Returns the per-step ``losses``, ``steps``
-    (indices), ``seconds`` (host wall, after a device synchronise) and
-    ``metrics``, the recovery ``events``, the final ``params`` and
-    ``opt``, and the telemetry snapshot (None when telemetry is off).
+    re-meshes over).  Returns the per-step
+    ``losses``, ``steps`` (indices), ``seconds`` (host wall, after a
+    device synchronise) and ``metrics``, the recovery ``events``, the
+    final ``params`` and ``opt``, and the telemetry snapshot (None when
+    telemetry is off).
     Raises ``ChaosKilled`` (a ``SystemExit`` with code 43) on ``kill@N``,
     after the in-flight checkpoint save has landed."""
     if chaos is not None and not isinstance(chaos, ChaosInjector):
         chaos = ChaosInjector(chaos, seed=chaos_seed)
     dev = resolve_device(device)
-    bundle = get_bundle(arch, smoke=smoke)
+    bundle = arch if isinstance(arch, ArchBundle) else \
+        get_bundle(arch, smoke=smoke)
     if params is None:
         params = bundle.init_params(SEED, device=dev)
     opt = adamw_init(params)
@@ -156,6 +168,7 @@ def run(arch: str, *, smoke: bool = True, steps: int = 20,
 
     it = make_train_iterator(data_cfg, host_id=rank, n_hosts=n_data_hosts,
                              start_step=start_step)
+    extras = make_extras(bundle, global_batch // n_data_hosts, dev)
 
     history, step_log, seconds, metrics_log, events = [], [], [], [], []
     i = start_step
@@ -207,10 +220,11 @@ def run(arch: str, *, smoke: bool = True, steps: int = 20,
         fired_seen = len(chaos.fired)
 
     def reopen_data(at_step: int) -> None:
-        nonlocal it
+        nonlocal it, extras
         it.close()
         it = make_train_iterator(data_cfg, host_id=rank,
                                  n_hosts=n_data_hosts, start_step=at_step)
+        extras = make_extras(bundle, global_batch // n_data_hosts, dev)
 
     def recover(reason: str, at_step: int) -> int:
         """RESTORE, then RUN again from the restored step."""
@@ -250,8 +264,8 @@ def run(arch: str, *, smoke: bool = True, steps: int = 20,
             if idx != i:
                 raise RuntimeError(f"data stream at batch {idx}, loop at "
                                    f"step {i}")
-            batch = {k: torch.from_numpy(v).to(dev, torch.long)
-                     for k, v in batch.items()}
+            batch = {**{k: torch.from_numpy(v).to(dev, torch.long)
+                        for k, v in batch.items()}, **extras}
             gs = chaos.grad_scale(i) if chaos is not None else None
             params, opt, m = step_fn(params, opt, batch, gs)
             m = {k: float(v) for k, v in m.items()}

@@ -22,6 +22,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
@@ -37,6 +38,17 @@ def unstack(tree: dict | None) -> list[dict]:
             for k, v in tree.items()}
     n = len(next(iter(cols.values())))
     return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+def remat_call(fn, *args):
+    """``fn(*args)``; with grad enabled, under ``torch.utils.checkpoint``
+    (the reference's per-layer ``remat``, on by default, under
+    ``nothing_saveable``): only the inputs are kept, and the backward runs
+    ``fn`` again, flash forward kernel included.  Serving paths run under
+    ``torch.no_grad()`` and call ``fn`` plainly."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def seq_positions(S: int, device) -> torch.Tensor:

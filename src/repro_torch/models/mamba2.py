@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 
-from .layers import rms_norm, unstack
+from .layers import remat_call, rms_norm, unstack
 
 # Pooled-serving slot layout (see serving/engine.py _write_slot): batch axis
 # of every cache entry.  SSM state caches are position-free, so padded
@@ -216,12 +216,17 @@ def _mix_seq(cfg: Mamba2Config, lp: dict, h: torch.Tensor,
     return out, conv_state, S
 
 
+def _layer_train(cfg: Mamba2Config, lp: dict, x):
+    return x + _mix_seq(cfg, lp, rms_norm(x, lp["ln"], cfg.norm_eps))
+
+
 def forward(cfg: Mamba2Config, params: dict, tokens: torch.Tensor):
-    """tokens: (B, S) -> (logits (B, S, vocab), 0.0)."""
+    """tokens: (B, S) -> (logits (B, S, vocab), 0.0).  With grad enabled
+    each layer runs under ``torch.utils.checkpoint``
+    (:func:`layers.remat_call`), as the reference does."""
     x = F.embedding(tokens, params["embed"])
     for lp in unstack(params["layers"]):
-        h = rms_norm(x, lp["ln"], cfg.norm_eps)
-        x = x + _mix_seq(cfg, lp, h)
+        x = remat_call(_layer_train, cfg, lp, x)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x @ params["lm_head"], 0.0
 

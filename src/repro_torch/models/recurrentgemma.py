@@ -7,10 +7,12 @@ gated linear recurrence: the reference evaluates it with
 ``jax.lax.associative_scan`` over the sequence, the port with a log-depth
 scan of the same combine (doubling passes over L), and decode takes one
 state update.  Local attention is MQA (kv = 1, head_dim 256 at full width)
-with a 2048-token sliding window: prefill goes through
-``layers.attention`` (the flash forward kernel on the card, its CUDA-core
-route at head_dim 256), decode through the plain ``decode_attention``
-over a window-bounded ring cache.
+with a 2048-token sliding window: prefill and training go through
+``layers.attention`` (on the card the flash forward's head_dim-256 wgmma
+route, and the CUDA-core backward pair at head_dim 256), decode through
+the plain ``decode_attention`` over a window-bounded ring cache.  Under
+autograd ``forward`` checkpoints each (rec, rec, attn) group and each tail
+layer, as the reference does.
 
 ``prefill`` and ``decode_step`` write the states and the ring cache into
 the cache they are given, in place, and return it.
@@ -25,7 +27,7 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 
 from .layers import (apply_rope, attention, decode_attention, geglu, gelu,
-                     rms_norm, seq_positions, unstack)
+                     remat_call, rms_norm, seq_positions, unstack)
 
 RG_LRU_C = 8.0
 
@@ -240,16 +242,29 @@ def _attn_block(cfg: RGConfig, lp: dict, x, positions):
     return _mlp(cfg, lp, x), k, v
 
 
+def _group_train(cfg: RGConfig, x, rec2: list[dict], attnp: dict,
+                 positions):
+    """One (rec, rec, attn) group over a whole sequence."""
+    for lp in rec2:
+        x = _rec_block(cfg, lp, x)[0]
+    return _attn_block(cfg, attnp, x, positions)[0]
+
+
+def _tail_train(cfg: RGConfig, x, lp: dict):
+    return _rec_block(cfg, lp, x)[0]
+
+
 def forward(cfg: RGConfig, params: dict, tokens: torch.Tensor):
-    """tokens: (B, S) -> (logits (B, S, vocab), 0.0)."""
+    """tokens: (B, S) -> (logits (B, S, vocab), 0.0).  With grad enabled
+    each group and each tail layer runs under ``torch.utils.checkpoint``
+    (:func:`layers.remat_call`), the reference's units."""
     x = F.embedding(tokens, params["embed"])
     positions = seq_positions(tokens.shape[1], x.device)
     for rec2, attnp in _groups(params):
-        for lp in rec2:
-            x = _rec_block(cfg, lp, x)[0]
-        x = _attn_block(cfg, attnp, x, positions)[0]
+        x = remat_call(_group_train, cfg, x, rec2, attnp,
+                       positions)
     for lp in unstack(params["rec_tail"]):
-        x = _rec_block(cfg, lp, x)[0]
+        x = remat_call(_tail_train, cfg, x, lp)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x @ params["lm_head"], 0.0
 

@@ -22,13 +22,12 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
 from .layers import (MoEConfig, apply_rope, attention, decode_attention,
-                     moe_layer, paged_decode_attention, seq_positions,
-                     quantize_kv, rms_norm, swiglu, unstack)
+                     moe_layer, paged_decode_attention, remat_call,
+                     seq_positions, quantize_kv, rms_norm, swiglu, unstack)
 
 # Serving-engine capability flags (see configs/base.py and
 # serving/engine.py): prefill accepts ``true_lengths`` for length-bucketed
@@ -195,20 +194,16 @@ def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     ``vision_embeds`` (B, P, D) is prepended (S = P + S_text).
 
     With grad enabled each layer runs under ``torch.utils.checkpoint``
-    (the reference's ``remat``): only its input is kept, and the backward
-    recomputes it, aux included; at full width nothing else fits beside
-    the optimizer state.  (The reference also saves the attention output
-    across the recompute; here the flash forward runs again.)"""
+    (:func:`layers.remat_call`, the reference's ``remat``): only its input
+    is kept, and the backward recomputes it, aux included; at full width
+    nothing else fits beside the optimizer state.  (The reference also
+    saves the attention output across the recompute; here the flash
+    forward runs again.)"""
     x = _embed(params, tokens, vision_embeds)
     positions = seq_positions(x.shape[1], x.device)
-    remat = torch.is_grad_enabled()
     aux = 0.0
     for lp in unstack(params["layers"]):
-        if remat:
-            x, a = checkpoint(_block_train, cfg, x, lp, positions,
-                              use_reentrant=False)
-        else:
-            x, a = _block_train(cfg, x, lp, positions)
+        x, a = remat_call(_block_train, cfg, x, lp, positions)
         aux = aux + a
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x @ params["lm_head"], aux

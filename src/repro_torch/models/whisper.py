@@ -7,8 +7,9 @@ MHA + GELU MLP, sinusoidal positions.  Decoder: causal self-attention +
 cross-attention over the encoder output, learned positions, tied output
 embedding.  LayerNorm (with bias) throughout, pre-norm.  The encoder's
 self-attention and the decoder's prefill attention (causal self, non-causal
-cross with Sq != Sk) go through ``layers.attention`` (the flash forward
-kernel on the card); decode attends through the plain
+cross with Sq != Sk) and the training forward go through
+``layers.attention`` (on the card the flash forward kernel, and under
+autograd the backward pair); decode attends through the plain
 ``decode_attention``, the cross-attention over all ``n_audio_ctx`` frames.
 
 ``prefill`` and ``decode_step`` write into the cache they are given, in
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 
 from .layers import (attention, decode_attention, gelu_mlp, layer_norm,
+                     remat_call,
                      unstack)
 
 # Pooled-serving slot layout (see serving/engine.py _write_slot): batch axis
@@ -126,15 +128,21 @@ def _mlp(cfg: WhisperConfig, lp: dict, x, ln: int):
                         lp["mlp_b2"])
 
 
+def _enc_layer(cfg: WhisperConfig, lp: dict, x):
+    h = layer_norm(x, lp["ln1_w"], lp["ln1_b"], cfg.norm_eps)
+    x = x + _mha(cfg, lp["attn"], h, h, causal=False)[0]
+    return _mlp(cfg, lp, x, 2)
+
+
 def encode(cfg: WhisperConfig, params: dict,
            frames: torch.Tensor) -> torch.Tensor:
-    """frames: (B, S_enc, D) precomputed embeddings (stub frontend)."""
+    """frames: (B, S_enc, D) precomputed embeddings (stub frontend).  With
+    grad enabled each layer runs under ``torch.utils.checkpoint``
+    (:func:`layers.remat_call`)."""
     x = frames.to(cfg.dtype) + _sinusoidal(
         frames.shape[1], cfg.d_model, frames.device).to(cfg.dtype)[None]
     for lp in unstack(params["enc"]):
-        h = layer_norm(x, lp["ln1_w"], lp["ln1_b"], cfg.norm_eps)
-        x = x + _mha(cfg, lp["attn"], h, h, causal=False)[0]
-        x = _mlp(cfg, lp, x, 2)
+        x = remat_call(_enc_layer, cfg, lp, x)
     return layer_norm(x, params["ln_enc_w"], params["ln_enc_b"],
                       cfg.norm_eps)
 
@@ -161,16 +169,22 @@ def _logits(cfg: WhisperConfig, params: dict, x):
     return x @ params["embed"].T          # tied output embedding
 
 
+def _dec_train(cfg: WhisperConfig, lp: dict, x, enc_out):
+    return _dec_layer(cfg, lp, x, enc_out)[0]
+
+
 def forward(cfg: WhisperConfig, params: dict, tokens: torch.Tensor,
             frames: torch.Tensor):
     """Teacher-forced forward: (tokens (B, S_dec), frames (B, S_enc, D))
-    -> (logits (B, S_dec, vocab), 0.0)."""
+    -> (logits (B, S_dec, vocab), 0.0).  With grad enabled each encoder
+    and each decoder layer runs under ``torch.utils.checkpoint``, the
+    reference's units."""
     enc_out = encode(cfg, params, frames)
     S = tokens.shape[1]
     x = _embed(params, tokens,
                torch.arange(S, device=tokens.device)[None])
     for lp in unstack(params["dec"]):
-        x = _dec_layer(cfg, lp, x, enc_out)[0]
+        x = remat_call(_dec_train, cfg, lp, x, enc_out)
     return _logits(cfg, params, x), 0.0
 
 

@@ -17,11 +17,11 @@ flash forward, whose p is rounded to bf16 before PV, 1e-4 for paged decode,
 which keeps p in f32; each row's relative L2 error stays under 2^-6.  f32
 outputs may differ by 1e-4.  The backward kernels' outputs are f32 sums in
 another order than the plain version's.  On the CUDA-core route
-(``flash_bwd_simt``: f32, unaligned views) nothing is rounded: each
-element within 2^-10 |want| + 1e-5 max|want|, each row's relative L2 error
-under 2^-10.  The wgmma route (``flash_bwd``) rounds p and ds to bf16
-before their second products, and so does the plain version it is held
-against; the two form p and ds in f32 in other orders (and with exp2 in
+(``flash_bwd_simt``: f32, head_dim 256, unaligned views) nothing is
+rounded: each element within 2^-10 |want| + 1e-5 max|want|, each row's
+relative L2 error under 2^-10.  The wgmma route (``flash_bwd``) rounds p
+and ds to bf16 before their second products, and so does the plain
+version it is held against; the two form p and ds in f32 in other orders (and with exp2 in
 the kernel), so where a value lies at a bf16 rounding boundary one of them
 rounds up and the other down: that term of a sum moves by one bf16 ulp, at
 most 2^-7 of itself.  Flips are rare (the f32 values differ by ~1e-6
@@ -165,19 +165,31 @@ def test_flash_kernel_at_zoo_shapes_matches_plain(dev, case):
     torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
 
 
-def test_flash_backward_refuses_head_dim_256(dev):
-    """The forward takes head_dim 256 on its wgmma route; the backward
-    kernels are not built for it, so a gradient call raises naming the
-    head dims it takes."""
+def test_flash_backward_trains_head_dim_256(dev):
+    """Head dim 256 trains: the forward takes its wgmma route and the
+    backward the CUDA-core pair, one launch each."""
     from repro_torch.kernels import ops
     q, k, v = (torch.randn((1, h, 128, 256), device=dev,
                            dtype=torch.bfloat16).requires_grad_(True)
                for h in (4, 1, 1))
     ops.reset_launches()
     o = ops.flash_attention(q, k, v, causal=True, window=64)
-    assert ops.LAUNCHES["flash_fwd_d256"] == 1
-    with pytest.raises(ValueError, match=r"head_dim one of \(64, 128\)"):
-        o.float().sum().backward()
+    o.float().sum().backward()
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == {
+        "flash_fwd_d256": 1, "flash_bwd_dq_simt": 1, "flash_bwd_dkv_simt": 1}
+    assert all(bool(torch.isfinite(x.grad).all()) for x in (q, k, v))
+
+
+def test_flash_backward_refuses_unbuilt_head_dim(dev):
+    """A head dim the backward kernels are not built for (32 here) a
+    launch refuses, naming the head dims it takes."""
+    from repro_torch.kernels import attention as katt
+    q, k, v = (torch.randn((1, h, 128, 32), device=dev, dtype=torch.bfloat16)
+               for h in (4, 1, 1))
+    lse = torch.zeros((4, 128), device=dev)
+    with pytest.raises(ValueError,
+                       match=r"head_dim one of \(64, 128, 256\)"):
+        katt.flash_bwd_dq_cuda(q, k, v, q, lse, lse)
 
 
 @pytest.mark.parametrize("arch", ["internvl2-26b", "mamba2-370m",
@@ -235,7 +247,26 @@ FLASH_BWD = FLASH + [
     (1, 300, 300, 16, 2, 64, False, None, torch.bfloat16),
     (1, 256, 64, 8, 1, 64, False, 100, torch.bfloat16),
     (1, 256, 64, 4, 2, 64, False, 100, torch.float32),
+    # recurrentgemma-9b's local MQA at head_dim 256 (16 / 1 heads, a
+    # window): the CUDA-core pair in bf16 and f32, ragged S, Sq != Sk
+    (1, 1100, 1100, 16, 1, 256, True, 700, torch.bfloat16),
+    (1, 300, 430, 16, 1, 256, True, 200, torch.bfloat16),
+    (1, 500, 500, 4, 1, 256, True, 200, torch.float32),
+    (1, 200, 330, 4, 1, 256, False, 150, torch.float32),
+    # whisper-medium's non-causal encoder (1500 x 1500) and its cross
+    # attention (1024 x 1500) at 16 / 16 heads, D 64; internvl2-26b's
+    # 48 / 8 heads (G 6), D 128, over its 2304 positions
+    (1, 1500, 1500, 16, 16, 64, False, None, torch.bfloat16),
+    (1, 1024, 1500, 16, 16, 64, False, None, torch.bfloat16),
+    (1, 2304, 2304, 48, 8, 128, True, None, torch.bfloat16),
 ]
+
+
+def _bwd_route(dt, D):
+    """The backward route a case must take: bf16 at head_dim 64 or 128
+    the wgmma pair, anything else the CUDA-core pair."""
+    return ("flash_bwd" if dt == torch.bfloat16 and D in (64, 128)
+            else "flash_bwd_simt")
 
 
 def _bwd_inputs(dev, case, seed=3):
@@ -291,9 +322,10 @@ def _bwd_check(qt, kt, vt, dot, causal, window, route, q_offset=0,
 @pytest.mark.parametrize("case", FLASH_BWD,
                          ids=lambda c: "-".join(map(str, c)))
 def test_flash_bwd_kernels_match_plain(dev, case):
-    """bf16 takes the wgmma pair (held against the rounded plain version at
-    its blocks), f32 the CUDA-core pair (the unrounded one at 64 x 64)."""
-    route = "flash_bwd" if case[-1] == torch.bfloat16 else "flash_bwd_simt"
+    """bf16 at head_dim 64 or 128 takes the wgmma pair (held against the
+    rounded plain version at its blocks), f32 and head_dim 256 the
+    CUDA-core pair (the unrounded one at 64 x 64)."""
+    route = _bwd_route(case[-1], case[5])
     _bwd_check(*_bwd_inputs(dev, case), case[6], case[7], route)
 
 
@@ -398,20 +430,59 @@ FLASH_BWD_OFFSETS = [
     (1, 384, 384, 16, 4, 64, True, 200, torch.bfloat16, 512, 256),
     (1, 300, 300, 8, 2, 128, True, 100, torch.float32, 300, 0),
     (1, 256, 256, 4, 2, 64, False, 100, torch.float32, 64, 128),
+    (1, 700, 700, 16, 1, 256, True, 300, torch.bfloat16, 2048, 1700),
 ]
 
 
 @pytest.mark.parametrize("case", FLASH_BWD_OFFSETS,
                          ids=lambda c: "-".join(map(str, c)))
 def test_flash_bwd_routes_at_offsets_match_plain(dev, case):
-    """Both backward routes at nonzero offsets (bf16: the wgmma pair
-    against the rounded plain version; f32: the CUDA-core pair against the
-    unrounded one), fed the forward kernel's o and lse at the same
-    offsets; rows that see no key get dq = 0."""
+    """Both backward routes at nonzero offsets (bf16 at head_dim 64 or
+    128: the wgmma pair against the rounded plain version; f32 and head_dim
+    256: the CUDA-core pair against the unrounded one), fed the forward
+    kernel's o and lse at the same offsets; rows that see no key get
+    dq = 0."""
     B, S, Sk, H, Hkv, D, causal, window, dt, qo, ko = case
-    route = "flash_bwd" if dt == torch.bfloat16 else "flash_bwd_simt"
+    route = _bwd_route(dt, D)
     _bwd_check(*_bwd_inputs(dev, case[:9]), causal, window, route,
                q_offset=qo, k_offset=ko)
+
+
+def test_flash_bwd_d256_is_deterministic(dev):
+    """No atomics at head_dim 256 either: two launches of the CUDA-core
+    pair on the same inputs give the same bits."""
+    from repro_torch.kernels import attention as katt
+    from repro_torch.kernels import ops
+    case = (1, 1100, 1100, 16, 1, 256, True, 700, torch.bfloat16)
+    qt, kt, vt, dot = _bwd_inputs(dev, case, seed=10)
+    B, H, S, D = qt.shape
+    o, lse = katt.flash_attention_fwd_cuda(qt, kt, vt, window=700)
+    delta = (o.float() * dot.float()).sum(-1).reshape(B * H, S)
+    ops.reset_launches()
+    first = katt.flash_attention_bwd_cuda(qt, kt, vt, dot, lse, delta,
+                                          window=700)
+    second = katt.flash_attention_bwd_cuda(qt, kt, vt, dot, lse, delta,
+                                           window=700)
+    assert ops.LAUNCHES["flash_bwd_dq_simt"] == 2
+    assert ops.LAUNCHES["flash_bwd_dkv_simt"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_bwd_d256_kernels_build_without_spills(dev):
+    """``ptxas`` reports no spill for the head_dim-256 CUDA-core backward
+    kernels (dq and dk/dv, bf16 and f32): dk/dv holds 2 x 4 x 16 f32
+    accumulators a thread beside its S and dP tiles, within 255
+    registers."""
+    from repro_torch.kernels import _build
+    _build.load("flash_bwd")
+    report = _build.ptxas_report(_build.build_log("flash_bwd"))
+    d256 = [r for r in report if "Li256E" in r["kernel"] and
+            ("flash_bwd_dq_kernel" in r["kernel"] or
+             "flash_bwd_dkv_kernel" in r["kernel"])]
+    assert len(d256) == 4, report
+    for r in d256:
+        assert r["registers"] <= 255, r
+        assert r["spill_stores"] == r["spill_loads"] == 0, r
 
 
 def test_flash_fwd_d256_is_deterministic(dev):

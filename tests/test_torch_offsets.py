@@ -59,6 +59,13 @@ CASES = {
                         (64, 64)),
     "ring_hop_owner2": (4, 2, 128, 128, 32, True, 160, 128, 128, 128, 256,
                         (64, 64)),
+    # head_dim 256 at the CUDA-core backward's 64 x 64 (recurrentgemma's
+    # MQA, 4 / 1 heads, window 64): ragged q rows and keys at offset 0,
+    # and whole blocks with q ahead by 100
+    "d256_mqa_window_ragged": (4, 1, 256, 256, 256, True, 64, 200, 230, 0,
+                               0, (64, 64)),
+    "d256_mqa_window_q_ahead": (4, 1, 256, 256, 256, True, 64, 256, 256,
+                                300, 200, (64, 64)),
 }
 
 

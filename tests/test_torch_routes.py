@@ -377,6 +377,14 @@ FLASH_BWD_ROUTES = [
     ("bf16 do expanded over heads",
      lambda: (_bshd(1, 64, 4, 64), _bshd(1, 64, 2, 64),
               _t((1, 1, 64, 64)).expand(1, 4, 64, 64)), "flash_bwd_simt"),
+    # recurrentgemma-9b's local MQA at head_dim 256: the CUDA-core pair in
+    # either dtype (the wgmma pair is built for 64 and 128 only)
+    ("bf16 D 256", lambda: (_bshd(1, 128, 16, 256), _bshd(1, 128, 1, 256),
+                            _bshd(1, 128, 16, 256)), "flash_bwd_simt"),
+    ("f32 D 256", lambda: (_bshd(1, 64, 4, 256, torch.float32),
+                           _bshd(1, 64, 1, 256, torch.float32),
+                           _bshd(1, 64, 4, 256, torch.float32)),
+     "flash_bwd_simt"),
 ]
 
 
@@ -498,23 +506,40 @@ def test_flash_bwd_rounded_plain_matches_pallas_within_bf16_rounding(case):
     assert moved          # the rounding is there: the f32 test's 1e-5 fails
 
 
+def test_backward_head_dims_take_256():
+    """The backward kernels are built for head_dim 64, 128 and 256 (256 on
+    the CUDA-core route alone), the forward's head dims."""
+    assert pt_att.BWD_HEAD_DIMS == pt_att.FWD_HEAD_DIMS == (64, 128, 256)
+
+
 def test_flash_attention_bf16_backward_on_cpu_is_the_routes_plain_version():
     """bf16 at head_dim 64 on the CPU: FlashAttention's backward runs the
     plain backward at the wgmma route's blocks and rounding, so the
     autograd grads equal its f32 results cast, bit for bit."""
-    B, H, Hkv, S, D = 1, 4, 2, 200, 64
+    _bf16_backward_is_the_routes_plain_version(2, 64, "flash_bwd")
+
+
+def test_flash_attention_bf16_d256_backward_on_cpu_is_the_simt_plain():
+    """bf16 at head_dim 256 (recurrentgemma's MQA) on the CPU: the backward
+    is the CUDA-core pair's plain version, 64 x 64 and unrounded, after the
+    forward at the head_dim-256 wgmma route's 128 x 64 blocks."""
+    _bf16_backward_is_the_routes_plain_version(1, 256, "flash_bwd_simt")
+
+
+def _bf16_backward_is_the_routes_plain_version(Hkv, D, route):
+    B, H, S = 1, 4, 200
     q, do = (torch.from_numpy(_normal(B, H, S, D)).to(BF16)
              for _ in range(2))
     k, v = (torch.from_numpy(_normal(B, Hkv, S, D)).to(BF16)
             for _ in range(2))
-    route = pt_att.flash_bwd_route(q, k, v, do)
-    assert route == "flash_bwd"
+    assert pt_att.flash_bwd_route(q, k, v, do) == route
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     o = pt_att.flash_attention_train(*leaves, causal=True)
     grads = torch.autograd.grad(o, leaves, do)
+    bq, bk = pt_att.flash_fwd_blocks(pt_att.flash_fwd_route(q, k, v))
     o_ref, lse = pt_att.flash_attention_fwd_plain(
         q.reshape(B * H, S, D), k.reshape(B * Hkv, S, D),
-        v.reshape(B * Hkv, S, D), causal=True, block_q=128, block_k=128)
+        v.reshape(B * Hkv, S, D), causal=True, block_q=bq, block_k=bk)
     o_ref = o_ref.reshape(q.shape)
     assert torch.equal(o.detach(), o_ref)
     delta = (o_ref.float() * do.float()).sum(-1).reshape(B * H, S) \
