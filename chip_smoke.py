@@ -35,15 +35,16 @@ each with its flash-vs-plain ``logits_check``; the flash forward is also
 checked alone at their shapes; every flash route, forward and backward,
 is also held against its plain version at nonzero q / k position offsets,
 and each CUDA-core route, which no main path takes, is timed at its
-sibling's shape in f32 beside its library call), holds the flash kernels'
-loss and
-gradients against the plain attention path, trains qwen3-4b at full width
+sibling's shape in f32 beside its library call, the flash forward and
+backward also at recurrentgemma-9b's in bf16 through a padded stride),
+holds the flash kernels' loss and gradients against the plain attention
+path, trains qwen3-4b at full width
 for a few AdamW steps through ``repro_torch.launch.train``, then the four
 families (``train_families``: internvl2-26b and recurrentgemma-9b cut to
 8 layers, whisper-medium and mamba2-370m whole, every width the config's
 own; recurrentgemma's attention backward at head_dim 256 runs the
-CUDA-core pair, held end to end against the plain path by its own
-``train_check`` and alone at its shape in bf16), drills a kill
+head_dim-256 wgmma pair, held end to end against the plain path by its
+own ``train_check`` and alone at its shape in bf16), drills a kill
 and a restart of that training at full width through the loop's format-v2
 checkpoints (``recovery``: the restarted run must resume bit for bit), and
 checks what comes out.  Each phase prints JSON lines (``paper_workloads``
@@ -181,30 +182,38 @@ def closeness_f32(got: torch.Tensor, want: torch.Tensor) -> dict:
     return closeness(got, want, atol, rel=2.0 ** -10, row=2.0 ** -10)
 
 
-def closeness_rounded(got: torch.Tensor, want: torch.Tensor) -> dict:
-    """How far the wgmma backward's f32 output lies from its plain version,
-    which rounds p and ds to bf16 as the kernel does.  Where the two f32
-    values (summed in other orders) straddle a bf16 rounding boundary, one
-    term of a sum moves by one bf16 ulp, at most 2^-7 of itself: each
-    element within 2^-7 (|want| + its row's RMS) + 1e-5 max|want|, each
-    row's L2 error within 2^-7 of its norm + 1e-5 max|want| sqrt(D) (a row
-    dominated by one term moves by up to 2^-7; a row that cancels to 0
-    keeps the floor), and the whole tensor's relative L2 error under
-    2^-10, as flips are rare and unbiased."""
+def closeness_rounded(got: torch.Tensor, want: torch.Tensor,
+                      terms: torch.Tensor) -> dict:
+    """How far a rounded backward route's f32 output (dq, dk or dv; rows
+    along the last axis) lies from its plain version, which rounds p and
+    ds to bf16 as the kernels do (the card tests' check too); ``terms`` is
+    that output's ``attention.flash_bwd_term_max``.  The two form p and ds
+    in f32 in other orders (the kernels with exp2), so where a value lies
+    at a bf16 rounding boundary one rounds up and the other down: that one
+    term of the element's sum moves by one bf16 ulp, at most 2^-7 of
+    itself, and the sums differ in their f32 order.  Each element within
+    2^-7 (|want| + its row's RMS + T) + 1e-5 max|want|, T the element's
+    largest rounded term; each row's L2 error within 2^-7 of its norm +
+    1e-5 max|want| sqrt(D) (a row dominated by one term moves by up to
+    2^-7; a row that cancels to 0 keeps the floor); and the whole tensor's
+    relative L2 error under 2^-10, since flips are rare and unbiased: the
+    row and tensor bounds catch a systematic error."""
+    got, want, terms = got.float(), want.float(), terms.float()
     diff = (got - want).abs()
     atol = 1e-5 * want.abs().max().item()
     rms = want.pow(2).mean(-1, keepdim=True).sqrt()
-    ratio = (diff / (2.0 ** -7 * (want.abs() + rms) + atol)).max().item()
-    row_ratio = (diff.norm(dim=-1) / (2.0 ** -7 * want.norm(dim=-1) +
-                                      atol * want.shape[-1] ** 0.5)
-                 ).max().item()
+    tol = 2.0 ** -7 * (want.abs() + rms + terms) + atol
+    ratio = (diff / tol.clamp_min(1e-30)).max().item()
+    row_tol = 2.0 ** -7 * want.norm(dim=-1) + atol * want.shape[-1] ** 0.5
+    row_ratio = (diff.norm(dim=-1) / row_tol.clamp_min(1e-30)).max().item()
     rel = (diff.norm() / want.norm().clamp_min(1e-30)).item()
     return dict(max_abs_err=diff.max().item(), worst_tol_ratio=ratio,
                 worst_row_tol_ratio=row_ratio, tensor_rel_l2=rel,
                 mean_abs_out=want.abs().mean().item(),
-                tol="|err| <= 2^-7 (|want| + row RMS) + 1e-5 max|want|; row "
-                    "L2 <= 2^-7 |want row| + 1e-5 max|want| sqrt(D); tensor "
-                    "rel L2 <= 2^-10",
+                tol="|err| <= 2^-7 (|want| + row RMS + T) + 1e-5 max|want|, "
+                    "T the element's largest rounded term; row L2 <= 2^-7 "
+                    "|want row| + 1e-5 max|want| sqrt(D); tensor rel L2 <= "
+                    "2^-10",
                 within_tol=ratio <= 1.0 and row_ratio <= 1.0 and
                 rel <= 2.0 ** -10)
 
@@ -244,7 +253,7 @@ FLASH_ZOO_SHAPES = {
                                     causal=False),
 }
 # (the backward's too: recurrentgemma-9b's train_families batch, where
-# bf16 takes the CUDA-core pair)
+# bf16 takes the head_dim-256 wgmma pair)
 FLASH_D256_SHAPE = dict(B=1, S=4096, H=16, Hkv=1, D=256, window=2048)
 # the backward's shape on the train path (qwen3-4b, B 2, S 2048, 32/8)
 FLASH_BWD_SHAPE = dict(B=2, S=2048, H=32, Hkv=8, D=128)
@@ -294,10 +303,25 @@ def fwd_route_of(shape: dict, dtype: torch.dtype) -> str:
 
 
 def bwd_route_of(shape: dict, dtype: torch.dtype) -> str:
-    """The backward route a shape must take: bf16 at head_dim 64 or 128
-    the wgmma pair, f32 and head_dim 256 the CUDA-core pair."""
-    return ("flash_bwd" if dtype == torch.bfloat16 and shape["D"] in (64, 128)
-            else "flash_bwd_simt")
+    """The backward route a shape must take: bf16 that TMA can read the
+    wgmma pair at head_dim 64 or 128 and the head_dim-256 wgmma pair at
+    256, f32 or a padded seq stride the CUDA-core pair."""
+    if dtype != torch.bfloat16 or shape.get("pad", 0) % 8:
+        return "flash_bwd_simt"
+    return "flash_bwd" if shape["D"] in (64, 128) else "flash_bwd_d256"
+
+
+# the suffix of each backward route's launch keys
+BWD_SUFFIX = {"flash_bwd": "", "flash_bwd_d256": "_d256",
+              "flash_bwd_simt": "_simt"}
+
+
+def bwd_closeness(route: str):
+    """``(got, want, terms) -> dict``: the rounded routes' check, or the
+    CUDA-core pair's f32 one (which takes no terms)."""
+    if route == "flash_bwd_simt":
+        return lambda got, want, _: closeness_f32(got, want)
+    return closeness_rounded
 
 
 def band_mask(S: int, Sk: int, causal: bool, window: int | None):
@@ -388,33 +412,36 @@ def check_flash_bwd(flush, dtype: torch.dtype = torch.bfloat16,
                     ) -> list[dict]:
     """The dq and dk/dv kernels at ``shape`` (default the train phase's:
     B 2, S 2048, 32/8 heads, causal; ``shape`` may give ``Sk`` (default
-    S), ``causal`` (default True) and ``window``), reached as
+    S), ``causal`` (default True), ``window`` and ``pad``, which widens
+    each buffer's seq stride as in :func:`flash_inputs`), reached as
     the train path reaches them: the grads that
     ``flash_attention_train``'s backward returns for (B, S, H, D) leaves
-    fed a transposed ``do``.  bf16 at head_dim 64 or 128 must take the
-    wgmma route, f32 and head_dim 256 the CUDA-core one (its rows are
-    named by its keys).  That backward is
+    fed a transposed ``do``.  bf16 must take a wgmma route (head_dim 64
+    or 128, or the head_dim-256 one), f32 and padded strides the CUDA-core
+    one; the rows are named by the route's keys.  That backward is
     ``flash_attention_bwd`` (delta from the strided o and do, then the
     kernels) cast to the inputs' dtype, so its f32 results on the same
     residuals are held against the plain backward at the route's blocks
     and rounding, and the autograd grads must equal them cast, bit for bit
-    (no atomics: every run sums in one order)."""
+    (no atomics: every run sums in one order).  The head_dim-256 dk/dv row
+    carries its split (``plan``)."""
     from repro_torch.kernels import attention as katt
     B, S, H, Hkv, D = (shape[k] for k in ("B", "S", "H", "Hkv", "D"))
-    Sk = shape.get("Sk", S)
+    Sk, pad = shape.get("Sk", S), shape.get("pad", 0)
     causal, window = shape.get("causal", True), shape.get("window")
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    q, do = (torch.randn((B, S, H, D), generator=g, device="cuda")
-             .to(dtype) for _ in range(2))
-    k, v = (torch.randn((B, Sk, Hkv, D), generator=g, device="cuda")
-            .to(dtype) for _ in range(2))
+    q, do = (torch.randn((B, S, H * D + pad), generator=g, device="cuda")
+             .to(dtype)[..., :H * D].unflatten(-1, (H, D)) for _ in range(2))
+    k, v = (torch.randn((B, Sk, Hkv * D + pad), generator=g, device="cuda")
+            .to(dtype)[..., :Hkv * D].unflatten(-1, (Hkv, D))
+            for _ in range(2))
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     route = katt.flash_bwd_route(qt, kt, vt, dot)
     want = bwd_route_of(shape, dtype)
     require(route == want, f"flash backward: {dtype} at {shape} takes "
             f"route {route}, not {want}")
-    sfx = "" if route == "flash_bwd" else "_simt"
-    close_fn = closeness_rounded if route == "flash_bwd" else closeness_f32
+    sfx = BWD_SUFFIX[route]
+    close_fn = bwd_closeness(route)
     band = dict(causal=causal, window=window)
     plain_kw = dict(band, **katt.flash_bwd_plain_kw(route))
     leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
@@ -430,11 +457,14 @@ def check_flash_bwd(flush, dtype: torch.dtype = torch.bfloat16,
             .contiguous()
         dq_ref, dk_ref, dv_ref = katt.flash_attention_bwd_plain(
             *flat, lse, delta, **plain_kw)
+        terms = ((None,) * 3 if route == "flash_bwd_simt" else
+                 katt.flash_bwd_term_max(*flat, lse, delta, **plain_kw))
         torch.cuda.synchronize()
         dq, dk, dv = f32
-        close = {"flash_bwd_dq": close_fn(dq.reshape(B * H, S, D), dq_ref)}
-        ck = close_fn(dk.reshape(B * Hkv, Sk, D), dk_ref)
-        cv = close_fn(dv.reshape(B * Hkv, Sk, D), dv_ref)
+        close = {"flash_bwd_dq": close_fn(dq.reshape(B * H, S, D), dq_ref,
+                                          terms[0])}
+        ck = close_fn(dk.reshape(B * Hkv, Sk, D), dk_ref, terms[1])
+        cv = close_fn(dv.reshape(B * Hkv, Sk, D), dv_ref, terms[2])
         close["flash_bwd_dkv"] = {
             **{key: max(ck[key], cv[key]) for key in ck
                if isinstance(ck[key], float) and key != "mean_abs_out"},
@@ -466,13 +496,17 @@ def check_flash_bwd(flush, dtype: torch.dtype = torch.bfloat16,
             *flat, lse, delta, **dq_kw), 3, flush)[0],
                  "flash_bwd_dkv": time_ms(lambda: katt.flash_bwd_dkv_plain(
             *flat, lse, delta, **dkv_kw), 3, flush)[0]}
-    del grads, o_fn, f32, dq_ref, dk_ref, dv_ref
+    del grads, o_fn, f32, dq_ref, dk_ref, dv_ref, terms
     # the library's yardstick: SDPA's backward alone, one call for the pair
-    qs, ks, vs = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+    # (through a padded stride cuDNN's backward refuses the views: then on
+    # contiguous copies of the same values)
+    dense = (lambda x: x.contiguous()) if pad else (lambda x: x)
+    qs, ks, vs = (dense(x).detach().requires_grad_(True)
+                  for x in (qt, kt, vt))
     out = F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True,
                                          **band_mask(S, Sk, causal, window))
     sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
-        out, (qs, ks, vs), dot, retain_graph=True)
+        out, (qs, ks, vs), dense(dot), retain_graph=True)
     lib_ms, _ = time_ms(sdpa_bwd, 20, flush)
     lib_dev_ms = device_ms(sdpa_bwd, 20, flush)
     del out, qs, ks, vs
@@ -481,6 +515,11 @@ def check_flash_bwd(flush, dtype: torch.dtype = torch.bfloat16,
                                  do.numel()) + \
         4 * (lse.numel() + delta.numel())
     rows = []
+    plan = {}
+    if route == "flash_bwd_d256":
+        p = katt.flash_bwd_dkv_plan(B, Hkv, H // Hkv, Sk)
+        plan = dict(plan=dict(parts=p.parts, ctas=p.ctas,
+                              scratch_mb=p.scratch_bytes / 2 ** 20))
     for name, flops, out_bytes in (
             ("flash_bwd_dq", 6 * D * pairs, 4 * dq.numel()),
             ("flash_bwd_dkv", 8 * D * pairs, 4 * (dk.numel() + dv.numel()))):
@@ -502,7 +541,8 @@ def check_flash_bwd(flush, dtype: torch.dtype = torch.bfloat16,
                    if name == "flash_bwd_dq" else plain_kw["dkv_blocks"],
                    dtype=str(dtype).split(".")[-1],
                    shape=dict(B=B, S=S, Sk=Sk, H=H, Hkv=Hkv, D=D,
-                              causal=causal, window=window),
+                              causal=causal, window=window, pad=pad),
+                   **(plan if name == "flash_bwd_dkv" else {}),
                    **({} if arch is None else {"arch": arch}))
         emit("kernel_check", **row)
         rows.append(row)
@@ -518,7 +558,10 @@ OFFSET_FWD = {"flash_fwd": (OFFSET_SHAPE, torch.bfloat16),
               "flash_fwd_d256": (dict(OFFSET_SHAPE, Hkv=1, D=256),
                                  torch.bfloat16),
               "flash_fwd_simt": (OFFSET_SHAPE, torch.float32)}
-OFFSET_BWD = {"flash_bwd": torch.bfloat16, "flash_bwd_simt": torch.float32}
+OFFSET_BWD = {"flash_bwd": (OFFSET_SHAPE, torch.bfloat16),
+              "flash_bwd_d256": (dict(OFFSET_SHAPE, Hkv=1, D=256),
+                                 torch.bfloat16),
+              "flash_bwd_simt": (OFFSET_SHAPE, torch.float32)}
 OFFSET_WINDOW = 768
 
 
@@ -526,10 +569,10 @@ def check_flash_offsets() -> dict:
     """Each flash route, forward and backward, at ``OFFSET_PAIRS`` against
     its plain version at the route's blocks and the same offsets, with the
     tolerances of ``check_flash`` (forward; lse within 1e-4) and
-    ``check_flash_bwd`` (backward: the wgmma pair against the rounded plain
-    version, the CUDA-core pair against the unrounded one).  Rows that see
-    no key must drain o = 0, lse = -1e30 and dq = 0.  One kernel_check
-    line of records, none a row of the kernels line."""
+    ``check_flash_bwd`` (backward: the wgmma pairs against the rounded
+    plain version, the CUDA-core pair against the unrounded one).  Rows
+    that see no key must drain o = 0, lse = -1e30 and dq = 0.  One
+    kernel_check line of records, none a row of the kernels line."""
     from repro_torch.kernels import attention as katt
     from repro_torch.kernels import ops
     records = []
@@ -565,9 +608,8 @@ def check_flash_offsets() -> dict:
                     and bool((o[dead] == 0).all())
                     and bool((lse[dead] == -1e30).all()),
                     f"flash_offsets: {route} disagrees: {rec}")
-    for route, dt in OFFSET_BWD.items():
-        B, S, H, Hkv, D = (OFFSET_SHAPE[k] for k in
-                           ("B", "S", "H", "Hkv", "D"))
+    for route, (shape, dt) in OFFSET_BWD.items():
+        B, S, H, Hkv, D = (shape[k] for k in ("B", "S", "H", "Hkv", "D"))
         g = torch.Generator(device="cuda").manual_seed(SEED + 8)
         q, do = (torch.randn((B, S, H, D), generator=g, device="cuda")
                  .to(dt) for _ in range(2))
@@ -576,10 +618,9 @@ def check_flash_offsets() -> dict:
         qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
         require(katt.flash_bwd_route(qt, kt, vt, dot) == route,
                 f"flash_offsets: {dt} does not take {route}")
-        keys = (("flash_bwd_dq", "flash_bwd_dkv") if route == "flash_bwd"
-                else ("flash_bwd_dq_simt", "flash_bwd_dkv_simt"))
-        close_fn = (closeness_rounded if route == "flash_bwd"
-                    else closeness_f32)
+        keys = tuple(f"flash_bwd_{n}{BWD_SUFFIX[route]}"
+                     for n in ("dq", "dkv"))
+        close_fn = bwd_closeness(route)
         flat = (qt.reshape(B * H, S, D), kt.reshape(B * Hkv, S, D),
                 vt.reshape(B * Hkv, S, D), dot.reshape(B * H, S, D))
         for qo, ko in OFFSET_PAIRS:
@@ -594,10 +635,14 @@ def check_flash_offsets() -> dict:
                                                     delta, **kw)
                 torch.cuda.synchronize()
                 n = dict(ops.LAUNCHES)
-                want = katt.flash_attention_bwd_plain(
-                    *flat, lse, delta, **kw, **katt.flash_bwd_plain_kw(route))
-            closes = [close_fn(x.reshape(w.shape), w)
-                      for x, w in zip(got, want)]
+                plain_kw = dict(kw, **katt.flash_bwd_plain_kw(route))
+                want = katt.flash_attention_bwd_plain(*flat, lse, delta,
+                                                      **plain_kw)
+                terms = ((None,) * 3 if route == "flash_bwd_simt" else
+                         katt.flash_bwd_term_max(*flat, lse, delta,
+                                                 **plain_kw))
+            closes = [close_fn(x.reshape(w.shape), w, t)
+                      for x, w, t in zip(got, want, terms)]
             dead = lse == -1e30
             rec = dict(route=route, q_offset=qo, k_offset=ko,
                        dead_rows=int(dead.sum()),
@@ -1755,8 +1800,8 @@ TRAIN_FAMILIES = {
 }
 TRAIN_STEPS = 3
 FLASH_KEYS = ("flash_fwd", "flash_fwd_d256", "flash_fwd_simt",
-              "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_simt",
-              "flash_bwd_dkv_simt")
+              "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_d256",
+              "flash_bwd_dkv_d256", "flash_bwd_dq_simt", "flash_bwd_dkv_simt")
 
 
 def family_bundle(arch: str):
@@ -1792,8 +1837,8 @@ def want_flash(bundle, steps: int) -> dict:
     n = attention_calls(bundle) * steps
     want = dict.fromkeys(FLASH_KEYS, 0)
     if bundle.kind == "hybrid":         # head_dim 256
-        want.update(flash_fwd_d256=2 * n, flash_bwd_dq_simt=n,
-                    flash_bwd_dkv_simt=n)
+        want.update(flash_fwd_d256=2 * n, flash_bwd_dq_d256=n,
+                    flash_bwd_dkv_d256=n)
     elif n:
         want.update(flash_fwd=2 * n, flash_bwd_dq=n, flash_bwd_dkv=n)
     return want
@@ -2144,14 +2189,15 @@ def main() -> int:
                                    check_paged(True, flush),
                                    *check_paper_kernels(flush))}
     # the CUDA-core routes at their sibling's shape in f32 beside its
-    # library call in f32, and the forward's also at recurrentgemma's
-    # shape in bf16 through a padded stride (the kernel the D-256 route
-    # replaced on that path); lines of their own, not rows of the kernels
-    # line (the backward pair's rows there are recurrentgemma's bf16
-    # head_dim-256 ones, which train_families launches)
+    # library call in f32, and the flash pair's also at recurrentgemma's
+    # shape in bf16 through a padded stride (the kernels the D-256 wgmma
+    # routes replaced on that path); lines of their own, not rows of the
+    # kernels line
     check_flash(flush, FLASH_SHAPE, dtype=torch.float32)
     check_flash(flush, dict(FLASH_D256_SHAPE, pad=4), "recurrentgemma-9b")
     check_flash_bwd(flush, torch.float32)
+    check_flash_bwd(flush, shape=dict(FLASH_D256_SHAPE, pad=4),
+                    arch="recurrentgemma-9b")
     for arch, shape in FLASH_ZOO_BWD_SHAPES.items():
         check_flash_bwd(flush, shape=shape, arch=arch)
     check_paper_kernels(flush, torch.float32)

@@ -47,13 +47,15 @@ SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "flash_decode",
 # (``ops.reset_launches``): a plain integer per route, incremented by the
 # route's launcher (``*_cuda``) right after the launch is checked, and
 # nowhere else.  ``flash_fwd``, ``flash_fwd_d256`` (head_dim 256),
-# ``flash_bwd_dq``, ``flash_bwd_dkv``, ``matmul``, ``conv2d`` and
-# ``correlation`` are the tensor-core (wgmma) routes; the ``*_simt`` keys
+# ``flash_bwd_dq``, ``flash_bwd_dkv``, their head_dim-256 ``*_d256``,
+# ``matmul``, ``conv2d`` and ``correlation`` are the tensor-core (wgmma)
+# routes; the ``*_simt`` keys
 # the CUDA-core kernels kept for f32 and for operands TMA cannot take;
 # ``matmul_gemv`` the split-K kernel pair for M = 1.  A launcher that runs
 # a second pass (a split reduction or combine) counts one launch.
 LAUNCHES = {"flash_fwd": 0, "flash_fwd_d256": 0, "flash_fwd_simt": 0,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_dq_simt": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_dq_d256": 0,
+            "flash_bwd_dkv_d256": 0, "flash_bwd_dq_simt": 0,
             "flash_bwd_dkv_simt": 0, "paged_decode_bf16": 0,
             "paged_decode_int8": 0, "flash_decode": 0, "matmul": 0,
             "matmul_gemv": 0, "matmul_simt": 0, "conv2d": 0,

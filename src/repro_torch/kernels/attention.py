@@ -18,15 +18,20 @@ head_dim 64 or 128 with strides TMA can read; ``"flash_fwd_d256"``, the
 wgmma kernel for bf16 at head_dim 256 with such strides, with 128 x 64
 blocks; and ``"flash_fwd_simt"``, the CUDA-core kernel with 64 x 64
 blocks, for f32 and anything else.  The backward takes head_dim 64, 128
-or 256 and has two routes of its own (:func:`flash_bwd_route`), decided
+or 256 and has three routes of its own (:func:`flash_bwd_route`), decided
 on q, k, v and do: ``"flash_bwd"``, the wgmma dq kernel (128 q rows x
 64-key blocks) and dk/dv kernel (64-row q blocks x 128 keys) at head_dim
-64 or 128, which round p and ds to bf16 before their second products; and
-``"flash_bwd_simt"``, the CUDA-core pair at 64 x 64 in f32, which takes
-head_dim 256 in both dtypes (its streamed operand in two passes of 128
-columns).  Each backward
-route reads only o and the per-row lse, whose layouts do not depend on the
-forward's route.
+64 or 128, which round p and ds to bf16 before their second products;
+``"flash_bwd_d256"``, the wgmma pair at head_dim 256 with the same
+rounding (dq at 128 q rows x 32-key blocks, dk/dv at 64-row q blocks x 64
+keys, each GQA group's heads split into the parts of
+:func:`flash_bwd_dkv_plan` whose partials a second kernel adds in order);
+and ``"flash_bwd_simt"``, the CUDA-core pair at 64 x 64 in f32 (head_dim
+256 in either dtype: its streamed operand in two passes of 128 columns).
+Each backward route reads only o and the per-row lse, whose layouts do not
+depend on the forward's route.  :func:`flash_bwd_term_max` reads, from
+the plain version's own rounded p and ds, the largest term of each
+output element's sum, which the rounded routes' checks bound a flip by.
 
 Every kernel, plain version and schedule takes ``q_offset`` / ``k_offset``,
 the global positions of q row 0 and key 0, as the reference's kernels do
@@ -41,11 +46,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..core.cuda_bridge import pow2_floor
+from ..core.cuda_bridge import SM_COUNT, pow2_floor
 from . import _build
 
 NEG_INF = -1e30  # avoid nan from (-inf) - (-inf)
@@ -67,6 +73,12 @@ WGMMA_D256_BLOCKS = (128, 64)
 # dK, dV, S^T and dP^T of a warpgroup in its registers at head_dim 128.
 WGMMA_BWD_DQ_BLOCKS = (128, 64)
 WGMMA_BWD_DKV_BLOCKS = (64, 128)
+# ... and at head_dim 256 (route "flash_bwd_d256"): dq streams 32-key K / V
+# blocks past resident 128-row Q and dO (a 64-key ring would not fit in
+# shared memory); dk/dv holds 64 keys against 64-row Q / dO steps, its two
+# warpgroups splitting dK and dV (64 x 256 f32 each).
+WGMMA_D256_BWD_DQ_BLOCKS = (128, 32)
+WGMMA_D256_BWD_DKV_BLOCKS = (64, 64)
 
 
 # ---------------------------------------------------------------------------
@@ -471,6 +483,58 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                                      block_k=bk, **kw))
 
 
+def _max_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """max over k of |a[h, m, k]| |b[h, k, n]|: (H, M, N) from (H, M, K)
+    and (H, K, N), 64 columns of b at a time."""
+    a, b = a.abs(), b.abs()
+    return torch.cat([(a[..., None] * b[:, None, :, c:c + 64]).amax(2)
+                      for c in range(0, b.shape[-1], 64)], -1)
+
+
+def flash_bwd_term_max(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       do: torch.Tensor, lse: torch.Tensor,
+                       delta: torch.Tensor, *, causal: bool = True,
+                       window: int | None = None, block_q: int = BLOCK_Q,
+                       block_k: int = BLOCK_K, scale: float | None = None,
+                       kv_len: int | None = None, q_len: int | None = None,
+                       dkv_blocks: tuple[int, int] | None = None,
+                       rounded: bool = False, q_offset: int = 0,
+                       k_offset: int = 0, prune: bool = True
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """T of every output element of :func:`flash_attention_bwd_plain` (same
+    arguments): the largest magnitude of one term of its sum, exactly, from
+    the plain version's own p and ds (rounded where ``rounded``), walked
+    block by block as the plain version walks them.  dq[i, d]: max over j
+    of |ds_ij| |k_jd|; dk[j, d]: max over the group's heads and rows i of
+    |ds_ij| |q_id|; dv[j, d]: the same of |p_ij| |do_id|.  Returns f32
+    (tdq, tdk, tdv) of the gradients' shapes."""
+    kw = dict(causal=causal, window=window, scale=scale, kv_len=kv_len,
+              q_len=q_len, rounded=rounded, q_offset=q_offset,
+              k_offset=k_offset, prune=prune)
+    BH, Sq, Dh = q.shape
+    BHkv, Sk, _ = k.shape
+    w = _BwdPairs(q, k, v, do, lse, delta, block_q=block_q, block_k=block_k,
+                  **kw)
+    tdq = torch.zeros((BH, Sq, Dh), dtype=torch.float32, device=q.device)
+    for iq, ik, _, _ in w.schedule("row"):
+        _, _, kb, _, ds = w.pair(iq, ik)
+        rows = tdq[:, iq * block_q:(iq + 1) * block_q]
+        torch.maximum(rows, _max_products(ds, kb)[:, :rows.shape[1]],
+                      out=rows)
+    bq, bk = dkv_blocks or (block_q, block_k)
+    w = _BwdPairs(q, k, v, do, lse, delta, block_q=bq, block_k=bk, **kw)
+    tdk = torch.zeros((BHkv, Sk, Dh), dtype=torch.float32, device=k.device)
+    tdv = torch.zeros_like(tdk)
+    for iq, ik, _, _ in w.schedule("col"):
+        qb, dob, _, p, ds = w.pair(iq, ik)
+        for t, a, b in ((tdk, ds, qb), (tdv, p, dob)):
+            rows = t[:, ik * bk:(ik + 1) * bk]
+            m = _max_products(a.transpose(1, 2), b)
+            m = m.reshape(BHkv, w.group, bk, Dh).amax(1)
+            torch.maximum(rows, m[:, :rows.shape[1]], out=rows)
+    return tdq, tdk, tdv
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel
 # ---------------------------------------------------------------------------
@@ -514,27 +578,72 @@ def flash_fwd_route(q: torch.Tensor, k: torch.Tensor,
 def flash_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     do: torch.Tensor) -> str:
     """The backward kernels' route (module docstring), a pure function of
-    dtype, head_dim and strides on any device: ``"flash_bwd"`` (the wgmma
-    pair, launch keys ``flash_bwd_dq`` and ``flash_bwd_dkv``) for bf16 q,
-    k, v and do at head_dim 64 or 128 that TMA can read,
-    ``"flash_bwd_simt"`` (keys ``flash_bwd_dq_simt``,
-    ``flash_bwd_dkv_simt``) otherwise, head_dim 256 in either dtype
-    included."""
-    ok = (all(_tma_readable(t) for t in (q, k, v, do))
-          and q.shape[-1] in (64, 128))
-    return "flash_bwd" if ok else "flash_bwd_simt"
+    dtype, head_dim and strides on any device.  For bf16 q, k, v and do
+    that TMA can read: ``"flash_bwd"`` (the wgmma pair, launch keys
+    ``flash_bwd_dq`` and ``flash_bwd_dkv``) at head_dim 64 or 128,
+    ``"flash_bwd_d256"`` (keys ``flash_bwd_dq_d256``,
+    ``flash_bwd_dkv_d256``) at head_dim 256; ``"flash_bwd_simt"`` (keys
+    ``flash_bwd_dq_simt``, ``flash_bwd_dkv_simt``) otherwise."""
+    if all(_tma_readable(t) for t in (q, k, v, do)):
+        if q.shape[-1] in (64, 128):
+            return "flash_bwd"
+        if q.shape[-1] == 256:
+            return "flash_bwd_d256"
+    return "flash_bwd_simt"
 
 
 def flash_bwd_plain_kw(route: str) -> dict:
     """The blocks and rounding of a backward route's kernels, as
     :func:`flash_attention_bwd_plain` takes them: the plain version at
     these is the same function as the route's kernels."""
-    if route == "flash_bwd":
-        bq, bk = WGMMA_BWD_DQ_BLOCKS
-        return dict(block_q=bq, block_k=bk, dkv_blocks=WGMMA_BWD_DKV_BLOCKS,
+    if route in ("flash_bwd", "flash_bwd_d256"):
+        d256 = route == "flash_bwd_d256"
+        bq, bk = WGMMA_D256_BWD_DQ_BLOCKS if d256 else WGMMA_BWD_DQ_BLOCKS
+        return dict(block_q=bq, block_k=bk,
+                    dkv_blocks=(WGMMA_D256_BWD_DKV_BLOCKS if d256
+                                else WGMMA_BWD_DKV_BLOCKS),
                     rounded=True)
     return dict(block_q=BLOCK_Q, block_k=BLOCK_K,
                 dkv_blocks=(BLOCK_Q, BLOCK_K), rounded=False)
+
+
+class DkvPlan(NamedTuple):
+    """A launch of the head_dim-256 dk/dv kernel (:func:`flash_bwd_dkv_plan`):
+    the parts each GQA group's heads split into, its (part, kv head,
+    64-key block) CTAs, and the shape of the f32 partials a second kernel
+    adds in the parts' order (none at one part, which writes dk / dv
+    itself)."""
+
+    parts: int
+    ctas: int
+    scratch: tuple[int, ...] | None
+
+    @property
+    def scratch_bytes(self) -> int:
+        return 4 * math.prod(self.scratch) if self.scratch else 0
+
+
+def flash_bwd_dkv_plan(B: int, Hkv: int, G: int, Sk: int,
+                       parts: int | None = None) -> DkvPlan:
+    """The head_dim-256 dk/dv kernel's split of each GQA group's G heads,
+    from shapes alone (Python ints: nothing syncs the host).  ``parts``
+    None: the fewest, a divisor of G, whose CTAs number at least twice
+    ``SM_COUNT`` (one CTA fits an SM: a second wave evens out key blocks of
+    unequal work, a window's last keys seeing fewer q rows); G when none
+    does.  Otherwise ``parts`` itself, which must divide G.
+    recurrentgemma-9b (B 1, one kv head, Sk 4096: 64 key blocks) gets 8
+    parts, 512 CTAs: on one H100 its dk/dv took 1.50, 0.79, 0.73, 0.60 and
+    0.65 ms at 1, 2, 4, 8 and 16 parts
+    (``scripts/sweep_flash_bwd_d256_torch.py``, PERF.md)."""
+    blocks = B * Hkv * -(-Sk // WGMMA_D256_BWD_DKV_BLOCKS[1])
+    if parts is None:
+        parts = next((p for p in range(1, G + 1)
+                      if G % p == 0 and blocks * p >= 2 * SM_COUNT), G)
+    elif parts < 1 or G % parts:
+        raise ValueError(f"flash_bwd_dkv_plan: parts {parts} does not "
+                         f"divide the group of {G} heads")
+    return DkvPlan(parts, blocks * parts,
+                   (2, parts, B * Hkv, Sk, 256) if parts > 1 else None)
 
 
 def flash_fwd_blocks(route: str) -> tuple[int, int]:
@@ -604,9 +713,9 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     return o, lse
 
 
-# head dims each direction's kernels are built for (csrc/flash_fwd.cu
-# takes 256 on its own wgmma route and the CUDA-core one; csrc/flash_bwd.cu
-# on the CUDA-core route only)
+# head dims each direction's kernels are built for (csrc/flash_fwd.cu and
+# csrc/flash_bwd.cu take 256 on a wgmma route of its own and on the
+# CUDA-core one)
 FWD_HEAD_DIMS = (64, 128, 256)
 BWD_HEAD_DIMS = (64, 128, 256)
 
@@ -671,28 +780,40 @@ def _strides(*ts) -> ctypes.Array:
 
 
 def _bwd_call(name: str, q, k, v, do, lse, delta, outs, ranges, causal,
-              window, route: str, q_offset: int, k_offset: int) -> None:
-    """Launch kernel ``name`` ('dq' or 'dkv') of ``route`` and count it."""
+              window, route: str, q_offset: int, k_offset: int,
+              plan: DkvPlan | None = None) -> None:
+    """Launch kernel ``name`` ('dq' or 'dkv') of ``route`` and count it;
+    ``plan``: the split of dk/dv on route "flash_bwd_d256", whose partials
+    go to f32 scratch allocated here."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), *[o.data_ptr() for o in outs],
-            ranges.data_ptr())
+            lse.data_ptr(), delta.data_ptr(), *[o.data_ptr() for o in outs])
     shape = (B, H, H // Hkv, Sq, Sk, D, ranges.shape[0], int(bool(causal)),
              0 if window is None else int(window), int(q_offset),
              int(k_offset))
     tail = (ctypes.POINTER(ctypes.c_longlong), ctypes.c_float)
-    if route == "flash_bwd":
-        key = f"flash_bwd_{name}"
-        fn = _build.bind("flash_bwd", f"{key}_wgmma",
-                         *[ctypes.c_void_p] * len(ptrs),
-                         *[ctypes.c_int] * 11, *tail)
+    if route in ("flash_bwd", "flash_bwd_d256"):
+        key = f"flash_bwd_{name}" + ("" if route == "flash_bwd" else "_d256")
+        ints = shape
+        if name == "dkv" and route == "flash_bwd_d256":
+            scratch = outs[0]         # unused at one part
+            if plan.scratch:
+                scratch = torch.empty(plan.scratch, dtype=torch.float32,
+                                      device=q.device)
+            ptrs += (scratch.data_ptr(),)
+            ints += (plan.parts,)
+        ptrs += (ranges.data_ptr(),)
+        fn = _build.bind("flash_bwd", f"{key}_wgmma" if route == "flash_bwd"
+                         else key, *[ctypes.c_void_p] * len(ptrs),
+                         *[ctypes.c_int] * len(ints), *tail)
         st = [x for t in (q, k, v, do) for x in _tma_strides(t)]
         st += [x for o in outs for x in o.stride()[:3]]
-        err = fn(*ptrs, *shape, (ctypes.c_longlong * len(st))(*st),
+        err = fn(*ptrs, *ints, (ctypes.c_longlong * len(st))(*st),
                  1.0 / math.sqrt(D), _build.stream_ptr(q))
     else:
         key = f"flash_bwd_{name}_simt"
+        ptrs += (ranges.data_ptr(),)
         fn = _build.bind("flash_bwd", key, *[ctypes.c_void_p] * len(ptrs),
                          *[ctypes.c_int] * 12, *tail)
         err = fn(*ptrs, _DTYPE_CODE[q.dtype], *shape,
@@ -706,9 +827,10 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal=True,
                       window=None, prune=True, q_offset=0,
                       k_offset=0) -> torch.Tensor:
     """Launch the dq kernel of ``csrc/flash_bwd.cu`` that
-    :func:`flash_bwd_route` names (launch key ``flash_bwd_dq`` or
-    ``flash_bwd_dq_simt``); arguments as :func:`flash_attention_bwd_cuda`.
-    Returns dq in f32 with q's memory layout."""
+    :func:`flash_bwd_route` names (launch key ``flash_bwd_dq``,
+    ``flash_bwd_dq_d256`` or ``flash_bwd_dq_simt``); arguments as
+    :func:`flash_attention_bwd_cuda`.  Returns dq in f32 with q's memory
+    layout."""
     _check_bwd(q, k, v, do, lse, delta, window)
     _check_offsets("flash_bwd_dq_cuda", q_offset, k_offset)
     route = flash_bwd_route(q, k, v, do)
@@ -723,23 +845,32 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal=True,
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal=True,
-                       window=None, prune=True, q_offset=0, k_offset=0
+                       window=None, prune=True, q_offset=0, k_offset=0,
+                       parts: int | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the dk/dv kernel of ``csrc/flash_bwd.cu`` that
-    :func:`flash_bwd_route` names (launch key ``flash_bwd_dkv`` or
-    ``flash_bwd_dkv_simt``); arguments as
-    :func:`flash_attention_bwd_cuda`.  Returns (dk, dv) in f32 with k's and
-    v's memory layouts."""
+    :func:`flash_bwd_route` names (launch key ``flash_bwd_dkv``,
+    ``flash_bwd_dkv_d256`` or ``flash_bwd_dkv_simt``); arguments as
+    :func:`flash_attention_bwd_cuda`.  ``parts`` (route "flash_bwd_d256"
+    only, else a ValueError; a divisor of the GQA group) overrides
+    :func:`flash_bwd_dkv_plan`'s split.  Returns (dk, dv) in f32 with k's
+    and v's memory layouts."""
+    route = flash_bwd_route(q, k, v, do)
+    if parts is not None and route != "flash_bwd_d256":
+        raise ValueError(f"flash_bwd_dkv_cuda: parts splits route "
+                         f"flash_bwd_d256 only, not {route}")
     _check_bwd(q, k, v, do, lse, delta, window)
     _check_offsets("flash_bwd_dkv_cuda", q_offset, k_offset)
-    route = flash_bwd_route(q, k, v, do)
+    B, H, _, _ = q.shape
+    plan = (flash_bwd_dkv_plan(B, k.shape[1], H // k.shape[1], k.shape[2],
+                               parts) if route == "flash_bwd_d256" else None)
     cols = _ranges_on(q.device, q.shape[2], k.shape[2], bool(causal), window,
                       "col", *flash_bwd_plain_kw(route)["dkv_blocks"], prune,
                       q_offset, k_offset)
     dk = torch.empty_like(k, dtype=torch.float32)
     dv = torch.empty_like(v, dtype=torch.float32)
     _bwd_call("dkv", q, k, v, do, lse, delta, (dk, dv), cols, causal, window,
-              route, q_offset, k_offset)
+              route, q_offset, k_offset, plan)
     return dk, dv
 
 

@@ -1,7 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a): causal / sliding-window GQA,
 // from the forward's saved residuals lse (f32 row log-sum-exp) and
 // delta = rowsum(o * do) (f32, computed by the caller).  Two kernels, each
-// with two routes that the wrapper (kernels/attention.py,
+// with three routes that the wrapper (kernels/attention.py,
 // `flash_bwd_route`) picks before the launch:
 //
 //   dq    replaces `_fa_bwd_dq_kernel`  (src/repro/kernels/attention.py:311)
@@ -74,9 +74,45 @@
 //   sees every q block): blockIdx.y walks q blocks from the last (dq) and
 //   k blocks from the first (dk/dv), so the longest CTAs start first.
 //
+// Route "flash_bwd_d256" (launch keys flash_bwd_dq_d256,
+// flash_bwd_dkv_d256): bf16 at head_dim 256 (recurrentgemma-9b's local
+// MQA, 16 q heads over one kv head), the strides TMA can take.  The same
+// arithmetic as route "flash_bwd" (p and ds rounded to bf16 before their
+// second products), on a design for D 256: a 64 x 256 f32 accumulator is
+// 128 registers a thread, so a CTA is two warpgroups and no producer warp
+// (256 threads, up to 255 registers; nine warps would cap a thread at
+// 168), its first warp feeding the TMA ring, as flash_fwd_d256 does.
+//   * dq: one CTA per (b * H + h, 128-row q block), 64 q rows a
+//     warpgroup.  Q and dO stay resident (64 KB each); K and V stream in
+//     32-key blocks through a 2-stage ring (64 KB): 64-key blocks would
+//     need 128 KB of ring, past the 232,448 B a block may hold.  S and dP
+//     are m64n32k16 over 16 k-steps (16 f32 registers each), dQ += dS K
+//     two m64n256k16 with dS from registers and K N-major over four
+//     64-column atom columns.  197,672 B of shared memory.
+//   * dk/dv: one CTA per (part, b * Hkv + hk, 64-key block).  A warpgroup
+//     cannot hold both 64 x 256 accumulators (256 registers a thread), so
+//     both warpgroups take the CTA's 64 keys and split the outputs:
+//     warpgroup 0 holds dV and forms S^T and P^T; warpgroup 1 holds dK and
+//     forms S^T, dP^T, P^T and dS^T (5 products a step where 4 would do,
+//     against the 6 of splitting the columns).  K and V stay resident
+//     (64 KB); each step streams a 64-row Q and dO of one head through a
+//     2-stage ring (128 KB) with its lse and delta rows, read by column.
+//     At one kv head (recurrentgemma: B 1, Sk 4096) the key blocks alone
+//     give 64 CTAs on 132 SMs, so each group's heads are split into
+//     `parts` (attention.flash_bwd_dkv_plan, shapes only: the fewest parts
+//     that give two CTAs an SM); each part writes its f32 partial dK / dV
+//     into scratch, and flash_bwd_dkv_sum_kernel adds the parts in their
+//     order (no atomics: the same bits every run).  198,696 B of shared
+//     memory.
+//   Bound by operations: at recurrentgemma's B 1, S 4096, 16/1 heads and
+//   2048 window, 6 x D flops a pair for dq and 8 x D for dk/dv are 0.156
+//   and 0.209 ms at the bf16 tensor-core peak; this dk/dv issues 10 x D
+//   (the duplicated S^T), and its partials add 2 x 2 x parts x 4 MB of
+//   f32 traffic (written, then read by the sum).
+//
 // Route "flash_bwd_simt" (launch keys flash_bwd_dq_simt,
-// flash_bwd_dkv_simt): f32, head_dim 256 (bf16 too), or strides TMA
-// cannot take.  The first port's CUDA-core kernels: f32 from shared
+// flash_bwd_dkv_simt): f32, or strides TMA cannot take (head_dim 256 in
+// bf16 too).  The first port's CUDA-core kernels: f32 from shared
 // memory (64 x 64 tiles, 4 x 4 register tile per thread), p and ds
 // unrounded, more than 48 KB of dynamic shared memory per CTA.
 //   Head dim 256 (recurrentgemma-9b's local MQA): whole f32 tiles of all
@@ -576,6 +612,504 @@ bool encode_maps(CUtensorMap* maps, const void* q, const void* k,
 }
 
 // ---------------------------------------------------------------------------
+// route "flash_bwd_d256": wgmma + TMA rings at head_dim 256
+// ---------------------------------------------------------------------------
+
+constexpr int D256_THREADS = 2 * 128;  // no producer warp: see the top
+constexpr int Q2_BQ = 128;  // dq: q rows of a CTA, two warpgroups of 64
+constexpr int Q2_BK = 32;   // dq: keys of a streamed K / V block
+constexpr int K2_BK = 64;   // dk/dv: keys of a CTA, both warpgroups
+constexpr int K2_BQ = 64;   // dk/dv: q rows of a streamed step
+
+struct Dq2Smem {
+  static constexpr int Q_BYTES = Q2_BQ * 256 * 2;   // Q or dO: 64 KB
+  static constexpr int KV_BYTES = Q2_BK * 256 * 2;  // a K or V block: 16 KB
+  static constexpr int SMEM =
+      2 * Q_BYTES + 2 * STAGES * KV_BYTES + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+__global__ void __launch_bounds__(D256_THREADS, 1) flash_bwd_dq_d256_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq,
+    const int* __restrict__ ranges, int H, int G, int Sq, int Sk, int nq,
+    int causal, int window, int shift, float scale, long long dq_sb,
+    long long dq_sh, long long dq_ss) {
+  constexpr int D = 256;
+  using L = Dq2Smem;
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* q_s = smem;
+  unsigned char* do_s = q_s + L::Q_BYTES;
+  unsigned char* k_s = do_s + L::Q_BYTES;               // [stage]
+  unsigned char* v_s = k_s + STAGES * L::KV_BYTES;      // [stage]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + STAGES * L::KV_BYTES);
+  uint64_t* kv_full = q_full + 1;
+  uint64_t* kv_empty = kv_full + STAGES;
+
+  const int bh = blockIdx.x;                // a q block's heads side by side
+  const int iq = nq - 1 - (int)blockIdx.y;  // the longest causal rows first
+  const int b = bh / H, h = bh % H, hk = h / G;
+  const int q0 = iq * Q2_BQ;
+  const int lo = ranges[2 * iq], hi = ranges[2 * iq + 1];
+  const int n = hi - lo + 1;  // k blocks of this row; <= 0: empty
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], D256_THREADS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+
+  // The first warp also feeds the ring: block i's K and V by TMA (lane 0)
+  // into stage i % 2, once both warpgroups released it (block i - 2).
+  const bool feeder = threadIdx.x < 32;
+  auto feed = [&](int i) {
+    const int s = i % STAGES;
+    mbar_wait(&kv_empty[s], ((i / STAGES) & 1) ^ 1);
+    if (lane == 0) {
+      const int k0 = (lo + i) * Q2_BK;
+      unsigned char* kb = k_s + s * L::KV_BYTES;
+      unsigned char* vb = v_s + s * L::KV_BYTES;
+      mbar_expect_tx(&kv_full[s], 2 * L::KV_BYTES);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(kb + c * Q2_BK * 128, &tk, &kv_full[s], 64 * c, k0, hk,
+                    b);
+        tma_load_4d(vb + c * Q2_BK * 128, &tv, &kv_full[s], 64 * c, k0, hk,
+                    b);
+      }
+    }
+  };
+  if (feeder && n > 0) {
+    if (lane == 0) {
+      mbar_expect_tx(q_full, 2 * L::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(q_s + c * Q2_BQ * 128, &tq, q_full, 64 * c, q0, h, b);
+        tma_load_4d(do_s + c * Q2_BQ * 128, &tdo, q_full, 64 * c, q0, h, b);
+      }
+    }
+    feed(0);
+  }
+
+  // this thread's q rows r and r + 8 of its warpgroup's 64
+  const int t4 = lane % 4;
+  const int qw0 = q0 + wg * 64;
+  const int qpos0 = qw0 + warp * 16 + lane / 4, qpos1 = qpos0 + 8;
+  const float scale2 = scale * LOG2E;
+  const long long row = (long long)bh * Sq;
+  // rows past Sq: Q and dO load as zeros, so with lse = delta = 0 their
+  // p is 1 and their ds 0; they are never written
+  const float l0 = qpos0 < Sq ? lse[row + qpos0] * LOG2E : 0.f;
+  const float l1 = qpos1 < Sq ? lse[row + qpos1] * LOG2E : 0.f;
+  const float dl0 = qpos0 < Sq ? delta[row + qpos0] : 0.f;
+  const float dl1 = qpos1 < Sq ? delta[row + qpos1] : 0.f;
+  const Span keys0 =
+      flash_band::key_span(qpos0, Sq, Sk, causal, window, shift);
+  const Span keys1 =
+      flash_band::key_span(qpos1, Sq, Sk, causal, window, shift);
+  float dqacc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqacc[i] = 0.f;
+  if (n > 0) mbar_wait(q_full, 0);
+  const unsigned char* q_wg = q_s + wg * 64 * 128;
+  const unsigned char* do_wg = do_s + wg * 64 * 128;
+
+  for (int i = 0; i < n; ++i) {
+    if (feeder && i + 1 < n) feed(i + 1);  // loads under this block's math
+    const int s = i % STAGES;
+    const uint32_t ph = (i / STAGES) & 1;
+    const int k0 = (lo + i) * Q2_BK;
+    const unsigned char* kb = k_s + s * L::KV_BYTES;
+    const unsigned char* vb = v_s + s * L::KV_BYTES;
+
+    // S = Q K^T and dP = dO V^T (64 x 32 per warpgroup, 16 k-steps each)
+    float sacc[Q2_BK / 2], pacc[Q2_BK / 2];
+    mbar_wait(&kv_full[s], ph);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk / 4, off = (kk % 4) * 32;
+      Mma<Q2_BK>::template ss<0>(
+          sacc, desc_sw128(q_wg + c * Q2_BQ * 128 + off, 16, 1024),
+          desc_sw128(kb + c * Q2_BK * 128 + off, 16, 1024), kk > 0 ? 1 : 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk / 4, off = (kk % 4) * 32;
+      Mma<Q2_BK>::template ss<0>(
+          pacc, desc_sw128(do_wg + c * Q2_BQ * 128 + off, 16, 1024),
+          desc_sw128(vb + c * Q2_BK * 128 + off, 16, 1024), kk > 0 ? 1 : 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc);
+    fence_regs(pacc);
+
+    // P under the mask guard (edge blocks only), dS = P (dP - delta) scale,
+    // dS in bf16: the A operand of dQ += dS K
+    const bool edge = (k0 + Q2_BK > Sk) ||
+                      (causal && k0 + Q2_BK - 1 > qw0 + shift) ||
+                      (window > 0 && qw0 + shift + 63 - k0 >= window);
+    uint32_t dsa[Q2_BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < Q2_BK / 8; ++j) {
+      float d[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(sacc[4 * j + e] * scale2 - (e < 2 ? l0 : l1));
+        if (edge)
+          p = (e < 2 ? keys0 : keys1).holds(k0 + 8 * j + 2 * t4 + (e & 1))
+                  ? p
+                  : 0.f;
+        d[e] = p * (pacc[4 * j + e] - (e < 2 ? dl0 : dl1)) * scale;
+      }
+      dsa[j / 2][2 * (j % 2)] = pack_bf16(d[0], d[1]);
+      dsa[j / 2][2 * (j % 2) + 1] = pack_bf16(d[2], d[3]);
+    }
+
+    // dQ += dS K (64 x 256 per warpgroup, K N-major over four 64-column
+    // atom columns of one 32-row block)
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < Q2_BK / 16; ++kc)
+      Mma<D>::rs_tb(dqacc, dsa[kc],
+                    desc_sw128(kb + kc * 2048, Q2_BK * 128, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dqacc);
+    mbar_arrive(&kv_empty[s]);
+  }
+
+  float* dqb = dq + b * dq_sb + h * dq_sh;
+  if (qpos0 < Sq) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dqb + qpos0 * dq_ss + 8 * j + 2 * t4) =
+          make_float2(dqacc[4 * j], dqacc[4 * j + 1]);
+  }
+  if (qpos1 < Sq) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dqb + qpos1 * dq_ss + 8 * j + 2 * t4) =
+          make_float2(dqacc[4 * j + 2], dqacc[4 * j + 3]);
+  }
+}
+
+struct Dkv2Smem {
+  static constexpr int KV_BYTES = K2_BK * 256 * 2;  // K or V: 32 KB
+  static constexpr int Q_BYTES = K2_BQ * 256 * 2;   // a Q or dO stage: 32 KB
+  static constexpr int ROW_BYTES = 2 * K2_BQ * 4;   // a step's lse, delta
+  static constexpr int SMEM = 2 * KV_BYTES + 2 * STAGES * Q_BYTES +
+                              STAGES * ROW_BYTES + (1 + 2 * STAGES) * 8 +
+                              1024;
+};
+
+// dk/dv at head_dim 256: warpgroup 0 holds dV, warpgroup 1 dK, each 64 x 256
+// f32 (128 registers a thread) over the CTA's 64 keys.  Both form S^T = K
+// Q^T and P^T; warpgroup 1 also dP^T = V dO^T and dS^T.  The CTA takes
+// `G / parts` heads of the group (part `blockIdx.x % parts`) and writes its
+// sums to dk / dv + part * d?_sp: the outputs themselves at one part, the
+// partials that flash_bwd_dkv_sum_kernel adds otherwise.
+__global__ void __launch_bounds__(D256_THREADS, 1) flash_bwd_dkv_d256_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk,
+    float* __restrict__ dv, const int* __restrict__ ranges, int H, int G,
+    int parts, int Sq, int Sk, int causal, int window, int shift,
+    float scale, long long dk_sp, long long dk_sb, long long dk_sh,
+    long long dk_ss, long long dv_sp, long long dv_sb, long long dv_sh,
+    long long dv_ss) {
+  constexpr int D = 256;
+  using L = Dkv2Smem;
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* k_s = smem;
+  unsigned char* v_s = k_s + L::KV_BYTES;
+  unsigned char* q_s = v_s + L::KV_BYTES;                // [stage]
+  unsigned char* do_s = q_s + STAGES * L::Q_BYTES;       // [stage]
+  // [stage][lse * log2e of K2_BQ rows, then delta of K2_BQ rows]
+  float* rows = reinterpret_cast<float*>(do_s + STAGES * L::Q_BYTES);
+  uint64_t* kv_full =
+      reinterpret_cast<uint64_t*>(rows + STAGES * 2 * K2_BQ);
+  uint64_t* qd_full = kv_full + 1;
+  uint64_t* qd_empty = qd_full + STAGES;
+
+  const int Hkv = H / G, Gp = G / parts;
+  const int part = blockIdx.x % parts;
+  const int bhk = blockIdx.x / parts;
+  const int b = bhk / Hkv, hk = bhk % Hkv;
+  const int h0 = hk * G + part * Gp;  // the part's first head
+  const int ik = blockIdx.y;  // causal: k block 0 sees every q block
+  const int k0 = ik * K2_BK;
+  const int lo = ranges[2 * ik], hi = ranges[2 * ik + 1];
+  const int n = (hi - lo + 1) * Gp;  // (q block, head) steps; <= 0: empty
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      // lane 0's expect_tx arrival and one arrival per lane of the feeding
+      // warp after it wrote its lse / delta entries
+      mbar_init(&qd_full[s], 1 + 32);
+      mbar_init(&qd_empty[s], D256_THREADS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;  // 0: dV, 1: dK
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+
+  // The first warp also feeds the ring: step i's Q and dO by TMA (lane 0)
+  // and its lse * log2e and delta rows into shared memory (every lane),
+  // once both warpgroups released the stage (step i - 2).  Rows past Sq:
+  // Q and dO load as zeros, so with lse = delta = 0 their p^T . dO and
+  // ds^T . Q add exactly 0.
+  const bool feeder = threadIdx.x < 32;
+  auto feed = [&](int i) {
+    const int s = i % STAGES;
+    const int q0 = (lo + i / Gp) * K2_BQ, h = h0 + i % Gp;
+    mbar_wait(&qd_empty[s], ((i / STAGES) & 1) ^ 1);
+    if (lane == 0) {
+      unsigned char* qb = q_s + s * L::Q_BYTES;
+      unsigned char* dob = do_s + s * L::Q_BYTES;
+      mbar_expect_tx(&qd_full[s], 2 * L::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(qb + c * K2_BQ * 128, &tq, &qd_full[s], 64 * c, q0, h, b);
+        tma_load_4d(dob + c * K2_BQ * 128, &tdo, &qd_full[s], 64 * c, q0, h,
+                    b);
+      }
+    }
+    float* rw = rows + s * 2 * K2_BQ;
+    const long long base = ((long long)b * H + h) * Sq;
+    for (int r = lane; r < K2_BQ; r += 32) {
+      const bool in = q0 + r < Sq;
+      rw[r] = in ? lse[base + q0 + r] * LOG2E : 0.f;
+      rw[K2_BQ + r] = in ? delta[base + q0 + r] : 0.f;
+    }
+    mbar_arrive(&qd_full[s]);
+  };
+  if (feeder && n > 0) {
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, 2 * L::KV_BYTES);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(k_s + c * K2_BK * 128, &tk, kv_full, 64 * c, k0, hk, b);
+        tma_load_4d(v_s + c * K2_BK * 128, &tv, kv_full, 64 * c, k0, hk, b);
+      }
+    }
+    feed(0);
+  }
+
+  // this thread's key rows r and r + 8 of the CTA's 64 (both warpgroups)
+  const int t4 = lane % 4;
+  const int kpos0 = k0 + warp * 16 + lane / 4, kpos1 = kpos0 + 8;
+  const Span qs0 = flash_band::q_span(kpos0, Sq, Sk, causal, window, shift);
+  const Span qs1 = flash_band::q_span(kpos1, Sq, Sk, causal, window, shift);
+  const float scale2 = scale * LOG2E;
+  float acc[D / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  if (n > 0) mbar_wait(kv_full, 0);
+
+  for (int i = 0; i < n; ++i) {
+    if (feeder && i + 1 < n) feed(i + 1);  // loads under this step's math
+    const int s = i % STAGES;
+    const uint32_t ph = (i / STAGES) & 1;
+    const int q0 = (lo + i / Gp) * K2_BQ;
+    const unsigned char* qb = q_s + s * L::Q_BYTES;
+    const unsigned char* dob = do_s + s * L::Q_BYTES;
+    const float* rw = rows + s * 2 * K2_BQ;
+    const bool edge = (k0 + K2_BK > Sk) ||
+                      (causal && k0 + K2_BK - 1 > q0 + shift) ||
+                      (window > 0 && q0 + shift + K2_BQ - 1 - k0 >= window);
+
+    // S^T = K Q^T (64 keys x 64 q rows), and in warpgroup 1 dP^T = V dO^T
+    float st[K2_BQ / 2], dpt[K2_BQ / 2];
+    mbar_wait(&qd_full[s], ph);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk / 4, off = (kk % 4) * 32;
+      Mma<K2_BQ>::template ss<0>(
+          st, desc_sw128(k_s + c * K2_BK * 128 + off, 16, 1024),
+          desc_sw128(qb + c * K2_BQ * 128 + off, 16, 1024), kk > 0 ? 1 : 0);
+    }
+    if (wg == 1) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / 4, off = (kk % 4) * 32;
+        Mma<K2_BQ>::template ss<0>(
+            dpt, desc_sw128(v_s + c * K2_BK * 128 + off, 16, 1024),
+            desc_sw128(dob + c * K2_BQ * 128 + off, 16, 1024),
+            kk > 0 ? 1 : 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    if (wg == 1) fence_regs(dpt);
+
+    // P^T under the mask guard (edge steps only); warpgroup 0 feeds it to
+    // dV += P^T dO, warpgroup 1 forms dS^T and feeds it to dK += dS^T Q,
+    // both in bf16.  lse and delta vary along the columns (q rows).
+    uint32_t a[K2_BQ / 16][4];
+#pragma unroll
+    for (int j = 0; j < K2_BQ / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(rw + 8 * j + 2 * t4);
+      const float2 dl =
+          *reinterpret_cast<const float2*>(rw + K2_BQ + 8 * j + 2 * t4);
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(st[4 * j + e] * scale2 - ((e & 1) ? l2.y : l2.x));
+        if (edge)
+          p = (e < 2 ? qs0 : qs1).holds(q0 + 8 * j + 2 * t4 + (e & 1)) ? p
+                                                                       : 0.f;
+        x[e] = wg == 0 ? p
+                       : p * (dpt[4 * j + e] - ((e & 1) ? dl.y : dl.x)) *
+                             scale;
+      }
+      a[j / 2][2 * (j % 2)] = pack_bf16(x[0], x[1]);
+      a[j / 2][2 * (j % 2) + 1] = pack_bf16(x[2], x[3]);
+    }
+
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1): 64 x 256,
+    // the B operand N-major over four 64-column atom columns of the step
+    const unsigned char* bop = wg == 0 ? dob : qb;
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < K2_BQ / 16; ++kc)
+      Mma<D>::rs_tb(acc, a[kc],
+                    desc_sw128(bop + kc * 2048, K2_BQ * 128, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&qd_empty[s]);
+  }
+
+  float* out = wg == 0 ? dv + part * dv_sp + b * dv_sb + hk * dv_sh
+                       : dk + part * dk_sp + b * dk_sb + hk * dk_sh;
+  const long long ss = wg == 0 ? dv_ss : dk_ss;
+  if (kpos0 < Sk) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(out + kpos0 * ss + 8 * j + 2 * t4) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+  }
+  if (kpos1 < Sk) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(out + kpos1 * ss + 8 * j + 2 * t4) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// dk and dv (f32, written through their strides) as the sums of `parts`
+// contiguous (B, Hkv, Sk, 256) partials each, added in the order of the
+// parts: the same bits on every run.  blockIdx.y: 0 dk, 1 dv.
+__global__ void __launch_bounds__(256) flash_bwd_dkv_sum_kernel(
+    const float* __restrict__ part_dk, const float* __restrict__ part_dv,
+    float* __restrict__ dk, float* __restrict__ dv, int parts, int Hkv,
+    int Sk, long long n, long long dk_sb, long long dk_sh, long long dk_ss,
+    long long dv_sb, long long dv_sh, long long dv_ss) {
+  const bool is_k = blockIdx.y == 0;
+  const float* src = is_k ? part_dk : part_dv;
+  float* dst = is_k ? dk : dv;
+  const long long sb = is_k ? dk_sb : dv_sb, sh = is_k ? dk_sh : dv_sh,
+                  ss = is_k ? dk_ss : dv_ss;
+  for (long long e = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+       e < n; e += 4LL * gridDim.x * blockDim.x) {
+    float4 x = *reinterpret_cast<const float4*>(src + e);
+    for (int p = 1; p < parts; ++p) {
+      const float4 y = *reinterpret_cast<const float4*>(src + p * n + e);
+      x.x += y.x;
+      x.y += y.y;
+      x.z += y.z;
+      x.w += y.w;
+    }
+    const long long d = e % 256, r = e / 256;
+    const long long j = r % Sk, bh = r / Sk;
+    *reinterpret_cast<float4*>(dst + (bh / Hkv) * sb + (bh % Hkv) * sh +
+                               j * ss + d) = x;
+  }
+}
+
+int launch_dq_d256(const CUtensorMap* maps, const void* lse,
+                   const void* delta, void* dq, const void* ranges, int B,
+                   int H, int G, int Sq, int Sk, int nq, int causal,
+                   int window, int shift, float scale, const long long* st,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_d256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Dq2Smem::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * H, nq);
+  flash_bwd_dq_d256_kernel<<<grid, D256_THREADS, Dq2Smem::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq),
+      static_cast<const int*>(ranges), H, G, Sq, Sk, nq, causal, window,
+      shift, scale, st[0], st[1], st[2]);
+  return (int)cudaGetLastError();
+}
+
+int launch_dkv_d256(const CUtensorMap* maps, const void* lse,
+                    const void* delta, void* dk, void* dv, void* scratch,
+                    const void* ranges, int B, int H, int G, int Sq, int Sk,
+                    int nk, int causal, int window, int shift, int parts,
+                    float scale, const long long* st, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_d256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Dkv2Smem::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int Hkv = H / G;
+  dim3 grid(B * Hkv * parts, nk);
+  const float* lse_f = static_cast<const float*>(lse);
+  const float* delta_f = static_cast<const float*>(delta);
+  const int* rng = static_cast<const int*>(ranges);
+  if (parts == 1) {  // one writer an element: the outputs themselves
+    flash_bwd_dkv_d256_kernel<<<grid, D256_THREADS, Dkv2Smem::SMEM,
+                                stream>>>(
+        maps[0], maps[1], maps[2], maps[3], lse_f, delta_f,
+        static_cast<float*>(dk), static_cast<float*>(dv), rng, H, G, 1, Sq,
+        Sk, causal, window, shift, scale, 0, st[0], st[1], st[2], 0, st[3],
+        st[4], st[5]);
+    return (int)cudaGetLastError();
+  }
+  // partials (parts, B, Hkv, Sk, 256) of dk, then of dv, in `scratch`
+  const long long n = (long long)B * Hkv * Sk * 256;
+  float* part_dk = static_cast<float*>(scratch);
+  float* part_dv = part_dk + parts * n;
+  flash_bwd_dkv_d256_kernel<<<grid, D256_THREADS, Dkv2Smem::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse_f, delta_f, part_dk, part_dv,
+      rng, H, G, parts, Sq, Sk, causal, window, shift, scale, n,
+      (long long)Hkv * Sk * 256, (long long)Sk * 256, 256, n,
+      (long long)Hkv * Sk * 256, (long long)Sk * 256, 256);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (n / 4 + 255) / 256;
+  dim3 sum_grid((unsigned)(blocks < 4096 ? blocks : 4096), 2);
+  flash_bwd_dkv_sum_kernel<<<sum_grid, 256, 0, stream>>>(
+      part_dk, part_dv, static_cast<float*>(dk), static_cast<float*>(dv),
+      parts, Hkv, Sk, n, st[0], st[1], st[2], st[3], st[4], st[5]);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // route "flash_bwd_simt": the CUDA-core kernels
 // ---------------------------------------------------------------------------
 
@@ -1040,4 +1574,48 @@ extern "C" int flash_bwd_dkv_wgmma(const void* q, const void* k,
   if (D == 128) return launch_dkv_wgmma<128>(ARGS);
   return launch_dkv_wgmma<64>(ARGS);
 #undef ARGS
+}
+
+// As flash_bwd_dq_wgmma, at D 256 only (route "flash_bwd_d256"): ranges
+// over 128-row q blocks and 32-key blocks.
+extern "C" int flash_bwd_dq_d256(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse,
+                                 const void* delta, void* dq,
+                                 const void* ranges, int B, int H, int G,
+                                 int Sq, int Sk, int D, int nq, int causal,
+                                 int window, int q_off, int k_off,
+                                 const long long* st, float scale,
+                                 void* stream) {
+  if (D != 256) return -1;
+  CUtensorMap maps[4];
+  if (!encode_maps(maps, q, k, v, dout, B, H, G, Sq, Sk, D, st, Q2_BQ,
+                   Q2_BK))
+    return -2;
+  return launch_dq_d256(maps, lse, delta, dq, ranges, B, H, G, Sq, Sk, nq,
+                        causal, window, q_off - k_off, scale, st + 12,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// As flash_bwd_dkv_wgmma, at D 256 only: ranges over 64-key blocks and
+// 64-row q blocks; each group's G heads in `parts` parts (G % parts == 0),
+// one CTA a (part, kv head, key block).  With parts > 1 `scratch` holds
+// 2 x parts x B x (H / G) x Sk x 256 floats of partials, which a second
+// kernel adds in the order of the parts.
+extern "C" int flash_bwd_dkv_d256(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const void* lse, const void* delta,
+                                  void* dk, void* dv, void* scratch,
+                                  const void* ranges, int B, int H, int G,
+                                  int Sq, int Sk, int D, int nk, int causal,
+                                  int window, int q_off, int k_off,
+                                  int parts, const long long* st,
+                                  float scale, void* stream) {
+  if (D != 256 || parts < 1 || G % parts) return -1;
+  CUtensorMap maps[4];
+  if (!encode_maps(maps, q, k, v, dout, B, H, G, Sq, Sk, D, st, K2_BQ,
+                   K2_BK))
+    return -2;
+  return launch_dkv_d256(maps, lse, delta, dk, dv, scratch, ranges, B, H, G,
+                         Sq, Sk, nk, causal, window, q_off - k_off, parts,
+                         scale, st + 12, static_cast<cudaStream_t>(stream));
 }

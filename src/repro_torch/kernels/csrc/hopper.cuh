@@ -418,15 +418,16 @@ struct Mma<256> {
   }
 };
 
-// d (64 x N, f32) += a (64 x 16, shared) . b (16 x N, shared) for the N
-// between 64 and 128 that are not powers of two: the correlation kernel's
-// band width, 64 + 2R rounded up to a multiple of 8.  HOPPER_R<n> is the
-// asm list of n accumulator registers, HOPPER_D<n> their operands; the
-// descriptors, scale and transpose bit follow as operands n .. n + 3.
+// d (64 x N, f32) += a (64 x 16, shared) . b (16 x N, shared) for N 32
+// (the head_dim-256 dq backward's 32-key blocks) and the N between 64 and
+// 128 that are not powers of two: the correlation kernel's band width,
+// 64 + 2R rounded up to a multiple of 8.  HOPPER_R<n> is the asm list of n
+// accumulator registers, HOPPER_D<n> their operands; the descriptors,
+// scale and transpose bit follow as operands n .. n + 3.
 #define HOPPER_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define HOPPER_D32                                                        \
-  HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12), HOPPER_D4(16), \
-      HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28)
+#define HOPPER_D16 HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12)
+#define HOPPER_D32 \
+  HOPPER_D16, HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28)
 #define HOPPER_D36 HOPPER_D32, HOPPER_D4(32)
 #define HOPPER_D40 HOPPER_D36, HOPPER_D4(36)
 #define HOPPER_D44 HOPPER_D40, HOPPER_D4(40)
@@ -434,10 +435,11 @@ struct Mma<256> {
 #define HOPPER_D52 HOPPER_D48, HOPPER_D4(48)
 #define HOPPER_D56 HOPPER_D52, HOPPER_D4(52)
 #define HOPPER_D60 HOPPER_D56, HOPPER_D4(56)
-#define HOPPER_R32                                                        \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31"
+#define HOPPER_R16 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define HOPPER_R32                                                       \
+  HOPPER_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, " \
+             "%27, %28, %29, %30, %31"
 #define HOPPER_R36 HOPPER_R32 ", %32, %33, %34, %35"
 #define HOPPER_R40 HOPPER_R36 ", %36, %37, %38, %39"
 #define HOPPER_R44 HOPPER_R40 ", %40, %41, %42, %43"
@@ -460,6 +462,7 @@ struct Mma<256> {
                    : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));        \
     }                                                                      \
   };
+HOPPER_MMA_SS(32, HOPPER_R16, HOPPER_D16, 16, 17, 18, 19)
 HOPPER_MMA_SS(72, HOPPER_R36, HOPPER_D36, 36, 37, 38, 39)
 HOPPER_MMA_SS(80, HOPPER_R40, HOPPER_D40, 40, 41, 42, 43)
 HOPPER_MMA_SS(88, HOPPER_R44, HOPPER_D44, 44, 45, 46, 47)

@@ -19,23 +19,32 @@ outputs may differ by 1e-4.  The backward kernels' outputs are f32 sums in
 another order than the plain version's.  On the CUDA-core route
 (``flash_bwd_simt``: f32, head_dim 256, unaligned views) nothing is
 rounded: each element within 2^-10 |want| + 1e-5 max|want|, each row's
-relative L2 error under 2^-10.  The wgmma route (``flash_bwd``) rounds p
-and ds to bf16 before their second products, and so does the plain
-version it is held against; the two form p and ds in f32 in other orders (and with exp2 in
-the kernel), so where a value lies at a bf16 rounding boundary one of them
-rounds up and the other down: that term of a sum moves by one bf16 ulp, at
-most 2^-7 of itself.  Flips are rare (the f32 values differ by ~1e-6
-relative, an ulp is 2^-8) and unbiased, so the whole tensor's relative L2
-error stays under 2^-10; but a row dominated by one term (the last keys of
-a causal dk / dv see one q row per head) can move by 2^-7 of its norm.
-So: each element within 2^-7 (|want| + the RMS of its row), each row's
-L2 error under 2^-7 of its norm, the tensor's under 2^-10, and each with
-an absolute floor of 1e-5 max|want| (per element; times sqrt(D) a row)
-for rows that cancel to 0 (a causal first q row, whose ds is
-p (dp - delta) with delta = dp in exact arithmetic).
+relative L2 error under 2^-10.  The wgmma routes (``flash_bwd`` and, at
+head_dim 256, ``flash_bwd_d256``) round p and ds to bf16 before their
+second products, and so does the plain version they are held against; the
+two form p and ds in f32 in other orders (and with exp2 in the kernel), so
+where a value lies at a bf16 rounding boundary one of them rounds up and
+the other down: that term of a sum moves by one bf16 ulp, at most 2^-7 of
+itself.  Flips are rare (the f32 values differ by ~1e-6 relative, an ulp
+is 2^-8) and unbiased, so the whole tensor's relative L2 error stays under
+2^-10; but a row dominated by one term (the last keys of a causal dk / dv
+see one q row per head) can move by 2^-7 of its norm, and one element by
+2^-7 of its largest term, which may exceed the element itself.  So
+(``chip_smoke.closeness_rounded``): each element within
+2^-7 (|want| + the RMS of its row + T), T the largest magnitude of a
+rounded term of its sum (``attention.flash_bwd_term_max``: |ds| |k| for
+dq, |ds| |q| for dk, |p| |do| for dv), each row's L2 error under 2^-7 of
+its norm, the tensor's under 2^-10, and each with an absolute floor of
+1e-5 max|want| (per element; times sqrt(D) a row) for rows that cancel
+to 0 (a causal first q row, whose ds is p (dp - delta) with delta = dp in
+exact arithmetic).
 The paper-workload kernels' inputs are scaled to unit-variance outputs;
 their f32 sums run in another order than the plain version's (atol 1e-3
 in bf16, 1e-4 in f32; decode 1e-4 as paged decode)."""
+import functools
+import importlib.util
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -166,8 +175,8 @@ def test_flash_kernel_at_zoo_shapes_matches_plain(dev, case):
 
 
 def test_flash_backward_trains_head_dim_256(dev):
-    """Head dim 256 trains: the forward takes its wgmma route and the
-    backward the CUDA-core pair, one launch each."""
+    """Head dim 256 trains: the forward and the backward take their
+    head_dim-256 wgmma routes, one launch each."""
     from repro_torch.kernels import ops
     q, k, v = (torch.randn((1, h, 128, 256), device=dev,
                            dtype=torch.bfloat16).requires_grad_(True)
@@ -176,7 +185,7 @@ def test_flash_backward_trains_head_dim_256(dev):
     o = ops.flash_attention(q, k, v, causal=True, window=64)
     o.float().sum().backward()
     assert {n: c for n, c in ops.LAUNCHES.items() if c} == {
-        "flash_fwd_d256": 1, "flash_bwd_dq_simt": 1, "flash_bwd_dkv_simt": 1}
+        "flash_fwd_d256": 1, "flash_bwd_dq_d256": 1, "flash_bwd_dkv_d256": 1}
     assert all(bool(torch.isfinite(x.grad).all()) for x in (q, k, v))
 
 
@@ -222,20 +231,21 @@ def _bwd_close(got, want):
     assert not (diff > tol).any(), f"max err {diff.max().item()}"
 
 
-def _bwd_close_rounded(got, want):
-    """The wgmma route against its rounded plain version (module
-    docstring)."""
-    diff = (got - want).abs()
-    atol = 1e-5 * want.abs().max()
-    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
-    rel = (diff.norm() / want.norm().clamp_min(1e-30)).item()
-    assert rel <= 2.0 ** -10, f"tensor rel L2 err {rel}"
-    row_excess = diff.norm(dim=-1) - (2.0 ** -7 * want.norm(dim=-1) +
-                                      atol * want.shape[-1] ** 0.5)
-    assert row_excess.max().item() <= 0, \
-        f"row L2 err over its bound by {row_excess.max().item()}"
-    bad = diff > 2.0 ** -7 * (want.abs() + rms) + atol
-    assert not bad.any(), f"max err {diff.max().item()}"
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bwd_close_rounded(got, want, terms):
+    """A wgmma route against its rounded plain version (module docstring);
+    ``terms``: the output's ``flash_bwd_term_max``."""
+    close = _chip_smoke().closeness_rounded(got, want, terms)
+    assert close["within_tol"], close
 
 
 # the forward's cases; head_dim 64 at GQA groups 1, 4 and 8; and
@@ -248,7 +258,8 @@ FLASH_BWD = FLASH + [
     (1, 256, 64, 8, 1, 64, False, 100, torch.bfloat16),
     (1, 256, 64, 4, 2, 64, False, 100, torch.float32),
     # recurrentgemma-9b's local MQA at head_dim 256 (16 / 1 heads, a
-    # window): the CUDA-core pair in bf16 and f32, ragged S, Sq != Sk
+    # window): the head_dim-256 wgmma pair in bf16 (dk/dv in 16 parts),
+    # the CUDA-core pair in f32, ragged S, Sq != Sk
     (1, 1100, 1100, 16, 1, 256, True, 700, torch.bfloat16),
     (1, 300, 430, 16, 1, 256, True, 200, torch.bfloat16),
     (1, 500, 500, 4, 1, 256, True, 200, torch.float32),
@@ -264,9 +275,17 @@ FLASH_BWD = FLASH + [
 
 def _bwd_route(dt, D):
     """The backward route a case must take: bf16 at head_dim 64 or 128
-    the wgmma pair, anything else the CUDA-core pair."""
-    return ("flash_bwd" if dt == torch.bfloat16 and D in (64, 128)
-            else "flash_bwd_simt")
+    the wgmma pair, at 256 the head_dim-256 wgmma pair, f32 the CUDA-core
+    pair."""
+    if dt != torch.bfloat16:
+        return "flash_bwd_simt"
+    return "flash_bwd" if D in (64, 128) else "flash_bwd_d256"
+
+
+# the launch keys of each backward route
+BWD_KEYS = {"flash_bwd": ("flash_bwd_dq", "flash_bwd_dkv"),
+            "flash_bwd_d256": ("flash_bwd_dq_d256", "flash_bwd_dkv_d256"),
+            "flash_bwd_simt": ("flash_bwd_dq_simt", "flash_bwd_dkv_simt")}
 
 
 def _bwd_inputs(dev, case, seed=3):
@@ -280,10 +299,11 @@ def _bwd_inputs(dev, case, seed=3):
 
 
 def _bwd_check(qt, kt, vt, dot, causal, window, route, q_offset=0,
-               k_offset=0):
+               k_offset=0, parts=None):
     """The backward kernels fed the forward kernel's own o and lse, as
     ``FlashAttention`` feeds them, against the plain backward on the same
-    residuals at the route's blocks and rounding (and offsets)."""
+    residuals at the route's blocks and rounding (and offsets); ``parts``
+    overrides the head_dim-256 dk/dv split."""
     from repro_torch.kernels import attention as katt
     from repro_torch.kernels import ops
     B, H, S, D = qt.shape
@@ -295,22 +315,28 @@ def _bwd_check(qt, kt, vt, dot, causal, window, route, q_offset=0,
     o = o.reshape(B * H, S, D)
     delta = (o.float() * dot.reshape(B * H, S, D).float()).sum(-1)
     ops.reset_launches()
-    got = katt.flash_attention_bwd_cuda(qt, kt, vt, dot, lse, delta, **kw)
-    keys = ("flash_bwd_dq", "flash_bwd_dkv") if route == "flash_bwd" else \
-        ("flash_bwd_dq_simt", "flash_bwd_dkv_simt")
+    got = (katt.flash_bwd_dq_cuda(qt, kt, vt, dot, lse, delta, **kw),
+           *katt.flash_bwd_dkv_cuda(qt, kt, vt, dot, lse, delta, **kw,
+                                    parts=parts))
     assert {n: c for n, c in ops.LAUNCHES.items() if c} == \
-        dict.fromkeys(keys, 1)
-    want = katt.flash_attention_bwd_plain(
-        qt.reshape(B * H, S, D), kt.reshape(B * Hkv, Sk, D),
-        vt.reshape(B * Hkv, Sk, D), dot.reshape(B * H, S, D), lse, delta,
-        **kw, **katt.flash_bwd_plain_kw(route))
+        dict.fromkeys(BWD_KEYS[route], 1)
+    flat = (qt.reshape(B * H, S, D), kt.reshape(B * Hkv, Sk, D),
+            vt.reshape(B * Hkv, Sk, D), dot.reshape(B * H, S, D), lse, delta)
+    plain_kw = dict(kw, **katt.flash_bwd_plain_kw(route))
+    want = katt.flash_attention_bwd_plain(*flat, **plain_kw)
     # written in q's and k's memory layouts (dense views: their own strides)
     assert got[0].stride() == torch.empty_like(qt).stride()
     assert got[1].stride() == torch.empty_like(kt).stride()
-    close = _bwd_close_rounded if route == "flash_bwd" else _bwd_close
-    for x, w in zip(got, want):
+    if route == "flash_bwd_simt":
+        terms = (None,) * 3
+    else:
+        terms = katt.flash_bwd_term_max(*flat, **plain_kw)
+    for x, w, t in zip(got, want, terms):
         assert x.dtype == torch.float32 and torch.isfinite(x).all()
-        close(x.reshape(w.shape), w)
+        if t is None:
+            _bwd_close(x.reshape(w.shape), w)
+        else:
+            _bwd_close_rounded(x.reshape(w.shape), w, t)
     if not causal and window is not None and S > Sk - 1 + window:
         dead = (lse == -1e30)        # q rows that see no key: dq is 0
         assert dead.any() and (got[0].reshape(want[0].shape)[dead] == 0).all()
@@ -322,8 +348,8 @@ def _bwd_check(qt, kt, vt, dot, causal, window, route, q_offset=0,
 @pytest.mark.parametrize("case", FLASH_BWD,
                          ids=lambda c: "-".join(map(str, c)))
 def test_flash_bwd_kernels_match_plain(dev, case):
-    """bf16 at head_dim 64 or 128 takes the wgmma pair (held against the
-    rounded plain version at its blocks), f32 and head_dim 256 the
+    """bf16 takes a wgmma pair (head_dim 64 or 128, or the head_dim-256
+    one; held against the rounded plain version at its blocks), f32 the
     CUDA-core pair (the unrounded one at 64 x 64)."""
     route = _bwd_route(case[-1], case[5])
     _bwd_check(*_bwd_inputs(dev, case), case[6], case[7], route)
@@ -331,7 +357,11 @@ def test_flash_bwd_kernels_match_plain(dev, case):
 
 @pytest.mark.parametrize("case", [
     (1, 200, 200, 8, 2, 128, True, None),
-    (2, 130, 190, 4, 1, 64, False, 50)], ids=lambda c: "-".join(map(str, c)))
+    (2, 130, 190, 4, 1, 64, False, 50),
+    # recurrentgemma's 16 / 1 heads at head_dim 256, Sq != Sk, a window:
+    # the CUDA-core pair stays covered in bf16
+    (1, 300, 430, 16, 1, 256, True, 200)],
+    ids=lambda c: "-".join(map(str, c)))
 def test_flash_bwd_simt_route_takes_unaligned_bf16(dev, case):
     """bf16 whose seq stride is not a multiple of 8 elements (a slice of a
     wider buffer) takes the CUDA-core pair, held against the unrounded
@@ -431,41 +461,88 @@ FLASH_BWD_OFFSETS = [
     (1, 300, 300, 8, 2, 128, True, 100, torch.float32, 300, 0),
     (1, 256, 256, 4, 2, 64, False, 100, torch.float32, 64, 128),
     (1, 700, 700, 16, 1, 256, True, 300, torch.bfloat16, 2048, 1700),
+    # head_dim 256 with q behind k: q rows 0-255 see no key (dq 0)
+    (1, 512, 512, 8, 1, 256, True, None, torch.bfloat16, 512, 768),
 ]
 
 
 @pytest.mark.parametrize("case", FLASH_BWD_OFFSETS,
                          ids=lambda c: "-".join(map(str, c)))
 def test_flash_bwd_routes_at_offsets_match_plain(dev, case):
-    """Both backward routes at nonzero offsets (bf16 at head_dim 64 or
-    128: the wgmma pair against the rounded plain version; f32 and head_dim
-    256: the CUDA-core pair against the unrounded one), fed the forward
-    kernel's o and lse at the same offsets; rows that see no key get
-    dq = 0."""
+    """Every backward route at nonzero offsets (bf16: a wgmma pair, the
+    head_dim-256 one at D 256, against the rounded plain version; f32: the
+    CUDA-core pair against the unrounded one), fed the forward kernel's o
+    and lse at the same offsets; rows that see no key get dq = 0."""
     B, S, Sk, H, Hkv, D, causal, window, dt, qo, ko = case
     route = _bwd_route(dt, D)
     _bwd_check(*_bwd_inputs(dev, case[:9]), causal, window, route,
                q_offset=qo, k_offset=ko)
 
 
-def test_flash_bwd_d256_is_deterministic(dev):
-    """No atomics at head_dim 256 either: two launches of the CUDA-core
-    pair on the same inputs give the same bits."""
+def _twice_same_bits(qt, kt, vt, dot, route):
+    """Two launches of ``route``'s backward pair on the same inputs (a
+    window of 700) give the same bits: no atomics, and the head_dim-256
+    dk/dv partials add in one order."""
     from repro_torch.kernels import attention as katt
     from repro_torch.kernels import ops
-    case = (1, 1100, 1100, 16, 1, 256, True, 700, torch.bfloat16)
-    qt, kt, vt, dot = _bwd_inputs(dev, case, seed=10)
     B, H, S, D = qt.shape
+    assert katt.flash_bwd_route(qt, kt, vt, dot) == route
     o, lse = katt.flash_attention_fwd_cuda(qt, kt, vt, window=700)
-    delta = (o.float() * dot.float()).sum(-1).reshape(B * H, S)
+    delta = (o.float() * dot.float()).sum(-1).reshape(B * H, S) \
+        .contiguous()
     ops.reset_launches()
     first = katt.flash_attention_bwd_cuda(qt, kt, vt, dot, lse, delta,
                                           window=700)
     second = katt.flash_attention_bwd_cuda(qt, kt, vt, dot, lse, delta,
                                            window=700)
-    assert ops.LAUNCHES["flash_bwd_dq_simt"] == 2
-    assert ops.LAUNCHES["flash_bwd_dkv_simt"] == 2
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == \
+        dict.fromkeys(BWD_KEYS[route], 2)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_bwd_d256_is_deterministic(dev):
+    """No atomics at head_dim 256 either: two launches of the
+    head_dim-256 wgmma pair (dk/dv in 16 parts here, added in order) on
+    the same inputs give the same bits."""
+    from repro_torch.kernels import attention as katt
+    case = (1, 1100, 1100, 16, 1, 256, True, 700, torch.bfloat16)
+    assert katt.flash_bwd_dkv_plan(1, 1, 16, 1100).parts == 16
+    _twice_same_bits(*_bwd_inputs(dev, case, seed=10), "flash_bwd_d256")
+
+
+def test_flash_bwd_d256_simt_is_deterministic(dev):
+    """... and of the CUDA-core pair at head_dim 256, in bf16 through a
+    padded seq stride."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    qt, kt, vt, dot = (_padded_view(g, dev, 1, 1100, h, 256, torch.bfloat16)
+                       for h in (16, 1, 1, 16))
+    _twice_same_bits(qt, kt, vt, dot, "flash_bwd_simt")
+
+
+@pytest.mark.parametrize("parts", [1, 2, 8, 16])
+def test_flash_bwd_dkv_d256_parts_match_plain(dev, parts):
+    """Splits of the head_dim-256 dk/dv (one part writes dk / dv itself;
+    more write partials that a second kernel adds) against the rounded
+    plain version, at recurrentgemma's 16 / 1 heads."""
+    case = (1, 700, 700, 16, 1, 256, True, 300, torch.bfloat16)
+    _bwd_check(*_bwd_inputs(dev, case, seed=12), True, 300, "flash_bwd_d256",
+               parts=parts)
+
+
+def test_flash_bwd_d256_wgmma_kernels_build_without_spills(dev):
+    """``ptxas`` reports no spill for the head_dim-256 wgmma backward
+    kernels: dq holds a 64 x 256 f32 dQ and 64 x 32 S and dP a thread's
+    warpgroup, dk/dv a 64 x 256 dK (or dV) beside S^T and dP^T, within the
+    255 registers of a 256-thread CTA."""
+    from repro_torch.kernels import _build
+    _build.load("flash_bwd")
+    report = _build.ptxas_report(_build.build_log("flash_bwd"))
+    d256 = [r for r in report if "flash_bwd_dq_d256_kernel" in r["kernel"]
+            or "flash_bwd_dkv_d256_kernel" in r["kernel"]]
+    assert len(d256) == 2, report
+    for r in d256:
+        assert r["registers"] <= 255, r
+        assert r["spill_stores"] == r["spill_loads"] == 0, r
 
 
 def test_flash_bwd_d256_kernels_build_without_spills(dev):

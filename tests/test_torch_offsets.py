@@ -66,6 +66,9 @@ CASES = {
                                0, (64, 64)),
     "d256_mqa_window_q_ahead": (4, 1, 256, 256, 256, True, 64, 256, 256,
                                 300, 200, (64, 64)),
+    # ... and at the head_dim-256 wgmma dq's 128 x 32 blocks, ragged keys
+    "d256_mqa_window_q_ahead_128x32": (4, 1, 256, 256, 256, True, 64, 256,
+                                       230, 300, 200, (128, 32)),
 }
 
 

@@ -7,7 +7,8 @@ mode (the split-K GEMV at M 1-7, within the reference test's 2e-4 in f32;
 the flash forward at the wgmma kernel's 128 x 128 blocks and the backward
 at the wgmma pair's 128 x 64 / 64 x 128, within the present 1e-5, and the
 backward with p and ds rounded to bf16 within a bound derived from that
-rounding); the pruned ranges at those blocks against the reference's
+rounding; the head_dim-256 pair's in ``test_torch_flash_bwd_d256.py``);
+the pruned ranges at those blocks against the reference's
 ``_row_range``; the CPU wrappers following the routes; and the build's
 hash of included headers and its ``ptxas`` report."""
 import functools
@@ -377,10 +378,15 @@ FLASH_BWD_ROUTES = [
     ("bf16 do expanded over heads",
      lambda: (_bshd(1, 64, 4, 64), _bshd(1, 64, 2, 64),
               _t((1, 1, 64, 64)).expand(1, 4, 64, 64)), "flash_bwd_simt"),
-    # recurrentgemma-9b's local MQA at head_dim 256: the CUDA-core pair in
-    # either dtype (the wgmma pair is built for 64 and 128 only)
+    # recurrentgemma-9b's local MQA at head_dim 256: bf16 that TMA can
+    # read takes the head_dim-256 wgmma pair, f32 and a padded seq stride
+    # the CUDA-core pair
     ("bf16 D 256", lambda: (_bshd(1, 128, 16, 256), _bshd(1, 128, 1, 256),
-                            _bshd(1, 128, 16, 256)), "flash_bwd_simt"),
+                            _bshd(1, 128, 16, 256)), "flash_bwd_d256"),
+    ("bf16 D 256, seq stride padded",
+     lambda: (_t((1, 128, 16 * 256 + 4))[..., :4096].unflatten(
+         -1, (16, 256)).transpose(1, 2), _bshd(1, 128, 1, 256),
+              _bshd(1, 128, 16, 256)), "flash_bwd_simt"),
     ("f32 D 256", lambda: (_bshd(1, 64, 4, 256, torch.float32),
                            _bshd(1, 64, 1, 256, torch.float32),
                            _bshd(1, 64, 4, 256, torch.float32)),
@@ -391,17 +397,21 @@ FLASH_BWD_ROUTES = [
 @pytest.mark.parametrize("case", FLASH_BWD_ROUTES,
                          ids=[c[0] for c in FLASH_BWD_ROUTES])
 def test_flash_bwd_route(case):
-    """bf16 q, k, v and do at head_dim 64 or 128 that TMA can read (16-byte
-    bases, positive (batch, head, seq) strides in multiples of 8 elements)
-    -> the wgmma pair, dq at 128 x 64 and dk/dv at 64 x 128 with p and ds
-    rounded to bf16; anything else -> the CUDA-core pair at 64 x 64,
-    unrounded."""
+    """bf16 q, k, v and do that TMA can read (16-byte bases, positive
+    (batch, head, seq) strides in multiples of 8 elements) -> at head_dim
+    64 or 128 the wgmma pair, dq at 128 x 64 and dk/dv at 64 x 128, at 256
+    the head_dim-256 wgmma pair, dq at 128 x 32 and dk/dv at 64 x 64, both
+    with p and ds rounded to bf16; anything else -> the CUDA-core pair at
+    64 x 64, unrounded."""
     _, operands, want = case
     q, kv, do = operands()
     assert pt_att.flash_bwd_route(q, kv, kv, do) == want
     kw = pt_att.flash_bwd_plain_kw(want)
     if want == "flash_bwd":
         assert kw == dict(block_q=128, block_k=64, dkv_blocks=(64, 128),
+                          rounded=True)
+    elif want == "flash_bwd_d256":
+        assert kw == dict(block_q=128, block_k=32, dkv_blocks=(64, 64),
                           rounded=True)
     else:
         assert kw == dict(block_q=64, block_k=64, dkv_blocks=(64, 64),
@@ -508,7 +518,8 @@ def test_flash_bwd_rounded_plain_matches_pallas_within_bf16_rounding(case):
 
 def test_backward_head_dims_take_256():
     """The backward kernels are built for head_dim 64, 128 and 256 (256 on
-    the CUDA-core route alone), the forward's head dims."""
+    a wgmma route of its own and the CUDA-core route), the forward's head
+    dims."""
     assert pt_att.BWD_HEAD_DIMS == pt_att.FWD_HEAD_DIMS == (64, 128, 256)
 
 
@@ -519,11 +530,12 @@ def test_flash_attention_bf16_backward_on_cpu_is_the_routes_plain_version():
     _bf16_backward_is_the_routes_plain_version(2, 64, "flash_bwd")
 
 
-def test_flash_attention_bf16_d256_backward_on_cpu_is_the_simt_plain():
+def test_flash_attention_bf16_d256_backward_on_cpu_is_the_d256_plain():
     """bf16 at head_dim 256 (recurrentgemma's MQA) on the CPU: the backward
-    is the CUDA-core pair's plain version, 64 x 64 and unrounded, after the
-    forward at the head_dim-256 wgmma route's 128 x 64 blocks."""
-    _bf16_backward_is_the_routes_plain_version(1, 256, "flash_bwd_simt")
+    is the head_dim-256 wgmma pair's plain version (dq at 128 x 32, dk/dv
+    at 64 x 64, p and ds rounded to bf16), after the forward at the
+    head_dim-256 wgmma route's 128 x 64 blocks."""
+    _bf16_backward_is_the_routes_plain_version(1, 256, "flash_bwd_d256")
 
 
 def _bf16_backward_is_the_routes_plain_version(Hkv, D, route):
