@@ -39,7 +39,14 @@ sibling's shape in f32 beside its library call, the flash forward and
 backward also at recurrentgemma-9b's in bf16 through a padded stride),
 holds the flash kernels' loss and gradients against the plain attention
 path, trains qwen3-4b at full width
-for a few AdamW steps through ``repro_torch.launch.train``, then the four
+for a few AdamW steps through ``repro_torch.launch.train``, runs the
+context-parallel ring on a (1, 4) mesh of local rings on the card (``ring``:
+``ring_attention`` at qwen3-4b's and recurrentgemma-9b's heads, each hop
+the flash kernels at its offsets, against the unsharded kernels, with a
+wholly masked hop's zero-write; ``ring_matmul`` at qwen3-4b's MLP width
+against ``torch.matmul`` and its peak against the all-gather's; qwen3-4b's
+loss and grads through the ring against the unsharded step, and 3 AdamW
+steps of qwen3-4b whole through the ring), then the four
 families (``train_families``: internvl2-26b and recurrentgemma-9b cut to
 8 layers, whisper-medium and mamba2-370m whole, every width the config's
 own; recurrentgemma's attention backward at head_dim 256 runs the
@@ -57,6 +64,7 @@ name and power limit (``nvidia-smi``) and ``{"ok": true, "device":
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -1770,6 +1778,461 @@ def train(params) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5a: the context-parallel ring on one card.  A (1, RING_M) mesh of
+# local rings holds every rank of the model axis in this process, one after
+# another: a hop rotates a list and moves no bytes, so these times are the
+# ring's compute (m x m hop folds a call), not its communication
+# ---------------------------------------------------------------------------
+
+RING_M = 4
+# ring_attention alone: qwen3-4b's heads causal over 16,384 tokens (S_l
+# 4,096), recurrentgemma-9b's local MQA at head_dim 256 over 8,192 tokens
+# with its 2,048 window (S_l 2,048)
+RING_SHAPES = {
+    "qwen3-4b": dict(B=1, S=16384, H=32, Hkv=8, D=128, window=None),
+    "recurrentgemma-9b": dict(B=1, S=8192, H=16, Hkv=1, D=256,
+                              window=2048)}
+# ring_matmul at qwen3-4b's MLP width: 4,096 tokens x d_model 2,560 times
+# d_model x d_ff 9,728
+RING_MM_SHAPE = dict(M=4096, K=2560, N=9728)
+# train_ring: qwen3-4b whole, the 4,096 tokens of `train` in one row, so
+# that the default policy picks the ring (S >= 4,096, S_l 1,024 <= 4,096)
+RING_TRAIN = dict(B=1, S=4096)
+# attention() under the mesh at qwen3-4b's heads, one sequence on each
+# route the default policies give: S 2,048 is not above attention()'s
+# full_threshold (the unsharded flash kernels), 3,072 is above it and below
+# the ring's 4,096 threshold (the replicated mode: the flash kernels on each
+# q shard), 4,096 takes the ring
+MESH_ROUTE_HEADS = dict(B=1, H=32, Hkv=8, D=128, window=None)
+MESH_ROUTE_SEQS = {2048: "flash", 3072: "replicated", 4096: "ring"}
+
+
+def ring_mesh():
+    from repro_torch.parallel import make_mesh
+    return make_mesh((1, RING_M), ("data", "model"))
+
+
+def ring_inputs(shape: dict, seed: int):
+    """Global (B, S, H, D) q and do, (B, S, Hkv, D) k and v, bf16."""
+    B, S, H, Hkv, D = (shape[k] for k in ("B", "S", "H", "Hkv", "D"))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn((B, S, h, D), generator=g, device="cuda")
+                 .to(torch.bfloat16) for h in (H, Hkv, Hkv, H))
+
+
+def masked_hop(q, k, v, do, lse, delta, window) -> dict:
+    """Rank 0's hop with rank 1's shard: every key lies in its rows'
+    future, so the hop's ranges are empty.  Each launcher's outputs land in
+    blocks filled with NaN and freed just before (the caching allocator
+    hands them back; a warm-up launch first builds the ranges): the
+    forward must drain o = 0 and lse = -1e30, the backward (fed the ring's
+    global lse and delta of those rows) dq = dk = dv = 0, all exactly."""
+    from repro_torch.kernels import attention as katt
+    B, S, H, D = q.shape
+    S_l = S // RING_M
+    qt, dot = (x[:, :S_l].transpose(1, 2) for x in (q, do))
+    kt, vt = (x[:, S_l:2 * S_l].transpose(1, 2) for x in (k, v))
+    lse0, delta0 = (x.view(B * H, S)[:, :S_l].contiguous()
+                    for x in (lse, delta))
+    kw = dict(causal=True, window=window, q_offset=0, k_offset=S_l)
+    nan = float("nan")
+
+    def poisoned(*likes):
+        blocks = [torch.full(x.shape, nan, dtype=d, device="cuda")
+                  for x, d in likes]
+        ptrs = [b.data_ptr() for b in blocks]
+        del blocks
+        return ptrs
+
+    with torch.no_grad():
+        args = (qt, kt, vt, dot, lse0, delta0)
+        katt.flash_attention_fwd_cuda(qt, kt, vt, **kw)        # warm-up
+        katt.flash_bwd_dq_cuda(*args, **kw)
+        katt.flash_bwd_dkv_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()        # no other free block to hand out
+        ptrs = poisoned((qt, qt.dtype), (lse0, torch.float32))
+        o, lse_h = katt.flash_attention_fwd_cuda(qt, kt, vt, **kw)
+        reused = [o.data_ptr(), lse_h.data_ptr()] == ptrs
+        ptrs = poisoned((qt, torch.float32))
+        dq = katt.flash_bwd_dq_cuda(*args, **kw)
+        reused &= dq.data_ptr() == ptrs[0]
+        ptrs = poisoned((kt, torch.float32), (kt, torch.float32))
+        dk, dv = katt.flash_bwd_dkv_cuda(*args, **kw)
+        reused &= sorted([dk.data_ptr(), dv.data_ptr()]) == sorted(ptrs)
+        torch.cuda.synchronize()
+    row = dict(poisoned_blocks_reused=reused,
+               o_zero=bool((o == 0).all()),
+               lse_neg_inf=bool((lse_h == -1e30).all()),
+               dq_zero=bool((dq == 0).all()), dk_zero=bool((dk == 0).all()),
+               dv_zero=bool((dv == 0).all()))
+    require(all(row.values()), f"wholly masked hop: {row}")
+    return row
+
+
+def check_ring_attention(flush, arch: str, shape: dict) -> dict:
+    """``ring_attention`` on a (1, RING_M) local ring, fused (the flash
+    kernels each hop), against the unsharded flash kernels on the same
+    bf16 inputs: o by the forward's element bound and lse within 1e-4; the
+    f32 dq, dk and dv of the autograd Function's backward (read through
+    ``record_ring_passes``; its grads must be them cast, bit for bit) by
+    the rounded routes' bound against the unsharded backward kernels fed
+    the ring's own o and lse (the ring rounds o to bf16 from another f32
+    sum, so its delta = rowsum(o * do) may differ from the unsharded one by
+    an ulp of o, which moves every ds of a row at once: a shift the
+    per-term bound does not cover and the check of o already bounds); the
+    launches of one call
+    (m x m of each kernel), times of the forward and of the backward
+    beside the unsharded kernels', and the wholly masked hop's
+    zero-write."""
+    from repro_torch.kernels import attention as katt
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.ring_attention import (ring_attention,
+                                                     record_ring_passes)
+    B, S, H, Hkv, D = (shape[k] for k in ("B", "S", "H", "Hkv", "D"))
+    band = dict(causal=True, window=shape["window"])
+    mesh = ring_mesh()
+    q, k, v, do = ring_inputs(shape, SEED + 21)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    fwd_key = katt.flash_fwd_route(qt, kt, vt)
+    route = katt.flash_bwd_route(qt, kt, vt, dot)
+    sfx = BWD_SUFFIX[route]
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    ops.reset_launches()
+    with record_ring_passes() as record:
+        out = ring_attention(*leaves, mesh=mesh, fused=True, **band)
+        grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in ops.LAUNCHES.items() if c}
+    (passes,) = record
+    o, lse_ring = out.detach(), passes["lse"]
+    dq, dk, dv = (passes[n] for n in ("dq", "dk", "dv"))
+    cast_equal = all(torch.equal(g, f.to(g.dtype))
+                     for g, f in zip(grads, (dq, dk, dv)))
+    del out, grads, record, passes
+    hops = RING_M * RING_M
+    want = {fwd_key: hops, f"flash_bwd_dq{sfx}": hops,
+            f"flash_bwd_dkv{sfx}": hops}
+    require(launches == want, f"ring_attention {arch}: launches "
+            f"{launches}, want {want}")
+    with torch.no_grad():
+        o_ref, lse = katt.flash_attention_fwd_cuda(qt, kt, vt, **band)
+        lse_ring = lse_ring.reshape(B * H, S).contiguous()
+        ot = o.transpose(1, 2)
+        ref = katt.flash_attention_bwd(qt, kt, vt, ot, lse_ring, dot,
+                                       **band)
+        delta = (ot.float() * dot.float()).sum(-1).reshape(B * H, S) \
+            .contiguous()
+        flat = (qt.reshape(B * H, S, D), kt.reshape(B * Hkv, S, D),
+                vt.reshape(B * Hkv, S, D), dot.reshape(B * H, S, D))
+        t0 = time.perf_counter()
+        terms = katt.flash_bwd_term_max(*flat, lse_ring, delta, **band,
+                                        **katt.flash_bwd_plain_kw(route))
+        terms_s = time.perf_counter() - t0
+    close = {"o": closeness(o, o_ref.transpose(1, 2), 2e-3)}
+    lse_err = (lse_ring - lse).abs().max().item()
+    for name, got, want_, t, h in (("dq", dq, ref[0], terms[0], H),
+                                   ("dk", dk, ref[1], terms[1], Hkv),
+                                   ("dv", dv, ref[2], terms[2], Hkv)):
+        close[name] = closeness_rounded(
+            got, want_.transpose(1, 2), t.view(B, h, S, D).transpose(1, 2))
+    del ref, terms
+    masked = masked_hop(q, k, v, do, lse, delta, band["window"])
+    # times: the ring's forward (no grad) and its backward alone (the
+    # graph kept), beside the unsharded kernels' through the same autograd
+    out = ring_attention(*leaves, mesh=mesh, fused=True, **band)
+    ref_leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out_ref = katt.flash_attention_train(
+        *(x.transpose(1, 2) for x in ref_leaves), **band)
+    calls = {
+        "ring_fwd": lambda: ring_attention(q, k, v, mesh=mesh, fused=True,
+                                           **band),
+        "ring_bwd": lambda: torch.autograd.grad(out, leaves, do,
+                                                retain_graph=True),
+        "unsharded_fwd": lambda: katt.flash_attention_fwd_cuda(qt, kt, vt,
+                                                               **band),
+        "unsharded_bwd": lambda: torch.autograd.grad(
+            out_ref, ref_leaves, dot, retain_graph=True)}
+    times = {}
+    for name, fn in calls.items():
+        with torch.no_grad() if name.endswith("fwd") else \
+                contextlib.nullcontext():
+            times[name] = dict(ms=time_ms(fn, 5, flush)[0],
+                               device_ms=device_ms(fn, 5, flush))
+    del out, out_ref, leaves, ref_leaves
+    row = dict(arch=arch, m=RING_M, S_local=S // RING_M,
+               shape=dict(shape, causal=True), routes=[fwd_key, route],
+               launches_per_call=launches, times=times,
+               fwd_ratio=times["ring_fwd"]["device_ms"] /
+               times["unsharded_fwd"]["device_ms"],
+               bwd_ratio=times["ring_bwd"]["device_ms"] /
+               times["unsharded_bwd"]["device_ms"],
+               terms_s=terms_s, masked_hop=masked,
+               grads_are_f32_cast=cast_equal, lse_max_abs_err=lse_err, **{
+                   f"{n}_close": c for n, c in close.items()})
+    emit("ring_attention", **row)
+    for name, c in close.items():
+        require(c["within_tol"], f"ring_attention {arch} {name}: {c}")
+    require(lse_err < 1e-4, f"ring_attention {arch}: lse off by {lse_err}")
+    require(cast_equal, f"ring_attention {arch}: the autograd grads are not "
+            f"the backward's f32 grads cast")
+    return row
+
+
+def check_mesh_routes(arch: str, heads: dict) -> dict:
+    """``layers.attention`` (the default policies) with its backward under
+    the (1, RING_M) mesh against the same call with no mesh (the unsharded
+    flash kernels), at each sequence of MESH_ROUTE_SEQS: the flash launches
+    of its route (1, m or m x m of each kernel), ring hops on the ring's
+    route only, o by the forward's element bound, and dq, dk and dv each
+    within 2^-6 relative L2 of the whole tensor (the replicated mode's
+    dk / dv are m bf16 partials that autograd sums)."""
+    from repro_torch.kernels import attention as katt
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import attention
+    from repro_torch.parallel import set_mesh
+    rows = {}
+    for S, path in MESH_ROUTE_SEQS.items():
+        q, k, v, do = ring_inputs(dict(heads, S=S), SEED + 25)
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        sfx = BWD_SUFFIX[katt.flash_bwd_route(qt, kt, vt, dot)]
+        n = {"flash": 1, "replicated": RING_M, "ring": RING_M * RING_M}[path]
+        want = {katt.flash_fwd_route(qt, kt, vt): n,
+                f"flash_bwd_dq{sfx}": n, f"flash_bwd_dkv{sfx}": n}
+        runs = {}
+        for mesh in (ring_mesh(), None):
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            ops.reset_launches()
+            with set_mesh(mesh):
+                o = attention(*leaves, causal=True, window=heads["window"])
+                grads = torch.autograd.grad(o, leaves, do)
+            torch.cuda.synchronize()
+            runs["mesh" if mesh else "unsharded"] = dict(
+                o=o.detach(), grads=grads,
+                launches={n_: c for n_, c in ops.LAUNCHES.items() if c},
+                hops=mesh.transport("model").hops if mesh else 0)
+        got, ref = runs["mesh"], runs["unsharded"]
+        rel = {name: ((g.float() - r.float()).norm() /
+                      r.float().norm()).item()
+               for name, g, r in zip(("dq", "dk", "dv"), got["grads"],
+                                     ref["grads"])}
+        rows[S] = dict(path=path, launches=got["launches"],
+                       launches_unsharded=ref["launches"], want=want,
+                       hops=got["hops"],
+                       o_close=closeness(got["o"], ref["o"], 2e-3),
+                       grad_rel_l2=rel)
+        del runs, got, ref
+    emit("mesh_routes", arch=arch, m=RING_M, heads=heads, rows=rows)
+    for S, r in rows.items():
+        require(r["launches"] == r["want"] and
+                (r["hops"] > 0) == (r["path"] == "ring"),
+                f"mesh_routes {arch} S {S}: launches {r['launches']}, hops "
+                f"{r['hops']}, want {r['want']} on the {r['path']} route")
+        require(r["o_close"]["within_tol"] and
+                all(x < 2.0 ** -6 for x in r["grad_rel_l2"].values()),
+                f"mesh_routes {arch} S {S}: {r}")
+    return rows
+
+
+def check_ring_matmul(flush) -> dict:
+    """``ring_matmul`` on a (1, RING_M) local ring at qwen3-4b's MLP width
+    against ``torch.matmul``, forward and backward (bf16; each element
+    within one bf16 ulp plus 1e-3 of the output's max), their times, and
+    the peak-memory growth of ``ring_matmul`` against ``allgather_matmul``
+    (``max_memory_allocated`` above what was allocated before each call):
+    the ring's must be smaller."""
+    from repro_torch.parallel import allgather_matmul, ring_matmul
+    M, K, N = (RING_MM_SHAPE[k] for k in ("M", "K", "N"))
+    mesh = ring_mesh()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    a = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+    b = (torch.randn((K, N), generator=g, device="cuda") * K ** -0.5) \
+        .to(torch.bfloat16)
+    do = torch.randn((M, N), generator=g, device="cuda").to(torch.bfloat16)
+    leaves = [x.detach().requires_grad_(True) for x in (a, b)]
+    refs = [x.detach().requires_grad_(True) for x in (a, b)]
+    out = ring_matmul(*leaves, mesh)
+    out_ref = torch.matmul(*refs)
+    grads = torch.autograd.grad(out, leaves, do, retain_graph=True)
+    grads_ref = torch.autograd.grad(out_ref, refs, do, retain_graph=True)
+    close = {n: closeness(x, y, 1e-3 * y.float().abs().max().item())
+             for n, x, y in (("out", out, out_ref), ("da", grads[0],
+                                                     grads_ref[0]),
+                             ("db", grads[1], grads_ref[1]))}
+    peak = {}
+    with torch.no_grad():
+        for name, fn in (("ring_matmul", ring_matmul),
+                         ("allgather_matmul", allgather_matmul)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            r = fn(a, b, mesh)
+            torch.cuda.synchronize()
+            peak[name] = torch.cuda.max_memory_allocated() - base
+            del r
+    times = {}
+    for name, fn in (
+            ("ring_fwd", lambda: ring_matmul(a, b, mesh)),
+            ("matmul_fwd", lambda: torch.matmul(a, b)),
+            ("ring_bwd", lambda: torch.autograd.grad(out, leaves, do,
+                                                     retain_graph=True)),
+            ("matmul_bwd", lambda: torch.autograd.grad(
+                out_ref, refs, do, retain_graph=True))):
+        with torch.no_grad() if name.endswith("fwd") else \
+                contextlib.nullcontext():
+            times[name] = dict(ms=time_ms(fn, 10, flush)[0],
+                               device_ms=device_ms(fn, 10, flush))
+    del out, out_ref, grads, grads_ref
+    row = dict(shape=dict(RING_MM_SHAPE, m=RING_M), times=times,
+               peak_growth_bytes=peak, b_bytes=b.numel() * b.element_size(),
+               **{f"{n}_close": c for n, c in close.items()})
+    emit("ring_matmul", **row)
+    for n, c in close.items():
+        require(c["within_tol"], f"ring_matmul {n}: {c}")
+    require(peak["ring_matmul"] < peak["allgather_matmul"],
+            f"ring_matmul holds more than all-gather: {peak}")
+    return row
+
+
+def ring_train_check(params) -> dict:
+    """qwen3-4b's loss and gradients of one B 1 x S 4,096 batch under the
+    (1, RING_M) mesh (the default policy: the ring, each hop the flash
+    kernels) against the same batch with no mesh (the unsharded flash
+    kernels), by ``train_check``'s limits: loss rel diff < 1e-3, per leaf
+    cosine > 0.99 and |norm ratio - 1| < NORM_TOL, for the embedding and
+    wq, wk, wv of the first and the last layer."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import set_mesh
+    from repro_torch.training import loss_fn
+    bundle = get_bundle(ARCH)
+    stack = params["layers"]
+    batch = token_batch(RING_TRAIN["B"], RING_TRAIN["S"], SEED + 11,
+                        bundle.cfg.vocab)
+    L = stack["wq"].shape[0]
+    names = ("wq", "wk", "wv")
+    leaves = [params["embed"], *(stack[n] for n in names)]
+    out = {}
+    for mesh in (ring_mesh(), None):
+        for p in leaves:
+            p.requires_grad_(True)
+        ops.reset_launches()
+        with set_mesh(mesh):
+            loss, _ = loss_fn(bundle.forward, params, batch)
+            grads = torch.autograd.grad(loss, leaves)
+        launches = {n: c for n, c in ops.LAUNCHES.items() if c}
+        for p in leaves:
+            p.requires_grad_(False)
+        got = {"embed": grads[0]}
+        for n, gr in zip(names, grads[1:]):
+            got[f"{n}[0]"], got[f"{n}[{L - 1}]"] = gr[0].clone(), \
+                gr[L - 1].clone()
+        out["ring" if mesh else "unsharded"] = (loss.item(), got, launches)
+        del grads, loss
+    (la, ga, lna), (lb, gb, lnb) = out["ring"], out["unsharded"]
+    cos = {k: F.cosine_similarity(ga[k].float().flatten(),
+                                  gb[k].float().flatten(), dim=0).item()
+           for k in ga}
+    ratio = {k: (ga[k].float().norm() / gb[k].float().norm()).item()
+             for k in ga}
+    rel = abs(la - lb) / abs(lb)
+    hops = L * RING_M * RING_M
+    row = dict(arch=ARCH, B=RING_TRAIN["B"], S=RING_TRAIN["S"], m=RING_M,
+               loss_ring=la, loss_unsharded=lb, loss_rel_diff=rel,
+               cosine=cos, norm_ratio=ratio, launches_ring=lna,
+               launches_unsharded=lnb,
+               tol=f"loss rel diff < 1e-3; per leaf cosine > 0.99 and "
+                   f"|norm ratio - 1| < {NORM_TOL}")
+    emit("ring_train_check", **row)
+    require(math.isfinite(la) and rel < 1e-3 and
+            all(c > 0.99 for c in cos.values()) and
+            all(abs(r - 1.0) < NORM_TOL for r in ratio.values()),
+            f"ring vs unsharded loss/grads: {row}")
+    require(lna.get("flash_fwd") == 2 * hops and
+            lna.get("flash_bwd_dq") == lna.get("flash_bwd_dkv") == hops and
+            lnb.get("flash_fwd") == 2 * L,
+            f"ring_train_check launches: ring {lna}, unsharded {lnb}")
+    return row
+
+
+def train_ring(params) -> dict:
+    """Three AdamW steps of qwen3-4b at full width and depth (B 1 x S
+    4,096, one microbatch) through ``launch.train.run`` under the (1,
+    RING_M) local mesh, on ``params`` (updated in place): finite losses,
+    probed params moved, ``opt_step`` 3, the peak under 80 GB, and the
+    flash launches of the formula: each of L layers folds m ranks x m
+    hops, the forward twice (the step's forward and the per-layer
+    recompute), each backward kernel once."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import run
+    L = params["layers"]["wq"].shape[0]
+    probes = {"wq[0]": lambda: params["layers"]["wq"][0, :64, :64],
+              f"w_gate[{L - 1}]":
+                  lambda: params["layers"]["w_gate"][L - 1, :64, :64],
+              "embed": lambda: params["embed"][:64, :64]}
+    before = {k: f().clone() for k, f in probes.items()}
+    mesh = ring_mesh()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = run(ARCH, smoke=False, steps=TRAIN_STEPS, seq_len=RING_TRAIN["S"],
+              global_batch=RING_TRAIN["B"], microbatches=1, device="cuda",
+              mesh_kind=mesh, params=params)
+    wall = time.perf_counter() - t0
+    launches = {n: c for n, c in ops.LAUNCHES.items() if c}
+    peak = torch.cuda.max_memory_allocated()
+    changed = {k: not torch.equal(before[k], f()) for k, f in probes.items()}
+    steps_s = out["seconds"]
+    tokens = RING_TRAIN["B"] * RING_TRAIN["S"]
+    n = L * RING_M * RING_M * TRAIN_STEPS
+    want = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    row = dict(arch=ARCH, m=RING_M, **RING_TRAIN, steps=len(steps_s),
+               losses=out["losses"],
+               finite=[m["finite"] for m in out["metrics"]],
+               grad_norm=[m["grad_norm"] for m in out["metrics"]],
+               s_per_step=steps_s,
+               tok_per_s_after_first=tokens * (len(steps_s) - 1) /
+               sum(steps_s[1:]), wall_s=wall, max_memory_allocated=peak,
+               params_changed=changed, opt_step=int(out["opt"]["step"]),
+               ring_hops=mesh.transport("model").hops, launches=launches,
+               want_flash=want)
+    emit("train_ring", **row)
+    require(all(math.isfinite(x) for x in out["losses"]) and
+            all(f == 1.0 for f in row["finite"]) and
+            len(steps_s) == TRAIN_STEPS and row["opt_step"] == TRAIN_STEPS,
+            f"train_ring: a loss, finite flag or step count is bad: {row}")
+    require(all(changed.values()), f"train_ring: params did not move "
+            f"{changed}")
+    require(peak < 80e9, f"train_ring: peak {peak} bytes")
+    require({k: launches.get(k, 0) for k in FLASH_KEYS} ==
+            dict(dict.fromkeys(FLASH_KEYS, 0), **want),
+            f"train_ring: flash launches {launches}, want {want}")
+    del out
+    return row
+
+
+def ring_phase() -> dict:
+    """Phase 5a: ring_attention alone at two models' heads, attention()'s
+    routes under the mesh, ring_matmul, then qwen3-4b's ring_train_check
+    and train_ring on the same random weights from ``SEED``; returns
+    train_ring's launches (the main path's) for the kernels line."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    for arch, shape in RING_SHAPES.items():
+        check_ring_attention(flush, arch, shape)
+        torch.cuda.empty_cache()
+    check_mesh_routes(ARCH, MESH_ROUTE_HEADS)
+    torch.cuda.empty_cache()
+    check_ring_matmul(flush)
+    del flush
+    torch.cuda.empty_cache()
+    params = init_params(ARCH)
+    ring_train_check(params)
+    torch.cuda.empty_cache()
+    return train_ring(params)["launches"]
+
+
+# ---------------------------------------------------------------------------
 # phase 5b: train the vlm, hybrid, audio and ssm families at full width
 # ---------------------------------------------------------------------------
 
@@ -2238,6 +2701,10 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    # phase 5a: the context-parallel ring on a (1, 4) local mesh
+    ring = ring_phase()
+    torch.cuda.empty_cache()
+
     # phase 5b: train the vlm, hybrid, audio and ssm families at full width
     families_trained = train_families()
 
@@ -2246,9 +2713,10 @@ def main() -> int:
 
     # phase 7: the kernels line (one row per kernel route a main path runs),
     # launches from the paper-workload, serve, serve_moe, serve_families,
-    # train, train_families and recovery phases
+    # train, train_ring, train_families and recovery phases
     phases = (paper, *(r["launches"] for r in served.values()), moe,
-              families, trained["launches"], families_trained, recovered)
+              families, trained["launches"], ring, families_trained,
+              recovered)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in rows}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

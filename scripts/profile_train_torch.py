@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's training step, on one CUDA card.
 
-    python3 scripts/profile_train_torch.py [--steps 3] [--arch ARCH]
+    python3 scripts/profile_train_torch.py [--steps 3] [--arch ARCH] [--ring]
 
 Takes the ``train`` phase of ``chip_smoke.py``: qwen3-4b at full width,
 bf16, random weights from seed 0, AdamW steps of B 2 x S 2048 synthetic
 tokens with one microbatch and per-layer recompute (or, with ``--arch``
 one of ``chip_smoke.TRAIN_FAMILIES``, that family as ``train_families``
-runs it: its depth cut, its batch and the launcher's zero extras), through
-``training.make_train_step`` as ``launch.train.run`` builds it.  After one
+runs it: its depth cut, its batch and the launcher's zero extras; or, with
+``--ring``, the ``train_ring`` phase: qwen3-4b at B 1 x S 4096 under
+``chip_smoke.ring_mesh()``, a (1, 4) local ring, so attention takes the
+ring), through ``training.make_train_step`` as ``launch.train.run`` builds
+it, each step under the mesh as ``run`` enters it.  After one
 warm-up step it times ``--steps`` steps on the host clock (each ending in a
 device synchronise) and profiles one more under ``torch.profiler``.
 Prints one JSON line: the steps' seconds, tokens/s, peak memory, the
@@ -44,6 +47,9 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default=chip_smoke.ARCH,
                     help="qwen3-4b (B 2 x S 2048) or an arch of "
                          "chip_smoke.TRAIN_FAMILIES")
+    ap.add_argument("--ring", action="store_true",
+                    help="qwen3-4b at B 1 x S 4096 on the (1, 4) local "
+                         "ring (chip_smoke's train_ring)")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train_torch: no CUDA device", file=sys.stderr)
@@ -54,7 +60,12 @@ def main(argv=None) -> int:
     from repro_torch.launch.train import make_extras
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.training import TrainHyper, make_train_step
-    if a.arch in chip_smoke.TRAIN_FAMILIES:
+    from repro_torch.parallel import set_mesh
+    mesh = None
+    if a.ring:
+        bundle, mesh = get_bundle(chip_smoke.ARCH), chip_smoke.ring_mesh()
+        B, S = (chip_smoke.RING_TRAIN[k] for k in "BS")
+    elif a.arch in chip_smoke.TRAIN_FAMILIES:
         bundle = chip_smoke.family_bundle(a.arch)
         B, S = (chip_smoke.TRAIN_FAMILIES[a.arch][k] for k in "BS")
     else:
@@ -74,7 +85,8 @@ def main(argv=None) -> int:
     def step(i):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, _, m = step_fn(params, opt, batches[i])
+        with set_mesh(mesh):
+            _, _, m = step_fn(params, opt, batches[i])
         loss = float(m["loss"])
         torch.cuda.synchronize()
         return time.perf_counter() - t0, loss
@@ -100,7 +112,8 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     secs = [t for t, _ in timed]
     mean_s = sum(secs) / len(secs)
-    row = dict(arch=a.arch, n_layers=bundle.cfg.n_layers, batch=B,
+    row = dict(arch=bundle.arch_id, ring=mesh is not None,
+               n_layers=bundle.cfg.n_layers, batch=B,
                seq_len=S, step_s=secs,
                losses=[loss for _, loss in timed],
                tok_per_s=B * S / mean_s,

@@ -1,4 +1,5 @@
-"""Architecture bundles and the flash-attention policy.
+"""Architecture bundles, the ring-attention and the flash-attention
+policies.
 
 Counterpart of ``repro.configs.base``.  A bundle wires a model family
 (transformer — dense, MoE or the vision-prefix backbone — / mamba2 /
@@ -19,6 +20,70 @@ from typing import Any
 import torch
 
 from repro_torch.device import resolve_device
+
+# ---------------------------------------------------------------------------
+# Context-parallel ring-attention policy
+#
+# Callers resolve a policy (explicit argument > REPRO_RING_ATTN env >
+# default) instead of flag-flipping module state; the reference's modes,
+# thresholds and precedence.
+# ---------------------------------------------------------------------------
+
+RING_MODES = ("auto", "ring", "replicated", "off")
+
+
+@dataclasses.dataclass(frozen=True)
+class RingAttnPolicy:
+    """How ``models.layers.attention`` distributes long sequences over the
+    ``model`` mesh axis.
+
+    mode:
+      * ``auto``       — the ring (``parallel.ring_attention``, memory-flat
+        backward) for long sequences, the replicated-k/v path below
+        ``seq_threshold`` (short sequences do not amortize the hops);
+      * ``ring``       — always the ring when shapes divide;
+      * ``replicated`` — always the replicated-k/v path;
+      * ``off``        — neither.
+
+    ``max_seq_per_device`` caps the ring shard: above it ``auto`` falls
+    back to the replicated path."""
+    mode: str = "auto"
+    seq_threshold: int = 4096
+    max_seq_per_device: int = 4096
+
+
+DEFAULT_RING_POLICY = RingAttnPolicy()
+
+
+def ring_attn_policy(mode_override: str | None = None) -> RingAttnPolicy:
+    """Resolve the active ring policy.  Precedence: explicit
+    ``mode_override`` (e.g. ``TransformerConfig.ring_attn``) >
+    ``REPRO_RING_ATTN`` env var > ``DEFAULT_RING_POLICY``;
+    ``REPRO_RING_ATTN_THRESHOLD`` / ``REPRO_RING_ATTN_MAX_SHARD`` tune the
+    ``auto`` thresholds."""
+    mode = (mode_override or os.environ.get("REPRO_RING_ATTN")
+            or DEFAULT_RING_POLICY.mode)
+    if mode not in RING_MODES:
+        raise ValueError(f"ring-attention mode {mode!r} not in {RING_MODES}")
+    thr = int(os.environ.get("REPRO_RING_ATTN_THRESHOLD",
+                             DEFAULT_RING_POLICY.seq_threshold))
+    cap = int(os.environ.get("REPRO_RING_ATTN_MAX_SHARD",
+                             DEFAULT_RING_POLICY.max_seq_per_device))
+    return RingAttnPolicy(mode=mode, seq_threshold=thr,
+                          max_seq_per_device=cap)
+
+
+def decide_ring(policy: RingAttnPolicy, *, seq_len: int,
+                ring_size: int) -> str:
+    """'ring', 'replicated' or 'off' for a global sequence of ``seq_len``
+    on a ``ring_size``-wide model axis."""
+    if policy.mode != "auto":
+        return policy.mode
+    if (seq_len >= policy.seq_threshold
+            and seq_len // ring_size <= policy.max_seq_per_device):
+        return "ring"
+    return "replicated"
+
 
 # ---------------------------------------------------------------------------
 # Flash-attention policy (the hand-written flash kernel vs the plain paths)

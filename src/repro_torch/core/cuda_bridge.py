@@ -181,6 +181,26 @@ def grid_ctas(M: int, N: int, bm: int, bn: int) -> int:
     return -(-M // bm) * -(-N // bn)
 
 
+def attention_block_shapes(q_len: int, kv_len: int, head_dim: int
+                           ) -> tuple[int, int]:
+    """(block_q, block_k) of a flash-attention score tile: the blocks of
+    the forward route bf16 q/k/v at ``head_dim`` take on the card
+    (``kernels.attention.flash_fwd_blocks``: 128 x 128 at head_dim 64 or
+    128, 128 x 64 at 256, the CUDA-core kernel's 64 x 64 otherwise),
+    clamped to the problem rounded up to a power of two (the kernels pad
+    ragged tails and mask them).  The paper's tile search, which the
+    reference runs here on the QK^T NDRange, does not apply: each flash
+    kernel is built for its fixed blocks and the card runs only those.
+    ``parallel.ring_attention`` snaps these to divisors of the local shard
+    to decide between the fused and the einsum fold, and the plain versions
+    on the CPU run the snapped blocks."""
+    from ..kernels.attention import flash_fwd_blocks
+    route = {64: "flash_fwd", 128: "flash_fwd", 256: "flash_fwd_d256"} \
+        .get(head_dim, "flash_fwd_simt")
+    bq, bk = flash_fwd_blocks(route)
+    return min(bq, pow2_ceil(q_len)), min(bk, pow2_ceil(kv_len))
+
+
 def matmul_block_shapes(M: int, N: int, K: int, *, route: str = "matmul"
                         ) -> tuple[int, int, int]:
     """(bm, bn, bk) for an MxK @ KxN matmul on one H100 CTA, for the

@@ -167,14 +167,14 @@ def _pair_schedule(nq: int, nk: int, block_q: int, block_k: int,
 
 
 def scheduled_block_counts(Sq: int, Sk: int, *, block_q: int, block_k: int,
-                           causal: bool, window: int | None
-                           ) -> tuple[int, int]:
+                           causal: bool, window: int | None,
+                           q_offset: int = 0) -> tuple[int, int]:
     """(scheduled, dense) k-block counts for one head's grid (dense =
     nq * nk)."""
     nq = -(-Sq // block_q)
     nk = -(-Sk // block_k)
     _, real = _pair_schedule(nq, nk, block_q, block_k, bool(causal),
-                             window, Sk, Sq, "row")
+                             window, Sk, Sq, "row", q_offset)
     return real, nq * nk
 
 

@@ -216,9 +216,11 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     block_q: int | None = None, block_k: int | None = None,
-                    trainable: bool = True, prune: bool = True
-                    ) -> torch.Tensor:
-    """q: (B, H, S, D), k/v: (B, Hkv, Sk, D) -> (B, H, S, D).
+                    trainable: bool = True, prune: bool = True,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q: (B, H, S, D), k/v: (B, Hkv, Sk, D) -> (B, H, S, D); q's rows sit
+    at positions ``q_offset`` on, k's at 0 on (a q shard against the whole
+    k/v).
 
     The forward kernel's route (a wgmma kernel or the CUDA-core one) and
     its blocks follow from the inputs (``attention.flash_fwd_route``,
@@ -247,7 +249,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{bk}) are not the ones route {route} is built "
                          f"for ({rbq}, {rbk})")
     real, total = _attention.scheduled_block_counts(
-        Sq, Sk, block_q=bq, block_k=bk, causal=causal, window=window)
+        Sq, Sk, block_q=bq, block_k=bk, causal=causal, window=window,
+        q_offset=q_offset)
     if not prune:
         real = total                      # dense grid: nothing skipped
     _record_dispatch("flash_attention",
@@ -259,16 +262,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if train:
         return _attention.flash_attention_train(
             q, k, v, causal=causal, window=window, prune=prune,
-            blocks=None if impl == "cuda" else (bq, bk))
+            blocks=None if impl == "cuda" else (bq, bk), q_offset=q_offset)
     with torch.no_grad():
         if impl == "cuda":
             o, _ = _attention.flash_attention_fwd_cuda(
-                q, k, v, causal=causal, window=window, prune=prune)
+                q, k, v, causal=causal, window=window, prune=prune,
+                q_offset=q_offset)
             return o
         o, _ = _attention.flash_attention_fwd_plain(
             q.reshape(B * H, Sq, D), k.reshape(B * Hkv, Sk, D),
             v.reshape(B * Hkv, Sk, D), causal=causal, window=window,
-            block_q=bq, block_k=bk)
+            block_q=bq, block_k=bk, q_offset=q_offset)
     return o.reshape(B, H, Sq, D)
 
 

@@ -60,7 +60,9 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ArchBundle, get_bundle
 from repro_torch.data import DataConfig, make_train_iterator
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.parallel.mesh import Mesh, set_mesh
 from repro_torch.runtime import (ChaosInjector, ChaosKilled,
                                  HeartbeatMonitor, StragglerPolicy,
                                  plan_elastic_remesh)
@@ -77,8 +79,22 @@ def make_extras(bundle, per_host_batch: int, device) -> dict:
     return bundle.zero_extras(per_host_batch, torch.float32, device)
 
 
+def resolve_mesh(mesh_kind) -> Mesh:
+    """``mesh_kind``: a ready :class:`Mesh` as it is (e.g. a (1, 4) local
+    ring of one card), or ``"local"`` (a (1, 1) mesh).  The reference's
+    ``"single"`` / ``"multi"`` production meshes wait for the multi-host
+    launch, which starts their process group."""
+    if isinstance(mesh_kind, Mesh):
+        return mesh_kind
+    if mesh_kind != "local":
+        raise ValueError(f"mesh {mesh_kind!r} not in ('local',): the "
+                         f"production meshes need the multi-host launch")
+    return make_local_mesh()
+
+
 def run(arch, *, smoke: bool = True, steps: int = 20,
-        seq_len: int = 128, global_batch: int = 8, microbatches: int = 1,
+        seq_len: int = 128, global_batch: int = 8, mesh_kind="local",
+        microbatches: int = 1,
         lr: float = 3e-4, log_every: int = 1, device=None,
         ckpt_dir: str | None = None, ckpt_every: int = 10, chaos=None,
         chaos_seed: int = 0, n_hosts: int = 1,
@@ -94,10 +110,12 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
     does not apply), from random weights drawn from seed 0 (or from ``params``,
     which are updated in place), or from the newest intact checkpoint in
     ``ckpt_dir``, restored into them; ``steps`` more steps, or up to
-    ``total_steps`` in all.  ``chaos`` is a ``ChaosInjector`` or a list of
-    spec strings.  ``on_step(i, params, opt, metrics)``, if given, is
-    called after each step the loop keeps (not one it rolls back or
-    re-meshes over).  Returns the per-step
+    ``total_steps`` in all, each step under ``mesh_kind``'s mesh
+    (:func:`resolve_mesh`; attention over a ``model`` axis of more than one
+    rank takes the ring policy's paths).  ``chaos`` is a ``ChaosInjector``
+    or a list of spec strings.  ``on_step(i, params, opt, metrics)``, if
+    given, is called after each step the loop keeps (not one it rolls back
+    or re-meshes over).  Returns the per-step
     ``losses``, ``steps`` (indices), ``seconds`` (host wall, after a
     device synchronise) and ``metrics``, the recovery ``events``, the
     final ``params`` and ``opt``, and the telemetry snapshot (None when
@@ -107,6 +125,7 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
     if chaos is not None and not isinstance(chaos, ChaosInjector):
         chaos = ChaosInjector(chaos, seed=chaos_seed)
     dev = resolve_device(device)
+    mesh = resolve_mesh(mesh_kind)
     bundle = arch if isinstance(arch, ArchBundle) else \
         get_bundle(arch, smoke=smoke)
     if params is None:
@@ -267,7 +286,8 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
             batch = {**{k: torch.from_numpy(v).to(dev, torch.long)
                         for k, v in batch.items()}, **extras}
             gs = chaos.grad_scale(i) if chaos is not None else None
-            params, opt, m = step_fn(params, opt, batch, gs)
+            with set_mesh(mesh):
+                params, opt, m = step_fn(params, opt, batch, gs)
             m = {k: float(v) for k, v in m.items()}
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -386,6 +406,7 @@ def main():
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--mesh", default="local", choices=["local"])
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--log-every", type=int, default=1)
@@ -416,7 +437,8 @@ def main():
     a = ap.parse_args()
     try:
         out = run(a.arch, smoke=a.smoke, steps=a.steps, seq_len=a.seq_len,
-                  global_batch=a.global_batch, microbatches=a.microbatches,
+                  global_batch=a.global_batch, mesh_kind=a.mesh,
+                  microbatches=a.microbatches,
                   lr=a.lr, log_every=a.log_every, device=a.device,
                   ckpt_dir=a.ckpt_dir, ckpt_every=a.ckpt_every,
                   chaos=a.chaos, chaos_seed=a.chaos_seed,

@@ -1,8 +1,7 @@
 """Shared neural layers (plain functions over tensors and param dicts).
 
 Counterpart of ``repro.models.layers`` for the model zoo (the GQA decoder
-and its top-k MoE MLP, Mamba-2, RecurrentGemma, Whisper), on one device
-(no mesh):
+and its top-k MoE MLP, Mamba-2, RecurrentGemma, Whisper):
 
   * params are plain dicts of tensors; layer stacks carry a leading layer
     axis.
@@ -11,18 +10,26 @@ and its top-k MoE MLP, Mamba-2, RecurrentGemma, Whisper), on one device
     plain PyTorch paths mirror the reference's XLA paths; the hand-written
     CUDA kernels (:mod:`repro_torch.kernels`) are the card's path, chosen
     by the flash policy (``configs.base``).
-
-No ring path yet; ``shard_seq`` / ``gather_seq`` are left out because
-they are no-ops without a mesh.
+  * under a mesh (``parallel.mesh.set_mesh``) with a ``model`` axis of more
+    than one rank, long sequences take the context-parallel paths the ring
+    policy picks (``_attention_ring``: the ring of
+    ``parallel.ring_attention``, or q shards against replicated k/v, on
+    the flash kernels where the flash policy picks them).  Only local rings
+    take global tensors; ``shard_seq`` / ``gather_seq`` and the sharded
+    parameter layouts wait for the sharding slice.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.parallel.mesh import LocalRing, get_mesh, set_mesh
+from repro_torch.parallel.ring_attention import ring_attention
 
 NEG_INF = -1e30
 
@@ -44,11 +51,18 @@ def remat_call(fn, *args):
     """``fn(*args)``; with grad enabled, under ``torch.utils.checkpoint``
     (the reference's per-layer ``remat``, on by default, under
     ``nothing_saveable``): only the inputs are kept, and the backward runs
-    ``fn`` again, flash forward kernel included.  Serving paths run under
-    ``torch.no_grad()`` and call ``fn`` plainly."""
-    if torch.is_grad_enabled():
+    ``fn`` again, flash forward kernel (or ring) included, under the mesh
+    the forward saw (autograd may recompute on another thread, where the
+    active mesh is not set).  Serving paths run under ``torch.no_grad()``
+    and call ``fn`` plainly."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    mesh = get_mesh()
+    if mesh is None:
         return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          set_mesh(mesh)))
 
 
 def seq_positions(S: int, device) -> torch.Tensor:
@@ -111,16 +125,38 @@ def _flash_mode(S: int, Sk: int, override: str | None, on_cuda: bool) -> str:
     return cbase.decide_flash(pol, seq_len=S, kv_len=Sk, on_cuda=on_cuda)
 
 
-def _flash_pallas(q, k, v, *, causal, window):
-    """The trainable flash kernels on (B, S, H, D) activations: the
-    transposes are views, read by the kernels through their strides.  Under
-    autograd the call goes through ``FlashAttention`` (forward kernel, then
-    the dq and dk/dv kernels in backward); on the CPU, through the same
-    Function's plain halves."""
+def _model_mesh():
+    """The active mesh when it has a ``model`` axis of more than one rank
+    (the context-parallel paths own long sequences there), else None."""
+    mesh = get_mesh()
+    if mesh is None or "model" not in mesh.axis_names or \
+            mesh.shape["model"] == 1:
+        return None
+    return mesh
+
+
+def _flash_pallas(q, k, v, *, causal, window, q_offset=0):
+    """The trainable flash kernels on (B, S, H, D) activations, q's rows
+    at global positions ``q_offset`` on: the transposes are views, read by
+    the kernels through their strides.  Under autograd the call goes
+    through ``FlashAttention`` (forward kernel, then the dq and dk/dv
+    kernels in backward); on the CPU, through the same Function's plain
+    halves."""
     from repro_torch.kernels import ops as kops
     o = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), causal=causal, window=window)
+                             v.transpose(1, 2), causal=causal, window=window,
+                             q_offset=q_offset)
     return o.transpose(1, 2)
+
+
+def _ring_mode(S: int, m: int, override: str | None = None) -> str:
+    """The context-parallel mode ('ring' | 'replicated' | 'off') for a
+    global sequence of S on an m-wide model axis; the policy lives in
+    ``configs.base`` (explicit override > REPRO_RING_ATTN env >
+    default)."""
+    from repro_torch.configs import base as cbase
+    return cbase.decide_ring(cbase.ring_attn_policy(override),
+                             seq_len=S, ring_size=m)
 
 
 def _grouped_scores_full(q, k, v, *, causal, window, q_offset=0):
@@ -202,25 +238,95 @@ def _attention_blocked(q, k, v, *, causal, window, q_chunk=2048,
     return torch.cat(outs, dim=1)
 
 
+def _attention_ring(q, k, v, *, causal, window, ring: str | None = None,
+                    flash: bool = False):
+    """Context-parallel attention over the ``model`` axis of the active
+    mesh, on global tensors; two schedules behind one policy
+    (``configs.base.ring_attn_policy``; ``ring`` overrides the mode):
+
+    * ``ring`` — ``parallel.ring_attention``: k/v stay sequence-sharded and
+      hop neighbour to neighbour while each rank folds the visiting shard
+      into its rows' online softmax (the paper's FIFO mesh), with the
+      memory-flat backward;
+    * ``replicated`` — each rank's q shard against the whole k/v at the
+      shard's global offset: the flash kernels with ``flash`` (the flash
+      policy picked them), else ``_attention_blocked``; autograd sums the
+      k/v gradients over the ranks.  The fallback below the ring's
+      sequence threshold.
+
+    Returns None when inapplicable (no mesh or model axis, indivisible
+    shapes, mode 'off').  A model axis whose ranks are processes needs the
+    sharding slice (its tensors would be this rank's shards): it raises
+    rather than compute unsharded."""
+    mesh = _model_mesh()
+    if mesh is None:
+        return None
+    transport = mesh.transport("model")
+    if not isinstance(transport, LocalRing):
+        raise NotImplementedError(
+            "attention over a model axis of processes needs the sharding "
+            "slice (parallel/sharding.py: the activations' sequence "
+            "shards); call parallel.ring_attention_local with this rank's "
+            "shards")
+    m = transport.size
+    S = q.shape[1]
+    if S % m != 0 or k.shape[1] != S:
+        return None
+    mode = _ring_mode(S, m, ring)
+    if mode == "off":
+        return None
+    if mode == "ring":
+        out = ring_attention(q, k, v, causal=causal, window=window,
+                             mesh=mesh)
+        if out is not None:
+            return out
+    S_l = S // m
+
+    def shard(idx, q_l):
+        if flash:
+            return _flash_pallas(q_l, k, v, causal=causal, window=window,
+                                 q_offset=idx * S_l)
+        return _attention_blocked(q_l, k, v, causal=causal, window=window,
+                                  base_offset=idx * S_l)
+
+    outs = [shard(idx, q_l)
+            for idx, q_l in zip(transport.index(), transport.split(q, 1))]
+    return transport.join(outs, 1)
+
+
 def attention(q, k, v, *, causal=True, window=None, impl=None,
-              full_threshold: int = 2048, q_offset: int = 0):
-    """Dispatch: the trainable hand-written flash kernels when the flash
-    policy picks them (on CUDA: ``auto`` at max(S, Sk) >= min_seq, or
-    forced), else the full-mask path for short sequences and the
-    double-blocked online softmax for long ones.  ``impl`` overrides the
-    policy ('pallas' | 'xla'; None / 'auto' resolves via
-    REPRO_FLASH_ATTN).  q: (B, S, H, D); k/v: (B, Sk, Hkv, D)."""
+              full_threshold: int = 2048, q_offset: int = 0,
+              ring: str | None = None):
+    """Dispatch: under a mesh with a ``model`` axis of more than one rank,
+    sequences above ``full_threshold`` take the context-parallel paths of
+    the ring policy (``_attention_ring``); otherwise the trainable
+    hand-written flash kernels when the flash policy picks them (on CUDA:
+    ``auto`` at max(S, Sk) >= min_seq, or forced), else the full-mask path
+    for short sequences and the double-blocked online softmax for long
+    ones.  The flash kernels give way only to the ring itself: the
+    replicated mode runs them on each q shard.  ``impl`` overrides the
+    flash policy ('pallas' | 'xla'; None / 'auto' resolves via
+    REPRO_FLASH_ATTN), ``ring`` the ring policy's mode.  q: (B, S, H, D);
+    k/v: (B, Sk, Hkv, D)."""
     if impl not in (None, "auto", "pallas", "xla"):
         raise ValueError(f"attention impl {impl!r} not in "
                          "(None, 'auto', 'pallas', 'xla')")
     mode = _flash_mode(q.shape[1], k.shape[1],
                        None if impl in (None, "auto") else impl,
                        on_cuda=q.is_cuda)
-    # the kernel masks in local positions; offset callers (chunked q
-    # against a longer kv) stay on the plain paths, which honor q_offset
-    if mode == "pallas" and q_offset == 0:
+    # the ring's masks start its shards at global position 0, and offset
+    # callers (chunked q against a longer kv) stay on the plain paths, as
+    # the reference's kernel wrapper masks in local positions
+    flash = mode == "pallas" and q_offset == 0
+    long = max(q.shape[1], k.shape[1]) > full_threshold
+    if long and q_offset == 0:
+        out = _attention_ring(q, k, v, causal=causal, window=window,
+                              ring=ring, flash=flash)
+        if out is not None:
+            return out
+    if flash:
         return _flash_pallas(q, k, v, causal=causal, window=window)
-    if max(q.shape[1], k.shape[1]) > full_threshold:
+    if long:
         return _attention_blocked(q, k, v, causal=causal, window=window,
                                   base_offset=q_offset)
     return _grouped_scores_full(q, k, v, causal=causal, window=window,

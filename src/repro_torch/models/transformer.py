@@ -57,6 +57,9 @@ class TransformerConfig:
     vision_tokens: int = 0            # VLM prefix length (stub frontend)
     dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "auto"           # auto | xla | pallas (flash policy)
+    ring_attn: str | None = None      # context-parallel mode override
+    #   (auto|ring|replicated|off); None defers to configs.base policy /
+    #   REPRO_RING_ATTN — see RingAttnPolicy
 
     @property
     def dh(self) -> int:
@@ -171,7 +174,7 @@ def _block_train(cfg: TransformerConfig, x: torch.Tensor, lp: dict,
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = _qkv(cfg, lp, h, positions)
     o = attention(q, k, v, causal=True, window=cfg.window,
-                  impl=cfg.attn_impl)
+                  impl=cfg.attn_impl, ring=cfg.ring_attn)
     x = x + o.reshape(B, S, -1) @ lp["wo"]
     mo, aux = _mlp(cfg, lp, x)
     return x + mo, aux
@@ -256,7 +259,7 @@ def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = _qkv(cfg, lp, h, positions)
         o = attention(q, k, v, causal=True, window=cfg.window,
-                      impl=cfg.attn_impl)
+                      impl=cfg.attn_impl, ring=cfg.ring_attn)
         x = x + o.reshape(B, S, -1) @ lp["wo"]
         x = x + _mlp(cfg, lp, x)[0]
         if quantized:

@@ -1521,3 +1521,45 @@ def test_kill_restart_resumes_bitwise_on_the_card(dev, tmp_path,
     assert tree_fingerprint({"params": resumed["params"],
                              "opt": resumed["opt"]}) == \
         tree_fingerprint({"params": full["params"], "opt": full["opt"]})
+
+
+# ring attention on a (1, 4) local ring of the card, fused (the flash
+# kernels each hop at the shard's offsets): (B, S, H, Hkv, D, window),
+# causal; the last is recurrentgemma-9b's MQA at head_dim 256
+RING = [
+    (1, 1024, 8, 2, 128, None),
+    (2, 512, 4, 4, 64, 200),
+    (1, 1024, 16, 1, 256, 300),
+]
+
+
+@pytest.mark.parametrize("case", RING, ids=lambda c: "-".join(map(str, c)))
+def test_ring_attention_fused_matches_unsharded_flash(dev, case):
+    """``chip_smoke.check_ring_attention`` at small shapes: o against the
+    unsharded flash forward by the element bound, the f32 dq / dk / dv
+    against the unsharded backward kernels by the rounded bound, m x m
+    launches of each kernel a call, and a wholly masked hop (rank 0 with
+    rank 1's keys) writing o = 0, lse = -1e30 and zero grads into
+    NaN-poisoned memory."""
+    B, S, H, Hkv, D, window = case
+    flush = torch.empty(16 * 2 ** 20, dtype=torch.float32, device=dev)
+    row = _chip_smoke().check_ring_attention(
+        flush, "card-test", dict(B=B, S=S, H=H, Hkv=Hkv, D=D, window=window))
+    assert all(row["masked_hop"].values())
+    assert all(row[f"{n}_close"]["within_tol"] for n in ("o", "dq", "dk",
+                                                         "dv"))
+
+
+def test_attention_under_a_mesh_keeps_the_flash_kernels(dev, monkeypatch):
+    """``chip_smoke.check_mesh_routes`` at small heads: under a (1, 4)
+    local mesh, attention() at S 2,048 launches the unsharded flash kernels
+    once each, at S 3,072 once a q shard (the replicated mode), at S 4,096
+    m x m times (the ring), each against the call with no mesh."""
+    for name in ("REPRO_FLASH_ATTN", "REPRO_RING_ATTN",
+                 "REPRO_RING_ATTN_THRESHOLD", "REPRO_RING_ATTN_MAX_SHARD"):
+        monkeypatch.delenv(name, raising=False)
+    rows = _chip_smoke().check_mesh_routes(
+        "card-test", dict(B=1, H=8, Hkv=2, D=128, window=None))
+    assert [r["path"] for r in rows.values()] == ["flash", "replicated",
+                                                  "ring"]
+    assert all(r["launches"] == r["want"] for r in rows.values())

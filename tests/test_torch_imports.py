@@ -33,7 +33,12 @@ MODULES = ["repro_torch", "repro_torch.launch.serve", "repro_torch.weights",
            "repro_torch.optim", "repro_torch.data", "repro_torch.core",
            "repro_torch.sim", "repro_torch.checkpoint",
            "repro_torch.runtime", "repro_torch.runtime.chaos",
-           "repro_torch.runtime.fault", "repro_torch.runtime.fleet"]
+           "repro_torch.runtime.fault", "repro_torch.runtime.fleet",
+           "repro_torch.parallel", "repro_torch.parallel.mesh",
+           "repro_torch.parallel.ring_attention",
+           "repro_torch.parallel.ring_matmul",
+           "repro_torch.parallel.pipeline", "repro_torch.launch.mesh",
+           "repro_torch.optim.compression"]
 
 
 def test_import_leaves_jax_out():
