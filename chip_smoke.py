@@ -20,10 +20,16 @@ GEMM_FC's N and K for M below 64, serves qwen3-4b at full width (bf16,
 random weights from a seed) through ``repro_torch.launch.serve`` in the
 dense, paged and paged_int8 KV modes, holds one paged decode step through
 the paged kernel (history split by ``paged_decode_plan``) against the plain
-gather path over bf16 and int8 pools, does the same for olmoe-1b-7b, a
-top-8-of-64 MoE (``serve_moe``: the flash forward at MHA, the paged decode
-at 16 kv heads, the share of expert assignments the capacity drops; the
-two kernels are also checked alone at olmoe's and granite-moe's heads),
+gather path over bf16 and int8 pools, serves the same weights through a
+three-host ``LocalFleet`` (``serve_fleet``: a shared prefix's KV pages
+migrate between hosts over the CRC-framed page exchange, bit for bit, in
+bf16 and int8 pools, under die, netsplit and pagecorrupt chaos, and
+``repro_torch.launch.serve --fleet 2`` restarts a worker killed by chaos
+under the process supervisor), serves and checks olmoe-1b-7b in the three
+KV modes as qwen3-4b, a top-8-of-64 MoE (``serve_moe``: the flash forward
+at MHA, the paged decode at 16 kv heads, the share of expert assignments
+the capacity drops; the two kernels are also checked alone at olmoe's and
+granite-moe's heads),
 serves internvl2-26b (vlm: a 256-token vision prefix, GQA group 6),
 recurrentgemma-9b (hybrid: RG-LRU and local MQA at head_dim 256 through the
 flash forward's head_dim-256 wgmma route, one prompt past its 2048-token
@@ -1431,6 +1437,441 @@ def paged_step_check(params, arch: str = ARCH) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 4a: the serving fleet at full width (three hosts, page migration)
+# ---------------------------------------------------------------------------
+
+FLEET_HOSTS = 3
+# full width: qwen3-4b's weights, 2 slots a host, page 16; 8 prompts of
+# 256-1024 tokens, the even ones a common 512-token (32-page) prefix and a
+# random suffix, 32 new tokens each, in two waves of 4
+# (wave 1 drains at fleet tick 35, wave 2 at 70: scheduling alone sets the
+# ticks, so the die drill's tick 40 falls in wave 2, after wave 1 published
+# its pages, with a wave-2 request in flight on host 0)
+FLEET_FULL = dict(slots=2, page=16, max_len=2048, lo=256, hi=1024,
+                  prefix=512, n=8, max_new=32, prefill_chunk=256,
+                  prefill_token_budget=1024, die_tick=40)
+# (name, kv mode, chaos specs): each drill's fault and where it shows
+FLEET_SCENARIOS = (
+    ("migrate", "paged", ()),
+    ("migrate_int8", "paged_int8", ()),
+    ("die", "paged", ("die@{die_tick}:host=0",)),
+    ("netsplit", "paged", ("netsplit@1:host=1,duration=1000000",)),
+    ("pagecorrupt", "paged", ("pagecorrupt@1",)),
+)
+
+
+def fleet_workload(vocab: int, size: dict, seed: int = SEED + 4
+                   ) -> list[np.ndarray]:
+    """``size["n"]`` prompts: the odd ones ``lo``-``hi`` random tokens, the
+    even ones one common ``prefix``-token prefix followed by a random
+    suffix, ``prefix + lo // 4`` to ``hi`` tokens in all."""
+    rng = np.random.default_rng(seed)
+    common = rng.integers(0, vocab, size["prefix"])
+    out = []
+    for i in range(size["n"]):
+        if i % 2:
+            p = rng.integers(0, vocab, int(rng.integers(size["lo"],
+                                                        size["hi"] + 1)))
+        else:
+            n = int(rng.integers(size["prefix"] + size["lo"] // 4,
+                                 size["hi"] + 1))
+            p = np.concatenate([common, rng.integers(0, vocab,
+                                                     n - size["prefix"])])
+        out.append(p.astype(np.int32))
+    return out
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-for-bit equality of two tensors of one dtype (NaN included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    as_int = {1: torch.int8, 2: torch.int16, 4: torch.int32}[a.element_size()]
+    return torch.equal(a.contiguous().view(as_int).cpu(),
+                       b.contiguous().view(as_int).cpu())
+
+
+class MigrationWatch:
+    """Wraps a fleet's migration path on its instances: times each
+    ``_migrate`` that moved pages (export, frames, exchange, import; the
+    device synchronised on both sides), and holds every page a target
+    adopted, as its pool now holds it, against the source's exported page,
+    bit for bit, for every pool entry."""
+
+    def __init__(self, fleet):
+        self.timed: list[tuple[float, int]] = []     # (seconds, pages)
+        self.exported: dict[tuple, dict] = {}
+        self.checked = self.equal = 0
+        inner = fleet._migrate
+
+        def migrate(fl, match, target):
+            torch.cuda.synchronize()
+            t0, before = time.perf_counter(), fleet.migrated_pages
+            inner(fl, match, target)
+            torch.cuda.synchronize()
+            if fleet.migrated_pages > before:
+                self.timed.append((time.perf_counter() - t0,
+                                   fleet.migrated_pages - before))
+        fleet._migrate = migrate
+        for eng in fleet.engines:
+            self._wrap(eng)
+
+    def _wrap(self, eng) -> None:
+        export, imp = eng.export_prefix_pages, eng.import_prefix_pages
+
+        def exported(tokens, n_tokens):
+            out = export(tokens, n_tokens)
+            for seg, vals in out:
+                self.exported[tuple(int(t) for t in seg)] = vals
+            return out
+
+        def imported(segments):
+            adopted, adopt = [], eng.prefix.adopt_segment
+
+            def adopt_segment(node, seg, page):
+                adopted.append((seg, page))
+                return adopt(node, seg, page)
+            eng.prefix.adopt_segment = adopt_segment
+            try:
+                n = imp(segments)
+            finally:
+                del eng.prefix.adopt_segment
+            for seg, page in adopted:
+                src = self.exported[tuple(seg)]
+                self.checked += 1
+                self.equal += all(same_bits(v[:, page], src[k])
+                                  for k, v in eng.pool.items())
+            return n
+        eng.export_prefix_pages = exported
+        eng.import_prefix_pages = imported
+
+    def row(self) -> dict:
+        secs = sum(t for t, _ in self.timed)
+        pages = sum(n for _, n in self.timed)
+        return dict(migrations_timed=len(self.timed), pages_timed=pages,
+                    migration_ms=[t * 1e3 for t, _ in self.timed],
+                    migration_ms_per_page=secs * 1e3 / pages if pages
+                    else None,
+                    pages_checked=self.checked, pages_bit_equal=self.equal)
+
+
+def serve_waves(target, reqs: list[np.ndarray], settle: int | None = None
+                ) -> list[int]:
+    """Submit ``reqs`` in two waves (the second after the first has
+    drained, or after ``settle`` ticks) and drain; a fleet or an engine."""
+    half = len(reqs) // 2
+    rids = [target.submit(p) for p in reqs[:half]]
+    if settle is None:
+        target.run()
+    else:
+        for _ in range(settle):
+            target.step()
+    rids += [target.submit(p) for p in reqs[half:]]
+    target.run()
+    return rids
+
+
+def fleet_drill(name: str, kv_mode: str, specs, params, bundle,
+                size: dict) -> dict:
+    """One chaos drill: ``FLEET_HOSTS`` paged hosts sharing ``params``
+    behind round-robin placement serve ``fleet_workload`` in two waves
+    under ``specs``; every request must finish to its token count with
+    finite logits, every adopted page must equal its source page, and the
+    drill's fault must show in the injector's log and the fleet's
+    counters."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_fleet
+    from repro_torch.obs import Telemetry
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.runtime.chaos import ChaosInjector
+    from repro_torch.serving import FleetConfig
+    specs = [sp.format(**size) for sp in specs]
+    chaos = ChaosInjector(specs, seed=SEED)
+    reg = MetricsRegistry()
+    fleet, vocab = build_fleet(
+        bundle, FLEET_HOSTS, slots=size["slots"],
+        max_len=size["max_len"], max_new=size["max_new"], kv_mode=kv_mode,
+        page_size=size["page"], prefill_chunk=size["prefill_chunk"],
+        prefill_token_budget=size["prefill_token_budget"], params=params,
+        device="cuda", fleet_cfg=FleetConfig(placement="round_robin",
+                                              seed=SEED),
+        chaos=chaos, telemetry=Telemetry(enabled=False, registry=reg))
+    watch = FiniteWatch(fleet.engines[0].bundle)
+    for eng in fleet.engines:
+        eng.bundle = watch
+    mig = MigrationWatch(fleet)
+    reqs = fleet_workload(vocab, size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rids = serve_waves(fleet, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    fleet.telemetry()
+    snap, st = reg.snapshot(), fleet.stats()
+    results = {i: fleet.results[r] for i, r in enumerate(rids)}
+    n_tok = sum(len(v) for v in results.values())
+    hist = snap["histograms"].get("fleet_migration_s")
+    row = dict(arch=bundle.arch_id, n_layers=bundle.cfg.n_layers,
+               scenario=name, kv_mode=kv_mode, chaos=specs,
+               fired=list(chaos.fired), hosts=FLEET_HOSTS,
+               slots=size["slots"], page=size["page"], requests=len(reqs),
+               prompt_tokens=int(sum(len(p) for p in reqs)),
+               generated_tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
+               outcomes=st["outcomes"], ticks=st["ticks"],
+               deaths=st["deaths"], retries=st["retries"],
+               tombstones=st["directory"]["tombstoned_pages"],
+               hedges=st["hedges"], migrations=st["migrations"],
+               migrated_pages=st["migrated_pages"],
+               page_exchange_bytes=st["page_exchange_bytes"],
+               directory=st["directory"], launches=launches,
+               fleet_migration_s=hist,
+               counters={k: v for k, v in snap["counters"].items()
+                         if k.startswith(("fleet", "page_exchange"))},
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               **mig.row())
+    emit("serve_fleet", **row)
+    require(sorted(results) == list(range(len(reqs))) and
+            all(fleet.outcomes[r] == "ok" for r in rids) and
+            all(len(v) == size["max_new"] for v in results.values()),
+            f"serve_fleet {name}: a request did not finish to "
+            f"{size['max_new']} tokens: {st['outcomes']}")
+    require(bool(watch.finite.item()), f"serve_fleet {name}: non-finite "
+            "logits")
+    require(mig.checked == mig.equal,
+            f"serve_fleet {name}: {mig.checked - mig.equal} of "
+            f"{mig.checked} migrated pages differ from the source's")
+    key = "paged_decode_int8" if kv_mode == "paged_int8" \
+        else "paged_decode_bf16"
+    require(launches.get(key, 0) > 0,
+            f"serve_fleet {name}: the decode ticks never launched {key}")
+    c = row["counters"]
+    if name.startswith("migrate"):
+        require(st["migrations"]["ok"] >= 1 and mig.checked >= 1 and
+                c.get("fleet_migrations{outcome=ok}", 0) >= 1 and
+                c.get("page_exchange_bytes", 0) > 0,
+                f"serve_fleet {name}: no page migrated: {st}")
+    elif name == "die":
+        require(specs[0] in chaos.fired and st["deaths"] == 1 and
+                st["retries"] >= 1 and c.get("fleet_deaths", 0) == 1 and
+                c.get("fleet_retries", 0) >= 1 and
+                c.get("fleet_tombstones", 0) >= 1,
+                f"serve_fleet die: the fault did not fire: {row['fired']}, "
+                f"{st}")
+    elif name == "netsplit":
+        require(any(f.startswith("netsplit@1") for f in chaos.fired) and
+                st["migrations"]["timeout"] >= 1 and
+                c.get("fleet_migrations{outcome=timeout}", 0) >= 1,
+                f"serve_fleet netsplit: the fault did not fire: {st}")
+    elif name == "pagecorrupt":
+        require("pagecorrupt@1" in chaos.fired and
+                st["migrations"]["corrupt"] >= 1 and
+                c.get("fleet_migrations{outcome=corrupt}", 0) >= 1,
+                f"serve_fleet pagecorrupt: the fault did not fire: {st}")
+    # the watch's wrappers close over the engines: collect the cycles so
+    # the next drill's peak starts from the same resident bytes
+    del fleet, watch, mig
+    gc.collect()
+    return {"row": row, "results": results, "launches": launches}
+
+
+def one_engine(params, bundle, kv_mode: str, size: dict):
+    """One host of the fleet's drills, alone."""
+    from repro_torch.launch.serve import build_engine
+    engine, vocab = build_engine(
+        bundle, slots=size["slots"],
+        max_len=size["max_len"], max_new=size["max_new"], kv_mode=kv_mode,
+        page_size=size["page"], prefill_chunk=size["prefill_chunk"],
+        prefill_token_budget=size["prefill_token_budget"], params=params,
+        device="cuda")
+    return engine, vocab
+
+
+def token_logits(engine, prompt: np.ndarray, n: int) -> list[torch.Tensor]:
+    """Serve ``prompt`` alone on ``engine`` until it has ``n`` tokens and
+    return the logit row each token was picked from (the end of its
+    prefill, then its decode steps)."""
+    calls, inner = [], engine._exec_step
+
+    def record(tokens, counts, mp):
+        rows, picked = inner(tokens, counts, mp)
+        calls.append((rows, counts.copy()))
+        return rows, picked
+    engine._exec_step = record
+    rid, out = engine.submit(prompt), []
+    try:
+        while len(out) < n:
+            before = len(engine._partial_output(rid))
+            engine.step()
+            if len(engine._partial_output(rid)) > before:
+                rows, counts = calls[-1]
+                out.append(rows[int(np.flatnonzero(counts)[0])].float())
+    finally:
+        del engine._exec_step
+    return out
+
+
+def migrated_logits_check(params, bundle, kv_mode: str, size: dict
+                          ) -> dict:
+    """A prefix's pages exported from one engine, framed, sent over the
+    page exchange and imported into a second: the second serves another
+    prompt of that prefix from the migrated pages, and its first two
+    tokens' logits (the prefill's end over the migrated KV, then one
+    decode step through the paged kernel) are held against a third engine
+    that prefilled the whole prompt itself, by cosine, as ``logits_check``
+    does; the adopted pages must equal the exported ones bit for bit."""
+    from repro_torch.runtime.fleet import (LocalPageExchange,
+                                           encode_page_frame)
+    src, vocab = one_engine(params, bundle, kv_mode, size)
+    dst, _ = one_engine(params, bundle, kv_mode, size)
+    ref, _ = one_engine(params, bundle, kv_mode, size)
+    p0, _, p1 = fleet_workload(vocab, size)[:3]
+    src.submit(p0)
+    src.run()
+    exported = src.export_prefix_pages(p0, size["prefix"])
+    frames = [encode_page_frame(t, a) for t, a in exported]
+    decoded = LocalPageExchange().transfer(0, 1, frames)
+    require(dst.import_prefix_pages(decoded) == size["prefix"],
+            f"migrated_logits_check: import of {size['prefix']} tokens")
+    pages = [n.page for n in dst.prefix.path_nodes(p0, size["prefix"])]
+    equal = all(same_bits(dst.pool[k][:, pg], vals[k])
+                for pg, (_, vals) in zip(pages, exported)
+                for k in dst.pool)
+    got = token_logits(dst, p1, 2)
+    want = token_logits(ref, p1, 2)
+    cos = [F.cosine_similarity(a, b, dim=0).item()
+           for a, b in zip(got, want)]
+    row = dict(arch=bundle.arch_id, n_layers=bundle.cfg.n_layers,
+               kv_mode=kv_mode, prefix=size["prefix"],
+               pages=len(exported), frame_bytes=sum(len(f) for f in frames),
+               pages_bit_equal=equal,
+               matched_tokens=dst.prefix_stats()["matched_tokens"],
+               cosine_prefill=cos[0], cosine_decode=cos[1],
+               max_abs_diff=[(a - b).abs().max().item()
+                             for a, b in zip(got, want)],
+               top1_equal=[bool(a.argmax() == b.argmax())
+                           for a, b in zip(got, want)],
+               finite=all(bool(torch.isfinite(a).all()) for a in got))
+    emit("fleet_logits_check", **row)
+    require(equal and len(exported) == size["prefix"] // size["page"],
+            f"migrated_logits_check ({kv_mode}): pages {row}")
+    require(row["finite"] and min(cos) > 0.99 and
+            row["matched_tokens"] >= size["prefix"],
+            f"migrated vs recomputed logits ({kv_mode}): {row}")
+    return row
+
+
+def prefix_prefill_ms(params, bundle, size: dict) -> list[float]:
+    """Time to the first token of the common prefix plus one token on one
+    paged engine with nothing cached (what a recompute costs in place of
+    a migration), twice on fresh state; ms, device synchronised."""
+    engine, vocab = one_engine(params, bundle, "paged", size)
+    prompt = fleet_workload(vocab, size)[0][:size["prefix"] + 1]
+    out = []
+    for _ in range(2):
+        engine.reset_serving_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        token_logits(engine, prompt, 1)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def supervised_drill() -> dict:
+    """``python -m repro_torch.launch.serve --fleet 2`` with ``die@2`` on
+    worker 1, at the launcher's smoke width: it must exit 0, serve 4 of 4,
+    and worker 1 must have exited 43 and then 0."""
+    import os
+    fleet_dir = ROOT / "build" / "serve_fleet_drill"
+    shutil.rmtree(fleet_dir, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
+           "--fleet", "2", "--requests", "4", "--kv-mode", "paged",
+           "--page-size", "8", "--slots", "2", "--max-new", "4",
+           "--prefix-share", "0.5", "--chaos", "die@2:host=1",
+           "--fleet-dir", str(fleet_dir), "--max-wall-s", "300"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=400)
+    wall = time.perf_counter() - t0
+    try:
+        report = json.loads((fleet_dir / "report.json").read_text())
+    except (OSError, ValueError):
+        report = {}
+    hist = {w["tag"]: w["exit_history"] for w in report.get("workers", ())}
+    devices, merged = set(), {}
+    for tag in range(2):
+        try:
+            res = json.loads((fleet_dir / "results" /
+                              f"rank_{tag}.json").read_text())
+        except (OSError, ValueError):
+            continue
+        devices.add(res.get("device"))
+        merged.update(res.get("results", {}))
+    line = [ln for ln in out.stdout.splitlines()
+            if ln.startswith("[serve-fleet]")]
+    row = dict(cmd=" ".join(cmd[1:]), rc=out.returncode, wall_s=wall,
+               summary=line[-1] if line else None,
+               outcome=report.get("outcome"),
+               total_failures=report.get("total_failures"),
+               exit_history=hist, devices=sorted(map(str, devices)),
+               served=len(merged),
+               tokens_each=sorted({len(v) for v in merged.values()}))
+    emit("serve_fleet_supervised", **row)
+    require(out.returncode == 0 and row["summary"] is not None and
+            "outcome=completed" in row["summary"] and
+            "served=4/4" in row["summary"] and hist.get(1) == [43, 0] and
+            row["tokens_each"] == [4],
+            f"serve --fleet 2 drill: {row}; stderr "
+            f"{out.stderr[-2000:]}")
+    return row
+
+
+def serve_fleet(params, bundle=None, size: dict = FLEET_FULL,
+                drill: bool = True) -> dict:
+    """The serving fleet on the card: the migrated-page logits check in
+    bf16 and int8, the prefix's prefill time on one engine, each drill of
+    ``FLEET_SCENARIOS`` beside one engine serving the same two waves
+    (token agreement printed, not required: bf16 GEMMs may pick kernels by
+    the batch's rows), then (``drill``) the supervised ``--fleet 2``
+    drill.  ``bundle``: qwen3-4b's full-width bundle unless given (one cut
+    in depth, say).  -> the drills' launches, summed."""
+    from repro_torch.configs import get_bundle
+    bundle = bundle or get_bundle(ARCH)
+    with torch.no_grad():
+        checks = {m: migrated_logits_check(params, bundle, m, size)
+                  for m in ("paged", "paged_int8")}
+        prefill = prefix_prefill_ms(params, bundle, size)
+        base = {}
+        for m in ("paged", "paged_int8"):
+            engine, vocab = one_engine(params, bundle, m, size)
+            rids = serve_waves(engine, fleet_workload(vocab, size))
+            base[m] = {i: engine.results[r] for i, r in enumerate(rids)}
+            del engine
+        runs = [fleet_drill(name, mode, specs, params, bundle, size)
+                for name, mode, specs in FLEET_SCENARIOS]
+    ok = next(r["row"] for r in runs if r["row"]["scenario"] == "migrate")
+    emit("serve_fleet_summary", arch=bundle.arch_id,
+         migration_ms_per_page=ok["migration_ms_per_page"],
+         migration_ms=ok["migration_ms"],
+         prefix_prefill_ms=prefill, prefix_tokens=size["prefix"],
+         frame_bytes_per_page={m: c["frame_bytes"] / c["pages"]
+                               for m, c in checks.items()},
+         agreement={r["row"]["scenario"]: agreement(
+             r["results"], base[r["row"]["kv_mode"]]) for r in runs})
+    if drill:
+        supervised_drill()
+    launches: dict[str, int] = {}
+    for r in runs:
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 4b: serve olmoe-1b-7b (MoE) at full width
 # ---------------------------------------------------------------------------
 
@@ -2687,6 +3128,9 @@ def main() -> int:
     logits_check(params)
     paged_step_check(params)
 
+    # phase 4a: the serving fleet (three hosts sharing those weights)
+    fleet = serve_fleet(params)
+
     # phase 4b: serve olmoe-1b-7b at full width (qwen3-4b's weights stay)
     moe = serve_moe()
 
@@ -2712,9 +3156,9 @@ def main() -> int:
     recovered = recovery()
 
     # phase 7: the kernels line (one row per kernel route a main path runs),
-    # launches from the paper-workload, serve, serve_moe, serve_families,
-    # train, train_ring, train_families and recovery phases
-    phases = (paper, *(r["launches"] for r in served.values()), moe,
+    # launches from the paper-workload, serve, serve_fleet, serve_moe,
+    # serve_families, train, train_ring, train_families and recovery phases
+    phases = (paper, *(r["launches"] for r in served.values()), fleet, moe,
               families, trained["launches"], ring, families_trained,
               recovered)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in rows}

@@ -5,23 +5,44 @@ bundle, on the CUDA card.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         --kv-mode paged --page-size 16
 
-Counterpart of ``repro.launch.serve`` for a single engine (the fleet,
-worker and supervisor modes are not ported yet).  Every entry point runs
-on the CUDA card unless the caller passes ``device="cpu"`` (``--device
-cpu``), and raises when it finds no card.  Paged modes need a
-transformer-family arch (attention KV, no vision prefix); the SSM, hybrid,
-audio and VLM families serve on the dense path.
+Fleet modes (the serving fleet of ``serving/fleet.py``):
+
+    # N REAL serve worker processes under runtime/supervisor.py; a worker
+    # killed by --chaos die@T:host=H exits 43 and is restarted
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
+        --kv-mode paged --fleet 2 --chaos die@4:host=1
+
+    # one worker process (the supervisor builds this argv itself)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
+        --kv-mode paged --worker --process-id 0 --num-processes 2 ...
+
+Every fleet member regenerates the same seeded request trace and serves
+the slice ``rid % world == rank``, so the merged results are comparable
+request-by-request against a single-engine run of the same trace.
+:func:`build_fleet` is the in-process flavour (a
+:class:`~repro_torch.serving.LocalFleet` over engines sharing one bundle
++ params).
+
+Counterpart of ``repro.launch.serve``.  Every entry point runs on the
+CUDA card unless the caller passes ``device="cpu"`` (``--device cpu``;
+the supervisor forwards it to every worker), and raises when it finds no
+card.  Paged modes need a transformer-family arch (attention KV, no
+vision prefix); the SSM, hybrid, audio and VLM families serve on the
+dense path.
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
+import sys
 import time
 
 import numpy as np
 
-from repro_torch.configs import ARCH_IDS, get_bundle
+from repro_torch.configs import ARCH_IDS, ArchBundle, get_bundle
 from repro_torch.device import resolve_device
-from repro_torch.serving import ServeConfig, ServingEngine
+from repro_torch.serving import LocalFleet, ServeConfig, ServingEngine
 
 
 class _BundleAdapter:
@@ -65,7 +86,14 @@ class _BundleAdapter:
                                       lengths, counts)
 
 
-def build_engine(arch: str, *, smoke: bool = True, slots: int = 4,
+def _bundle(arch, smoke: bool) -> ArchBundle:
+    """``arch``'s bundle, or ``arch`` itself when it is one already (a
+    config cut in depth, as the chip smoke test serves one)."""
+    return arch if isinstance(arch, ArchBundle) else \
+        get_bundle(arch, smoke=smoke)
+
+
+def build_engine(arch, *, smoke: bool = True, slots: int = 4,
                  max_len: int = 64, max_new: int = 8, kv_mode: str = "dense",
                  page_size: int = 16, num_pages: int | None = None,
                  prefill_chunk: int = 32, prefix_cache: bool = True,
@@ -75,11 +103,11 @@ def build_engine(arch: str, *, smoke: bool = True, slots: int = 4,
     """(engine, vocab) ready for submit()/run().  ``params`` (a dict of
     tensors, e.g. converted reference weights from
     :func:`repro_torch.weights.from_jax_params`) replaces the seeded random
-    init and is moved to ``device``.  Extra keywords flow into
-    :class:`ServeConfig` (``prefill_token_budget`` and the graceful-
-    degradation knobs)."""
+    init and is moved to ``device``; ``arch`` may be an ``ArchBundle`` in
+    place of its name.  Extra keywords flow into :class:`ServeConfig`
+    (``prefill_token_budget`` and the graceful-degradation knobs)."""
     dev = resolve_device(device)
-    bundle = get_bundle(arch, smoke=smoke)
+    bundle = _bundle(arch, smoke)
     if params is None:
         params = bundle.init_params(seed, device=dev)
     else:
@@ -102,12 +130,14 @@ def _to(tree, dev):
     return None if tree is None else tree.to(dev)
 
 
-def make_prompts(vocab: int, *, n_requests: int, prompt_len: int,
-                 prefix_share: float = 0.0, seed: int = 0
-                 ) -> list[np.ndarray]:
+def fleet_trace(vocab: int, *, n_requests: int, prompt_len: int = 12,
+                prefix_share: float = 0.0, seed: int = 0
+                ) -> list[np.ndarray]:
     """The launcher's seeded request trace (the reference's): random
     prompts, with a common half-length prefix on a ``prefix_share``
-    fraction of them."""
+    fraction of them.  The fleet supervisor's parent, every worker
+    process and a single-engine baseline regenerate it identically, so
+    per-request outputs are comparable across all three."""
     rng = np.random.default_rng(seed)
     common = rng.integers(0, vocab, size=max(1, prompt_len // 2))
     prompts = []
@@ -117,6 +147,138 @@ def make_prompts(vocab: int, *, n_requests: int, prompt_len: int,
             prompt[:len(common)] = common
         prompts.append(prompt)
     return prompts
+
+
+def build_fleet(arch, n_hosts: int, *, smoke: bool = True,
+                slots: int = 2, max_len: int = 64, max_new: int = 8,
+                kv_mode: str = "paged", page_size: int = 16,
+                num_pages: int | None = None, prefill_chunk: int = 32,
+                seed: int = 0, fleet_cfg=None, chaos=None, telemetry=None,
+                params=None, device=None, **serve_kw):
+    """(fleet, vocab): ``n_hosts`` in-process serving engines sharing ONE
+    bundle + params (identical weights on every host: the fleet's
+    determinism contract) behind the
+    :class:`~repro_torch.serving.LocalFleet` router.  ``chaos`` is a
+    ChaosInjector consulted on the fleet tick clock (die / netsplit /
+    pagecorrupt); ``params`` and ``device`` as in :func:`build_engine`,
+    whose extra keywords flow into :class:`ServeConfig`."""
+    dev = resolve_device(device)
+    bundle = _bundle(arch, smoke)
+    params = bundle.init_params(seed, device=dev) if params is None \
+        else _to(params, dev)
+    adapter = _BundleAdapter(bundle, {})
+    cfg = ServeConfig(batch=slots, max_len=max_len, max_new_tokens=max_new,
+                      kv_mode=kv_mode, page_size=page_size,
+                      num_pages=num_pages, prefill_chunk=prefill_chunk,
+                      **serve_kw)
+    engines = [ServingEngine(adapter, params, cfg, device=dev,
+                             telemetry=telemetry)
+               for _ in range(n_hosts)]
+    fleet = LocalFleet(engines, fleet_cfg, chaos=chaos, telemetry=telemetry)
+    return fleet, bundle.cfg.vocab
+
+
+def run_worker(a) -> None:
+    """One serve worker process under the supervisor: serve the trace
+    slice ``rid % world == rank``, heartbeat per tick, die on an active
+    ``die`` chaos spec (exit 43 -> supervised restart without chaos)."""
+    from repro_torch.runtime.chaos import ChaosInjector
+    from repro_torch.runtime.fleet import FleetWorker
+    worker = FleetWorker(process_id=a.process_id,
+                         num_processes=a.num_processes,
+                         fleet_dir=a.fleet_dir, tag=a.tag,
+                         result_out=a.result_out)
+    chaos = ChaosInjector(a.chaos or (), seed=a.seed)
+    engine, vocab = build_engine(
+        a.arch, slots=a.slots, max_len=a.max_len, max_new=a.max_new,
+        kv_mode=a.kv_mode, page_size=a.page_size, seed=a.seed,
+        device=a.device)
+    prompts = fleet_trace(vocab, n_requests=a.requests,
+                          prompt_len=a.prompt_len,
+                          prefix_share=a.prefix_share, seed=a.seed)
+    rids = {}
+    for i, p in enumerate(prompts):
+        if i % a.num_processes == a.process_id:
+            rids[i] = engine.submit(p)
+    tick = 0
+    while engine.pending():
+        tick += 1
+        chaos.maybe_die(tick, worker.tag)   # ChaosKilled -> exit 43
+        engine.step()
+        worker.heartbeat(tick)
+    worker.heartbeat(tick)
+    worker.write_result({
+        "results": {str(i): [int(t) for t in engine.results[r]]
+                    for i, r in rids.items()},
+        "outcomes": {str(i): engine.outcomes[r] for i, r in rids.items()},
+        "ticks": tick, "device": str(engine.device)})
+    print(f"[serve-worker {a.process_id}/{a.num_processes}] "
+          f"{len(rids)} requests in {tick} ticks on {engine.device}")
+
+
+def run_fleet_supervised(a) -> dict:
+    """``--fleet N``: N real serve worker processes under the process
+    supervisor.  A worker killed by ``die`` chaos exits 43, restarts
+    WITHOUT chaos (the supervisor strips the flags), and re-serves its
+    slice; the parent merges the per-rank result JSONs and writes the
+    supervisor's report to ``<fleet dir>/report.json``."""
+    import tempfile
+
+    from repro_torch.runtime.chaos import split_spec_strings
+    from repro_torch.runtime.supervisor import (RestartPolicy, Supervisor,
+                                                write_report)
+    fleet_dir = a.fleet_dir or tempfile.mkdtemp(prefix="serve_fleet_")
+    results_dir = os.path.join(fleet_dir, "results")
+    os.makedirs(results_dir, exist_ok=True)
+    _, worker_chaos = split_spec_strings(a.chaos or ())
+
+    def cmd(spec):
+        argv = [sys.executable, "-m", "repro_torch.launch.serve",
+                "--arch", a.arch, "--worker",
+                "--process-id", str(spec.rank),
+                "--num-processes", str(spec.world),
+                "--tag", str(spec.tag),
+                "--fleet-dir", fleet_dir,
+                "--requests", str(a.requests),
+                "--prompt-len", str(a.prompt_len),
+                "--prefix-share", str(a.prefix_share),
+                "--kv-mode", a.kv_mode,
+                "--page-size", str(a.page_size),
+                "--slots", str(a.slots),
+                "--max-len", str(a.max_len),
+                "--max-new", str(a.max_new),
+                "--seed", str(a.seed),
+                "--result-out",
+                os.path.join(results_dir, f"rank_{spec.tag}.json")]
+        if a.device is not None:
+            argv += ["--device", a.device]
+        if spec.with_chaos:
+            for c in worker_chaos:
+                argv += ["--chaos", c]
+        return argv
+
+    sup = Supervisor(a.fleet, cmd, fleet_dir=fleet_dir,
+                     policy=RestartPolicy(hang_timeout_s=120.0,
+                                          max_wall_s=a.max_wall_s),
+                     chaos_specs=a.chaos or (), chaos_seed=a.seed)
+    report = sup.run()
+    write_report(os.path.join(fleet_dir, "report.json"), report)
+    merged: dict[str, list[int]] = {}
+    outcomes: dict[str, str] = {}
+    for tag in range(a.fleet):
+        path = os.path.join(results_dir, f"rank_{tag}.json")
+        try:
+            with open(path) as f:
+                res = json.load(f)
+        except (OSError, json.JSONDecodeError):
+            continue
+        merged.update(res.get("results", {}))
+        outcomes.update(res.get("outcomes", {}))
+    print(f"[serve-fleet] outcome={report['outcome']} "
+          f"failures={report['total_failures']} "
+          f"served={len(merged)}/{a.requests} "
+          f"wall={report['wall_s']:.1f}s dir={fleet_dir}")
+    return {"report": report, "results": merged, "outcomes": outcomes}
 
 
 def run(arch: str, *, smoke: bool = True, n_requests: int = 6,
@@ -141,9 +303,9 @@ def run(arch: str, *, smoke: bool = True, n_requests: int = 6,
         kv_mode=kv_mode, page_size=page_size, num_pages=num_pages,
         prefix_cache=prefix_cache, seed=seed, temperature=temperature,
         top_k=top_k, sample_seed=seed, telemetry=tel, device=device)
-    for prompt in make_prompts(vocab, n_requests=n_requests,
-                               prompt_len=prompt_len,
-                               prefix_share=prefix_share, seed=seed):
+    for prompt in fleet_trace(vocab, n_requests=n_requests,
+                              prompt_len=prompt_len,
+                              prefix_share=prefix_share, seed=seed):
         engine.submit(prompt)
     t0 = time.time()
     if stream:
@@ -203,12 +365,39 @@ def main(argv=None):
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write the metrics snapshot (+ engine.telemetry()) "
                          "as JSON")
+    # fleet modes (serving/fleet.py; see the module docstring)
+    ap.add_argument("--fleet", type=int, default=0, metavar="N",
+                    help="run N real serve worker processes under the "
+                         "process supervisor (0 = single engine)")
+    ap.add_argument("--worker", action="store_true",
+                    help="run as one supervised serve worker (internal; "
+                         "the supervisor builds this argv)")
+    ap.add_argument("--process-id", type=int, default=0)
+    ap.add_argument("--num-processes", type=int, default=1)
+    ap.add_argument("--tag", type=int, default=None,
+                    help="stable worker id across re-mesh renumbering")
+    ap.add_argument("--fleet-dir", default=None)
+    ap.add_argument("--result-out", default=None)
+    ap.add_argument("--chaos", action="append", default=[],
+                    metavar="SPEC", help="fault spec, e.g. die@4:host=1 "
+                    "(repeatable; see runtime/chaos.py)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--max-len", type=int, default=64)
+    ap.add_argument("--max-wall-s", type=float, default=600.0,
+                    help="fleet mode: whole-run wall-clock ceiling")
     ap.add_argument("--device", default=None,
-                    help="cuda (default) or cpu")
+                    help="cuda (default) or cpu; fleet mode forwards it to "
+                         "every worker")
     a = ap.parse_args(argv)
+    if a.tag is None:
+        a.tag = a.process_id
+    if a.worker:
+        run_worker(a)
+        return
+    if a.fleet > 1:
+        run_fleet_supervised(a)
+        return
     results = run(a.arch, n_requests=a.requests,
                   slots=a.slots, prompt_len=a.prompt_len,
                   max_new=a.max_new, max_len=a.max_len, seed=a.seed,

@@ -3,9 +3,10 @@
 A numpy-only copy of the reference package's ``repro.runtime.chaos``: the
 same specs, defaults and decisions (the port imports nothing of the
 reference).  The port's single-process train loop
-(``repro_torch.launch.train``) consults the training kinds; the serving
-fleet and the process supervisor that consume the other kinds are not
-ported yet.
+(``repro_torch.launch.train``) consults the training kinds, the serving
+fleet (``repro_torch.serving.fleet``, ``launch/serve.py --worker``) the
+serving kinds, and the process supervisor
+(``repro_torch.runtime.supervisor``) ``sigkill``.
 
 The recovery paths in this repo (checkpoint fallback, elastic re-mesh,
 nonfinite-grad skip) are only trustworthy if they are EXERCISED — a
@@ -38,8 +39,8 @@ Fault taxonomy (spec strings, parsed by :func:`parse_chaos`):
                                    half) — restore must detect it by CRC
                                    and fall back to an older intact step
 
-Serving-fleet faults (the multi-host serving fleet; see the reference's
-``repro.serving.fleet``, tick-indexed on the FLEET's tick clock):
+Serving-fleet faults (the multi-host serving fleet; see
+``repro_torch.serving.fleet``, tick-indexed on the FLEET's tick clock):
 
   ``die@T:host=H``                 serving host H dies entering fleet tick
                                    T — the router must tombstone its
@@ -58,8 +59,8 @@ Serving-fleet faults (the multi-host serving fleet; see the reference's
                                    receiver's per-page CRC must reject it
                                    (PageCorruptError) and recompute
 
-Process-level faults (the real-fleet runtime; see the reference's
-``repro.runtime.supervisor``):
+Process-level faults (the real-fleet runtime; see
+``repro_torch.runtime.supervisor``):
 
   ``sigkill@N:host=H``             SUPERVISOR-side: SIGKILL worker H once
                                    its heartbeat reports step >= N — an

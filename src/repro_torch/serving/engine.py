@@ -1,7 +1,9 @@
 """Serving engine: continuous batching over a dense OR paged KV cache.
 
 Counterpart of ``repro.serving.engine`` for a single engine on one device
-(no mesh; the fleet surface comes later).  Three KV modes behind one
+(no mesh).  The fleet surface (``inflight``, ``cancel``, and the page
+export / import of a cached prefix) lets ``serving.fleet.LocalFleet``
+route, hedge and migrate between engines.  Three KV modes behind one
 interface (``ServeConfig.kv_mode``):
 
 ``dense``
@@ -623,6 +625,106 @@ class ServingEngine:
             req.generated.append(tok)
             if req.n_generated >= req.max_new_tokens or tok == cfg.eos_id:
                 self._finish(req)
+
+    # ------------------------------------------------------------------
+    # fleet surface (serving.fleet): cancel, in-flight audit, migration
+    # ------------------------------------------------------------------
+
+    def inflight(self) -> list[int]:
+        """rids submitted but not yet reaped into ``results`` — on host
+        loss the router re-admits exactly these on the survivors."""
+        if self.cfg.kv_mode == "dense":
+            live = [item[0] for item in self.queue]
+            live += [s.request_id for s in self.slots
+                     if s.request_id is not None]
+            return [rid for rid in live if rid not in self.results]
+        return [rid for rid in self._requests if rid not in self.results]
+
+    def cancel(self, rid: int) -> bool:
+        """Withdraw one unfinished request, releasing its pages (shared
+        prefix pages only decref).  The fleet retires the losing twin of
+        a hedged dispatch this way.  Returns True when something was
+        actually cancelled."""
+        if rid in self.results:
+            return False
+        if self.cfg.kv_mode == "dense":
+            for i, item in enumerate(self.queue):
+                if item[0] == rid:
+                    del self.queue[i]
+                    self.results[rid] = []
+                    self.outcomes[rid] = "cancelled"
+                    return True
+            for i, s in enumerate(self.slots):
+                if s.request_id == rid:
+                    self.results[rid] = list(s.generated)
+                    self.outcomes[rid] = "cancelled"
+                    self.slots[i] = _Slot()
+                    return True
+            return False
+        req = self._requests.get(rid)
+        if req is None or self.sched.cancel(self.kv, rid) is None:
+            return False
+        self.results[rid] = req.output
+        self.outcomes[rid] = "cancelled"
+        self.obs.counter("serve_requests", outcome="cancelled")
+        return True
+
+    def export_prefix_pages(self, tokens, n_tokens: int):
+        """Migration SOURCE: the KV payloads of the full-page cached
+        prefix of ``tokens[:n_tokens]``, as (segment tokens, {pool entry:
+        CPU tensor}) pairs in path order.  Stops at the first uncached or
+        partial page — callers migrate what exists and recompute the
+        rest.  Each pool entry's pages are gathered on the device (the
+        (L, P, page, Hkv, Dh) layout strides a page across L) and cross
+        to the host in one copy, which waits for the device."""
+        if getattr(self, "prefix", None) is None:
+            return []
+        nodes = self.prefix.path_nodes(tokens, n_tokens)
+        if not nodes:
+            return []
+        idx = torch.tensor([n.page for n in nodes], dtype=torch.long,
+                           device=self.device)
+        host = {k: v.index_select(1, idx).cpu() for k, v in self.pool.items()}
+        return [(node.tokens, {k: h[:, i] for k, h in host.items()})
+                for i, node in enumerate(nodes)]
+
+    def import_prefix_pages(self, segments) -> int:
+        """Migration TARGET: graft exported page payloads into this
+        host's pool + trie so the next lookup serves them locally —
+        the page is TRANSFERRED, never re-prefilled.  Each payload lands
+        in place in its adopted pool page.  Segments already cached here
+        are skipped; a dry pool ends the import early (partial import is
+        fine, the remainder is recomputed).  Returns the prefix tokens
+        now cached locally."""
+        if getattr(self, "prefix", None) is None:
+            return 0
+        node, matched = self.prefix.root, 0
+        ps = self.kv.cfg.page_size
+        for seg, vals in segments:
+            seg = tuple(int(t) for t in seg)
+            if len(seg) != ps:
+                break                        # only full pages migrate
+            child = node.children.get(seg)
+            if child is not None and child.n_tokens == ps:
+                node, matched = child, matched + ps
+                continue
+            try:
+                page = self.kv.adopt_page()
+            except MemoryError:
+                break
+            for k, v in self.pool.items():
+                v[:, page].copy_(torch.as_tensor(vals[k]))
+            node = self.prefix.adopt_segment(node, seg, page)
+            matched += ps
+        return matched
+
+    def drop_prefix_path(self, tokens, n_tokens: int) -> int:
+        """Migration SOURCE, after a successful transfer: drop the local
+        trie path for the migrated prefix (ownership moved — pages are
+        owned once).  Pages still feeding live slots survive."""
+        if getattr(self, "prefix", None) is None:
+            return 0
+        return self.prefix.drop_path(tokens, n_tokens)
 
     # ------------------------------------------------------------------
     # accounting

@@ -190,6 +190,22 @@ class BlockPoolKV:
         self.alloc_count += 1
         return page
 
+    def adopt_page(self) -> int:
+        """Allocate one page held by an EXTERNAL owner (no slot table
+        entry) — the landing pad for a KV page migrated in from another
+        host, which the importer then hands to the prefix trie.  The
+        caller owns the single reference and must ``release`` it (or
+        ``retain`` on the trie's behalf, then ``release``) to balance.
+        Runs ``reclaim_hook`` first so a warm cache does not starve
+        migrations."""
+        if not self._free and self.reclaim_hook is not None:
+            self.reclaim_hook(1)
+        if not self._free:
+            raise MemoryError("pool dry: cannot adopt a migrated page")
+        page = self._alloc_page()
+        self.peak_pages = max(self.peak_pages, self.used_pages)
+        return page
+
     def map_shared(self, slot: int, pages: list[int]) -> None:
         """Map prefix-cache pages read-only at the FRONT of an empty
         slot's table (cache-hit admission).  The slot takes one reference

@@ -33,8 +33,9 @@ before anyone preempts a live request.
 Like the scheduler, this module is host-side control logic: it
 plans COW copies (src page, valid tokens) but the ENGINE executes them on
 the device arrays.  Invariants are property-tested in
-the reference's tests/test_prefix.py; this copy leaves out the fleet's
-page-migration and ownership-directory surface.
+the reference's tests/test_prefix.py; the fleet's page-migration
+surface (``path_nodes``, ``adopt_segment``, ``drop_path``) and its
+:class:`PageOwnershipDirectory` are here too.
 """
 from __future__ import annotations
 
@@ -194,6 +195,52 @@ class RadixPrefixCache:
 
     # -- fleet migration support -------------------------------------------
 
+    def path_nodes(self, tokens, n_tokens: int) -> list["_Node"]:
+        """The trie nodes spelling the first ``n_tokens`` of ``tokens``
+        as FULL pages (migration source: these pages' KV gets exported).
+        Stops at the first missing or partial page."""
+        tokens = [int(t) for t in tokens]
+        node, pos, out = self.root, 0, []
+        while pos + self.page_size <= n_tokens:
+            child = node.children.get(tuple(tokens[pos:pos + self.page_size]))
+            if child is None or child.n_tokens < self.page_size:
+                break
+            out.append(child)
+            node, pos = child, pos + self.page_size
+        return out
+
+    def adopt_segment(self, node: "_Node | None", seg: tuple[int, ...],
+                      page: int) -> "_Node":
+        """Graft one imported full page under ``node`` (None = root).
+        The trie takes over the caller's reference to ``page`` (the
+        importer allocated it via ``kv.adopt_page`` — no extra retain)."""
+        parent = node or self.root
+        if seg in parent.children:
+            raise ValueError(f"segment {seg[:4]}... already cached")
+        new = _Node(seg, page, parent)
+        new.last_use = next(self._clock)
+        parent.children[seg] = new
+        self.inserted_pages += 1
+        return new
+
+    def drop_path(self, tokens, n_tokens: int) -> int:
+        """Release the full-page path for ``tokens[:n_tokens]`` bottom-up
+        (migration source, after a successful transfer: ownership moved,
+        so the local copy is dropped).  Only nodes that are leaves with no
+        other holder (refcount 1) are dropped — a path still feeding live
+        slots or deeper cache entries survives.  Returns pages dropped."""
+        dropped = 0
+        for node in reversed(self.path_nodes(tokens, n_tokens)):
+            if node.children or self.kv.refcount[node.page] != 1:
+                break
+            self.kv.release(node.page)
+            del node.parent.children[node.tokens]
+            dropped += 1
+            self.evicted_pages += 1
+        return dropped
+
+    # -- eviction (the pool's reclaim hook) ---------------------------------
+
     def evict(self, n_pages: int) -> int:
         """Free at least ``n_pages`` by dropping trie leaves no live slot
         maps (page refcount 1 — held by the trie alone), least-recently
@@ -271,3 +318,166 @@ class RadixPrefixCache:
                     f"trie holds unreferenced page {child.page}"
                 stack.append((child, False))
         self.kv.check_invariants(external_refs=self.page_refs())
+
+
+@dataclasses.dataclass(frozen=True)
+class DirectoryMatch:
+    """One directory lookup: the longest run of full prompt pages with a
+    LIVE owner, as parallel (token segment, owner host) tuples.  Matching
+    stops at the first unpublished or tombstoned page, so ``segments`` is
+    always the longest-SURVIVING-ancestor run the recovery path needs."""
+    segments: tuple[tuple[int, ...], ...] = ()
+    owners: tuple[int, ...] = ()
+
+    @property
+    def matched(self) -> int:
+        return sum(len(s) for s in self.segments)
+
+    @property
+    def hit(self) -> bool:
+        return bool(self.segments)
+
+
+class PageOwnershipDirectory:
+    """Router-side map from token prefixes to the host that OWNS their KV
+    pages — the fleet analogue of the radix trie, with ``owner_host`` in
+    place of a pool page.
+
+    This is the paper's promote-local-to-global story one level up: each
+    host's prefix cache is its local SRAM tile, and the directory is the
+    mesh fabric that makes a page globally addressable without replicating
+    it — a prefix is owned ONCE, and a request landing on another host
+    triggers a point-to-point page migration instead of a re-prefill.
+
+    Ownership rules:
+      * first live publisher wins (``publish`` never steals from a live
+        owner — pages are owned once);
+      * a host death TOMBSTONES its entries (``tombstone_host``): the
+        nodes stay so the structure under them is preserved, but lookups
+        stop at them, which yields recompute-from-longest-surviving-
+        ancestor for free;
+      * a successful migration calls ``transfer`` to move ownership of
+        the migrated path to the destination host;
+      * re-publishing over a tombstoned entry revives it under the new
+        owner (a survivor recomputed the prefix).
+    """
+
+    def __init__(self, page_size: int):
+        self.page_size = page_size
+        self.root = _Node((), BlockPoolKV.TRASH, None)
+        self.dead: set[int] = set()
+        self._clock = itertools.count(1)
+        self.lookups = 0
+        self.hits = 0
+        self.matched_tokens = 0
+        self.published_pages = 0
+        self.transferred_pages = 0
+        self.tombstoned_pages = 0
+        self.revived_pages = 0
+
+    def _walk(self, tokens, limit: int):
+        """Yield (node, segment) for each FULL page of ``tokens[:limit]``
+        present in the directory, live or dead."""
+        tokens = [int(t) for t in tokens]
+        node, pos = self.root, 0
+        while pos + self.page_size <= limit:
+            seg = tuple(tokens[pos:pos + self.page_size])
+            child = node.children.get(seg)
+            if child is None:
+                return
+            yield child, seg
+            node, pos = child, pos + self.page_size
+
+    def publish(self, tokens, host: int, n_tokens: int | None = None) -> int:
+        """Record ``host`` as owner of the full pages of
+        ``tokens[:n_tokens]``.  Existing live entries keep their owner;
+        tombstoned entries are revived under ``host``.  Returns the
+        number of pages newly owned by ``host``."""
+        if host in self.dead:
+            raise ValueError(f"publish from tombstoned host {host}")
+        tokens = [int(t) for t in tokens]
+        limit = len(tokens) if n_tokens is None else n_tokens
+        node, pos, owned, now = self.root, 0, 0, next(self._clock)
+        while pos + self.page_size <= limit:
+            seg = tuple(tokens[pos:pos + self.page_size])
+            child = node.children.get(seg)
+            if child is None:
+                child = _Node(seg, BlockPoolKV.TRASH, node, owner_host=host)
+                node.children[seg] = child
+                self.published_pages += 1
+                owned += 1
+            elif child.owner_host in self.dead:
+                child.owner_host = host
+                self.revived_pages += 1
+                owned += 1
+            child.last_use = now
+            node, pos = child, pos + self.page_size
+        return owned
+
+    def lookup(self, tokens) -> DirectoryMatch:
+        """Longest live-owned full-page prefix of ``tokens``, capped at
+        ``len - 1`` (same rule as the local trie: the last prompt token is
+        always recomputed so admission has logits)."""
+        self.lookups += 1
+        segs, owners, now = [], [], next(self._clock)
+        for node, seg in self._walk(tokens, len(tokens) - 1):
+            if node.owner_host in self.dead:
+                break
+            node.last_use = now
+            segs.append(seg)
+            owners.append(node.owner_host)
+        m = DirectoryMatch(segments=tuple(segs), owners=tuple(owners))
+        if m.hit:
+            self.hits += 1
+            self.matched_tokens += m.matched
+        return m
+
+    def tombstone_host(self, host: int) -> int:
+        """Mark every entry owned by ``host`` dead (host loss).  The
+        nodes stay in place — children of a tombstoned page published by
+        survivors stay reachable once the dead link is re-published."""
+        self.dead.add(host)
+        n = sum(1 for node in self._nodes() if node.owner_host == host)
+        self.tombstoned_pages += n
+        return n
+
+    def transfer(self, tokens, n_tokens: int, new_host: int) -> int:
+        """Reassign ownership of the full pages of ``tokens[:n_tokens]``
+        to ``new_host`` (after a successful migration)."""
+        if new_host in self.dead:
+            raise ValueError(f"transfer to tombstoned host {new_host}")
+        moved = 0
+        for node, _ in self._walk(tokens, n_tokens):
+            if node.owner_host != new_host:
+                node.owner_host = new_host
+                moved += 1
+        self.transferred_pages += moved
+        return moved
+
+    def _nodes(self):
+        stack = list(self.root.children.values())
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            yield node
+
+    def owners(self) -> dict[int, int]:
+        """host -> live directory pages owned (tombstoned hosts excluded)."""
+        out: dict[int, int] = {}
+        for node in self._nodes():
+            if node.owner_host not in self.dead:
+                out[node.owner_host] = out.get(node.owner_host, 0) + 1
+        return out
+
+    def stats(self) -> dict:
+        return {
+            "lookups": self.lookups,
+            "hits": self.hits,
+            "hit_rate": self.hits / self.lookups if self.lookups else 0.0,
+            "matched_tokens": self.matched_tokens,
+            "published_pages": self.published_pages,
+            "transferred_pages": self.transferred_pages,
+            "tombstoned_pages": self.tombstoned_pages,
+            "revived_pages": self.revived_pages,
+            "live_pages": sum(self.owners().values()),
+        }

@@ -207,10 +207,10 @@ def test_zoo_smoke_engine_on_the_card_matches_cpu(dev, arch):
     """The vlm, ssm, hybrid and audio smoke configs (f32) serve the CPU's
     greedy tokens on the card, recurrentgemma past its 64-token window."""
     from repro_torch.configs import get_bundle
-    from repro_torch.launch.serve import build_engine, make_prompts
+    from repro_torch.launch.serve import build_engine, fleet_trace
     params = get_bundle(arch, smoke=True).init_params(0, device="cpu")
-    prompts = make_prompts(256, n_requests=4, prompt_len=40, seed=3) + \
-        make_prompts(256, n_requests=2, prompt_len=90, seed=4)
+    prompts = fleet_trace(256, n_requests=4, prompt_len=40, seed=3) + \
+        fleet_trace(256, n_requests=2, prompt_len=90, seed=4)
     out = {}
     for device in ("cpu", "cuda"):
         # max_len holds internvl2's 8-token prefix before a 128 bucket
@@ -815,10 +815,10 @@ def test_smoke_engine_on_the_card_matches_cpu(dev, kv_mode):
     gives the CPU run's greedy tokens."""
     from repro_torch.configs import get_bundle
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import build_engine, make_prompts
+    from repro_torch.launch.serve import build_engine, fleet_trace
     params = get_bundle("qwen3-4b", smoke=True).init_params(0, device="cpu")
-    prompts = make_prompts(256, n_requests=4, prompt_len=20,
-                           prefix_share=0.5, seed=3)
+    prompts = fleet_trace(256, n_requests=4, prompt_len=20,
+                          prefix_share=0.5, seed=3)
     out = {}
     for device in ("cpu", "cuda"):
         engine, _ = build_engine("qwen3-4b", slots=2, max_len=64, max_new=6,
@@ -842,10 +842,10 @@ def test_moe_smoke_engine_on_the_card_matches_cpu(dev, arch, kv_mode):
     stable sort and the dispatch give the CPU's tokens on the card."""
     from repro_torch.configs import get_bundle
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import build_engine, make_prompts
+    from repro_torch.launch.serve import build_engine, fleet_trace
     params = get_bundle(arch, smoke=True).init_params(0, device="cpu")
-    prompts = make_prompts(256, n_requests=4, prompt_len=20,
-                           prefix_share=0.5, seed=3)
+    prompts = fleet_trace(256, n_requests=4, prompt_len=20,
+                          prefix_share=0.5, seed=3)
     out = {}
     for device in ("cpu", "cuda"):
         engine, _ = build_engine(arch, slots=2, max_len=64, max_new=6,
@@ -871,15 +871,15 @@ def test_moe_paged_engine_at_capacity_1_25_repeats_on_the_card(dev,
     import dataclasses
 
     from repro_torch.configs import get_bundle
-    from repro_torch.launch.serve import make_prompts
+    from repro_torch.launch.serve import fleet_trace
     from repro_torch.serving import ServeConfig, ServingEngine
     bundle = get_bundle("olmoe-1b-7b", smoke=True)
     bundle = dataclasses.replace(bundle, cfg=dataclasses.replace(
         bundle.cfg, moe=dataclasses.replace(bundle.cfg.moe,
                                             capacity_factor=1.25)))
     params = bundle.init_params(0, device="cpu")
-    prompts = make_prompts(256, n_requests=4, prompt_len=20,
-                           prefix_share=0.5, seed=3)
+    prompts = fleet_trace(256, n_requests=4, prompt_len=20,
+                          prefix_share=0.5, seed=3)
     out = []
     for device in ("cpu", "cuda", "cuda"):
         p = {k: ({n: t.to(device) for n, t in v.items()}
@@ -1563,3 +1563,50 @@ def test_attention_under_a_mesh_keeps_the_flash_kernels(dev, monkeypatch):
     assert [r["path"] for r in rows.values()] == ["flash", "replicated",
                                                   "ring"]
     assert all(r["launches"] == r["want"] for r in rows.values())
+
+
+# the serving fleet at a small depth: qwen3-4b's full width cut to 2 layers,
+# bf16; fleet waves drain at ticks 11 and 22 (scheduling alone sets them),
+# so host 0 dies at 14, in wave 2 with a request in flight
+FLEET_SMALL = dict(slots=2, page=16, max_len=512, lo=64, hi=256, prefix=128,
+                   n=8, max_new=8, prefill_chunk=64, prefill_token_budget=256,
+                   die_tick=14)
+
+
+@functools.lru_cache(maxsize=1)
+def _fleet_model():
+    import dataclasses
+
+    from repro_torch.configs import get_bundle
+    full = get_bundle("qwen3-4b")
+    bundle = dataclasses.replace(full, cfg=dataclasses.replace(
+        full.cfg, n_layers=2))
+    return bundle, bundle.init_params(0, device="cuda")
+
+
+@pytest.mark.parametrize("kv_mode", ["paged", "paged_int8"])
+def test_migrated_pages_bit_equal_on_the_card(dev, kv_mode):
+    """``chip_smoke.migrated_logits_check``: a prefix's pages exported from
+    one engine, framed and imported into another equal the source's bit for
+    bit in every pool entry, and the importer's first two tokens' logits
+    (prefill end over the migrated KV, one decode step through the paged
+    kernel) are within cosine 0.99 of an engine that prefilled it all."""
+    bundle, params = _fleet_model()
+    row = _chip_smoke().migrated_logits_check(params, bundle, kv_mode,
+                                              FLEET_SMALL)
+    assert row["pages_bit_equal"] and row["pages"] == 8
+
+
+def test_three_host_fleet_drills_on_the_card(dev):
+    """``chip_smoke.serve_fleet`` at a small depth, without the process
+    drill: the migrate (bf16 and int8), die, netsplit and pagecorrupt
+    drills each finish every request, hold every adopted page to its
+    source bit for bit, show their fault in the injector's log and the
+    fleet's counters, and launch the paged decode kernel."""
+    from repro_torch.kernels import ops
+    bundle, params = _fleet_model()
+    launches = _chip_smoke().serve_fleet(params, bundle, FLEET_SMALL,
+                                         drill=False)
+    assert launches["paged_decode_bf16"] > 0
+    assert launches["paged_decode_int8"] > 0
+    assert set(launches) <= set(ops.LAUNCHES)

@@ -38,7 +38,8 @@ MODULES = ["repro_torch", "repro_torch.launch.serve", "repro_torch.weights",
            "repro_torch.parallel.ring_attention",
            "repro_torch.parallel.ring_matmul",
            "repro_torch.parallel.pipeline", "repro_torch.launch.mesh",
-           "repro_torch.optim.compression"]
+           "repro_torch.optim.compression", "repro_torch.serving.fleet",
+           "repro_torch.serving.prefix", "repro_torch.runtime.supervisor"]
 
 
 def test_import_leaves_jax_out():
@@ -74,10 +75,14 @@ def test_entry_points_refuse_without_a_card(monkeypatch):
     """No device given and no card: raise, never drop to the CPU."""
     from repro_torch.configs import get_bundle
     from repro_torch.launch import train
-    from repro_torch.launch.serve import build_engine, run
+    from repro_torch.launch.serve import build_engine, build_fleet, main, run
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_engine("qwen3-4b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_fleet("qwen3-4b", 2)
+    with pytest.raises(RuntimeError, match="CUDA"):      # a worker
+        main(["--arch", "qwen3-4b", "--kv-mode", "paged", "--worker"])
     with pytest.raises(RuntimeError, match="CUDA"):
         run("qwen3-4b", n_requests=1)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -97,7 +97,7 @@ def test_launcher_run_matches_reference():
     assert all(len(v) == 4 for v in res.values())
     ref_trace = ref_serve.fleet_trace(256, n_requests=3, prompt_len=10,
                                       prefix_share=0.5, seed=0)
-    got_trace = pt_serve.make_prompts(256, n_requests=3, prompt_len=10,
-                                      prefix_share=0.5, seed=0)
+    got_trace = pt_serve.fleet_trace(256, n_requests=3, prompt_len=10,
+                                     prefix_share=0.5, seed=0)
     for r, g in zip(ref_trace, got_trace):
         np.testing.assert_array_equal(r, g)
