@@ -59,7 +59,14 @@ own; recurrentgemma's attention backward at head_dim 256 runs the
 head_dim-256 wgmma pair, held end to end against the plain path by its
 own ``train_check`` and alone at its shape in bf16), drills a kill
 and a restart of that training at full width through the loop's format-v2
-checkpoints (``recovery``: the restarted run must resume bit for bit), and
+checkpoints (``recovery``: the restarted run must resume bit for bit),
+trains qwen3-4b cut to 4 layers with two supervised worker processes
+sharing the card (``train_fleet``: a baseline, a chaos kill whose
+restarted worker restores rank 0's committed checkpoint and ends
+bit-identical, and a gang restart that restores striped over the TCP
+stripe exchange; then the smoke-width ``repro_torch.launch.supervisor``
+with and without ``--distributed torch`` and the three
+``examples/*_torch.py``), and
 checks what comes out.  Each phase prints JSON lines (``paper_workloads``
 one per workload); a failed phase exits non-zero before the result line.  Each
 kernel time is given twice: ``ms``, the span a caller waits for (the
@@ -3050,6 +3057,474 @@ def recovery() -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 6a: the train side of the fleet (supervised worker processes)
+# ---------------------------------------------------------------------------
+
+# qwen3-4b at full width cut to 4 of its 36 layers, registered in the
+# workers under an id of its own; two workers share the one card and each
+# computes the whole global batch (the reference's deterministic
+# redundancy)
+TRAIN_FLEET = dict(arch="qwen3-4b-4l", layers=4, nprocs=2, seq_len=2048,
+                   global_batch=2, ckpt_every=4, steps=8, restart_steps=12)
+TRAIN_FLEET_WORKER = "--train-fleet-worker"
+# the supervisor's default policy (a 30 s hang detector: a worker keeps
+# its heartbeat fresh while checkpoint I/O blocks its loop), with a
+# ceiling on a drill's wall time
+TRAIN_FLEET_POLICY = dict(max_wall_s=600.0)
+# B's restarted worker waits for rank 0's commit of this step before it
+# starts, so it restores a checkpoint (not step 0) whatever the disk's
+# speed, and still has steps to run after it
+TRAIN_FLEET_RESTORE_STEP = 4
+FLASH_ROUTE_KEYS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                    "flash_fwd_simt", "flash_bwd_dq_simt",
+                    "flash_bwd_dkv_simt")
+
+
+def train_fleet_bundle():
+    """qwen3-4b's full bundle cut in depth only, under its own id."""
+    import dataclasses
+    from repro_torch.configs import get_bundle
+    b = get_bundle(ARCH)
+    return dataclasses.replace(
+        b, arch_id=TRAIN_FLEET["arch"],
+        cfg=dataclasses.replace(b.cfg, n_layers=TRAIN_FLEET["layers"]))
+
+
+def watch_rss(period_s: float = 0.2) -> dict:
+    """Sample this process's resident set from ``/proc/self/statm`` every
+    ``period_s`` on a daemon thread; ``["peak"]`` holds the largest seen
+    (None where the file is missing).  ``ru_maxrss`` will not do: a child
+    reports the peak of the process that spawned it (the card machine's
+    kernel carries it across fork and exec), so it cannot tell a worker's
+    own memory from the parent's."""
+    import os
+    import threading
+    page = os.sysconf("SC_PAGE_SIZE")
+    seen = {"peak": None}
+
+    def sample() -> bool:
+        try:
+            with open("/proc/self/statm") as f:
+                rss = int(f.read().split()[1]) * page
+        except (OSError, ValueError, IndexError):
+            return False
+        seen["peak"] = max(seen["peak"] or 0, rss)
+        return True
+
+    def loop():
+        while sample():
+            time.sleep(period_s)
+    threading.Thread(target=loop, daemon=True).start()
+    seen["sample"] = sample
+    return seen
+
+
+def wait_for_commit(argv: list[str], step: int,
+                    timeout_s: float = 300.0) -> None:
+    """Block until step ``step`` has committed in the ``--ckpt-dir`` of
+    the train ``argv``; raise after ``timeout_s``."""
+    from repro_torch.checkpoint import latest_step
+    ckpt = argv[argv.index("--ckpt-dir") + 1]
+    t0 = time.perf_counter()
+    while (latest_step(ckpt) or 0) < step:
+        require(time.perf_counter() - t0 < timeout_s,
+                f"step {step} did not commit in {ckpt} in {timeout_s} s")
+        time.sleep(0.2)
+
+
+def train_fleet_worker(argv: list[str]) -> int:
+    """One supervised train worker: registers the cut bundle in
+    ``repro_torch.configs.REGISTRY`` (the workers are processes, so the
+    cut reaches them here, not through a flag of the package), runs
+    ``repro_torch.launch.train.main(argv)``, and prints, whatever the
+    exit, a ``[train-fleet-worker]`` line with its exit code, peak device
+    memory, peak host RSS (:func:`watch_rss`) and kernel launches.
+    ``argv`` may start with ``--after-commit N``: the worker first waits
+    for step N's commit (:func:`wait_for_commit`).  Returns the exit code
+    (43 on a kill)."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    if argv[:1] == ["--after-commit"]:
+        wait_for_commit(argv[2:], int(argv[1]))
+        argv = argv[2:]
+    bundle = train_fleet_bundle()
+    configs.REGISTRY[bundle.arch_id] = type(
+        "CutConfig", (), {"ARCH_ID": bundle.arch_id,
+                          "full_bundle": staticmethod(lambda: bundle),
+                          "smoke_bundle": staticmethod(lambda: bundle)})
+    rss = watch_rss()
+    code = 0
+    try:
+        train.main(argv)
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else 1
+    except BaseException:
+        code = 1
+        raise
+    finally:
+        rss["sample"]()
+        peak = torch.cuda.max_memory_allocated() \
+            if torch.cuda.is_initialized() else 0
+        print("[train-fleet-worker] " + json.dumps(
+            {"exit": code, "peak_device_bytes": peak,
+             "peak_host_rss_bytes": rss["peak"],
+             "launches": {k: v for k, v in ops.LAUNCHES.items() if v}}),
+            flush=True)
+    return code
+
+
+def _json_file(path: Path) -> dict:
+    try:
+        return json.loads(path.read_text())
+    except (OSError, ValueError):
+        return {}
+
+
+def run_train_fleet(name: str, root: Path, ckpt: Path, steps: int,
+                    chaos=(), striped: str = "auto",
+                    restart_after: int | None = None) -> dict:
+    """One supervised 2-worker fleet of the cut bundle: the port's
+    ``Supervisor`` over the argv of ``launch.supervisor.make_cmd_builder``
+    with only its head swapped (``python -m repro_torch.launch.train`` ->
+    ``python chip_smoke.py --train-fleet-worker``); a relaunch waits for
+    step ``restart_after``'s commit when it is given.  Returns what the
+    report, the result and metrics files and the workers' lines hold."""
+    import argparse
+    from repro_torch.launch.supervisor import make_cmd_builder
+    from repro_torch.runtime.chaos import split_spec_strings
+    from repro_torch.runtime.supervisor import RestartPolicy, Supervisor
+    fleet_dir = root / f"fleet_{name}"
+    a = argparse.Namespace(
+        arch=TRAIN_FLEET["arch"], steps=steps,
+        seq_len=TRAIN_FLEET["seq_len"],
+        global_batch=TRAIN_FLEET["global_batch"], ckpt_dir=str(ckpt),
+        ckpt_every=TRAIN_FLEET["ckpt_every"], smoke=False, chaos_seed=0,
+        distributed="none", device=None)
+    _, worker_chaos = split_spec_strings(list(chaos))
+    build = make_cmd_builder(a, str(fleet_dir), worker_chaos, None)
+
+    def cmd(spec):
+        argv = build(spec)
+        head = [sys.executable, "-m", "repro_torch.launch.train"]
+        require(argv[:3] == head, f"worker argv head {argv[:3]}")
+        wait = ["--after-commit", str(restart_after)] \
+            if restart_after is not None and spec.attempt > 1 else []
+        return [sys.executable, str(ROOT / "chip_smoke.py"),
+                TRAIN_FLEET_WORKER, *wait, *argv[3:]]
+
+    sup = Supervisor(TRAIN_FLEET["nprocs"], cmd, fleet_dir=str(fleet_dir),
+                     policy=RestartPolicy(**TRAIN_FLEET_POLICY),
+                     chaos_specs=list(chaos), ckpt_dir=str(ckpt),
+                     striped_restore=striped)
+    t0 = time.perf_counter()
+    report = sup.run()
+    wall = time.perf_counter() - t0
+    tokens = TRAIN_FLEET["global_batch"] * TRAIN_FLEET["seq_len"]
+    ranks = {}
+    for w in report["workers"]:
+        tag = w["tag"]
+        res = _json_file(fleet_dir / f"result_rank{tag}.json")
+        snap = _json_file(fleet_dir / f"metrics_rank{tag}.json")
+        c, h = snap.get("counters", {}), snap.get("histograms", {})
+        step = h.get("train_step_s", {})
+        attempts = []
+        for k in range(1, w["attempts"] + 1):
+            log = fleet_dir / f"log_rank{tag}_a{k}.log"
+            lines = [ln for ln in log.read_text(errors="replace")
+                     .splitlines()
+                     if ln.startswith("[train-fleet-worker] ")] \
+                if log.is_file() else []
+            w_row = json.loads(lines[-1].split(" ", 1)[1]) \
+                if lines else None
+            if w_row is None or w_row["exit"] not in (0, 43):
+                # a crash: keep the end of its log for the failure line
+                w_row = dict(w_row or {}, log_tail=log.read_text(
+                    errors="replace")[-1500:] if log.is_file() else None)
+            attempts.append(w_row)
+        dispatch = {k.split("{", 1)[1].rstrip("}"): v for k, v in c.items()
+                    if k.startswith("kernel_dispatch{")
+                    and "kernel=flash_attention" in k}
+        ranks[tag] = dict(
+            exit_history=w["exit_history"], attempts=w["attempts"],
+            start_step=res.get("start_step"), end_step=res.get("end_step"),
+            params_crc=res.get("params_crc"),
+            first_loss=res.get("first_loss"),
+            final_loss=res.get("final_loss"), device=res.get("device"),
+            steps=step.get("count", 0),
+            s_per_step=dict(mean=step.get("mean"), p50=step.get("p50"),
+                            min=step.get("min"), max=step.get("max")),
+            tok_per_s=tokens / step["p50"] if step.get("p50") else None,
+            restore_s=h.get("checkpoint_restore_s", {}).get("sum"),
+            # the restore's parts: full = verify (a CRC pass) + leaves;
+            # striped = stripe read + exchange + CRC + leaves
+            restore_parts_s={k: h[f"checkpoint_{k}_s"]["sum"] for k in (
+                "verify", "stripe_read", "stripe_exchange", "stripe_crc")
+                if f"checkpoint_{k}_s" in h},
+            read_bytes={m: c.get(f"checkpoint_read_bytes{{mode={m}}}", 0)
+                        for m in ("full", "striped")},
+            stripe_bytes={d: c.get(f"checkpoint_stripe_bytes{{dir={d}}}",
+                                   0) for d in ("recv", "sent")},
+            restore_ops={op: c.get(f"checkpoint_ops{{op={op}}}", 0)
+                         for op in ("restore", "restore_striped")},
+            save_s=h.get("checkpoint_save_s", {}).get("sum"),
+            snapshot_s=h.get("checkpoint_snapshot_s", {}).get("sum"),
+            flash_dispatch=dispatch, workers=attempts)
+    return dict(name=name, outcome=report["outcome"],
+                total_failures=report["total_failures"],
+                final_checkpoint_step=report["final_checkpoint_step"],
+                hang_kills=sum(e["kind"] == "hang_kill"
+                               for e in report["events"]),
+                wall_s=wall, ranks=ranks)
+
+
+def start_train_fleet_cli(root: Path) -> dict:
+    """Start the smoke-width supervisor CLI with ``kill@5`` and with
+    ``--distributed torch``, and the three ``examples/*_torch.py``, as
+    subprocesses on the card, all at once (:func:`finish_train_fleet_cli`
+    waits for them)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    sup = [sys.executable, "-m", "repro_torch.launch.supervisor",
+           "--nprocs", "2", "--steps", "8", "--seq-len", "32",
+           "--global-batch", "4", "--ckpt-every", "4"]
+    runs = {
+        "supervisor_kill": sup + [
+            "--chaos", "kill@5", "--ckpt-dir", str(root / "cli_kill_ckpt"),
+            "--fleet-dir", str(root / "cli_kill"),
+            "--report-out", str(root / "cli_kill" / "report.json")],
+        "supervisor_torch": sup + [
+            "--distributed", "torch",
+            "--ckpt-dir", str(root / "cli_torch_ckpt"),
+            "--fleet-dir", str(root / "cli_torch"),
+            "--report-out", str(root / "cli_torch" / "report.json")],
+        "quickstart_torch": [sys.executable,
+                             str(ROOT / "examples" / "quickstart_torch.py")],
+        "serve_lm_torch": [sys.executable,
+                           str(ROOT / "examples" / "serve_lm_torch.py")],
+        "train_lm_torch": [sys.executable,
+                           str(ROOT / "examples" / "train_lm_torch.py"),
+                           "--ckpt-dir", str(root / "train_lm_ckpt")],
+    }
+    return dict(t0=time.perf_counter(),
+                procs={k: subprocess.Popen(v, cwd=ROOT, env=env, text=True,
+                                           stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE,
+                                           start_new_session=True)
+                       for k, v in runs.items()})
+
+
+def stop_train_fleet_cli(started: dict | None) -> None:
+    """Kill whatever :func:`start_train_fleet_cli` started that still
+    runs, each with its process group (a supervisor's workers too)."""
+    import os
+    import signal
+    for p in (started or {}).get("procs", {}).values():
+        if p.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+
+
+def finish_train_fleet_cli(root: Path, started: dict) -> list[dict]:
+    """Wait for :func:`start_train_fleet_cli`'s runs: each must exit 0;
+    the ``kill@5`` run must complete with worker 1's exits [43, 0] and
+    equal CRCs, the gloo run with ``dist_ok`` and 2 processes on both
+    ranks."""
+    t0 = started["t0"]
+    rows = []
+    for k, p in started["procs"].items():
+        try:
+            out, err = p.communicate(timeout=max(1.0, 400 - (
+                time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            stop_train_fleet_cli({"procs": {k: p}})
+            out, err = p.communicate()
+        row = dict(run=k, rc=p.returncode,
+                   wall_s=time.perf_counter() - t0,
+                   last=out.strip().splitlines()[-1:] if out else [])
+        if k.startswith("supervisor"):
+            d = root / ("cli_" + k.split("_")[1])
+            rep = _json_file(d / "report.json")
+            res = {t: _json_file(d / f"result_rank{t}.json")
+                   for t in (0, 1)}
+            row.update(outcome=rep.get("outcome"),
+                       exit_history={w["tag"]: w["exit_history"]
+                                     for w in rep.get("workers", ())},
+                       final_checkpoint_step=rep.get(
+                           "final_checkpoint_step"),
+                       dist_ok=[r.get("dist_ok") for r in res.values()],
+                       process_count=[r.get("process_count")
+                                      for r in res.values()],
+                       devices=[r.get("device") for r in res.values()],
+                       params_crc=[r.get("params_crc")
+                                   for r in res.values()])
+        emit("train_fleet_cli", **row)
+        require(p.returncode == 0,
+                f"train_fleet_cli {k}: exit {p.returncode}: "
+                f"{err[-2000:] if err else ''}")
+        rows.append(row)
+    kill, dist = rows[0], rows[1]
+    require(kill["outcome"] == "completed"
+            and kill["exit_history"].get(1) == [43, 0]
+            and len(set(kill["params_crc"])) == 1,
+            f"train_fleet_cli supervisor kill@5: {kill}")
+    require(dist["outcome"] == "completed"
+            and dist["dist_ok"] == [True, True]
+            and dist["process_count"] == [2, 2],
+            f"train_fleet_cli --distributed torch: {dist}")
+    return rows
+
+
+def train_fleet() -> dict:
+    """qwen3-4b at full width, cut to 4 of its 36 layers (1.18 B params,
+    11.8 GB of state: bf16 params, f32 moments), trained by two
+    supervised worker processes sharing the card, each on the whole
+    global batch of B 2 x S 2048:
+
+    A, baseline: 8 steps, a checkpoint every 4: completed, final
+       checkpoint step 8, both ranks' ``params_crc`` equal;
+    B, kill: the same with ``kill@5`` in a directory of its own: tag 1
+       exits [43, 0] (2 attempts; restarted alone, it waits for rank 0's
+       step-4 commit, restores step 4 with full reads and runs steps 4-7),
+       tag 0 runs once, every rank's ``params_crc`` equals A's;
+    C, striped gang restart: over A's checkpoint to 12 steps with
+       ``--striped-restore always``: each rank restores striped once,
+       reads fewer checkpoint bytes than the shard holds and receives its
+       peer's stripe; both start at step 8 and end on equal states.
+
+    Every worker's flash attention dispatches with ``impl=cuda`` only and
+    launches the wgmma keys alone.  The smoke-width CLI runs and the
+    examples (``start_train_fleet_cli``) run beside B.  The
+    checkpoints go under ``build/train_fleet`` (git-ignored); A's step 4
+    goes once A is done, B's directory once B is, the rest at the end."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    bundle = train_fleet_bundle()
+    n = bundle.param_count()
+    L = TRAIN_FLEET["layers"]
+    state_bytes = n * 2 + 2 * n * 4 + 4      # bf16 params, f32 mu/nu, step
+    root = ROOT / "build" / "train_fleet"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = {"before": shutil.disk_usage(root).free}
+    # A's step 8 beside B's steps 4 and 8 at most, then A's 8 and 12
+    require(free["before"] >= 3.2 * state_bytes,
+            f"train_fleet: {free['before']} bytes free under {root}, the "
+            f"phase holds three checkpoints of ~{state_bytes}")
+    row = dict(params=n, state_bytes=state_bytes, layers=L,
+               device_free_before=torch.cuda.mem_get_info()[0],
+               parent_reserved_bytes=torch.cuda.memory_reserved())
+    ckpt_a, ckpt_b = root / "ckpt_a", root / "ckpt_b"
+    started = None
+    try:
+        a = run_train_fleet("a", root, ckpt_a, TRAIN_FLEET["steps"])
+        shard_bytes = (ckpt_a / "step_00000008" / "shard_0.npz").stat() \
+            .st_size if (ckpt_a / "step_00000008").is_dir() else None
+        shutil.rmtree(ckpt_a / "step_00000004", ignore_errors=True)
+        emit("train_fleet_a", shard_bytes=shard_bytes, **a)
+        # the small runs share the card with B, whose numbers matter
+        # least: its restart's timing is a race by design
+        started = start_train_fleet_cli(root)
+        b = run_train_fleet("b", root, ckpt_b, TRAIN_FLEET["steps"],
+                            chaos=("kill@5",),
+                            restart_after=TRAIN_FLEET_RESTORE_STEP)
+        cli = finish_train_fleet_cli(root, started)
+        free["with_b"] = shutil.disk_usage(root).free
+        shutil.rmtree(ckpt_b, ignore_errors=True)
+        emit("train_fleet_b", **b)
+        c = run_train_fleet("c", root, ckpt_a,
+                            TRAIN_FLEET["restart_steps"], striped="always")
+        free["with_c"] = shutil.disk_usage(root).free
+        emit("train_fleet_c", shard_bytes=shard_bytes, **c)
+        shutil.rmtree(ckpt_a, ignore_errors=True)
+    finally:
+        stop_train_fleet_cli(started)
+        shutil.rmtree(root, ignore_errors=True)
+        free["after_cleanup"] = shutil.disk_usage(ROOT / "build").free
+
+    def worker_launches(run):
+        return {t: [w and {k: w.get("launches", {}).get(k, 0)
+                           for k in FLASH_ROUTE_KEYS} for w in r["workers"]]
+                for t, r in run["ranks"].items()}
+    row.update(disk_free=free, shard_bytes=shard_bytes,
+               wall_s={r["name"]: r["wall_s"] for r in (a, b, c)},
+               worker_peak_rss_bytes={r["name"]: max(
+                   (w or {}).get("peak_host_rss_bytes") or 0
+                   for rank in r["ranks"].values() for w in rank["workers"])
+                   for r in (a, b, c)},
+               launches={r["name"]: worker_launches(r) for r in (a, b, c)},
+               cli_wall_s={r["run"]: r["wall_s"] for r in cli})
+    emit("train_fleet", **row)
+
+    def crcs(run):
+        return {t: r["params_crc"] for t, r in run["ranks"].items()}
+    # at the default hang timeout no save is taken for a hang
+    require(all(r["hang_kills"] == 0 for r in (a, b, c)),
+            f"train_fleet: hang kills {[r['hang_kills'] for r in (a, b, c)]}")
+    want = a["ranks"][0]["params_crc"]
+    require(a["outcome"] == "completed" and a["final_checkpoint_step"] == 8
+            and want and set(crcs(a).values()) == {want},
+            f"train_fleet A: {a['outcome']}, final step "
+            f"{a['final_checkpoint_step']}, crcs {crcs(a)}")
+    require(b["outcome"] == "completed"
+            and b["ranks"][1]["exit_history"] == [43, 0]
+            and b["ranks"][1]["attempts"] == 2
+            and b["ranks"][0]["attempts"] == 1
+            and set(crcs(b).values()) == {want},
+            f"train_fleet B: {b['outcome']}, exits "
+            f"{[r['exit_history'] for r in b['ranks'].values()]}, crcs "
+            f"{crcs(b)} vs A's {want}")
+    # the restarted rank resumed from a checkpoint, not from step 0
+    back = b["ranks"][1]
+    require(back["start_step"] == TRAIN_FLEET_RESTORE_STEP
+            and back["restore_ops"] == {"restore": 1, "restore_striped": 0}
+            and back["read_bytes"]["full"] > 0,
+            f"train_fleet B rank 1 restart: start {back['start_step']}, "
+            f"restores {back['restore_ops']}, read {back['read_bytes']}")
+    for t, r in c["ranks"].items():
+        require(r["restore_ops"]["restore_striped"] == 1
+                and 0 < r["read_bytes"]["striped"] < shard_bytes
+                and r["stripe_bytes"]["recv"] > 0
+                and r["start_step"] == 8,
+                f"train_fleet C rank {t}: striped restores "
+                f"{r['restore_ops']}, read {r['read_bytes']} of "
+                f"{shard_bytes}, stripes {r['stripe_bytes']}, start "
+                f"{r['start_step']}")
+    require(c["outcome"] == "completed" and len(set(crcs(c).values())) == 1,
+            f"train_fleet C: {c['outcome']}, crcs {crcs(c)}")
+    for run in (a, b, c):
+        for t, r in run["ranks"].items():
+            require(r["steps"] > 0 and set(r["flash_dispatch"]) == {
+                "impl=cuda,kernel=flash_attention"},
+                f"train_fleet {run['name']} rank {t}: flash dispatch "
+                f"{r['flash_dispatch']} over {r['steps']} steps")
+            for w in r["workers"]:
+                fl = w and w.get("launches")
+                require(fl is not None
+                        and all(fl.get(k, 0) == 0 for k in (
+                            "flash_fwd_simt", "flash_bwd_dq_simt",
+                            "flash_bwd_dkv_simt"))
+                        and fl.get("flash_fwd", 0)
+                        == 2 * fl.get("flash_bwd_dq", 0)
+                        == 2 * fl.get("flash_bwd_dkv", 0),
+                        f"train_fleet {run['name']} rank {t}: worker "
+                        f"launches {w}")
+        # the steps each attempt runs: B's rank 1 dies at step 5 and
+        # runs steps 4-7 again from the step-4 checkpoint
+        want_steps = {"a": {0: [8], 1: [8]}, "b": {0: [8], 1: [5, 4]},
+                      "c": {0: [4], 1: [4]}}[run["name"]]
+        for t, per_attempt in want_steps.items():
+            got = [(w or {}).get("launches", {}).get("flash_bwd_dq", 0)
+                   for w in run["ranks"][t]["workers"]]
+            require(got == [L * s for s in per_attempt],
+                    f"train_fleet {run['name']} rank {t}: backward "
+                    f"launches {got} an attempt, want "
+                    f"{[L * s for s in per_attempt]}")
+    return row
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -3155,6 +3630,10 @@ def main() -> int:
     # phase 6: kill and restart the full-width training from a checkpoint
     recovered = recovery()
 
+    # phase 6a: the train side of the fleet: supervised worker processes
+    # (their launches are on the phase's own line, not the kernels line)
+    train_fleet()
+
     # phase 7: the kernels line (one row per kernel route a main path runs),
     # launches from the paper-workload, serve, serve_fleet, serve_moe,
     # serve_families, train, train_ring, train_families and recovery phases
@@ -3182,6 +3661,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [TRAIN_FLEET_WORKER]:
+        sys.exit(train_fleet_worker(sys.argv[2:]))
     try:
         sys.exit(main())
     except PhaseError as e:

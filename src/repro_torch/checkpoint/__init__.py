@@ -2,9 +2,11 @@
 package's (see :mod:`repro_torch.checkpoint.manager`)."""
 from .manager import (CheckpointCorruptError, CheckpointError,
                       CheckpointManager, TreeStructureError, latest_step,
-                      restore_checkpoint, save_checkpoint, verified_steps,
-                      verify_checkpoint)
+                      newest_verified_step, restore_checkpoint,
+                      restore_checkpoint_striped, save_checkpoint,
+                      verified_steps, verify_checkpoint)
 
 __all__ = ["CheckpointCorruptError", "CheckpointError", "CheckpointManager",
-           "TreeStructureError", "latest_step", "restore_checkpoint",
+           "TreeStructureError", "latest_step", "newest_verified_step",
+           "restore_checkpoint", "restore_checkpoint_striped",
            "save_checkpoint", "verified_steps", "verify_checkpoint"]

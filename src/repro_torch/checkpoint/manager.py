@@ -43,7 +43,25 @@ What the port does differently, and why:
   of the state is ever made on the card.  A restore that fails its audit
   leaves ``like`` untouched.
 * The reference's ``sharding_fn`` (re-placing a restored tree on a mesh)
-  and its striped multi-host restore have no counterpart on one device.
+  has no counterpart: the live tensors of ``like`` already sit where the
+  caller placed them.
+
+Striped multi-host restore (:func:`restore_checkpoint_striped`): when a
+whole fleet restores the same shard (a gang cold start or a restart after
+a re-mesh), every host reading the full file is N redundant passes over
+the same bytes.  Instead host r of R reads only the byte stripe
+``[r*S/R, (r+1)*S/R)`` of the shard file, the fleet all-gathers the
+stripes (``repro_torch.runtime.fleet`` transports), and each host checks
+the CRC32 of the *assembled* bytes against the commit marker before it
+reads a leaf.  The stripes are never joined: the CRC runs over them in
+rank order and the ``.npz`` is read through a seekable view of the list
+(:class:`_PartsReader`), so a host holds the shard's bytes once.  Disk
+bytes per host drop from S to S/R (``checkpoint_read_bytes{mode=...}``
+prices it); the integrity guarantee is unchanged because the CRC covers
+the reassembled whole.  A stripe-exchange timeout raises the exchange's
+``TimeoutError`` (NOT ``CheckpointCorruptError``): the bytes on disk may
+be fine, so the caller must retry or fall back to full reads rather than
+walk to an older step.
 
 Error contract: :class:`CheckpointCorruptError` means "this step is
 damaged, try an older one" (the manager's fallback does exactly that);
@@ -53,6 +71,8 @@ error names the first diverging leaf path.
 """
 from __future__ import annotations
 
+import bisect
+import io
 import json
 import os
 import shutil
@@ -75,11 +95,13 @@ _BF16_DESCR = "<V2"
 _IO_CHUNK = 1 << 26          # bytes a read or write call moves (64 MiB)
 
 
-def _count_read(n: int) -> None:
-    """Count ``n`` bytes of whole-file checkpoint reads (verify, load)
-    under the reference's ``checkpoint_read_bytes{mode=full}`` (its other
-    mode is its striped restore)."""
-    REGISTRY.counter("checkpoint_read_bytes", n, mode="full")
+def _count_read(n: int, mode: str) -> None:
+    """Attribute ``n`` bytes of checkpoint-dir disk reads to ``mode``
+    (``full`` = whole-file verify/load, ``striped`` = a stripe read plus
+    its commit marker).  The fleet drills assert that a striped restore
+    reads fewer bytes a host than a full read."""
+    if n:
+        REGISTRY.counter("checkpoint_read_bytes", n, mode=mode)
 
 
 class CheckpointError(Exception):
@@ -273,7 +295,7 @@ def verify_checkpoint(path: str, step: int) -> tuple[bool, str]:
                          f"manifest says {manifest['n_leaves']}"))
         try:
             crc = _crc32_file(shard)
-            _count_read(os.path.getsize(shard))
+            _count_read(os.path.getsize(shard), "full")
         except OSError as e:
             # a concurrent writer's GC can reap the step mid-audit; that
             # is "fall back", not a crash
@@ -305,6 +327,16 @@ def latest_step(path: str) -> int | None:
 def verified_steps(path: str) -> list[int]:
     """All steps passing the full CRC audit, oldest first."""
     return [s for s in _all_steps(path) if verify_checkpoint(path, s)[0]]
+
+
+def newest_verified_step(path: str) -> int | None:
+    """``verified_steps(path)[-1]`` (None when no step passes), auditing
+    newest first and stopping at the first intact step, so older
+    checkpoints are not read."""
+    for s in reversed(_all_steps(path)):
+        if verify_checkpoint(path, s)[0]:
+            return s
+    return None
 
 
 def _check_structure(step: int, manifest: dict, like: Any
@@ -387,6 +419,32 @@ def _read_leaf(zf: zipfile.ZipFile, i: int, leaf: torch.Tensor,
     return src.reshape(leaf.shape)
 
 
+def _restore_leaves(zf: zipfile.ZipFile, step: int, shard_name: str,
+                    manifest: dict, flat: list) -> None:
+    """Shared tail of the full and striped restores: read every leaf's
+    ``.npy`` header, audit them all (:func:`_audit`), then copy leaf by
+    leaf into the live tensors of ``flat``; an audit failure leaves them
+    untouched."""
+    headers = []
+    for i in range(len(flat)):
+        try:
+            with zf.open(f"leaf_{i}.npy") as fid:
+                headers.append(_read_header(fid))
+        except Exception as e:
+            raise CheckpointCorruptError(
+                f"step {step}: {shard_name} leaf {i} unreadable: {e}")
+    _audit(step, manifest, flat, headers)
+    with torch.no_grad():
+        for i, (_, leaf) in enumerate(flat):
+            try:
+                src = _read_leaf(zf, i, leaf, manifest["dtypes"][i])
+            except Exception as e:
+                raise CheckpointCorruptError(
+                    f"step {step}: {shard_name} leaf {i} unreadable: {e}")
+            leaf.copy_(src)
+            del src
+
+
 def restore_checkpoint(path: str, step: int, like: Any, *,
                        host_id: int = 0, verify: bool = True) -> Any:
     """Verified restore INTO the tensors of `like` (a nested dict of
@@ -409,28 +467,128 @@ def restore_checkpoint(path: str, step: int, like: Any, *,
         raise CheckpointCorruptError(f"step {step}: shard {host_id} "
                                      f"unreadable: {e}")
     with zf:
-        headers = []
-        for i in range(len(flat)):
-            try:
-                with zf.open(f"leaf_{i}.npy") as fid:
-                    headers.append(_read_header(fid))
-            except Exception as e:
-                raise CheckpointCorruptError(
-                    f"step {step}: shard {host_id} leaf {i} unreadable: "
-                    f"{e}")
-        _audit(step, manifest, flat, headers)
-        with torch.no_grad():
-            for i, (_, leaf) in enumerate(flat):
-                try:
-                    src = _read_leaf(zf, i, leaf, manifest["dtypes"][i])
-                except Exception as e:
-                    raise CheckpointCorruptError(
-                        f"step {step}: shard {host_id} leaf {i} "
-                        f"unreadable: {e}")
-                leaf.copy_(src)
-                del src
-    _count_read(os.path.getsize(shard))
+        _restore_leaves(zf, step, f"shard {host_id}", manifest, flat)
+    _count_read(os.path.getsize(shard), "full")
     REGISTRY.counter("checkpoint_ops", op="restore")
+    REGISTRY.observe("checkpoint_restore_s", time.monotonic() - t0)
+    return like
+
+
+class _PartsReader(io.RawIOBase):
+    """A read-only, seekable file over byte buffers taken in order (a
+    shard's stripes), so ``zipfile`` reads the assembled shard without the
+    stripes ever being joined into one buffer: a read copies only the
+    bytes it returns."""
+
+    def __init__(self, parts):
+        super().__init__()
+        self._parts = [memoryview(p).cast("B") for p in parts]
+        self._starts = [0]
+        for p in self._parts:
+            self._starts.append(self._starts[-1] + len(p))
+        self._size = self._starts[-1]
+        self._pos = 0
+
+    def readable(self) -> bool:
+        return True
+
+    def seekable(self) -> bool:
+        return True
+
+    def tell(self) -> int:
+        return self._pos
+
+    def seek(self, offset: int, whence: int = io.SEEK_SET) -> int:
+        base = {io.SEEK_SET: 0, io.SEEK_CUR: self._pos,
+                io.SEEK_END: self._size}[whence]
+        if base + offset < 0:
+            raise ValueError(f"negative seek position {base + offset}")
+        self._pos = base + offset
+        return self._pos
+
+    def read(self, size: int | None = -1) -> bytes:
+        end = self._size if size is None or size < 0 else \
+            min(self._size, self._pos + size)
+        pieces = []
+        while self._pos < end:
+            i = bisect.bisect_right(self._starts, self._pos) - 1
+            off = self._pos - self._starts[i]
+            k = min(len(self._parts[i]) - off, end - self._pos)
+            pieces.append(self._parts[i][off:off + k])
+            self._pos += k
+        return b"".join(pieces)
+
+
+def restore_checkpoint_striped(path: str, step: int, like: Any, *,
+                               rank: int, world: int, exchange,
+                               host_id: int = 0) -> Any:
+    """Collective verified restore INTO the tensors of `like`: ``world``
+    hosts each read 1/world of the shard's bytes and all-gather the
+    stripes over ``exchange`` under the key
+    ``ckpt:{step}:{host_id}:{size}`` (see module docstring).  Every
+    participating host must call this with the same (step, host_id) or
+    the all-gather times out; that timeout (a ``TimeoutError``)
+    propagates as it is.
+
+    Integrity: the CRC32 of the *assembled* bytes, taken over the stripes
+    in rank order, is checked against the shard's commit marker on every
+    host (``CheckpointCorruptError`` on a mismatch) — equivalent to the
+    full-read ``verify_checkpoint`` audit for this shard, without
+    re-reading it.  Then the leaves are audited and copied as
+    :func:`restore_checkpoint` does; a failed audit leaves `like`
+    untouched."""
+    t0 = time.monotonic()
+    step_dir = _step_dir(path, step)
+    manifest = _read_manifest(step_dir)
+    flat = _check_structure(step, manifest, like)
+    shard = os.path.join(step_dir, f"shard_{host_id}.npz")
+    marker = os.path.join(step_dir, f"commit_{host_id}.json")
+    try:
+        with open(marker) as f:
+            commit = json.load(f)
+        size = os.path.getsize(shard)
+        lo = rank * size // world
+        hi = (rank + 1) * size // world
+        with open(shard, "rb") as f:
+            f.seek(lo)
+            stripe = f.read(hi - lo)
+        _count_read(len(stripe) + os.path.getsize(marker), "striped")
+    except (OSError, json.JSONDecodeError) as e:
+        raise CheckpointCorruptError(
+            f"step {step}: shard {host_id} unreadable for striping: {e}")
+    # where a striped restore's time goes: the stripe read, the all-gather
+    # (waiting for peers included), the CRC; the leaves take the rest
+    t1 = time.monotonic()
+    REGISTRY.observe("checkpoint_stripe_read_s", t1 - t0)
+    parts = exchange.allgather(f"ckpt:{step}:{host_id}:{size}", rank,
+                               world, stripe)
+    t2 = time.monotonic()
+    REGISTRY.observe("checkpoint_stripe_exchange_s", t2 - t1)
+    peer_bytes = sum(len(p) for i, p in enumerate(parts) if i != rank)
+    if peer_bytes:
+        REGISTRY.counter("checkpoint_stripe_bytes", peer_bytes, dir="recv")
+        REGISTRY.counter("checkpoint_stripe_bytes",
+                         len(stripe) * (world - 1), dir="sent")
+    crc, got = 0, 0
+    for p in parts:                     # the assembled bytes, in rank order
+        crc = zlib.crc32(p, crc)
+        got += len(p)
+    REGISTRY.observe("checkpoint_stripe_crc_s", time.monotonic() - t2)
+    if got != size or crc != commit.get("crc32"):
+        REGISTRY.counter("checkpoint_crc_failures")
+        raise CheckpointCorruptError(
+            f"step {step}: assembled shard {host_id} CRC32 {crc:#010x} "
+            f"({got} B) != committed {commit.get('crc32', 0):#010x} "
+            f"({size} B)")
+    try:
+        zf = zipfile.ZipFile(_PartsReader(parts))
+    except Exception as e:
+        raise CheckpointCorruptError(f"step {step}: assembled shard "
+                                     f"{host_id} unreadable: {e}")
+    with zf:
+        _restore_leaves(zf, step, f"assembled shard {host_id}", manifest,
+                        flat)
+    REGISTRY.counter("checkpoint_ops", op="restore_striped")
     REGISTRY.observe("checkpoint_restore_s", time.monotonic() - t0)
     return like
 
@@ -496,15 +654,28 @@ class CheckpointManager:
     def latest(self) -> int | None:
         return latest_step(self.path)
 
-    def restore(self, like: Any, step: int | None = None
+    def restore(self, like: Any, step: int | None = None,
+                stripe: tuple[int, int, Any] | None = None
                 ) -> tuple[int, Any] | None:
         """Restore `step` (default: newest) into `like`, falling back
         through older checkpoints when the newer ones fail verification.
         Returns (step, like) or None when nothing intact exists.  A
         tree-structure mismatch raises immediately — older checkpoints
         would mismatch the same way, and silently restoring the wrong
-        structure is the one failure this module exists to prevent."""
+        structure is the one failure this module exists to prevent.
+
+        ``stripe=(rank, world, exchange)`` switches to the collective
+        striped restore — only valid when every fleet member calls with
+        the same view of the checkpoint dir (shared filesystem), so all
+        ranks walk the same step sequence in lockstep; an exchange
+        timeout (a ``TimeoutError``) propagates rather than triggering
+        fallback, because peers may still be alive on the newer step."""
         def load(s: int) -> Any:
+            if stripe is not None:
+                rank, world, exchange = stripe
+                return restore_checkpoint_striped(
+                    self.path, s, like, rank=rank, world=world,
+                    exchange=exchange, host_id=self.host_id)
             return restore_checkpoint(self.path, s, like,
                                       host_id=self.host_id)
 

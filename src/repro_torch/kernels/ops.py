@@ -253,9 +253,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q_offset=q_offset)
     if not prune:
         real = total                      # dense grid: nothing skipped
+    # impl names what runs (the kernels or their plain versions), on the
+    # training path too; ``train`` says whether the backward pair follows
     _record_dispatch("flash_attention",
-                     impl="train" if train else (impl if trainable
-                                                 else f"{impl}-fwd"),
+                     impl=impl if trainable else f"{impl}-fwd", train=train,
                      route=route, sq=Sq, sk=Sk, block_q=bq, block_k=bk,
                      scheduled_blocks=real, dense_blocks=total,
                      pruning_ratio=real / total if total else 1.0)

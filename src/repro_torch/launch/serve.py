@@ -288,12 +288,14 @@ def run(arch: str, *, smoke: bool = True, n_requests: int = 6,
         prefix_cache: bool = True, prefix_share: float = 0.0,
         temperature: float = 0.0, top_k: int = 0,
         stream: bool = False, trace_out: str | None = None,
-        metrics_out: str | None = None, device=None) -> dict:
+        metrics_out: str | None = None, device=None, params=None) -> dict:
     """Serve ``n_requests`` random prompts and return {rid: tokens}.
 
     ``prefix_share`` > 0 gives that fraction of the requests a common
     prompt prefix (half the prompt length).  ``stream`` consumes request 0
-    through the per-token generator API instead of the batch ``run()``."""
+    through the per-token generator API instead of the batch ``run()``.
+    ``params`` replaces the seeded random weights, as in
+    :func:`build_engine`."""
     tel = None
     if trace_out or metrics_out:
         import repro_torch.obs as obs
@@ -302,7 +304,8 @@ def run(arch: str, *, smoke: bool = True, n_requests: int = 6,
         arch, smoke=smoke, slots=slots, max_len=max_len, max_new=max_new,
         kv_mode=kv_mode, page_size=page_size, num_pages=num_pages,
         prefix_cache=prefix_cache, seed=seed, temperature=temperature,
-        top_k=top_k, sample_seed=seed, telemetry=tel, device=device)
+        top_k=top_k, sample_seed=seed, telemetry=tel, params=params,
+        device=device)
     for prompt in fleet_trace(vocab, n_requests=n_requests,
                               prompt_len=prompt_len,
                               prefix_share=prefix_share, seed=seed):

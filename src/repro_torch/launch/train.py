@@ -42,34 +42,61 @@ mesh to rebuild, so the state is restored in place.  The LR schedule spans
 the run's global horizon (``warmup_steps=5``, ``total_steps=max(end_step,
 10)``), so a killed and restarted run resumes bit for bit.
 
-Not ported yet: the reference's worker mode (``--process-id`` /
-``--num-processes``, heartbeat files, striped restore, the supervisor).
+Worker mode (``--process-id R --num-processes W``, launched by
+``repro_torch.launch.supervisor``): this process is rank R of a real
+W-process fleet.  Each rank computes the identical full global batch
+(deterministic redundancy: no collective runs in the step, so two ranks
+share one card, or the CPU, and their states stay bit-identical, which
+the result files prove with ``tree_fingerprint``).  Rank 0 alone writes
+checkpoints; every rank restores from the shared directory.  Each rank
+publishes a heartbeat file a step (``FleetWorker.heartbeat``) that the
+supervisor's hang detector watches, and keeps it fresh from a thread
+while checkpoint I/O blocks the loop (``FleetWorker.keep_alive``: rank
+0's saves, a restore, the final fingerprint), so a full-width save is
+not taken for a hang at the supervisor's default ``--hang-timeout-s``.
+It dies with exit status 43 on an injected kill aimed at it, and on a
+gang restart may restore STRIPED:
+each rank reads 1/W of the shard's bytes and all-gathers the rest from
+its peers over loopback TCP (``--striped-restore --stripe-ports``).
+``--total-steps`` is the run's global horizon, so a restarted worker
+resumes from its checkpoint and stops where the uninterrupted run would:
+the bit-identical-resume contract.  ``--distributed torch`` also joins a
+``gloo`` process group at ``--coordinator`` (gloo, as NCCL refuses two
+ranks on one card); supervision never depends on it, and a group that
+does not form within its timeout leaves ``dist_ok`` false with a printed
+warning, as the reference's ``--distributed jax`` does.
 
-The run takes the CUDA card unless given ``device="cpu"``.
+The run takes the CUDA card unless given ``device="cpu"``; a worker
+given no device takes the current card (``make_worker_mesh``) and raises
+without one.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import datetime
 import time
 
 import torch
+import torch.distributed as dist
 
 import repro_torch.obs as obs
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ArchBundle, get_bundle
 from repro_torch.data import DataConfig, make_train_iterator
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.mesh import make_local_mesh, make_worker_mesh
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.parallel.mesh import Mesh, set_mesh
-from repro_torch.runtime import (ChaosInjector, ChaosKilled,
+from repro_torch.runtime import (ChaosInjector, ChaosKilled, FleetWorker,
                                  HeartbeatMonitor, StragglerPolicy,
-                                 plan_elastic_remesh)
+                                 plan_elastic_remesh, tree_fingerprint)
 from repro_torch.training import (GradGuard, GuardPolicy, TrainHyper,
                                   make_train_step)
 
 SEED = 0              # the reference's PRNGKey(0)
+DIST_TIMEOUT_S = 60.0  # how long a worker waits for its process group
 
 
 def make_extras(bundle, per_host_batch: int, device) -> dict:
@@ -92,6 +119,28 @@ def resolve_mesh(mesh_kind) -> Mesh:
     return make_local_mesh()
 
 
+def init_process_group(coordinator: str, num_processes: int,
+                       process_id: int) -> bool:
+    """Join the ``gloo`` process group at ``tcp://<coordinator>`` as rank
+    ``process_id`` of ``num_processes``; True iff it formed (every peer
+    joined) within ``DIST_TIMEOUT_S``, or was up already.  Any failure is a
+    printed warning and False: the group is an upgrade, never a
+    requirement, as the reference's ``compat.distributed_initialize``."""
+    if dist.is_initialized():
+        return True
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{coordinator}",
+            world_size=num_processes, rank=process_id,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+        return True
+    except Exception as e:  # noqa: BLE001 — availability probe by contract
+        print(f"[train] warning: torch.distributed did not form at "
+              f"{coordinator} ({type(e).__name__}: {e}); continuing as "
+              f"a single process")
+        return False
+
+
 def run(arch, *, smoke: bool = True, steps: int = 20,
         seq_len: int = 128, global_batch: int = 8, mesh_kind="local",
         microbatches: int = 1,
@@ -104,7 +153,8 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
         guard_policy: GuardPolicy | None = None, max_recoveries: int = 8,
         trace_out: str | None = None, metrics_out: str | None = None,
         telemetry=None, total_steps: int | None = None,
-        params=None, on_step=None) -> dict:
+        params=None, on_step=None,
+        fleet: FleetWorker | None = None) -> dict:
     """Train ``arch``, a config name (its smoke config with ``smoke``) or
     an ``ArchBundle`` taken as it is (e.g. a config cut in depth; ``smoke``
     does not apply), from random weights drawn from seed 0 (or from ``params``,
@@ -115,7 +165,12 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
     rank takes the ring policy's paths).  ``chaos`` is a ``ChaosInjector``
     or a list of spec strings.  ``on_step(i, params, opt, metrics)``, if
     given, is called after each step the loop keeps (not one it rolls back
-    or re-meshes over).  Returns the per-step
+    or re-meshes over).  ``fleet`` runs the loop as one worker of a
+    supervised fleet (module docstring): rank 0 alone saves, heartbeats go
+    to the fleet directory, a kill fires only on its target rank, the
+    start-up restore stripes over the fleet's exchange when
+    ``fleet.striped_restore`` is set, and the final state's fingerprint
+    and losses go to ``fleet.result_out``.  Returns the per-step
     ``losses``, ``steps`` (indices), ``seconds`` (host wall, after a
     device synchronise) and ``metrics``, the recovery ``events``, the
     final ``params`` and ``opt``, and the telemetry snapshot (None when
@@ -124,8 +179,19 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
     after the in-flight checkpoint save has landed."""
     if chaos is not None and not isinstance(chaos, ChaosInjector):
         chaos = ChaosInjector(chaos, seed=chaos_seed)
+    if fleet is not None:
+        resolve_device(device)      # no card and no device: raise first
+        if fleet.distributed == "torch" and fleet.coordinator:
+            fleet.dist_ok = init_process_group(
+                fleet.coordinator, fleet.num_processes, fleet.process_id)
+        mesh = make_worker_mesh()   # this rank's card becomes current
+    else:
+        mesh = resolve_mesh(mesh_kind)
     dev = resolve_device(device)
-    mesh = resolve_mesh(mesh_kind)
+    # with the process group up, the GLOBAL process count (1 means the
+    # group never formed)
+    n_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
+    n_procs = dist.get_world_size() if dist.is_initialized() else 1
     bundle = arch if isinstance(arch, ArchBundle) else \
         get_bundle(arch, smoke=smoke)
     if params is None:
@@ -137,14 +203,28 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
 
     start_step = 0
     mgr = None
+    exchange = None
+    # with replicated fleet compute every rank holds identical state, so
+    # rank 0 alone writes checkpoints (it is host 0, the manifest writer);
+    # every rank restores from the shared dir
+    can_save = fleet is None or fleet.process_id == 0
     if ckpt_dir:
         mgr = CheckpointManager(
             ckpt_dir, fault_hook=chaos.checkpoint_write_hook
-            if chaos is not None else None)
-        restored = mgr.restore(state)
+            if chaos is not None and can_save else None)
+        stripe = None
+        if fleet is not None and fleet.striped_restore:
+            # collective striped restore: valid only on a gang start where
+            # every rank reaches this point (the supervisor passes
+            # --striped-restore to whole gangs only)
+            exchange = fleet.make_exchange()
+            if exchange is not None:
+                stripe = (fleet.process_id, fleet.num_processes, exchange)
+        restored = mgr.restore(state, stripe=stripe)
         if restored is not None:
             start_step = restored[0]
-            print(f"[train] restored step {start_step} from {ckpt_dir}")
+            print(f"[train] restored step {start_step} from {ckpt_dir}"
+                  f"{' (striped)' if stripe else ''}")
 
     # the LR schedule spans the run's GLOBAL horizon (restored start +
     # remaining steps, or `total_steps`), so a crash-restarted run rebuilds
@@ -194,6 +274,14 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
     recoveries = 0
     last_saved = start_step if mgr else None
 
+    def busy(at_step: int):
+        """Context for a stretch of checkpoint I/O: a fleet worker keeps
+        its heartbeat fresh through it, unless chaos partitions it."""
+        if fleet is None or (chaos is not None and chaos.partitioned(
+                at_step, fleet.process_id)):
+            return contextlib.nullcontext()
+        return fleet.keep_alive(at_step)
+
     def ckpt_wait(at_step: int) -> bool:
         """Land the in-flight async save; a FAILED WRITE (e.g. chaos
         diskfull -> ENOSPC) is an event, never a crash — a full disk
@@ -211,7 +299,8 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
         """RESTORE state: rewind to the newest intact checkpoint (the
         manager walks past corrupt ones); with nothing restorable, keep
         the current (guarded) state and continue forward."""
-        with tel.span("RESTORE", step=at_step, reason=reason):
+        with tel.span("RESTORE", step=at_step, reason=reason), \
+                busy(at_step):
             restored = None
             if mgr is not None:
                 ckpt_wait(at_step)
@@ -262,9 +351,16 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
     try:
         while i < end_step:
             vclock[0] += 1.0
+            if fleet is not None and not (
+                    chaos is not None
+                    and chaos.partitioned(i, fleet.process_id)):
+                fleet.heartbeat(i)
             if chaos is not None:
                 try:
-                    chaos.maybe_kill(i)          # raises ChaosKilled (43)
+                    # raises ChaosKilled (43); a fleet worker dies only
+                    # when the spec targets its rank
+                    chaos.maybe_kill(
+                        i, rank=fleet.process_id if fleet else None)
                 except ChaosKilled:
                     # preemption grace (SIGTERM-style): an in-flight async
                     # save lands before death, so "the last completed
@@ -273,7 +369,8 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
                     # now would turn exit 43 into exit 1
                     if mgr:
                         try:
-                            mgr.wait()
+                            with busy(i):
+                                mgr.wait()
                         except Exception:
                             pass
                     raise
@@ -362,19 +459,21 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
             if on_step is not None:
                 on_step(i, params, opt, m)
 
-            if mgr and (i + 1) % ckpt_every == 0:
-                ckpt_wait(i)   # surface a prior failed write first
-                mgr.save_async(i + 1, state)
-                last_saved = i + 1
-                if chaos is not None and chaos.wants_corrupt(i + 1):
-                    if ckpt_wait(i + 1):   # land it, then damage it
-                        chaos.maybe_corrupt(ckpt_dir, i + 1)
+            if mgr and can_save and (i + 1) % ckpt_every == 0:
+                with busy(i):
+                    ckpt_wait(i)   # surface a prior failed write first
+                    mgr.save_async(i + 1, state)
+                    last_saved = i + 1
+                    if chaos is not None and chaos.wants_corrupt(i + 1):
+                        if ckpt_wait(i + 1):   # land it, then damage it
+                            chaos.maybe_corrupt(ckpt_dir, i + 1)
             i += 1
-        if mgr:
-            final_ok = ckpt_wait(end_step)
-            if last_saved != end_step or not final_ok:
-                mgr.save_async(end_step, state)
-                ckpt_wait(end_step)
+        if mgr and can_save:
+            with busy(end_step):
+                final_ok = ckpt_wait(end_step)
+                if last_saved != end_step or not final_ok:
+                    mgr.save_async(end_step, state)
+                    ckpt_wait(end_step)
     finally:
         # teardown must never displace an in-flight ChaosKilled (exit 43 is
         # a restart harness's signal) — every item is individually
@@ -387,18 +486,34 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
                          # trace
                          lambda: trace_out and tel.write_trace(trace_out),
                          lambda: metrics_out
-                         and tel.write_metrics(metrics_out)):
+                         and tel.write_metrics(metrics_out),
+                         lambda: exchange is not None and exchange.close(),
+                         lambda: fleet is not None and fleet.dist_ok
+                         and dist.destroy_process_group()):
             try:
                 teardown()
             except Exception as e:
                 print(f"[train] teardown error (ignored): {e!r}")
+    if fleet is not None:
+        with busy(end_step):
+            crc = tree_fingerprint({"params": params, "opt": opt})
+        fleet.write_result({
+            "params_crc": crc,
+            "first_loss": history[0] if history else None,
+            "final_loss": history[-1] if history else None,
+            "start_step": start_step, "end_step": end_step,
+            "dist_ok": fleet.dist_ok,
+            "device_count": n_devices,
+            "process_count": n_procs,
+            "device": str(dev),
+        })
     return {"losses": history, "steps": step_log, "seconds": seconds,
             "metrics": metrics_log, "events": events, "params": params,
             "opt": opt,
             "telemetry": tel.snapshot() if tel.enabled else None}
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true", default=True)
@@ -418,7 +533,10 @@ def main():
                     metavar="SPEC",
                     help="inject a fault (repeatable): kill@N, nan@N, "
                          "silence@N:host=H, slow@N:host=H,factor=F, "
-                         "corrupt@N:mode=flip|truncate, diskfull@N")
+                         "corrupt@N:mode=flip|truncate, diskfull@N, "
+                         "partition@N:host=H (sigkill@N:host=H is "
+                         "supervisor-side; see "
+                         "repro_torch.launch.supervisor)")
     ap.add_argument("--chaos-seed", type=int, default=0)
     ap.add_argument("--n-hosts", type=int, default=1,
                     help="simulated fleet size (peers heartbeat "
@@ -431,10 +549,38 @@ def main():
                          "of the RUN/REMESH/RESTORE state machine")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write the metrics-registry snapshot as JSON")
+    # -- real-fleet worker mode (passed by repro_torch.launch.supervisor) --
+    ap.add_argument("--process-id", type=int, default=0, metavar="R")
+    ap.add_argument("--num-processes", type=int, default=None, metavar="W",
+                    help="run as rank R of a W-process fleet")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT")
+    ap.add_argument("--fleet-dir", default=None, metavar="DIR",
+                    help="shared dir for heartbeat files")
+    ap.add_argument("--fleet-tag", type=int, default=None,
+                    help="stable worker id across re-mesh renumbering")
+    ap.add_argument("--stripe-ports", default=None, metavar="P0,P1,...",
+                    help="per-rank TCP ports for striped restore")
+    ap.add_argument("--striped-restore", action="store_true")
+    ap.add_argument("--distributed", default="none",
+                    choices=["none", "torch"],
+                    help="'torch' also joins a gloo process group at "
+                         "--coordinator (supervision never depends on it)")
+    ap.add_argument("--result-out", default=None, metavar="PATH")
     ap.add_argument("--total-steps", type=int, default=None,
                     help="global step horizon (restart-safe endpoint); "
                          "overrides --steps counting from the restore")
-    a = ap.parse_args()
+    a = ap.parse_args(argv)
+    fleet = None
+    if a.num_processes is not None:
+        ports = tuple(int(p) for p in a.stripe_ports.split(",")) \
+            if a.stripe_ports else ()
+        fleet = FleetWorker(process_id=a.process_id,
+                            num_processes=a.num_processes,
+                            fleet_dir=a.fleet_dir, tag=a.fleet_tag,
+                            coordinator=a.coordinator, stripe_ports=ports,
+                            striped_restore=a.striped_restore,
+                            distributed=a.distributed,
+                            result_out=a.result_out)
     try:
         out = run(a.arch, smoke=a.smoke, steps=a.steps, seq_len=a.seq_len,
                   global_batch=a.global_batch, mesh_kind=a.mesh,
@@ -444,7 +590,7 @@ def main():
                   chaos=a.chaos, chaos_seed=a.chaos_seed,
                   n_hosts=a.n_hosts, hb_timeout_steps=a.hb_timeout_steps,
                   trace_out=a.trace_out, metrics_out=a.metrics_out,
-                  total_steps=a.total_steps)
+                  total_steps=a.total_steps, fleet=fleet)
     except ChaosKilled as e:
         # ChaosKilled IS a SystemExit(43); re-raised as a plain one so
         # nothing that wrapped it on the way up changes the status

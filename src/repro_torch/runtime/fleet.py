@@ -33,6 +33,7 @@ integer view, so neither side needs ml_dtypes to read the other's frames.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -43,6 +44,7 @@ import time
 import zlib
 
 HEARTBEAT_DIR = "hb"
+KEEPALIVE_S = 2.0      # heartbeat period while I/O blocks a worker's loop
 _LEN = struct.Struct(">Q")
 
 
@@ -106,7 +108,7 @@ def tree_fingerprint(tree) -> str:
         # 0-d leaf (1,)
         head = f"{path}|{name}|{tuple(leaf.shape) or (1,)}|"
         crc = zlib.crc32(head.encode(), crc)
-        crc = zlib.crc32(arr.tobytes(), crc)
+        crc = zlib.crc32(arr.reshape(-1).view("u1"), crc)   # no copy
     return f"{crc:08x}"
 
 
@@ -220,7 +222,10 @@ class TcpStripeExchange:
                 payload = self._published.get(key)
             if payload is None:
                 return
-            conn.sendall(_LEN.pack(len(payload)) + payload)
+            # header, then the payload through a view: no copy of it
+            view = memoryview(payload).cast("B")
+            conn.sendall(_LEN.pack(len(view)))
+            conn.sendall(view)
         except OSError:
             pass
         finally:
@@ -261,17 +266,25 @@ class TcpStripeExchange:
             f"{self.timeout_s:.0f}s ({last_err})")
 
     @staticmethod
-    def _recv_exact(conn: socket.socket, n: int) -> bytes:
-        out = bytearray()
-        while len(out) < n:
-            chunk = conn.recv(min(1 << 20, n - len(out)))
-            if not chunk:
+    def _recv_exact(conn: socket.socket, n: int) -> bytearray:
+        """``n`` bytes received into one buffer allocated at that length
+        (no growing, no final copy)."""
+        out = bytearray(n)
+        view = memoryview(out)
+        got = 0
+        while got < n:
+            k = conn.recv_into(view[got:], min(1 << 24, n - got))
+            if not k:
                 raise OSError("peer closed mid-payload")
-            out += chunk
-        return bytes(out)
+            got += k
+        view.release()
+        return out
 
     def allgather(self, key: str, rank: int, world: int,
-                  payload: bytes) -> list[bytes]:
+                  payload) -> list:
+        """Every rank's payload in rank order: ``payload`` itself (any
+        bytes-like object, served to peers without a copy) at ``rank``,
+        each peer's as a ``bytearray``."""
         assert rank == self.rank and world == len(self.ports), \
             (rank, self.rank, world, len(self.ports))
         with self._cv:
@@ -525,6 +538,31 @@ class FleetWorker:
                                 "wall": time.time()})
         except OSError:
             pass                        # a lost heartbeat must not kill a step
+
+    @contextlib.contextmanager
+    def keep_alive(self, step: int):
+        """Heartbeat ``step`` every ``KEEPALIVE_S`` from a thread while
+        the block runs.  A worker blocked on checkpoint I/O (a save's
+        snapshot, the wait for the previous write, a restore, the final
+        fingerprint) is busy, not hung, so it must not go quiet for the
+        supervisor's hang detector; outside such a block only the loop
+        beats, so a step that hangs still goes quiet."""
+        if not self.fleet_dir:
+            yield
+            return
+        stop = threading.Event()
+
+        def beat():
+            while not stop.wait(KEEPALIVE_S):
+                self.heartbeat(step)
+        t = threading.Thread(target=beat, name="fleet-keepalive",
+                             daemon=True)
+        t.start()
+        try:
+            yield
+        finally:
+            stop.set()
+            t.join()
 
     def make_exchange(self, *, timeout_s: float = 60.0):
         """The stripe-exchange transport for this worker, or None when the

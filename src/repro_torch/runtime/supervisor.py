@@ -408,9 +408,8 @@ class Supervisor:
         if not self.ckpt_dir:
             return None
         try:
-            from repro_torch.checkpoint import verified_steps
-            steps = verified_steps(self.ckpt_dir)
-            return steps[-1] if steps else None
+            from repro_torch.checkpoint import newest_verified_step
+            return newest_verified_step(self.ckpt_dir)
         except Exception as e:
             self._event("ckpt_audit_error", error=str(e))
             return None

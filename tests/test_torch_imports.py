@@ -39,7 +39,8 @@ MODULES = ["repro_torch", "repro_torch.launch.serve", "repro_torch.weights",
            "repro_torch.parallel.ring_matmul",
            "repro_torch.parallel.pipeline", "repro_torch.launch.mesh",
            "repro_torch.optim.compression", "repro_torch.serving.fleet",
-           "repro_torch.serving.prefix", "repro_torch.runtime.supervisor"]
+           "repro_torch.serving.prefix", "repro_torch.runtime.supervisor",
+           "repro_torch.launch.supervisor"]
 
 
 def test_import_leaves_jax_out():
@@ -63,7 +64,8 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+                         [ROOT / "chip_smoke.py"] +
+                         sorted((ROOT / "examples").glob("*_torch.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     bad = [m for m in _imports(path)
@@ -91,3 +93,43 @@ def test_entry_points_refuse_without_a_card(monkeypatch):
         get_bundle("qwen3-4b", smoke=True).init_params(0)
     engine, _ = build_engine("qwen3-4b", device="cpu")
     assert engine.device.type == "cpu"
+
+
+def test_train_worker_refuses_without_a_card(monkeypatch):
+    """A fleet worker given no device takes the card and raises without
+    one, before it joins anything."""
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "qwen3-4b", "--steps", "1",
+                    "--process-id", "0", "--num-processes", "2"])
+
+
+def test_supervisor_is_torch_free_and_its_workers_need_a_card(tmp_path):
+    """The train supervisor imports no torch; its workers, given no
+    device on a machine that shows no card, raise (the supervisor reports
+    the failed fleet), and with ``--device cpu`` they train."""
+    code = ("import sys\n"
+            "from repro_torch.launch.supervisor import main\n"
+            "rc = main(sys.argv[1:])\n"
+            "assert 'torch' not in sys.modules, 'supervisor imported torch'\n"
+            "sys.exit(rc)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    base = ["--nprocs", "2", "--steps", "2", "--seq-len", "16",
+            "--global-batch", "2", "--max-restarts-per-rank", "0",
+            "--max-total-failures", "0"]
+    fleet = tmp_path / "no-card"
+    r = subprocess.run([sys.executable, "-c", code, *base, "--fleet-dir",
+                        str(fleet)], env=env, capture_output=True,
+                       text=True, timeout=180)
+    assert r.returncode == 1, r.stderr
+    assert '"outcome": "budget_exhausted"' in r.stdout
+    logs = "".join(p.read_text() for p in fleet.glob("log_rank*.log"))
+    assert "needs a CUDA device" in logs
+    fleet = tmp_path / "cpu"
+    r = subprocess.run([sys.executable, "-c", code, *base, "--fleet-dir",
+                        str(fleet), "--device", "cpu"], env=env,
+                       capture_output=True, text=True, timeout=180)
+    assert r.returncode == 0, r.stderr
+    assert '"outcome": "completed"' in r.stdout
