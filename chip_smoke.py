@@ -45,7 +45,11 @@ sibling's shape in f32 beside its library call, the flash forward and
 backward also at recurrentgemma-9b's in bf16 through a padded stride),
 holds the flash kernels' loss and gradients against the plain attention
 path, trains qwen3-4b at full width
-for a few AdamW steps through ``repro_torch.launch.train``, runs the
+for a few AdamW steps through ``repro_torch.launch.train``, counts one
+more step with the op cost counter on the card and on the meta device
+(``roofline``: the two counts equal, the step's share of the bf16 peak;
+the live roofline's paged-decode traffic rows of the serve runs and
+``conv2d_rows`` through the conv2d kernel), runs the
 context-parallel ring on a (1, 4) mesh of local rings on the card (``ring``:
 ``ring_attention`` at qwen3-4b's and recurrentgemma-9b's heads, each hop
 the flash kernels at its offsets, against the unsharded kernels, with a
@@ -96,13 +100,11 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 import repro_torch  # noqa: E402,F401  (fails at once outside a checkout)
-
-# H100 SXM published peaks (dense): bf16 tensor cores, int8 tensor cores,
-# f32 outside the tensor cores, HBM3 bandwidth.
-PEAK_BF16 = 989e12
-PEAK_INT8 = 1979e12
-PEAK_F32 = 67e12
-PEAK_BYTES = 3.35e12
+# the card's peaks and each kernel's work have one definition, in the
+# package (analysis.roofline, analysis.kernel_work)
+from repro_torch.analysis import kernel_work  # noqa: E402
+from repro_torch.analysis.op_cost import CostMode  # noqa: E402
+from repro_torch.analysis.roofline import PEAK_FLOPS  # noqa: E402
 ARCH = "qwen3-4b"
 MOE_ARCH = "olmoe-1b-7b"
 SEED = 0
@@ -239,15 +241,6 @@ def closeness_rounded(got: torch.Tensor, want: torch.Tensor,
                 rel <= 2.0 ** -10)
 
 
-def peak_ops(dtype: torch.dtype) -> float:
-    return PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
-
-
-def bound(bytes_: float, ops: float, peak_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = bytes_ / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 # ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version at full-width shapes
 # ---------------------------------------------------------------------------
@@ -290,16 +283,6 @@ FLASH_ZOO_BWD_SHAPES = {
                                  causal=False),
     "whisper-medium decoder": dict(B=2, S=1024, H=16, Hkv=16, D=64),
 }
-
-
-def attended_pairs(Sq: int, Sk: int, causal: bool,
-                   window: int | None) -> int:
-    """(q, k) pairs a query head attends under the kernels' masks (local
-    positions: k <= q when causal, q - k < window)."""
-    q = np.arange(Sq)
-    hi = np.minimum(q + 1, Sk) if causal else np.full(Sq, Sk)
-    lo = np.maximum(q - window + 1, 0) if window else np.zeros(Sq, int)
-    return int(np.maximum(hi - lo, 0).sum())
 
 
 def flash_inputs(shape: dict, dtype: torch.dtype, seed: int):
@@ -408,10 +391,8 @@ def check_flash(flush, shape: dict = FLASH_SHAPE, arch: str | None = None,
             qt, kt, vt, enable_gqa=True, **sdpa_kw)
         lib_ms, _ = time_ms(sdpa, 20, flush)
         lib_dev_ms = device_ms(sdpa, 20, flush)
-    pairs = B * H * attended_pairs(S, Sk, causal, window)
-    bytes_ = qt.element_size() * (qt.numel() + kt.numel() + vt.numel() +
-                                  o.numel()) + 4 * lse.numel()
-    b_ms, b_by = bound(bytes_, 4 * D * pairs, peak_ops(dtype))
+    b_ms, b_by = kernel_work.flash_fwd_of(qt, kt, causal=causal,
+                                          window=window).bound()
     row = dict(name=route, route="cuda",
                source="src/repro_torch/kernels/csrc/flash_fwd.cu",
                replaces="src/repro/kernels/attention.py:153",
@@ -531,20 +512,17 @@ def check_flash_bwd(flush, dtype: torch.dtype = torch.bfloat16,
     lib_ms, _ = time_ms(sdpa_bwd, 20, flush)
     lib_dev_ms = device_ms(sdpa_bwd, 20, flush)
     del out, qs, ks, vs
-    pairs = B * H * attended_pairs(S, Sk, causal, window)  # unmasked
-    inputs = q.element_size() * (q.numel() + k.numel() + v.numel() +
-                                 do.numel()) + \
-        4 * (lse.numel() + delta.numel())
+    works = dict(zip(("flash_bwd_dq", "flash_bwd_dkv"),
+                     kernel_work.flash_bwd_of(qt, kt, causal=causal,
+                                              window=window)))
     rows = []
     plan = {}
     if route == "flash_bwd_d256":
         p = katt.flash_bwd_dkv_plan(B, Hkv, H // Hkv, Sk)
         plan = dict(plan=dict(parts=p.parts, ctas=p.ctas,
                               scratch_mb=p.scratch_bytes / 2 ** 20))
-    for name, flops, out_bytes in (
-            ("flash_bwd_dq", 6 * D * pairs, 4 * dq.numel()),
-            ("flash_bwd_dkv", 8 * D * pairs, 4 * (dk.numel() + dv.numel()))):
-        b_ms, b_by = bound(inputs + out_bytes, flops, peak_ops(dtype))
+    for name, work in works.items():
+        b_ms, b_by = work.bound()
         row = dict(name=name + sfx, route="cuda",
                    source="src/repro_torch/kernels/csrc/flash_bwd.cu",
                    replaces="src/repro/kernels/attention.py:" +
@@ -730,18 +708,16 @@ def paged_inputs(quant: bool, lens_np: np.ndarray, max_pages: int,
 
 
 def paged_bound(args: tuple, lens_np: np.ndarray) -> tuple[float, str]:
-    """The least time of one paged decode call on these lengths: each live
-    token's K and V rows (and scales) read once, q and the table read and
-    out written once, against the 4 D H flops a token takes."""
-    q, k, _, table, lens, ks, _ = args
-    _, H, D = q.shape
-    Hkv = k.shape[2]
-    n_tok = int(lens_np.sum())
-    quant = ks is not None
-    bytes_ = (2 * n_tok * Hkv * D * k.element_size() +
-              (2 * n_tok * Hkv * 4 if quant else 0) + 2 * 2 * q.numel() +
-              4 * (table.numel() + lens.numel()))
-    return bound(bytes_, 4 * D * H * n_tok, PEAK_INT8 if quant else PEAK_BF16)
+    """The least time of one paged decode call on these lengths
+    (``kernel_work.paged_decode``: each live token's K and V rows, and
+    scales, read once, q and the table read and out written once, against
+    the 4 D H flops a token takes)."""
+    q, k, _, table, _, ks, _ = args
+    B, H, D = q.shape
+    return kernel_work.paged_decode(
+        B, H, k.shape[2], D, live_tokens=int(lens_np.sum()),
+        max_pages=table.shape[1], kv_itemsize=k.element_size(),
+        q_itemsize=q.element_size(), quant=ks is not None).bound()
 
 
 def check_paged(quant: bool, flush, shape: dict = PAGED_SHAPE,
@@ -860,6 +836,29 @@ def decode_case() -> dict:
                 macs=2 * H * D * int(lens.sum()))
 
 
+def case_work(case: dict, dtype: torch.dtype = torch.bfloat16):
+    """The kernel's work for one case at ``dtype`` (``analysis.kernel_work``,
+    from the case's shapes alone): the flops and bytes of its bound."""
+    from repro_torch.kernels.conv2d import out_hw
+    sh, kind = case["shapes"], case["kernel"]
+    size, name = torch.finfo(dtype).bits // 8, str(dtype).split(".")[-1]
+    if kind == "matmul":
+        return kernel_work.matmul(sh["M"], sh["N"], sh["K"], itemsize=size,
+                                  dtype=name)
+    if kind == "conv2d":
+        (N, IH, IW, CI), (KH, KW, _, CO) = sh["x"], sh["w"]
+        OH, OW = out_hw(IH, IW, KH, KW, sh["stride"], sh["dilation"])
+        return kernel_work.conv2d(N, IH, IW, CI, KH, KW, CO, OH, OW,
+                                  itemsize=size, dtype=name)
+    if kind == "correlation":
+        return kernel_work.correlation(sh["H"], sh["W"], sh["C"],
+                                       sh["radius"], itemsize=size,
+                                       dtype=name)
+    return kernel_work.flash_decode(sh["B"], sh["H"], sh["Hkv"], sh["D"],
+                                    live_tokens=sum(sh["lengths"]),
+                                    itemsize=size, dtype=name)
+
+
 def case_calls(case: dict, seed: int,
                dtype: torch.dtype = torch.bfloat16) -> dict:
     """Inputs of one case (numpy, from ``seed``, ``dtype`` on the card,
@@ -867,8 +866,8 @@ def case_calls(case: dict, seed: int,
     through ``ops`` as a user calls it, ``launch`` of the kernel alone with
     the same tile (f32: ``main``, the CUDA-core route with the tile ``ops``
     gives it), ``plain`` (the plain version) and ``library`` (one PyTorch
-    call of the same function, or None); with the bytes and flops of its
-    bound."""
+    call of the same function, or None); with its ``work`` (the flops and
+    bytes of its bound, :func:`case_work`)."""
     from repro_torch.core.cuda_bridge import (conv2d_a_tma, conv2d_plan,
                                               correlation_plan, gemv_plan,
                                               matmul_block_shapes)
@@ -888,7 +887,6 @@ def case_calls(case: dict, seed: int,
         M, N, K = sh["M"], sh["N"], sh["K"]
         a, b = t((M, K)), t((K, N), K ** -0.5)
         route = kmm.matmul_route(a, b)
-        out_numel, in_numel = M * N, M * K + K * N
         if route == "matmul_gemv":
             splits, kchunk = gemv_plan(M, N, K)
             calls = dict(tile=dict(route=route, splits=splits,
@@ -919,7 +917,6 @@ def case_calls(case: dict, seed: int,
                       block_co=plan.block_co, splits=plan.splits)
         w_cl = w.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        out_numel, in_numel = OH * OW * CO, x.numel() + w.numel()
         calls = dict(
             key=route,
             tile=dict(route=route, **blocks, k_steps=plan.k_steps,
@@ -935,8 +932,6 @@ def case_calls(case: dict, seed: int,
     elif kind == "correlation":
         H, W, C, R = sh["H"], sh["W"], sh["C"], sh["radius"]
         i1, i2 = t((H, W, C), C ** -0.25), t((H, W, C), C ** -0.25)
-        D = 2 * R + 1
-        out_numel, in_numel = H * W * D * D, 2 * H * W * C
         # the plan ops.correlation takes: rows, dy group, band, ring; the
         # callers require the wgmma route
         plan = correlation_plan(H, W, C, R)
@@ -954,8 +949,6 @@ def case_calls(case: dict, seed: int,
         lens = torch.tensor(sh["lengths"], dtype=torch.int32, device="cuda")
         mask = (torch.arange(S, device="cuda")[None, :] <
                 lens[:, None].long())[:, None, None, :]
-        n_tok = sum(sh["lengths"])
-        out_numel = in_numel = 0
         bk = katt.decode_block_k(S, 512)          # ops.flash_decode's default
         splits = katt.decode_splits(S, bk)
         live = sum(-(-n // bk) for n in sh["lengths"])
@@ -969,15 +962,10 @@ def case_calls(case: dict, seed: int,
                                                   block_k=bk),
             library=lambda: F.scaled_dot_product_attention(
                 q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True))
-        # the live K/V rows, q and out once each, the lengths
-        calls["bytes"] = 2 * (2 * n_tok * Hkv * D + 2 * B * H * D) + 4 * B
     calls.setdefault("key", kind)
     if dtype != torch.bfloat16:
         calls["launch"] = calls["main"]
-    if "bytes" not in calls:
-        calls["bytes"] = torch.finfo(dtype).bits // 8 * (in_numel +
-                                                         out_numel)
-    calls["flops"] = 2 * case["macs"]
+    calls["work"] = case_work(case, dtype)
     return calls
 
 
@@ -1017,7 +1005,7 @@ def run_case(case: dict, flush, seed: int, iters: int = 20,
         lib_ms, lib_dev_ms = ((time_ms(lib, iters, flush)[0],
                                device_ms(lib, iters, flush))
                               if lib is not None else (None, None))
-    b_ms, b_by = bound(calls["bytes"], calls["flops"], peak_ops(dtype))
+    b_ms, b_by = calls["work"].bound()
     tile = calls["tile"]
     del calls, out, ref
     return dict(workload=case["name"], kernel=kind, key=key,
@@ -1170,8 +1158,8 @@ def skinny_matmuls(flush) -> list[dict]:
             lib = lambda: torch.matmul(a, b)  # noqa: E731
             row.update(library_ms=time_ms(lib, 20, flush)[0],
                        library_device_ms=device_ms(lib, 20, flush))
-        row["bound_ms"], row["bound_by"] = bound(
-            2 * (M * K + K * N + M * N), 2 * M * N * K, PEAK_BF16)
+        row["bound_ms"], row["bound_by"] = kernel_work.matmul(
+            M, N, K, itemsize=2).bound()
         emit("skinny_matmul", **row)
         rows.append(row)
         del a, b
@@ -1319,10 +1307,37 @@ def serve(mode: str, params, arch: str = ARCH) -> dict:
                kv=engine.kv_stats(), prefix=engine.prefix_stats())
     if drops is not None:
         row["moe_capacity_drops"] = drops.shares()
+    if mode != "dense":
+        row["traffic_rows"] = paged_traffic_rows(engine, reqs)
     emit("serve_moe" if cfg.moe else "serve", **row)
     del engine, watch
     torch.cuda.empty_cache()
     return {"row": row, "results": results, "launches": launches}
+
+
+def paged_traffic_rows(engine, reqs: list[np.ndarray]) -> list[dict]:
+    """The live roofline's paged-decode rows of one serve run
+    (``obs.roofline_live``): the engine's observed KV traffic against
+    ``predict_paged_decode_traffic`` over the same requests, each one's
+    prefix-cache hit passed as ``matched``.  The prediction assumes no
+    chunk split by the tick's token budget and no early stop; the run
+    must give both."""
+    from repro_torch.obs.roofline_live import (paged_decode_rows,
+                                               predict_paged_decode_traffic)
+    cfg = engine.cfg
+    require(cfg.prefill_token_budget >= cfg.prefill_chunk * cfg.batch and
+            cfg.eos_id == -1, f"paged traffic: budget "
+            f"{cfg.prefill_token_budget} < chunk {cfg.prefill_chunk} x "
+            f"{cfg.batch} slots, or eos {cfg.eos_id}: the prediction's "
+            f"assumptions do not hold")
+    matched = [engine._requests[rid].matched_tokens
+               for rid in range(len(reqs))]
+    predicted = predict_paged_decode_traffic(
+        [len(p) for p in reqs], cfg.max_new_tokens,
+        page_size=cfg.page_size, page_bytes=engine.kv.cfg.page_bytes,
+        prefill_chunk=cfg.prefill_chunk, matched=matched)
+    return [dict(r.row(), exact_ratio=r.ratio, matched=matched)
+            for r in paged_decode_rows(engine.traffic_stats(), predicted)]
 
 
 def agreement(a: dict, b: dict) -> float:
@@ -2223,6 +2238,177 @@ def train(params) -> dict:
             f"CUDA-core flash kernel")
     del out
     return row
+
+
+# ---------------------------------------------------------------------------
+# phase 5': the analysis slice on the card: the op cost counter's count of
+# qwen3-4b's full-width train step against the same step on the meta
+# device, the step's share of the bf16 peak, and the live roofline's rows
+# ---------------------------------------------------------------------------
+
+ROOFLINE_BATCH = dict(B=2, S=2048)
+
+
+class OpLog(CostMode):
+    """A cost counter that keeps each op that counted something (name,
+    flops, bytes, operand shapes), to show where two counts of one step
+    part."""
+
+    def __init__(self):
+        super().__init__()
+        self.log = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        f, b = self.cost.flops, self.cost.bytes
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if (self.cost.flops, self.cost.bytes) != (f, b):
+            self.log.append((str(func), self.cost.flops - f,
+                             self.cost.bytes - b,
+                             [tuple(t.shape) for t in args
+                              if isinstance(t, torch.Tensor)]))
+        return out
+
+
+def first_difference(a: list, b: list, n: int = 12) -> list:
+    """The first ``n`` entries from where two op logs part."""
+    i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+             min(len(a), len(b)))
+    return [dict(at=i + j, card=a[i + j] if i + j < len(a) else None,
+                 meta=b[i + j] if i + j < len(b) else None)
+            for j in range(n)]
+
+
+def roofline_phase(params, served: dict) -> dict:
+    """The analysis slice on the card.  One AdamW step of qwen3-4b at full
+    width (B 2 x S 2048, one microbatch, the flash kernels reporting their
+    own work) counted by ``analysis.op_cost`` on the card and the same step
+    on the meta device: flops, bytes and collectives must be equal,
+    exactly.  The step's share of the bf16 peak, by the counted flops and
+    by 6 N tokens, from a step timed outside the counter.  Then the live
+    roofline's rows (``obs.roofline_live``): the serve phase's paged runs
+    (gb ratio 1 exactly, dram within its tolerance) and ``conv2d_rows`` at
+    DL_ATROUS4 through the hand-written conv2d kernel (one launch).
+    Returns the phase's launches."""
+    from repro_torch.analysis.roofline import model_flops_train
+    from repro_torch.configs import get_bundle
+    from repro_torch.kernels import ops
+    from repro_torch.obs.roofline_live import TOLERANCES, conv2d_rows
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import TrainHyper, make_train_step
+    t0 = time.perf_counter()
+    card = smi()
+    bundle = get_bundle(ARCH)
+    L = bundle.cfg.n_layers
+    B, S = ROOFLINE_BATCH["B"], ROOFLINE_BATCH["S"]
+    batch = token_batch(B, S, SEED + 13, bundle.cfg.vocab)
+    step = make_train_step(bundle.forward, TrainHyper())
+    opt = adamw_init(params)
+    phase_launches: dict = {}
+
+    def take_launches():
+        for k, n in ops.LAUNCHES.items():
+            phase_launches[k] = phase_launches.get(k, 0) + n
+        return dict(ops.LAUNCHES)
+
+    # the step timed outside the counter (the second of two)
+    ops.reset_launches()
+    step_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    take_launches()
+    # the count on the card, then on meta tensors of the same shapes and
+    # dtypes (the dry run's arguments)
+    ops.reset_launches()
+    t = time.perf_counter()
+    with CostMode() as on_card:
+        step(params, opt, batch)
+    torch.cuda.synchronize()
+    card_count_s = time.perf_counter() - t
+    counted_launches = take_launches()
+    meta_params = bundle.abstract_params()
+    meta_args = (meta_params, adamw_init(meta_params),
+                 {k: torch.empty_like(v, device="meta")
+                  for k, v in batch.items()})
+    t = time.perf_counter()
+    with CostMode() as on_meta:
+        step(*meta_args)
+    meta_count_s = time.perf_counter() - t
+    c, m = on_card.cost, on_meta.cost
+    equal = c.totals() == m.totals() and c.kernels == m.kernels
+    mflops = model_flops_train(bundle.active_param_count(), B * S)
+    timed = step_s[-1]
+    row = dict(arch=ARCH, B=B, S=S, microbatches=1, nvidia_smi=card,
+               counted_flops=c.flops, counted_bytes=c.bytes,
+               collectives=c.collectives, meta_flops=m.flops,
+               meta_bytes=m.bytes, meta_collectives=m.collectives,
+               card_equals_meta=equal, kernels=c.kernels,
+               model_flops=mflops, model_over_counted=mflops / c.flops,
+               step_s=step_s,
+               counted_share_of_bf16_peak=c.flops / (timed * PEAK_FLOPS),
+               model_share_of_bf16_peak=mflops / (timed * PEAK_FLOPS),
+               intermediates_peak_bytes=on_card.peak_bytes,
+               card_count_s=card_count_s, meta_count_s=meta_count_s,
+               launches={k: n for k, n in counted_launches.items() if n})
+    emit("roofline_step", **row)
+    print(f"roofline_step: counted {c.flops:.6e} flops, model 6 N tokens "
+          f"{mflops:.6e} (ratio {mflops / c.flops:.4f}); share of the bf16 "
+          f"peak {row['counted_share_of_bf16_peak']:.4f} counted, "
+          f"{row['model_share_of_bf16_peak']:.4f} model, step {timed:.4f} "
+          f"s on {card}", flush=True)
+    if not equal:
+        logs = []
+        for args in ((params, opt, batch), meta_args):
+            mode = OpLog()
+            with mode:
+                step(*args)
+            logs.append(mode.log)
+        emit("roofline_step_diff", ops=[len(x) for x in logs],
+             first=first_difference(*logs))
+    del opt, meta_args, meta_params
+    torch.cuda.empty_cache()
+    require(equal, f"roofline: the card's count {c.totals()} "
+            f"{c.kernels} differs from the meta count {m.totals()} "
+            f"{m.kernels}")
+    flash = {k: n for k in FLASH_ROUTE_KEYS if (n := counted_launches[k])}
+    require(flash == {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                      "flash_bwd_dkv": L} and
+            {k: v["calls"] for k, v in c.kernels.items()} ==
+            {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L},
+            f"roofline: flash launches {flash} and reports "
+            f"{c.kernels}, want {2 * L} forward and {L} of each backward")
+
+    # the live roofline's rows
+    for mode in ("paged", "paged_int8"):
+        rows = served[mode]["row"]["traffic_rows"]
+        emit("roofline_traffic", workload="paged_decode", mode=mode,
+             rows=rows, nvidia_smi=card)
+        gb = [r for r in rows if r["level"] == "gb"]
+        dram = [r for r in rows if r["level"] == "dram"]
+        require(all(r["exact_ratio"] == 1.0 for r in gb) and
+                all(r["within"] and r["tolerance"] == TOLERANCES["dram"]
+                    for r in dram),
+                f"roofline: {mode} traffic rows {rows}")
+    case = {c_["name"]: c_ for c_ in catalog_cases()}["DL_ATROUS4"]["shapes"]
+    (N, IH, IW, CI), (KH, KW, _, CO) = case["x"], case["w"]
+    ops.reset_launches()
+    conv = conv2d_rows(N, IH, IW, CI, CO, KH, KW, dtype_bytes=2,
+                       stride=case["stride"], dilation=case["dilation"],
+                       device="cuda")
+    torch.cuda.synchronize()
+    conv_launches = take_launches()
+    emit("roofline_traffic", workload="conv2d DL_ATROUS4",
+         rows=[r.row() for r in conv], launches={
+             k: n for k, n in conv_launches.items() if n}, nvidia_smi=card)
+    require(conv_launches["conv2d"] == 1 and
+            sum(conv_launches.values()) == 1 and all(r.within for r in conv),
+            f"roofline: conv2d rows {[r.row() for r in conv]}, launches "
+            f"{conv_launches}")
+    emit("roofline", seconds=time.perf_counter() - t0, nvidia_smi=card)
+    return phase_launches
 
 
 # ---------------------------------------------------------------------------
@@ -3617,6 +3803,10 @@ def main() -> int:
     train_check(params)
     torch.cuda.empty_cache()
     trained = train(params)
+    torch.cuda.empty_cache()
+
+    # phase 5': the op cost counter at full width, the live roofline rows
+    roofline = roofline_phase(params, served)
     del params
     torch.cuda.empty_cache()
 
@@ -3636,10 +3826,11 @@ def main() -> int:
 
     # phase 7: the kernels line (one row per kernel route a main path runs),
     # launches from the paper-workload, serve, serve_fleet, serve_moe,
-    # serve_families, train, train_ring, train_families and recovery phases
+    # serve_families, train, roofline, train_ring, train_families and
+    # recovery phases
     phases = (paper, *(r["launches"] for r in served.values()), fleet, moe,
-              families, trained["launches"], ring, families_trained,
-              recovered)
+              families, trained["launches"], roofline, ring,
+              families_trained, recovered)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in rows}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -2,7 +2,7 @@
 from __future__ import annotations
 
 from .base import (DEFAULT_FLASH_POLICY, DEFAULT_RING_POLICY, FLASH_MODES,
-                   RING_MODES, ArchBundle, FlashAttnPolicy, RingAttnPolicy,
+                   RING_MODES, SHAPES, ArchBundle, FlashAttnPolicy, RingAttnPolicy,
                    decide_flash, decide_ring, flash_attn_policy,
                    ring_attn_policy)
 from . import (granite_moe_3b, internvl2_26b, mamba2_370m, olmoe_1b_7b,
@@ -25,7 +25,7 @@ def get_bundle(arch_id: str, smoke: bool = False) -> ArchBundle:
     return mod.smoke_bundle() if smoke else mod.full_bundle()
 
 
-__all__ = ["ArchBundle", "REGISTRY", "ARCH_IDS", "get_bundle",
+__all__ = ["ArchBundle", "REGISTRY", "ARCH_IDS", "SHAPES", "get_bundle",
            "FLASH_MODES", "FlashAttnPolicy", "DEFAULT_FLASH_POLICY",
            "decide_flash", "flash_attn_policy", "RING_MODES",
            "RingAttnPolicy", "DEFAULT_RING_POLICY", "decide_ring",

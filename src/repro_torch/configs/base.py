@@ -6,10 +6,17 @@ Counterpart of ``repro.configs.base``.  A bundle wires a model family
 recurrentgemma / whisper) to the server and the trainer:
 
   * ``init_params(seed, device)``  — random weights drawn on the device
+  * ``abstract_params()``          — the same tree on the meta device
   * ``forward(params, batch)``     — (logits, aux)
   * ``prefill`` / ``decode_step``  — dense-cache serving steps
   * ``init_paged_pool`` / ``paged_step`` — paged serving steps
+  * ``input_specs(shape)``         — meta tensors for a named shape's step
+  * ``step_kind(shape)``           — which step function the shape runs
   * ``supports(shape)``            — long_500k only for sub-quadratic archs
+
+SHAPES (the reference's): train_4k (4096 x 256, train_step), prefill_32k
+(32768 x 32, prefill), decode_32k (one token, 32k cache, batch 128),
+long_500k (one token, 524288 context, batch 1; SSM/hybrid only).
 """
 from __future__ import annotations
 
@@ -20,6 +27,22 @@ from typing import Any
 import torch
 
 from repro_torch.device import resolve_device
+
+SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
+
+META = torch.device("meta")
+
+
+def tree_nbytes(tree) -> int:
+    """Bytes of every tensor leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    return 0 if tree is None else tree.numel() * tree.element_size()
 
 # ---------------------------------------------------------------------------
 # Context-parallel ring-attention policy
@@ -102,7 +125,8 @@ class FlashAttnPolicy:
     """Which attention engine ``models.layers.attention`` dispatches to.
 
     mode:
-      * ``auto``   — the CUDA kernel for tensors on a CUDA device and
+      * ``auto``   — the CUDA kernel for tensors on a CUDA device (or on
+        the meta device, which stands for the card) and
         sequences at least ``min_seq`` long (below it the plain full-mask
         path is used, as in the reference); the plain paths on the CPU.
       * ``pallas`` — always the kernel (its plain version on the CPU).
@@ -133,7 +157,8 @@ def flash_attn_policy(mode_override: str | None = None) -> FlashAttnPolicy:
 def decide_flash(policy: FlashAttnPolicy, *, seq_len: int, kv_len: int,
                  on_cuda: bool) -> str:
     """'pallas' (the hand-written kernel) or 'xla' for one attention call.
-    ``auto`` requires the tensors to be on a CUDA device and a sequence
+    ``auto`` requires the tensors to be on a CUDA device (``on_cuda``:
+    ``device.card_like``, so meta tensors too) and a sequence
     long enough to amortize the launch (the reference's rule, with the
     TPU replaced by the CUDA card)."""
     if policy.mode != "auto":
@@ -161,6 +186,12 @@ class ArchBundle:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         return self.family.init_params(self.cfg, gen, dev)
+
+    def abstract_params(self) -> dict:
+        """The parameter tree on the meta device: every leaf's shape and
+        dtype, no storage (the reference's ``jax.eval_shape`` of
+        ``init_params``)."""
+        return self.family.init_params(self.cfg, None, META)
 
     def param_count(self) -> int:
         return self.cfg.param_count()
@@ -259,6 +290,30 @@ class ArchBundle:
         return {k: declared.get(k, 0 if v.dim() == 1 else 1)
                 for k, v in cache.items()}
 
+    def min_hbm_bytes(self, shape_name: str) -> int:
+        """Theoretical HBM traffic floor for one step of this shape.
+
+        train:   params read fwd+bwd + grads w+r + Adam mu/nu r+w (f32) +
+                 layer-boundary activations w+r (bf16)
+        decode:  full params read once + KV cache read (+ small writes)
+        prefill: params read + activations written + cache written
+        """
+        sh = SHAPES[shape_name]
+        S, B = sh["seq_len"], sh["global_batch"]
+        kind = sh["kind"]
+        n = self.param_count()
+        D = self.cfg.d_model
+        L = getattr(self.cfg, "n_layers", 1)
+        if kind == "train":
+            act = 2 * 2 * L * B * S * D           # save+read, bf16
+            return int(3 * 2 * n + (4 + 16) * n + act)
+        # serving floors
+        cache_bytes = tree_nbytes(self.init_cache(B, S, device=META))
+        if kind == "decode":
+            return int(2 * n + cache_bytes)
+        act = 2 * B * S * D * L
+        return int(2 * n + cache_bytes + act)
+
     # -- shapes ------------------------------------------------------------
     def supports(self, shape_name: str) -> tuple[bool, str]:
         if shape_name == "long_500k" and not self.sub_quadratic:
@@ -266,3 +321,49 @@ class ArchBundle:
                            "infeasible; run on SSM/hybrid archs only "
                            "(see DESIGN.md §Arch-applicability)")
         return True, ""
+
+    def step_kind(self, shape_name: str) -> str:
+        return SHAPES[shape_name]["kind"]
+
+    def input_specs(self, shape_name: str) -> dict:
+        """Meta tensors standing for every input of the shape's step
+        function (the reference's ShapeDtypeStruct stand-ins): tokens and
+        labels (train), the vision prefix or audio frames of a vlm or audio
+        arch, and the cache of a serving step."""
+        sh = SHAPES[shape_name]
+        S, B = sh["seq_len"], sh["global_batch"]
+        kind = sh["kind"]
+        D = self.cfg.d_model
+
+        def spec(shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device=META)
+
+        if kind == "train":
+            if self.kind == "vlm":
+                P = self.cfg.vision_tokens
+                return {"tokens": spec((B, S - P)),
+                        "labels": spec((B, S - P)),
+                        "vision": spec((B, P, D), self.cfg.dtype)}
+            if self.kind == "audio":
+                return {"tokens": spec((B, S)), "labels": spec((B, S)),
+                        "frames": spec((B, self.cfg.n_audio_ctx, D),
+                                       self.cfg.dtype)}
+            return {"tokens": spec((B, S)), "labels": spec((B, S))}
+
+        if kind == "prefill":
+            specs = {"tokens": spec((B, S))}
+            if self.kind == "vlm":
+                P = self.cfg.vision_tokens
+                specs["tokens"] = spec((B, S - P))
+                specs["vision"] = spec((B, P, D), self.cfg.dtype)
+            if self.kind == "audio":
+                specs["frames"] = spec((B, self.cfg.n_audio_ctx, D),
+                                       self.cfg.dtype)
+            specs["cache"] = self.init_cache(B, S, device=META)
+            return specs
+
+        # decode: one token against a cache of S
+        kv_dt = self.kv_dtype_decode if shape_name == "decode_32k" else None
+        return {"tokens": spec((B, 1)),
+                "cache": self.init_cache(B, S, kv_dtype=kv_dt,
+                                         device=META)}

@@ -165,7 +165,10 @@ def ptxas_report(log: str) -> list[dict]:
 
 
 def check_device(t: torch.Tensor) -> None:
-    """The kernels are built for sm_90a: refuse any other card."""
+    """The kernels are built for sm_90a: refuse any other card.  A meta
+    tensor stands for the card (its kernels' meta routes launch nothing)."""
+    if t.is_meta:
+        return
     cap = torch.cuda.get_device_capability(t.device)
     if cap != (9, 0):
         raise RuntimeError(f"repro_torch CUDA kernels need an sm_90 (Hopper) "

@@ -40,6 +40,10 @@ for the ring's per-hop fold: the causal and window masks compare
 (keys past ``kv_len``, q blocks past ``q_len``).  The pruned schedule is
 the band shifted by ``q_offset - k_offset``; ``prune=False`` walks the
 dense grid, whose extra blocks the masks zero.
+
+On meta tensors each launcher runs its checks and allocates its outputs,
+then stops before the launch (the meta route: shapes and dtypes for the
+dry run and the op cost counter, ``LAUNCHES`` untouched).
 """
 from __future__ import annotations
 
@@ -51,7 +55,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..analysis import kernel_work
+from ..analysis.op_cost import kernel as kernel_cost
 from ..core.cuda_bridge import SM_COUNT, pow2_floor
+from ..device import card_like
 from . import _build
 
 NEG_INF = -1e30  # avoid nan from (-inf) - (-inf)
@@ -686,6 +693,8 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                         *flash_fwd_blocks(route), prune, q_offset, k_offset)
     o = torch.empty_like(q)          # keeps q's (B, S, H, D) memory layout
     lse = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
+    if q.is_meta:        # the meta route: the checks and outputs only
+        return o, lse
     nq = ranges.shape[0]
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), ranges.data_ptr())
@@ -728,8 +737,9 @@ def _check_inputs(what: str, q: torch.Tensor, k: torch.Tensor,
     (the forward's by default), the head dim contiguous."""
     B, H, Sq, D = q.shape
     Bk, Hkv, Sk, Dk = k.shape
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError(f"{what}: q, k, v must lie on one CUDA device")
+    if not (card_like(q) and k.device == q.device and v.device == q.device):
+        raise ValueError(f"{what}: q, k, v must lie on one CUDA (or the "
+                         f"meta) device")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise TypeError(f"{what} takes bf16 or f32 q/k/v of one dtype, got "
@@ -784,7 +794,8 @@ def _bwd_call(name: str, q, k, v, do, lse, delta, outs, ranges, causal,
               plan: DkvPlan | None = None) -> None:
     """Launch kernel ``name`` ('dq' or 'dkv') of ``route`` and count it;
     ``plan``: the split of dk/dv on route "flash_bwd_d256", whose partials
-    go to f32 scratch allocated here."""
+    go to f32 scratch allocated here.  On meta tensors (the meta route)
+    nothing is launched."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -803,6 +814,8 @@ def _bwd_call(name: str, q, k, v, do, lse, delta, outs, ranges, causal,
                                       device=q.device)
             ptrs += (scratch.data_ptr(),)
             ints += (plan.parts,)
+        if q.is_meta:
+            return
         ptrs += (ranges.data_ptr(),)
         fn = _build.bind("flash_bwd", f"{key}_wgmma" if route == "flash_bwd"
                          else key, *[ctypes.c_void_p] * len(ptrs),
@@ -813,6 +826,8 @@ def _bwd_call(name: str, q, k, v, do, lse, delta, outs, ranges, causal,
                  1.0 / math.sqrt(D), _build.stream_ptr(q))
     else:
         key = f"flash_bwd_{name}_simt"
+        if q.is_meta:
+            return
         ptrs += (ranges.data_ptr(),)
         fn = _build.bind("flash_bwd", key, *[ctypes.c_void_p] * len(ptrs),
                          *[ctypes.c_int] * 12, *tail)
@@ -939,11 +954,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Sk, D), lse: f32 (B * H, Sq) from the forward.  Forms ``delta =
     rowsum(o * do)`` in f32 with torch ops, as the reference does outside
     its kernels, then launches the dq and dk/dv kernels of
-    :func:`flash_bwd_route` on CUDA tensors (or raises) and runs the plain
-    versions at that route's blocks and rounding on CPU tensors (at
-    ``blocks`` for both kernels, where given).  ``prune=False`` hands the
-    kernels the dense grid; the offsets shift the band.  Returns (dq, dk,
-    dv) in f32 with q's, k's and v's shapes."""
+    :func:`flash_bwd_route` on CUDA tensors (or raises; their meta routes
+    on meta tensors) and runs the plain versions at that route's blocks
+    and rounding on CPU tensors (at ``blocks`` for both kernels, where
+    given).  ``prune=False`` hands the kernels the dense grid; the offsets
+    shift the band.  Returns (dq, dk, dv) in f32 with q's, k's and v's
+    shapes and memory layouts."""
     B, H, Sq, D = q.shape
     if do.stride(-1) != 1:                 # e.g. an expanded gradient
         do = do.contiguous()
@@ -951,17 +967,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         .contiguous()
     kw = dict(causal=causal, window=window, q_offset=q_offset,
               k_offset=k_offset)
-    if q.is_cuda:
-        return flash_attention_bwd_cuda(q, k, v, do, lse, delta, **kw,
-                                        prune=prune)
-    plain_kw = flash_bwd_plain_kw(flash_bwd_route(q, k, v, do))
-    if blocks is not None:
-        plain_kw.update(block_q=blocks[0], block_k=blocks[1],
-                        dkv_blocks=tuple(blocks))
-    dq, dk, dv = flash_attention_bwd_plain(
-        q.reshape(B * H, Sq, D), *_kv_rows(k, v), do.reshape(B * H, Sq, D),
-        lse, delta, **kw, **plain_kw, prune=prune)
-    return dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape)
+    with kernel_cost(functools.partial(kernel_work.flash_bwd_of, q, k,
+                                       **kw)):
+        if card_like(q):
+            return flash_attention_bwd_cuda(q, k, v, do, lse, delta, **kw,
+                                            prune=prune)
+        plain_kw = flash_bwd_plain_kw(flash_bwd_route(q, k, v, do))
+        if blocks is not None:
+            plain_kw.update(block_q=blocks[0], block_k=blocks[1],
+                            dkv_blocks=tuple(blocks))
+        grads = flash_attention_bwd_plain(
+            q.reshape(B * H, Sq, D), *_kv_rows(k, v),
+            do.reshape(B * H, Sq, D), lse, delta, **kw, **plain_kw,
+            prune=prune)
+        # in the inputs' memory layouts, as the kernels write them
+        return tuple(torch.empty_like(x, dtype=torch.float32)
+                     .copy_(g.reshape(x.shape))
+                     for x, g in zip((q, k, v), grads))
 
 
 class FlashAttention(torch.autograd.Function):
@@ -970,24 +992,20 @@ class FlashAttention(torch.autograd.Function):
     Sk, D).  The forward saves (q, k, v, o, lse) and the offsets; the
     backward is :func:`flash_attention_bwd`, cast to the inputs' dtypes.
     On CUDA tensors each half launches its kernels (or raises) on the
-    dense grid when ``prune`` is False; on CPU tensors it runs the plain
-    versions, at ``blocks`` where given."""
+    dense grid when ``prune`` is False; on meta tensors each takes the
+    kernels' meta routes; on CPU tensors it runs the plain versions, at
+    ``blocks`` where given.  Each half reports its kernels' work to an
+    active op cost counter (``analysis.op_cost``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, prune=True, blocks=None,
                 q_offset=0, k_offset=0):
         offs = dict(q_offset=q_offset, k_offset=k_offset)
-        if q.is_cuda:
-            o, lse = flash_attention_fwd_cuda(q, k, v, causal=causal,
-                                              window=window, prune=prune,
-                                              **offs)
-        else:
-            B, H, Sq, D = q.shape
-            bq, bk = blocks or flash_fwd_blocks(flash_fwd_route(q, k, v))
-            o, lse = flash_attention_fwd_plain(
-                q.reshape(B * H, Sq, D), *_kv_rows(k, v), causal=causal,
-                window=window, block_q=bq, block_k=bk, prune=prune, **offs)
-            o = o.reshape(q.shape)
+        with kernel_cost(functools.partial(
+                kernel_work.flash_fwd_of, q, k, causal=causal,
+                window=window, **offs)):
+            o, lse = flash_fwd_any(q, k, v, causal=causal, window=window,
+                                   prune=prune, blocks=blocks, **offs)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         ctx.prune, ctx.blocks, ctx.offs = prune, blocks, offs
@@ -1002,6 +1020,27 @@ class FlashAttention(torch.autograd.Function):
                                          blocks=ctx.blocks, **ctx.offs)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
                 None, None, None, None)
+
+
+def flash_fwd_any(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool, window: int | None, prune: bool = True,
+                  blocks: tuple[int, int] | None = None, q_offset: int = 0,
+                  k_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward's (o, lse) on (B, H, Sq, D) q and (B, Hkv, Sk, D) k/v on
+    any device: the kernel (its meta route on meta tensors) on the card,
+    the plain version at ``blocks`` (default the route's) on the CPU.  o
+    has q's shape and, on every device, q's memory layout (so what follows
+    runs the same ops everywhere); lse is f32 (B * H, Sq)."""
+    offs = dict(q_offset=q_offset, k_offset=k_offset)
+    if card_like(q):
+        return flash_attention_fwd_cuda(q, k, v, causal=causal,
+                                        window=window, prune=prune, **offs)
+    B, H, Sq, D = q.shape
+    bq, bk = blocks or flash_fwd_blocks(flash_fwd_route(q, k, v))
+    o, lse = flash_attention_fwd_plain(
+        q.reshape(B * H, Sq, D), *_kv_rows(k, v), causal=causal,
+        window=window, block_q=bq, block_k=bk, prune=prune, **offs)
+    return torch.empty_like(q).copy_(o.reshape(q.shape)), lse
 
 
 def _kv_rows(k: torch.Tensor, v: torch.Tensor):
@@ -1097,9 +1136,9 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     their (batch, head, seq) strides in place; q, caches need a contiguous
     last dimension, one dtype (bf16 or f32); lengths int32."""
     tensors = (q, k_cache, v_cache, lengths)
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
+    if not all(card_like(t) and t.device == q.device for t in tensors):
         raise ValueError("flash_decode_cuda: every operand must lie on q's "
-                         "CUDA device")
+                         "CUDA (or the meta) device")
     if q.dtype not in _DTYPE_CODE or k_cache.dtype != q.dtype or \
             v_cache.dtype != q.dtype:
         raise TypeError(f"flash_decode_cuda takes bf16 or f32 q and caches "
@@ -1131,6 +1170,8 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                                device=q.device)
         part_ml = torch.empty((B, H, nsplit, 2), dtype=torch.float32,
                               device=q.device)
+    if q.is_meta:        # the meta route: the checks and outputs only
+        return out
     strides = (ctypes.c_longlong * 10)(
         q.stride(0), q.stride(1), *k_cache.stride()[:3],
         *v_cache.stride()[:3], out.stride(0), out.stride(1))

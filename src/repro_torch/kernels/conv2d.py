@@ -16,6 +16,7 @@ import ctypes
 import torch
 
 from ..core.cuda_bridge import CONV_TILES, conv2d_k_steps
+from ..device import card_like
 from . import _build
 
 _DTYPE = {torch.bfloat16: 0, torch.float32: 1}
@@ -67,8 +68,8 @@ def _check(what: str, x: torch.Tensor, w: torch.Tensor, stride: int,
            dilation: int, dtypes) -> tuple[int, ...]:
     """The launch contract both kernels share; returns (N, IH, IW, CI, OH,
     OW, CO, KH, KW)."""
-    if not (x.is_cuda and w.is_cuda and x.device == w.device):
-        raise ValueError(f"{what}: x and w must lie on one CUDA device")
+    if not (card_like(x) and card_like(w) and x.device == w.device):
+        raise ValueError(f"{what}: x and w must lie on one CUDA (or the meta) device")
     if x.dtype not in dtypes or w.dtype != x.dtype:
         raise TypeError(f"{what} takes {' or '.join(map(str, dtypes))} of "
                         f"one dtype, got {x.dtype} and {w.dtype}")
@@ -110,6 +111,8 @@ def conv2d_cuda(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     out = torch.empty((N, OH, OW, CO), dtype=x.dtype, device=x.device)
     part = (torch.empty((splits, N * OH * OW, CO), dtype=torch.float32,
                         device=x.device) if splits > 1 else None)
+    if x.is_meta:        # the meta route: the checks and outputs only
+        return out
     fn = _build.bind("conv2d", "conv2d_wgmma", *[ctypes.c_void_p] * 4,
                      *[ctypes.c_int] * 15)
     err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
@@ -138,6 +141,8 @@ def conv2d_simt_cuda(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     N, IH, IW, CI, OH, OW, CO, KH, KW = _check(
         "conv2d_simt_cuda", x, w, stride, dilation, tuple(_DTYPE))
     out = torch.empty((N, OH, OW, CO), dtype=x.dtype, device=x.device)
+    if x.is_meta:        # the meta route: the checks and outputs only
+        return out
     fn = _build.bind("conv2d", "conv2d_simt", *[ctypes.c_void_p] * 3,
                      *[ctypes.c_int] * 14)
     err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), _DTYPE[x.dtype],

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from ..core.cuda_bridge import (CORR_MAX_RADIUS, CORR_TX, CorrPlan,
                                 correlation_block_n, correlation_plan)
+from ..device import card_like
 from . import _build
 
 _DTYPE = {torch.bfloat16: 0, torch.float32: 1}
@@ -95,8 +96,8 @@ def _check(what: str, i1: torch.Tensor, i2: torch.Tensor, radius: int,
     if not 0 <= radius <= MAX_RADIUS:
         raise ValueError(f"{what}: radius {radius} not built (radius "
                          f"0..{MAX_RADIUS})")
-    if not (i1.is_cuda and i2.is_cuda and i1.device == i2.device):
-        raise ValueError(f"{what}: i1 and i2 must lie on one CUDA device")
+    if not (card_like(i1) and card_like(i2) and i1.device == i2.device):
+        raise ValueError(f"{what}: i1 and i2 must lie on one CUDA (or the meta) device")
     if i1.dtype not in dtypes or i2.dtype != i1.dtype:
         raise TypeError(f"{what} takes {' or '.join(map(str, dtypes))} of "
                         f"one dtype, got {i1.dtype} and {i2.dtype}")
@@ -123,6 +124,8 @@ def correlation_cuda(i1: torch.Tensor, i2: torch.Tensor, *, radius: int,
     p = plan or correlation_plan(H, W, C, radius)
     D = 2 * radius + 1
     out = torch.empty((H, W, D, D), dtype=i1.dtype, device=i1.device)
+    if i1.is_meta:        # the meta route: the checks and outputs only
+        return out
     fn = _build.bind("correlation", "correlation_wgmma",
                      *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 9)
     err = fn(i1.data_ptr(), i2.data_ptr(), out.data_ptr(), H, W, C, radius,
@@ -145,6 +148,8 @@ def correlation_simt_cuda(i1: torch.Tensor, i2: torch.Tensor, *,
     H, W, C = _check("correlation_simt_cuda", i1, i2, radius, tuple(_DTYPE))
     D = 2 * radius + 1
     out = torch.empty((H, W, D, D), dtype=i1.dtype, device=i1.device)
+    if i1.is_meta:        # the meta route: the checks and outputs only
+        return out
     fn = _build.bind("correlation", "correlation_simt",
                      *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 6)
     err = fn(i1.data_ptr(), i2.data_ptr(), out.data_ptr(), _DTYPE[i1.dtype],

@@ -26,6 +26,7 @@ import torch
 
 from ..core.cuda_bridge import (GEMV_MAX_M, MATMUL_TILES, WGMMA_TILES,
                                  gemv_plan)
+from ..device import card_like
 from . import _build
 
 _DTYPE = {torch.bfloat16: 0, torch.float32: 1}
@@ -83,8 +84,8 @@ def _check(what: str, a: torch.Tensor, b: torch.Tensor, *,
     """What a kernel takes: a and b on one sm_90 device, one dtype (bf16,
     or also f32), (M, K) @ (K, N) with unit column strides, and the
     operands named in ``aligned`` readable by TMA (``_tma_ok``)."""
-    if not (a.is_cuda and b.is_cuda and a.device == b.device):
-        raise ValueError(f"{what}: a and b must lie on one CUDA device")
+    if not (card_like(a) and card_like(b) and a.device == b.device):
+        raise ValueError(f"{what}: a and b must lie on one CUDA (or the meta) device")
     dtypes = (torch.bfloat16,) if bf16_only else tuple(_DTYPE)
     if a.dtype not in dtypes or b.dtype != a.dtype:
         raise TypeError(f"{what} takes {'/'.join(map(str, dtypes))} of one "
@@ -122,6 +123,8 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *, block_m: int,
     M, K = a.shape
     N = b.shape[1]
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    if a.is_meta:        # the meta route: the checks and outputs only
+        return out
     fn = _build.bind("matmul", "matmul_wgmma", *[ctypes.c_void_p] * 3,
                      *[ctypes.c_int] * 3, *[ctypes.c_longlong] * 2,
                      *[ctypes.c_int] * 2)
@@ -145,6 +148,8 @@ def matmul_gemv_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     splits, kchunk = gemv_plan(M, N, K)
     part = torch.empty((splits, M, N), dtype=torch.float32, device=a.device)
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    if a.is_meta:        # the meta route: the checks and outputs only
+        return out
     fn = _build.bind("matmul", "matmul_gemv", *[ctypes.c_void_p] * 4,
                      *[ctypes.c_int] * 3, *[ctypes.c_longlong] * 2,
                      *[ctypes.c_int] * 2)
@@ -172,6 +177,8 @@ def matmul_simt_cuda(a: torch.Tensor, b: torch.Tensor, *, block_m: int,
     M, K = a.shape
     N = b.shape[1]
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    if a.is_meta:        # the meta route: the checks and outputs only
+        return out
     fn = _build.bind("matmul", "matmul_simt", *[ctypes.c_void_p] * 3,
                      *[ctypes.c_int] * 4, *[ctypes.c_longlong] * 3,
                      *[ctypes.c_int] * 3)

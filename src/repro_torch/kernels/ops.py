@@ -11,8 +11,16 @@ then
   nothing falls back to the plain version or to the CPU.  Each kernel's
   launcher adds one to its entry in :data:`LAUNCHES` where it launches,
   whichever entry point called it;
+* on meta tensors takes each kernel's meta route: the launcher's checks
+  and its outputs' shapes and dtypes, and no launch (the dry run and the
+  op cost counter);
 * on CPU tensors runs the plain PyTorch version of the same arithmetic
   (the path the parity tests take).
+
+Under an op cost counter (``analysis.op_cost``) each wrapper reports its
+kernel's work (``analysis.kernel_work``) on every device, and none of the
+aten ops inside it counts, so a call counts the same on the card, the CPU
+and the meta device.
 
 ``matmul`` takes one of three routes (``kernels.matmul.matmul_route``:
 the ``wgmma`` kernel for bf16 with M > 1, the split-K GEMV for bf16 with
@@ -45,6 +53,8 @@ from . import conv2d as _conv2d
 from . import correlation as _correlation
 from . import matmul as _matmul
 from . import paged_attention as _paged_attention
+from ..analysis import kernel_work
+from ..analysis.op_cost import kernel as kernel_cost
 from ._build import LAUNCHES
 
 
@@ -69,11 +79,29 @@ def _record_dispatch(kernel: str, **args) -> None:
 
 
 def _impl(x: torch.Tensor) -> str:
+    """"cuda" (the kernels), "meta" (their meta routes: the launchers'
+    checks and outputs, no launch) or "plain" (the CPU's plain versions);
+    any other device raises."""
     if x.is_cuda:
         return "cuda"
+    if x.is_meta:
+        return "meta"
     if x.device.type == "cpu":
         return "plain"
     raise ValueError(f"no kernel for device {x.device}")
+
+
+def _dt(t: torch.Tensor) -> str:
+    return str(t.dtype).split(".")[-1]
+
+
+def _live_tokens(lengths: torch.Tensor, cap: int) -> int:
+    """Tokens a decode call attends: the lengths' sum, each at most
+    ``cap`` (a host read, made only under a cost counter); on the meta
+    device, which has no lengths, every row at ``cap``."""
+    if lengths.is_meta:
+        return cap * lengths.shape[0]
+    return int(lengths.long().clamp(max=cap).sum())
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int | None = None,
@@ -91,6 +119,14 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int | None = None,
     for raises."""
     M, K = a.shape
     _, N = b.shape
+    with kernel_cost(lambda: kernel_work.matmul(
+            M, N, K, itemsize=a.element_size(), dtype=_dt(a))):
+        return _matmul_call(a, b, block_m, block_n, block_k)
+
+
+def _matmul_call(a, b, block_m, block_n, block_k) -> torch.Tensor:
+    M, K = a.shape
+    _, N = b.shape
     route = _matmul.matmul_route(
         a, b, tiled=any(x is not None for x in (block_m, block_n, block_k)))
     impl = _impl(a)
@@ -98,7 +134,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int | None = None,
         splits, kchunk = gemv_plan(M, N, K)
         _record_dispatch("matmul", impl=impl, route=route, M=M, N=N, K=K,
                          splits=splits, kchunk=kchunk)
-        if impl == "cuda":
+        if impl != "plain":
             return _matmul.matmul_gemv_cuda(a, b)
         return _matmul.matmul_gemv_plain(a, b)
     if block_m is None or block_n is None or block_k is None:
@@ -109,7 +145,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int | None = None,
         block_k = block_k or bk
     _record_dispatch("matmul", impl=impl, route=route, M=M, N=N, K=K,
                      block_m=block_m, block_n=block_n, block_k=block_k)
-    if impl == "cuda":
+    if impl != "plain":
         launch = (_matmul.matmul_cuda if route == "matmul"
                   else _matmul.matmul_simt_cuda)
         return launch(a, b, block_m=block_m, block_n=block_n,
@@ -131,9 +167,20 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     N, IH, IW, CI = x.shape
     KH, KW, _, CO = w.shape
     OH, OW = _conv2d.out_hw(IH, IW, KH, KW, stride, dilation)
+    with kernel_cost(lambda: kernel_work.conv2d(
+            N, IH, IW, CI, KH, KW, CO, OH, OW, itemsize=x.element_size(),
+            dtype=_dt(x))):
+        return _conv2d_call(x, w, stride, dilation, block_oh, block_co,
+                            OH, OW)
+
+
+def _conv2d_call(x, w, stride, dilation, block_oh, block_co, OH,
+                 OW) -> torch.Tensor:
+    N, _, _, CI = x.shape
+    KH, KW, _, CO = w.shape
     impl = _impl(x)
     route = _conv2d.conv2d_route(x, w)
-    if route == "conv2d" and (impl == "cuda" or
+    if route == "conv2d" and (impl != "plain" or
                               conv2d_blocks_built(block_oh, block_co)):
         plan = conv2d_plan(N, OH, OW, CI, CO, KH, KW, stride=stride,
                            block_oh=block_oh, block_co=block_co)
@@ -141,7 +188,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                          ci=CI, co=CO, block_oh=plan.block_oh,
                          block_ow=plan.block_ow, block_co=plan.block_co,
                          splits=plan.splits, ctas=plan.ctas)
-        if impl == "cuda":
+        if impl != "plain":
             return _conv2d.conv2d_cuda(
                 x, w, stride=stride, dilation=dilation,
                 block_oh=plan.block_oh, block_ow=plan.block_ow,
@@ -151,7 +198,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
         block_co = min(block_co or 128, CO)
         _record_dispatch("conv2d", impl=impl, route=route, oh=OH, ow=OW,
                          ci=CI, co=CO, block_oh=block_oh, block_co=block_co)
-        if impl == "cuda":
+        if impl != "plain":
             return _conv2d.conv2d_simt_cuda(x, w, stride=stride,
                                             dilation=dilation,
                                             block_oh=block_oh,
@@ -171,6 +218,13 @@ def correlation(i1: torch.Tensor, i2: torch.Tensor, *, radius: int,
     reference's ``block_y`` and its clamp.  On the CPU both routes run
     ``correlation_plain``."""
     H, W, C = i1.shape
+    with kernel_cost(lambda: kernel_work.correlation(
+            H, W, C, radius, itemsize=i1.element_size(), dtype=_dt(i1))):
+        return _correlation_call(i1, i2, radius, block_y)
+
+
+def _correlation_call(i1, i2, radius, block_y) -> torch.Tensor:
+    H, W, C = i1.shape
     impl = _impl(i1)
     route = _correlation.correlation_route(i1, i2, radius)
     if route == "correlation":
@@ -179,14 +233,14 @@ def correlation(i1: torch.Tensor, i2: torch.Tensor, *, radius: int,
                          c=C, radius=radius, rows=plan.rows,
                          dy_group=plan.dy_group, block_n=plan.block_n,
                          stages=plan.stages, ctas=plan.ctas)
-        if impl == "cuda":
+        if impl != "plain":
             return _correlation.correlation_cuda(i1, i2, radius=radius,
                                                  plan=plan)
     else:
         block_y = min(block_y, H)
         _record_dispatch("correlation", impl=impl, route=route, h=H, w=W,
                          c=C, radius=radius, block_y=block_y)
-        if impl == "cuda":
+        if impl != "plain":
             return _correlation.correlation_simt_cuda(i1, i2, radius=radius,
                                                       block_y=block_y)
     return _correlation.correlation_plain(i1, i2, radius=radius)
@@ -199,18 +253,21 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     lengths: (B,) int32.  Returns (B, H, D).  The history is cut into
     splits of ``block_k`` cached tokens (after the reference's clamp), one
     CTA each on the card, combined by their lse."""
-    B = q.shape[0]
-    S = k_cache.shape[2]
+    B, H, D = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
     block_k = min(block_k, S)
     impl = _impl(q)
     _record_dispatch("flash_decode", impl=impl, batch=B, s=S,
                      block_k=block_k,
                      splits=_attention.decode_splits(S, block_k))
-    if impl == "cuda":
-        return _attention.flash_decode_cuda(q, k_cache, v_cache, lengths,
-                                            block_k=block_k)
-    return _attention.flash_decode_plain(q, k_cache, v_cache, lengths,
-                                         block_k=block_k)
+    with kernel_cost(lambda: kernel_work.flash_decode(
+            B, H, Hkv, D, live_tokens=_live_tokens(lengths, S),
+            itemsize=q.element_size(), dtype=_dt(q))):
+        if impl != "plain":
+            return _attention.flash_decode_cuda(q, k_cache, v_cache,
+                                                lengths, block_k=block_k)
+        return _attention.flash_decode_plain(q, k_cache, v_cache, lengths,
+                                             block_k=block_k)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -236,15 +293,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the output keeps q's memory layout.  Fully masked k blocks are pruned
     from the schedule; ``prune=False`` walks the dense grid, whose extra
     blocks the kernels mask to exactly 0."""
-    B, H, Sq, D = q.shape
-    _, Hkv, Sk, _ = k.shape
+    Sq, Sk = q.shape[2], k.shape[2]
     impl = _impl(q)
     train = trainable and torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
     route = _attention.flash_fwd_route(q, k, v)
     rbq, rbk = _attention.flash_fwd_blocks(route)
     bq, bk = block_q or rbq, block_k or rbk
-    if impl == "cuda" and (bq, bk) != (rbq, rbk):
+    if impl != "plain" and (bq, bk) != (rbq, rbk):
         raise ValueError(f"flash_attention: blocks (block_q {bq}, block_k "
                          f"{bk}) are not the ones route {route} is built "
                          f"for ({rbq}, {rbk})")
@@ -263,18 +319,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if train:
         return _attention.flash_attention_train(
             q, k, v, causal=causal, window=window, prune=prune,
-            blocks=None if impl == "cuda" else (bq, bk), q_offset=q_offset)
-    with torch.no_grad():
-        if impl == "cuda":
-            o, _ = _attention.flash_attention_fwd_cuda(
-                q, k, v, causal=causal, window=window, prune=prune,
-                q_offset=q_offset)
-            return o
-        o, _ = _attention.flash_attention_fwd_plain(
-            q.reshape(B * H, Sq, D), k.reshape(B * Hkv, Sk, D),
-            v.reshape(B * Hkv, Sk, D), causal=causal, window=window,
-            block_q=bq, block_k=bk, q_offset=q_offset)
-    return o.reshape(B, H, Sq, D)
+            blocks=None if impl != "plain" else (bq, bk), q_offset=q_offset)
+    with torch.no_grad(), kernel_cost(lambda: kernel_work.flash_fwd_of(
+            q, k, causal=causal, window=window, q_offset=q_offset)):
+        o, _ = _attention.flash_fwd_any(q, k, v, causal=causal,
+                                        window=window, prune=prune,
+                                        blocks=(bq, bk), q_offset=q_offset)
+    return o
 
 
 def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
@@ -299,7 +350,12 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                      impl=impl if not quant else f"{impl}-int8",
                      batch=B, pages=P, page_size=page_size, max_pages=MP,
                      pages_per_split=pps, splits=nsplit)
-    fn = (_paged_attention.paged_flash_decode_cuda if impl == "cuda" else
+    fn = (_paged_attention.paged_flash_decode_cuda if impl != "plain" else
           _paged_attention.paged_flash_decode_plain)
-    return fn(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale,
-              pages_per_split=pps)
+    with kernel_cost(lambda: kernel_work.paged_decode(
+            B, q.shape[1], Hkv, q.shape[2],
+            live_tokens=_live_tokens(lengths, MP * page_size),
+            max_pages=MP, kv_itemsize=k_pages.element_size(),
+            q_itemsize=q.element_size(), quant=quant)):
+        return fn(q, k_pages, v_pages, page_table, lengths, k_scale,
+                  v_scale, pages_per_split=pps)

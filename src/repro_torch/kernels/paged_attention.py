@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from ..device import card_like
 from . import _build
 
 NEG_INF = -1e30
@@ -151,9 +152,9 @@ def paged_flash_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     tensors = [q, k_pages, v_pages, page_table, lengths]
     if quant:
         tensors += [k_scale, v_scale]
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
+    if not all(card_like(t) and t.device == q.device for t in tensors):
         raise ValueError("paged_flash_decode_cuda: every operand must lie on "
-                         "q's CUDA device")
+                         "q's CUDA (or the meta) device")
     if q.dtype not in _Q_DTYPE:
         raise TypeError(f"paged_flash_decode_cuda takes bf16 or f32 q, got "
                         f"{q.dtype}")
@@ -203,6 +204,8 @@ def paged_flash_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     strides = (ctypes.c_longlong * 11)(
         q.stride(0), q.stride(1), *k_pages.stride()[:3], *sc,
         page_table.stride(0), out.stride(0), out.stride(1))
+    if q.is_meta:        # the meta route: the checks and outputs only
+        return out
     fn = _build.bind("paged_decode", "paged_decode", *[ctypes.c_void_p] * 10,
                      *[ctypes.c_int] * 10, ctypes.POINTER(ctypes.c_longlong),
                      ctypes.c_float)

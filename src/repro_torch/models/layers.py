@@ -26,8 +26,9 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+import torch.utils.checkpoint
 
+from repro_torch.device import card_like
 from repro_torch.parallel.mesh import LocalRing, get_mesh, set_mesh
 from repro_torch.parallel.ring_attention import ring_attention
 
@@ -47,14 +48,24 @@ def unstack(tree: dict | None) -> list[dict]:
     return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
+def checkpoint(fn, *args, use_reentrant: bool, **kw):
+    """``torch.utils.checkpoint.checkpoint`` keeping no RNG state: the
+    recomputed units draw no random numbers, and on the card the state's
+    restore is a copy a unit (a step would then run other ops there than
+    on the meta device)."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=use_reentrant, preserve_rng_state=False,
+        **kw)
+
+
 def remat_call(fn, *args):
     """``fn(*args)``; with grad enabled, under ``torch.utils.checkpoint``
     (the reference's per-layer ``remat``, on by default, under
     ``nothing_saveable``): only the inputs are kept, and the backward runs
     ``fn`` again, flash forward kernel (or ring) included, under the mesh
     the forward saw (autograd may recompute on another thread, where the
-    active mesh is not set).  Serving paths run under ``torch.no_grad()``
-    and call ``fn`` plainly."""
+    active mesh is not set), keeping no RNG state (:func:`checkpoint`).
+    Serving paths run under ``torch.no_grad()`` and call ``fn`` plainly."""
     if not torch.is_grad_enabled():
         return fn(*args)
     mesh = get_mesh()
@@ -313,7 +324,7 @@ def attention(q, k, v, *, causal=True, window=None, impl=None,
                          "(None, 'auto', 'pallas', 'xla')")
     mode = _flash_mode(q.shape[1], k.shape[1],
                        None if impl in (None, "auto") else impl,
-                       on_cuda=q.is_cuda)
+                       on_cuda=card_like(q))
     # the ring's masks start its shards at global position 0, and offset
     # callers (chunked q against a longer kv) stay on the plain paths, as
     # the reference's kernel wrapper masks in local positions
@@ -417,7 +428,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
     if impl in (None, "auto"):
         # decode q is one token; the flash policy's min-seq threshold is a
         # prefill knob, so auto here is purely a device question
-        impl = "pallas" if q.is_cuda else "xla"
+        impl = "pallas" if card_like(q) else "xla"
     from repro_torch.kernels import ops as kops
     if impl == "pallas" and T == 1:
         # the kernel wrapper records this dispatch itself

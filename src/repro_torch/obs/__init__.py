@@ -1,13 +1,15 @@
 """Unified telemetry: metrics registry + span tracer + traffic accounting.
 
-Two layers (the reference package's ``repro.obs`` has a third, the live
-roofline, which this package has not ported yet):
+Three layers, as the reference package's ``repro.obs``:
 
 1. :mod:`repro_torch.obs.metrics` — labeled counters/gauges/histograms with one
    process-wide :data:`~repro_torch.obs.metrics.REGISTRY` that absorbs the
    repo's scattered ad-hoc stats;
 2. :mod:`repro_torch.obs.trace` — nested span tracer (virtual-clock compatible)
    with a Chrome trace-event JSON exporter perfetto can load;
+3. :mod:`repro_torch.obs.roofline_live` — observed-vs-predicted traffic rows
+   (the serving engine's KV traffic counters, the op cost counter's flops
+   and bytes of a kernel call) against their analytic predictions;
 
 The :class:`Telemetry` facade bundles a tracer with the registry and a
 single ``enabled`` switch.  The GLOBAL default is DISABLED: hot paths
@@ -19,8 +21,9 @@ reads per tick (< 2% tick time — asserted by the smoke benchmark).
 handed a Telemetry explicitly (kernel wrappers, checkpoint manager) reach
 it through :func:`get_telemetry`.
 
-The package imports no tensor library, so the host-side control modules
-that import it stay import-light too.
+The package imports no tensor library (``roofline_live`` imports torch
+only inside the functions that run a kernel), so the host-side control
+modules that import it stay import-light too.
 """
 from __future__ import annotations
 

@@ -1,15 +1,21 @@
 """Distribution of the port: named meshes over local and process rings
-(``parallel.mesh``), ring attention with its memory-flat backward, the
-ring matmul and GPipe stages over the mesh.  Counterpart of
-``repro.parallel``; the sharding specs (``param_specs`` and the rest) are
-not ported yet."""
+(``parallel.mesh``), the sharding rules (``parallel.sharding``: the
+reference's specs as tuples of mesh-axis names, their DTensor placements
+and each rank's local shapes), ring attention with its memory-flat
+backward, the ring matmul and GPipe stages over the mesh.  Counterpart of
+``repro.parallel``.  The rules place nothing yet: the step that runs on
+sharded tensors comes with the sharded-state slice."""
 from .mesh import (LocalRing, Mesh, ProcessRing, get_mesh, make_mesh,
                    make_process_mesh, set_mesh)
 from .pipeline import pipeline_forward
 from .ring_attention import ring_attention, ring_attention_local
 from .ring_matmul import allgather_matmul, ring_matmul, ring_matmul_ref
+from .sharding import (batch_specs, cache_specs, local_shape, make_shardings,
+                       paged_pool_specs, param_specs, placements)
 
 __all__ = ["Mesh", "LocalRing", "ProcessRing", "make_mesh",
            "make_process_mesh", "set_mesh", "get_mesh", "ring_matmul",
            "ring_matmul_ref", "allgather_matmul", "ring_attention",
-           "ring_attention_local", "pipeline_forward"]
+           "ring_attention_local", "pipeline_forward", "param_specs",
+           "batch_specs", "cache_specs", "paged_pool_specs",
+           "make_shardings", "placements", "local_shape"]

@@ -45,8 +45,14 @@ from collections.abc import Iterator, Sequence
 
 import torch
 
+from ..analysis.op_cost import collective
+
 __all__ = ["Mesh", "LocalRing", "ProcessRing", "make_mesh",
            "make_process_mesh", "set_mesh", "get_mesh"]
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 class LocalRing:
@@ -75,11 +81,20 @@ class LocalRing:
 
     def shift(self, *xs: list) -> tuple[list, ...]:
         """Each argument is a per-rank list; rank i's entry moves to rank
-        i + 1."""
+        i + 1.  An op cost counter counts the hop as the
+        ``collective-permute`` it would be between cards: every entry's
+        bytes (none on a ring of one)."""
         self.hops += 1
+        if self.size > 1:
+            collective("collective-permute",
+                       sum(_nbytes(t) for x in xs for t in x))
         return tuple([x[-1], *x[:-1]] for x in xs)
 
     def all_sum(self, xs: list) -> list:
+        """The entries' sum, for every rank; counted as the ``all-reduce``
+        it would be between cards (the sum's bytes at every rank)."""
+        if self.size > 1:
+            collective("all-reduce", self.size * _nbytes(xs[0]))
         total = xs[0]
         for x in xs[1:]:
             total = total + x

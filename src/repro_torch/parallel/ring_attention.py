@@ -53,6 +53,9 @@ from collections.abc import Iterator
 
 import torch
 
+from ..analysis import kernel_work
+from ..analysis.op_cost import kernel as kernel_cost
+from ..device import card_like
 from .mesh import LocalRing, Mesh, get_mesh
 
 __all__ = ["ring_attention", "ring_attention_local", "record_ring_passes",
@@ -156,25 +159,36 @@ def _hop_fwd(spec: _RingSpec, q, k, v, q_off: int, k_off: int):
     B, S_l, H, D = q.shape
     kw = dict(causal=spec.causal, window=spec.window, q_offset=q_off,
               k_offset=k_off)
-    if q.is_cuda:
-        o, lse = katt.flash_attention_fwd_cuda(_heads(q), _heads(k),
-                                               _heads(v), prune=True, **kw)
-        return o.transpose(1, 2), lse.view(B, H, S_l)
-    o, lse = katt.flash_attention_fwd_plain(
-        _flat(q), _flat(k), _flat(v), block_q=spec.block_q,
-        block_k=spec.block_k, **kw)
-    return o.view(B, H, S_l, D).transpose(1, 2), lse.view(B, H, S_l)
+    with kernel_cost(lambda: kernel_work.flash_fwd_of(_heads(q), _heads(k),
+                                                      **kw)):
+        if card_like(q):
+            o, lse = katt.flash_attention_fwd_cuda(
+                _heads(q), _heads(k), _heads(v), prune=True, **kw)
+            return o.transpose(1, 2), lse.view(B, H, S_l)
+        o, lse = katt.flash_attention_fwd_plain(
+            _flat(q), _flat(k), _flat(v), block_q=spec.block_q,
+            block_k=spec.block_k, **kw)
+        return o.view(B, H, S_l, D).transpose(1, 2), lse.view(B, H, S_l)
 
 
 def _hop_bwd(spec: _RingSpec, q, k, v, do, lse, delta, q_off: int,
              k_off: int):
     """One hop's flash backward with the ring's global ``lse`` and
     ``delta`` (f32 (B * H, S_l), contiguous): f32 (dq, dk, dv) in the
-    (B, S, H, D) layout."""
+    (B, S, H, D) layout.  Each hop reports the pair's work to an active
+    op cost counter, as the kernel entries do."""
+    with kernel_cost(lambda: kernel_work.flash_bwd_of(
+            _heads(q), _heads(k), causal=spec.causal, window=spec.window,
+            q_offset=q_off, k_offset=k_off)):
+        return _hop_bwd_run(spec, q, k, v, do, lse, delta, q_off, k_off)
+
+
+def _hop_bwd_run(spec: _RingSpec, q, k, v, do, lse, delta, q_off: int,
+                 k_off: int):
     from ..kernels import attention as katt
     kw = dict(causal=spec.causal, window=spec.window, q_offset=q_off,
               k_offset=k_off)
-    if q.is_cuda:
+    if card_like(q):
         args = (_heads(q), _heads(k), _heads(v), _heads(do), lse, delta)
         dq = katt.flash_bwd_dq_cuda(*args, prune=True, **kw)
         dk, dv = katt.flash_bwd_dkv_cuda(*args, prune=True, **kw)
@@ -416,7 +430,7 @@ def _decide_fused(fused: bool | None, S_global: int, S_local: int, Dh: int,
 
 def _spec(ring, q, S_local: int, *, causal, window, fused) -> _RingSpec:
     use_fused, bq, bk = _decide_fused(fused, S_local * ring.size, S_local,
-                                      q.shape[-1], q.is_cuda)
+                                      q.shape[-1], card_like(q))
     return _RingSpec(ring=ring, m=ring.size, causal=bool(causal),
                      window=None if window is None else int(window),
                      fused=use_fused, block_q=bq, block_k=bk)

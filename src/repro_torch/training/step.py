@@ -117,7 +117,9 @@ def make_train_step(forward: Callable, hyper: TrainHyper) -> Callable:
         for g in grads:
             finite &= _all_finite(g)
         cfg = hyper.optimizer
-        if bool(finite):                  # the step's one host read
+        # the step's one host read; meta tensors (the dry run) have no
+        # values, and count the update a finite step makes
+        if finite.is_meta or bool(finite):
             om = adamw_update(cfg, params, grads, opt_state)
         else:
             # skip-step: params, moments AND the schedule step untouched;

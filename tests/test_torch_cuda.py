@@ -1610,3 +1610,40 @@ def test_three_host_fleet_drills_on_the_card(dev):
     assert launches["paged_decode_bf16"] > 0
     assert launches["paged_decode_int8"] > 0
     assert set(launches) <= set(ops.LAUNCHES)
+
+
+def test_train_step_counts_the_same_on_the_card_and_on_meta(dev):
+    """A 2-layer train step at qwen3-4b's width (B 1 x S 2048: the flash
+    kernels, which report their own work) counts the same flops, bytes,
+    collectives and kernel calls on the card as on meta tensors of the
+    same shapes and dtypes, exactly (``analysis.op_cost``)."""
+    import dataclasses
+
+    from repro_torch.analysis.op_cost import CostMode
+    from repro_torch.configs import get_bundle
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import TrainHyper, make_train_step
+    full = get_bundle("qwen3-4b")
+    bundle = dataclasses.replace(full, cfg=dataclasses.replace(
+        full.cfg, n_layers=2))
+    params = bundle.init_params(0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    tok = torch.randint(0, bundle.cfg.vocab, (1, 2049), generator=g,
+                        device=dev)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    step = make_train_step(bundle.forward, TrainHyper())
+    ops.reset_launches()
+    with CostMode() as on_card:
+        step(params, adamw_init(params), batch)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_fwd"] == 4
+    assert ops.LAUNCHES["flash_bwd_dq"] == ops.LAUNCHES["flash_bwd_dkv"] == 2
+    meta = bundle.abstract_params()
+    with CostMode() as on_meta:
+        step(meta, adamw_init(meta),
+             {k: torch.empty_like(v, device="meta")
+              for k, v in batch.items()})
+    assert on_card.cost.totals() == on_meta.cost.totals()
+    assert on_card.cost.kernels == on_meta.cost.kernels
+    assert on_card.cost.kernels["flash_fwd"]["calls"] == 4

@@ -40,7 +40,11 @@ MODULES = ["repro_torch", "repro_torch.launch.serve", "repro_torch.weights",
            "repro_torch.parallel.pipeline", "repro_torch.launch.mesh",
            "repro_torch.optim.compression", "repro_torch.serving.fleet",
            "repro_torch.serving.prefix", "repro_torch.runtime.supervisor",
-           "repro_torch.launch.supervisor"]
+           "repro_torch.launch.supervisor", "repro_torch.analysis",
+           "repro_torch.analysis.roofline", "repro_torch.analysis.op_cost",
+           "repro_torch.analysis.kernel_work", "repro_torch.parallel.sharding",
+           "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+           "repro_torch.obs.roofline_live"]
 
 
 def test_import_leaves_jax_out():
@@ -48,6 +52,19 @@ def test_import_leaves_jax_out():
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_dryrun_loads_neither_jax_nor_the_reference():
+    """The dry run counts on the meta device with the port alone."""
+    code = ("import sys\n"
+            "import repro_torch.launch.dryrun\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], env=env,
