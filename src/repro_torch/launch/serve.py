@@ -99,8 +99,11 @@ def build_engine(arch, *, smoke: bool = True, slots: int = 4,
                  prefill_chunk: int = 32, prefix_cache: bool = True,
                  seed: int = 0, temperature: float = 0.0, top_k: int = 0,
                  sample_seed: int = 0, telemetry=None, params=None,
-                 device=None, **serve_kw):
-    """(engine, vocab) ready for submit()/run().  ``params`` (a dict of
+                 device=None, mesh=None, **serve_kw):
+    """(engine, vocab) ready for submit()/run().  ``mesh`` (a
+    ``parallel.Mesh`` of local rings, e.g. ``make_mesh((1, 4), ("data",
+    "model"))`` on one card) is the one every model step runs under: a
+    MoE config's experts then split over its ``model`` axis.  ``params`` (a dict of
     tensors, e.g. converted reference weights from
     :func:`repro_torch.weights.from_jax_params`) replaces the seeded random
     init and is moved to ``device``; ``arch`` may be an ``ArchBundle`` in
@@ -120,7 +123,7 @@ def build_engine(arch, *, smoke: bool = True, slots: int = 4,
                     num_pages=num_pages, prefill_chunk=prefill_chunk,
                     prefix_cache=prefix_cache, temperature=temperature,
                     top_k=top_k, sample_seed=sample_seed, **serve_kw),
-        device=dev, telemetry=telemetry)
+        device=dev, telemetry=telemetry, mesh=mesh)
     return engine, bundle.cfg.vocab
 
 

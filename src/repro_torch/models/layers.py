@@ -14,9 +14,11 @@ and its top-k MoE MLP, Mamba-2, RecurrentGemma, Whisper):
     than one rank, long sequences take the context-parallel paths the ring
     policy picks (``_attention_ring``: the ring of
     ``parallel.ring_attention``, or q shards against replicated k/v, on
-    the flash kernels where the flash policy picks them).  Only local rings
-    take global tensors; ``shard_seq`` / ``gather_seq`` and the sharded
-    parameter layouts wait for the sharding slice.
+    the flash kernels where the flash policy picks them), and the MoE MLP
+    takes the reference's expert-parallel, token-split or TP-in-expert
+    branch (``moe_layer``).  Only local rings take global tensors;
+    ``shard_seq`` / ``gather_seq`` and the sharded parameter layouts wait
+    for the sharding slice.
 """
 from __future__ import annotations
 
@@ -569,12 +571,167 @@ def _moe_local(x, params, cfg: MoEConfig):
     return out.reshape(B, S, D).to(x.dtype), aux
 
 
+def moe_ep_local(x, router, w_gate, w_up, w_down, *, cfg: MoEConfig, ring,
+                 replicated: bool = False):
+    """The expert-parallel body over the ranks of ``ring`` (the reference's
+    ``_moe_ep_body``, with its ``psum`` and mean over the axis): experts
+    live on ranks, ``E / n`` each, and tokens travel to their experts and
+    back over :meth:`all_to_all` (the paper's FIFO mesh).
+
+    Each rank routes its own tokens with per-rank capacity ``c`` (its
+    token count), and fills a send buffer of deterministic layout: the
+    block to destination group g is ``e_per`` runs of ``c`` slots, one
+    per expert g owns, so after the exchange a reshape and a transpose
+    line the tokens up per local expert.  The way back is the same
+    exchange, and each token's K outputs are summed in k order.
+
+    ``x`` and the weights are what this process holds, cut by
+    ``ring.split``: on a :class:`ProcessRing`, this rank's (B, S_l, D)
+    tokens and its (E / n, ...) experts; on a :class:`LocalRing`, the
+    global (B, S, D) tokens (each rank's S / n of them) and all E experts.
+    With ``replicated`` every rank routes all of ``x`` (decode: S does not
+    split) and the ranks' equal outputs are summed (``all_sum``: in f32,
+    rounded once to their dtype) and divided by n, as the reference's
+    ``psum(out) / m``.  Returns (out, aux): out as ``x`` is laid out, aux
+    the mean over the axis's ranks."""
+    n = ring.size
+    E, K = cfg.n_experts, cfg.top_k
+    if E % n:
+        raise ValueError(f"{E} experts do not split over {n} ranks")
+    e_per = E // n
+    held = len(ring.index())
+    xs = [x] * held if replicated else ring.split(x, 1)
+    wgs, wus, wds = (ring.split(w, 0) for w in (w_gate, w_up, w_down))
+    sends, plans, auxs = [], [], []
+    for x_r in xs:
+        B, S, D = x_r.shape
+        T = B * S
+        xt = x_r.reshape(T, D)
+        gate_vals, gate_idx, probs = _moe_route(xt, router, K)
+        c = max(1, int(cfg.capacity_factor * T * K / E))   # per expert
+        pos, keep = _moe_slots(gate_idx, E, c)
+        keep_f = keep.reshape(-1)
+        # each assignment's row of the (n * e_per * c, D) send buffer:
+        # destination group g = e // e_per, then its expert e % e_per, then
+        # the slot, which is row e * c + slot
+        dst = (gate_idx * c + torch.where(keep, pos, 0)).reshape(-1)
+        t_idx = torch.arange(T * K, device=x_r.device) // K
+        contrib = torch.where(keep_f[:, None], xt[t_idx], 0)
+        send = torch.zeros((E * c, D), dtype=x_r.dtype, device=x_r.device)
+        send.index_put_((dst,), contrib, accumulate=True)
+        sends.append(send)
+        plans.append((B, S, T, c, dst, gate_vals * keep))
+        auxs.append(_moe_aux(probs, gate_idx, E, T, K))
+
+    recvs = ring.all_to_all(sends)
+    backs = []
+    for recv, wg, wu, wd, (_, _, _, c, _, _) in zip(recvs, wgs, wus, wds,
+                                                    plans):
+        D = recv.shape[-1]
+        # (n (source), e_per, c, D) -> (e_per, n * c, D)
+        h_in = recv.reshape(n, e_per, c, D).transpose(0, 1) \
+            .reshape(e_per, n * c, D)
+        h = F.silu(torch.bmm(h_in, wg)) * torch.bmm(h_in, wu)
+        eo = torch.bmm(h, wd)
+        backs.append(eo.reshape(e_per, n, c, D).transpose(0, 1)
+                     .reshape(E * c, D))
+    backs = ring.all_to_all(backs)
+
+    outs = []
+    for back, (B, S, T, _, dst, gates) in zip(backs, plans):
+        D = back.shape[-1]
+        gathered = back[dst].float() * gates.reshape(-1)[:, None]
+        # the scatter-add over tokens as a fixed-order sum over K
+        outs.append(gathered.reshape(T, K, D).sum(1).reshape(B, S, D)
+                    .to(x.dtype))
+    aux = ring.all_sum(auxs)[0] / n
+    if replicated:
+        return ring.all_sum(outs)[0] / n, aux
+    return ring.join(outs, 1), aux
+
+
+def _moe_token_split(x, params, cfg: MoEConfig, ring):
+    """Each rank of ``ring`` runs :func:`_moe_local` on its S / m tokens
+    against all the experts."""
+    outs, auxs = [], []
+    for x_r in ring.split(x, 1):
+        o, a = _moe_local(x_r, params, cfg)
+        outs.append(o)
+        auxs.append(a)
+    return ring.join(outs, 1), ring.all_sum(auxs)[0] / ring.size
+
+
+def _moe_tp(x, params, cfg: MoEConfig, ring):
+    """TP in expert: every rank routes all tokens against all experts with
+    1/m of each expert's FFN (F of ``w_gate`` / ``w_up`` and of
+    ``w_down``), and the partial outputs, each rounded to x's dtype as the
+    reference's per-shard ``_moe_local`` returns it, are summed."""
+    outs, auxs = [], []
+    for wg, wu, wd in zip(ring.split(params["w_gate"], 2),
+                          ring.split(params["w_up"], 2),
+                          ring.split(params["w_down"], 1)):
+        o, a = _moe_local(x, {"router": params["router"], "w_gate": wg,
+                              "w_up": wu, "w_down": wd}, cfg)
+        outs.append(o)
+        auxs.append(a)
+    return ring.all_sum(outs)[0], ring.all_sum(auxs)[0] / ring.size
+
+
 def moe_layer(x: torch.Tensor, params: dict,
               cfg: MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D); params: router (D, E), w_gate/w_up (E, D, F),
     w_down (E, F, D). Returns (out, aux_loss).
 
-    Always the local capacity dispatch: the port has no mesh.  The
-    reference's expert-parallel and TP-in-expert branches come with the
-    multi-card slice (ROADMAP queue 1, item 8)."""
-    return _moe_local(x, params, cfg)
+    Distribution dispatch, on the active mesh (``parallel.set_mesh``), as
+    the reference's:
+
+      * no mesh, or a ``model`` axis of one rank: the local capacity
+        dispatch (:func:`_moe_local`);
+      * E divisible by the model axis's m: expert parallelism
+        (:func:`moe_ep_local`; capacities per rank).  Tokens split over
+        ``model`` on S when m divides it; otherwise (decode) every rank
+        routes all of them and the duplicates are summed and divided by m;
+      * otherwise (granite's 40 experts on a 16-wide axis), with S divisible
+        by m: each rank runs the local dispatch on its S / m tokens against
+        all the experts;
+      * otherwise: TP in expert, each rank with 1/m of every expert's FFN
+        and the partial outputs summed.
+
+    B splits over the data axes (``pod``, ``data``) first, so capacities
+    count each data rank's tokens; the aux loss is the mean over all data
+    x model ranks.  The mesh's axes must be local rings (global tensors,
+    every rank in this process): an axis of processes raises, and its
+    ranks call :func:`moe_ep_local` with their shards."""
+    mesh = _model_mesh()
+    if mesh is None:
+        return _moe_local(x, params, cfg)
+    daxes = [a for a in ("pod", "data") if a in mesh.axis_names]
+    if not all(isinstance(mesh.transport(a), LocalRing)
+               for a in ("model", *daxes)):
+        raise NotImplementedError(
+            "the MoE layer over an axis of processes needs the sharding "
+            "slice (parallel/sharding.py: the tokens' and experts' shards); "
+            "call models.layers.moe_ep_local with this rank's shards")
+    nd = math.prod(mesh.shape[a] for a in daxes)
+    ring = mesh.transport("model")
+    m = ring.size
+    if x.shape[0] % nd:
+        raise ValueError(f"batch {x.shape[0]} does not split over the data "
+                         f"axes {daxes} ({nd} ranks)")
+    E = cfg.n_experts
+    seq_split = x.shape[1] % m == 0
+    if E % m == 0:
+        def body(xd):
+            return moe_ep_local(xd, params["router"], params["w_gate"],
+                                params["w_up"], params["w_down"], cfg=cfg,
+                                ring=ring, replicated=not seq_split)
+    elif seq_split:
+        def body(xd):
+            return _moe_token_split(xd, params, cfg, ring)
+    else:
+        def body(xd):
+            return _moe_tp(xd, params, cfg, ring)
+    runs = [body(xd) for xd in x.chunk(nd, 0)]
+    out = torch.cat([o for o, _ in runs], 0) if nd > 1 else runs[0][0]
+    aux = LocalRing(nd).all_sum([a for _, a in runs])[0] / nd
+    return out, aux

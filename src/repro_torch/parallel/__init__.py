@@ -1,10 +1,13 @@
 """Distribution of the port: named meshes over local and process rings
-(``parallel.mesh``), the sharding rules (``parallel.sharding``: the
-reference's specs as tuples of mesh-axis names, their DTensor placements
-and each rank's local shapes), ring attention with its memory-flat
-backward, the ring matmul and GPipe stages over the mesh.  Counterpart of
-``repro.parallel``.  The rules place nothing yet: the step that runs on
-sharded tensors comes with the sharded-state slice."""
+(``parallel.mesh``: hops, sums and the all-to-all that carries the MoE's
+tokens to their experts, ``models.layers.moe_ep_local``), the sharding
+rules (``parallel.sharding``: the reference's specs as tuples of mesh-axis
+names, their DTensor placements and each rank's local shapes), ring
+attention with its memory-flat backward, the ring matmul and GPipe stages
+over the mesh.  Counterpart of ``repro.parallel``.  On a mesh of local
+rings the layers take global tensors and the rules are recorded (the
+serving engine's ``pool_specs``), not applied: placing sharded state on
+processes comes with the sharded-state slice."""
 from .mesh import (LocalRing, Mesh, ProcessRing, get_mesh, make_mesh,
                    make_process_mesh, set_mesh)
 from .pipeline import pipeline_forward

@@ -1,14 +1,18 @@
 """Named device meshes and their rings: the port's counterpart of the
 reference's ``compat.make_mesh`` / ``compat.set_mesh`` /
 ``compat.get_abstract_mesh`` and of the collectives its shard_map bodies
-call (``jax.lax.ppermute``, ``psum``, ``axis_index``).
+call (``jax.lax.ppermute``, ``psum``, ``all_to_all``, ``axis_index``).
 
 A :class:`Mesh` names its axes (``"pod"``, ``"data"``, ``"model"``) and
-gives each a *transport*, the ring its ranks form, with three operations:
+gives each a *transport*, the ring its ranks form, with four operations:
 
   * ``shift(*xs)``: the ``ppermute`` hop, rank ``i`` -> rank ``i + 1``
     (mod the axis size), of one or more values at once;
   * ``all_sum(x)``: the ``psum`` over the axis;
+  * ``all_to_all(xs)``: the tiled ``all_to_all`` on dim 0 (``split_axis=0,
+    concat_axis=0``): each rank cuts its entry into ``size`` chunks, and
+    rank ``j`` receives chunk ``j`` of every rank in rank order (the MoE's
+    expert exchange, ``models.layers.moe_ep_local``);
   * ``index()``: the ``axis_index`` of each rank this process holds.
 
 A ring body is written once over these.  Its state is a list with one
@@ -16,12 +20,14 @@ entry for each rank this process holds, so the same body runs on both
 transports:
 
   * :class:`LocalRing` holds all ``m`` ranks of the axis in one process,
-    on one device: an entry per rank.  A hop rotates the list, so on one
-    card a hop moves no bytes; the ranks run one after another.
+    on one device: an entry per rank.  A hop rotates the list and an
+    all-to-all transposes it, so on one card neither moves bytes between
+    ranks; the ranks run one after another.
   * :class:`ProcessRing` holds one rank per process: a one-entry list, and
     a hop sends to rank ``r + 1`` and receives from rank ``r - 1`` of the
     axis's process group (``torch.distributed`` point-to-point: gloo on
-    the CPU, NCCL on the card).
+    the CPU, NCCL on the card); an all-to-all is
+    ``dist.all_to_all_single``.
 
 ``split(x, dim)`` turns a tensor into that list and ``join(xs, dim)`` back:
 a :class:`LocalRing` cuts a global tensor into its ``m`` shards along
@@ -55,11 +61,17 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _narrow(dtype: torch.dtype) -> bool:
+    """A float of fewer than 32 bits, which a sum takes in f32."""
+    return dtype.is_floating_point and torch.finfo(dtype).bits < 32
+
+
 class LocalRing:
     """An axis of ``size`` ranks held by one process on one device.  Each
     rank's state is an entry of a list; :meth:`shift` rotates the list (no
     copy: on one card a hop moves no bytes), :meth:`all_sum` adds the
-    entries in rank order.  ``hops`` counts the shifts."""
+    entries in rank order, :meth:`all_to_all` transposes it.  ``hops``
+    counts the shifts."""
 
     def __init__(self, size: int):
         if size < 1:
@@ -91,14 +103,72 @@ class LocalRing:
         return tuple([x[-1], *x[:-1]] for x in xs)
 
     def all_sum(self, xs: list) -> list:
-        """The entries' sum, for every rank; counted as the ``all-reduce``
-        it would be between cards (the sum's bytes at every rank)."""
+        """The entries' sum, for every rank, added in rank order (a 16-bit
+        float in f32, rounded once: the reference's ``psum`` of bf16
+        gives that); counted as the ``all-reduce`` it would be between
+        cards (the sum's bytes at every rank)."""
         if self.size > 1:
             collective("all-reduce", self.size * _nbytes(xs[0]))
-        total = xs[0]
+        dt = xs[0].dtype
+        total = xs[0].float() if _narrow(dt) else xs[0]
         for x in xs[1:]:
             total = total + x
-        return [total] * self.size
+        return [total.to(dt)] * self.size
+
+    def all_to_all(self, xs: list) -> list:
+        """Rank ``j``'s entry becomes chunk ``j`` (of ``size`` along dim 0)
+        of every rank's entry, concatenated in rank order: a transpose of
+        the list, which autograd carries.  Counted as the ``all-to-all`` it
+        would be between cards: every rank's received bytes, as the
+        reference's cost model counts an all-to-all's output."""
+        n = self.size
+        if xs[0].shape[0] % n:
+            raise ValueError(f"dim 0 of {tuple(xs[0].shape)} does not split "
+                             f"over {n} ranks")
+        if n == 1:
+            return list(xs)
+        collective("all-to-all", sum(_nbytes(t) for t in xs))
+        parts = [x.chunk(n, 0) for x in xs]
+        return [torch.cat([p[j] for p in parts], 0) for j in range(n)]
+
+
+class _AllSum(torch.autograd.Function):
+    """``dist.all_reduce`` into a copy (of a 16-bit float, in f32, rounded
+    once, as the local ring sums; the c10d op then moves f32 bytes).  Its
+    result is the same on every rank, and each rank's loss takes that
+    replica with the same cotangent, so the backward hands this rank's
+    gradient through unchanged: the transpose of the reference's ``psum``
+    into a replicated value.  (A local ring's sum gives each entry that
+    one gradient too.)"""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        import torch.distributed as dist
+        total = x.float() if _narrow(x.dtype) else x.clone()
+        dist.all_reduce(total, group=group)
+        return total.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``dist.all_to_all_single`` with equal splits on dim 0.  The exchange
+    is its own inverse, so the backward sends the gradient the same way.
+    The op cost counter sees the c10d op itself (``alltoall_base_``)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        import torch.distributed as dist
+        ctx.group = group
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return _AllToAll.apply(g.contiguous(), ctx.group), None
 
 
 class ProcessRing:
@@ -107,7 +177,8 @@ class ProcessRing:
     entries to rank ``r + 1`` of the group and receives rank ``r - 1``'s
     into fresh buffers (``dist.batch_isend_irecv``; group ranks translated
     to global ranks with ``dist.get_global_rank``); :meth:`all_sum` is
-    ``dist.all_reduce``.  ``hops`` counts the shifts."""
+    ``dist.all_reduce``, :meth:`all_to_all` ``dist.all_to_all_single``.
+    ``hops`` counts the shifts."""
 
     def __init__(self, group=None):
         import torch.distributed as dist
@@ -150,10 +221,18 @@ class ProcessRing:
         return tuple([o] for o in outs)
 
     def all_sum(self, xs: list) -> list:
-        import torch.distributed as dist
-        total = xs[0].clone()
-        dist.all_reduce(total, group=self.group)
-        return [total]
+        return [_AllSum.apply(xs[0], self.group)]
+
+    def all_to_all(self, xs: list) -> list:
+        """This rank's entry cut into ``size`` chunks on dim 0, chunk ``j``
+        sent to rank ``j``; returns the chunks received, in rank order
+        (``dist.all_to_all_single``; differentiable)."""
+        if xs[0].shape[0] % self.size:
+            raise ValueError(f"dim 0 of {tuple(xs[0].shape)} does not split "
+                             f"over {self.size} ranks")
+        if self.size == 1:
+            return list(xs)
+        return [_AllToAll.apply(xs[0], self.group)]
 
 
 class Mesh:

@@ -1,7 +1,11 @@
 """Serving engine: continuous batching over a dense OR paged KV cache.
 
-Counterpart of ``repro.serving.engine`` for a single engine on one device
-(no mesh).  The fleet surface (``inflight``, ``cancel``, and the page
+Counterpart of ``repro.serving.engine`` for a single engine on one device.
+Given a mesh of local rings (``mesh=``), every model step runs under it
+(``parallel.set_mesh``), so a MoE layer takes its expert-parallel,
+token-split or TP-in-expert branch; the paged pool's page count rounds up
+to a multiple of the data axes' ranks, and its sharding specs are recorded
+(``pool_specs``) and place nothing, as every local ring.  The fleet surface (``inflight``, ``cancel``, and the page
 export / import of a cached prefix) lets ``serving.fleet.LocalFleet``
 route, hedge and migrate between engines.  Three KV modes behind one
 interface (``ServeConfig.kv_mode``):
@@ -39,13 +43,17 @@ optional ``top_k`` switch decode to seeded host-side softmax sampling.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 from typing import Any, Iterator
 
 import numpy as np
 import torch
 
 from repro_torch.obs import get_telemetry
+from repro_torch.parallel.mesh import LocalRing, set_mesh
+from repro_torch.parallel.sharding import _data_axes, paged_pool_specs
 
 from .kv import BlockPoolKV, PagedKVConfig
 from .prefix import RadixPrefixCache
@@ -129,16 +137,26 @@ class ServingEngine:
     tokens, cache); the paged modes additionally need init_paged_pool /
     paged_step / supports_paged_kv (the transformer family; see
     configs/base.py).  Every tensor lives on ``device``, the device of the
-    params."""
+    params.  ``mesh``: a ``parallel.Mesh`` of local rings that every model
+    step runs under (its axes of processes need the sharded-state slice:
+    they raise)."""
 
     # consecutive ticks with work queued but nothing executed before the
     # engine declares the scheduler wedged
     STALL_LIMIT = 4096
 
     def __init__(self, bundle: Any, params: Any, cfg: ServeConfig,
-                 device: torch.device, telemetry: Any = None):
+                 device: torch.device, telemetry: Any = None,
+                 mesh: Any = None):
         if cfg.kv_mode not in KV_MODES:
             raise ValueError(f"kv_mode {cfg.kv_mode!r} not in {KV_MODES}")
+        if mesh is not None and not all(isinstance(t, LocalRing) for t in
+                                        mesh.transports.values()):
+            raise NotImplementedError(
+                f"{mesh}: an engine over an axis of processes needs the "
+                f"sharded-state slice (the pool's page shards); give it a "
+                f"mesh of local rings")
+        self.mesh = mesh
         self.bundle = bundle
         self.params = params
         self.cfg = cfg
@@ -158,6 +176,12 @@ class ServingEngine:
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
+
+    def _mesh_ctx(self):
+        """The engine's mesh made active for a model step (the reference's
+        ``_mesh_ctx``); no change of the active mesh without one."""
+        return set_mesh(self.mesh) if self.mesh is not None else \
+            contextlib.nullcontext()
 
     # ------------------------------------------------------------------
     # sampling
@@ -311,7 +335,8 @@ class ServingEngine:
                 self._prefill_template = self.bundle.init_cache(
                     1, self.cfg.max_len, device=self.device)
             S = len(prompt)
-            with self.obs.span("prefill", rid=rid, tokens=int(S)):
+            with self.obs.span("prefill", rid=rid, tokens=int(S)), \
+                    self._mesh_ctx():
                 if self._bucketed:
                     toks = np.zeros((1, self._prompt_bucket(S)), np.int32)
                     toks[0, :S] = prompt
@@ -380,7 +405,7 @@ class ServingEngine:
             self._dense_cache = self._admit(self._dense_cache)
         if not any(s.request_id is not None for s in self.slots):
             return
-        with obs.span("decode", tick=self._dense_tick):
+        with obs.span("decode", tick=self._dense_tick), self._mesh_ctx():
             # one decode tick for the whole pool
             last = np.zeros((cfg.batch, 1), np.int32)
             for i, s in enumerate(self.slots):
@@ -422,6 +447,15 @@ class ServingEngine:
             .element_size()
         pages_per_slot = -(-cfg.max_len // cfg.page_size)
         num_pages = cfg.num_pages or cfg.batch * pages_per_slot + 1
+        self.pool_specs = None
+        if self.mesh is not None:
+            # the page axis shards over the data axes: every shard gets
+            # whole pages (the axes the pool specs name)
+            dsz = math.prod(self.mesh.shape[a]
+                            for a in _data_axes(self.mesh))
+            num_pages = -(-num_pages // dsz) * dsz
+            self.pool_specs = paged_pool_specs(
+                self.mesh, kv_heads=mcfg.n_kv_heads, head_dim=mcfg.dh)
         self.kv = BlockPoolKV(PagedKVConfig(
             num_slots=cfg.batch, max_len=cfg.max_len,
             page_size=cfg.page_size, num_pages=num_pages,
@@ -458,9 +492,10 @@ class ServingEngine:
         pt = self._dev(np.ascontiguousarray(self.kv.page_table[:, :mp],
                                             np.int32))
         lens = self._dev(self.kv.lengths.astype(np.int32))
-        rows, picked, self.pool = pick_step(
-            self.bundle.paged_step, self.params, self._dev(tokens),
-            self.pool, pt, lens, self._dev(counts.astype(np.int32)))
+        with self._mesh_ctx():
+            rows, picked, self.pool = pick_step(
+                self.bundle.paged_step, self.params, self._dev(tokens),
+                self.pool, pt, lens, self._dev(counts.astype(np.int32)))
         return rows, picked
 
     def _exec_cow(self, req: Request) -> None:

@@ -393,11 +393,15 @@ def test_manager_keeps_the_newest_steps(tmp_path):
 def test_checkpoint_metrics_reach_the_registry_under_the_references_names(
         tmp_path):
     from repro_torch.obs import REGISTRY
+    # every checkpoint series, the striped restore's too (another test in
+    # this process may have left them), so the counts below are this run's
     names = ("checkpoint_ops", "checkpoint_verify_failures",
              "checkpoint_crc_failures", "checkpoint_read_bytes",
              "checkpoint_save_s", "checkpoint_verify_s",
              "checkpoint_restore_s", "checkpoint_snapshot_s",
-             "checkpoint_crc_s")
+             "checkpoint_crc_s", "checkpoint_stripe_bytes",
+             "checkpoint_stripe_read_s", "checkpoint_stripe_exchange_s",
+             "checkpoint_stripe_crc_s")
     REGISTRY.reset(names)
     path = str(tmp_path)
     mgr = CheckpointManager(path)

@@ -1565,6 +1565,31 @@ def test_attention_under_a_mesh_keeps_the_flash_kernels(dev, monkeypatch):
     assert all(r["launches"] == r["want"] for r in rows.values())
 
 
+# one MoE layer at a small width (top 2, D 256, F 128; bf16, capacity 1.25)
+# on each mesh branch of a (1, 4) mesh: 8 experts split over the 4 ranks
+# (EP over a split sequence, EP on replicated decode tokens), 6 do not (the
+# token split; TP in expert, F 128 over 4 ranks)
+MOE_MESH_SMALL = [
+    ("ep", dict(m=4, B=1, S=512), (8, 2, 256, 128)),
+    ("ep_replicated", dict(m=4, B=8, S=1), (8, 2, 256, 128)),
+    ("token_split", dict(m=4, B=1, S=512), (6, 2, 256, 128)),
+    ("tp", dict(m=4, B=8, S=1), (6, 2, 256, 128)),
+]
+
+
+@pytest.mark.parametrize("case", MOE_MESH_SMALL, ids=lambda c: c[0])
+def test_moe_layer_under_a_mesh_matches_the_per_shard_oracle(dev, case):
+    """``chip_smoke.check_moe_layer`` at a small width on the card: each
+    rank's drops equal its per-shard oracle's exactly, aux within 1e-6,
+    out (and the grads, where the tokens split) by ``moe_closeness``, two
+    all-to-alls on the EP branches and none elsewhere."""
+    branch, shape, dims = case
+    row = _chip_smoke().check_moe_layer(f"card-test-{branch}", "olmoe-1b-7b",
+                                        dims=dims, **shape)
+    assert row["branch"] == branch
+    assert row["out"]["within_tol"]
+
+
 # the serving fleet at a small depth: qwen3-4b's full width cut to 2 layers,
 # bf16; fleet waves drain at ticks 11 and 22 (scheduling alone sets them),
 # so host 0 dies at 14, in wave 2 with a request in flight

@@ -44,7 +44,7 @@ MODULES = ["repro_torch", "repro_torch.launch.serve", "repro_torch.weights",
            "repro_torch.analysis.roofline", "repro_torch.analysis.op_cost",
            "repro_torch.analysis.kernel_work", "repro_torch.parallel.sharding",
            "repro_torch.launch.specs", "repro_torch.launch.dryrun",
-           "repro_torch.obs.roofline_live"]
+           "repro_torch.obs.roofline_live", "repro_torch.serving.engine"]
 
 
 def test_import_leaves_jax_out():
@@ -63,6 +63,36 @@ def test_dryrun_loads_neither_jax_nor_the_reference():
     """The dry run counts on the meta device with the port alone."""
     code = ("import sys\n"
             "import repro_torch.launch.dryrun\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_moe_mesh_path_loads_neither_jax_nor_the_reference():
+    """The MoE layer's four mesh branches and a paged engine under a mesh
+    of local rings run with the port alone."""
+    code = ("import sys, torch, numpy as np\n"
+            "from repro_torch.models import layers as L\n"
+            "from repro_torch.parallel import make_mesh, set_mesh\n"
+            "from repro_torch.launch.serve import build_engine\n"
+            "mesh = make_mesh((2, 4), ('data', 'model'))\n"
+            "for E, S in ((8, 8), (8, 1), (6, 8), (6, 1)):\n"
+            "    cfg = L.MoEConfig(n_experts=E, top_k=2, d_ff=8)\n"
+            "    p = {'router': torch.randn(4, E),\n"
+            "         'w_gate': torch.randn(E, 4, 8),\n"
+            "         'w_up': torch.randn(E, 4, 8),\n"
+            "         'w_down': torch.randn(E, 8, 4)}\n"
+            "    with set_mesh(mesh):\n"
+            "        L.moe_layer(torch.randn(2, S, 4), p, cfg)\n"
+            "e, _ = build_engine('olmoe-1b-7b', slots=2, max_len=32,\n"
+            "                    max_new=2, kv_mode='paged', page_size=8,\n"
+            "                    mesh=mesh, device='cpu')\n"
+            "e.submit(np.arange(5, dtype=np.int32))\n"
+            "assert len(e.run()[0]) == 2\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
