@@ -1184,6 +1184,7 @@ class FiniteWatch:
         self._bundle = bundle
         self.finite = torch.ones((), dtype=torch.bool, device="cuda")
         self.steps = 0
+        self.decode_steps = 0       # paged steps of one token a row
 
     def __getattr__(self, name):
         return getattr(self._bundle, name)
@@ -1199,8 +1200,9 @@ class FiniteWatch:
     def decode_step(self, *a, **kw):
         return self._watch(self._bundle.decode_step(*a, **kw))
 
-    def paged_step(self, *a, **kw):
-        return self._watch(self._bundle.paged_step(*a, **kw))
+    def paged_step(self, params, tokens, *a, **kw):
+        self.decode_steps += tokens.shape[1] == 1
+        return self._watch(self._bundle.paged_step(params, tokens, *a, **kw))
 
 
 def prompts(n: int, lo: int, hi: int, seed: int, vocab: int,
@@ -1272,11 +1274,12 @@ class DropWatch:
 
 
 def serve(mode: str, params, arch: str = ARCH, mesh=None,
-          phase: str | None = None) -> dict:
+          phase: str | None = None, place: bool = False) -> dict:
     """Serve ``workload(mode)`` at ``arch``'s full width (under ``mesh``, a
-    mesh of local rings, when given); for a MoE config the row also gives
-    the share of assignments the capacity dropped.  The row's line is
-    ``phase`` (default: ``serve``, ``serve_moe`` for a MoE config)."""
+    mesh of local rings, when given; with ``place`` on a state placed on
+    it); for a MoE config the row also gives the share of assignments the
+    capacity dropped.  The row's line is ``phase`` (default: ``serve``,
+    ``serve_moe`` for a MoE config)."""
     import contextlib
 
     from repro_torch.configs import get_bundle
@@ -1286,7 +1289,8 @@ def serve(mode: str, params, arch: str = ARCH, mesh=None,
     reqs, kw = workload(mode, cfg.vocab)
     max_new = kw["max_new"]
     engine, _ = build_engine(arch, smoke=False, max_len=2048, kv_mode=mode,
-                             params=params, device="cuda", mesh=mesh, **kw)
+                             params=params, device="cuda", mesh=mesh,
+                             place=place, **kw)
     watch = FiniteWatch(engine.bundle)
     engine.bundle = watch
     drops = DropWatch(engine.cfg.batch) if cfg.moe else None
@@ -1312,7 +1316,8 @@ def serve(mode: str, params, arch: str = ARCH, mesh=None,
                slots=engine.cfg.batch,
                prompt_tokens=int(sum(len(p) for p in reqs)),
                generated_tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
-               steps=watch.steps, launches=launches,
+               steps=watch.steps, decode_steps=watch.decode_steps,
+               launches=launches,
                max_memory_allocated=torch.cuda.max_memory_allocated(),
                kv=engine.kv_stats(), prefix=engine.prefix_stats())
     if drops is not None:
@@ -2826,7 +2831,7 @@ def train_ring(params) -> dict:
     t0 = time.perf_counter()
     out = run(ARCH, smoke=False, steps=TRAIN_STEPS, seq_len=RING_TRAIN["S"],
               global_batch=RING_TRAIN["B"], microbatches=1, device="cuda",
-              mesh_kind=mesh, params=params)
+              mesh_kind=mesh, params=params, place=False)
     wall = time.perf_counter() - t0
     launches = {n: c for n, c in ops.LAUNCHES.items() if c}
     peak = torch.cuda.max_memory_allocated()
@@ -3284,7 +3289,7 @@ def train_moe_mesh(params, mesh) -> dict:
         out = run(GRANITE, smoke=False, steps=TRAIN_STEPS,
                   seq_len=MOE_TRAIN["S"], global_batch=MOE_TRAIN["B"],
                   microbatches=1, device="cuda", mesh_kind=mesh,
-                  params=params)
+                  params=params, place=False)
     wall = time.perf_counter() - t0
     launches = {n: c for n, c in ops.LAUNCHES.items() if c}
     peak = torch.cuda.max_memory_allocated()
@@ -3336,6 +3341,271 @@ def moe_mesh_phase(unsharded: dict) -> dict:
     del params
     torch.cuda.empty_cache()
     emit("moe_mesh", seconds=time.perf_counter() - t0)
+    return {k: served.get(k, 0) + trained.get(k, 0)
+            for k in served.keys() | trained.keys()}
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: the sharded state: qwen3-4b's params and AdamW moments placed by
+# param_specs on meshes of local rings (heads, features and vocab split
+# over "model", rows over "data"), trained under (2, 4), served under (1, 4)
+# ---------------------------------------------------------------------------
+
+SHARDED = dict(train=(2, 4), serve=(1, 4), B=2, S=2048)
+SHARDED_LEAVES = ("embed", "lm_head", "wq", "wk", "wv", "wo", "w_down")
+
+
+def sharded_mesh(kind: str):
+    from repro_torch.parallel import make_mesh
+    return make_mesh(SHARDED[kind], ("data", "model"))
+
+
+def sharded_train_check(params, mesh, bundle=None) -> dict:
+    """Loss and gradients of one (B 2, S 2048) batch on qwen3-4b's state
+    placed on ``mesh`` (each data rank's row in turn, each model rank's
+    heads through the flash kernels) against the unsharded step's, both
+    under per-layer recompute: ``train_check``'s limits (loss rel diff <
+    1e-3; per leaf cosine > 0.99 and |norm ratio - 1| < NORM_TOL) on the
+    embedding, the lm_head, and wq, wk, wv, wo and w_down of the first and
+    the last layer; the flash kernels launched L x nd x m times a pass
+    (the forward twice), none of them CUDA-core.  ``bundle``: qwen3-4b's
+    (default) or one cut in depth (the card tests)."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.sharding import (Placed, gather_leaf,
+                                               param_specs, shard_tree)
+    from repro_torch.training import TrainHyper, loss_fn
+    from repro_torch.training.step import placed_grads
+    bundle = bundle or get_bundle(ARCH)
+    L = bundle.cfg.n_layers
+    batch = token_batch(SHARDED["B"], SHARDED["S"], SEED + 11,
+                        bundle.cfg.vocab)
+
+    def pick(tree):
+        return [tree[n] if n in ("embed", "lm_head") else tree["layers"][n]
+                for n in SHARDED_LEAVES]
+
+    def slices(grads) -> dict:
+        out = {}
+        for n, g in zip(SHARDED_LEAVES, grads):
+            if n in ("embed", "lm_head"):
+                out[n] = g
+            else:
+                out[f"{n}[0]"], out[f"{n}[{L - 1}]"] = g[0].clone(), \
+                    g[L - 1].clone()
+        return out
+
+    leaves = pick(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss_u, _ = loss_fn(bundle.forward, params, batch)
+    grads = torch.autograd.grad(loss_u, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    want, loss_u = slices(grads), loss_u.item()
+    del grads
+    torch.cuda.empty_cache()
+
+    placed = shard_tree(params, param_specs(bundle.kind, params, mesh), mesh)
+    sel = pick(placed)
+    shards = [t for leaf in sel for t in leaf.tensors()]
+    for t in shards:
+        t.requires_grad_(True)
+    ops.reset_launches()
+    loss_s, _, _, gs = placed_grads(bundle.forward, TrainHyper(), placed,
+                                    shards, batch)
+    launches = {k: c for k, c in ops.LAUNCHES.items() if c}
+    for t in shards:
+        t.requires_grad_(False)
+    it = iter(gs)
+    got = slices([gather_leaf(Placed(leaf.shape, leaf.dtype, leaf.spec,
+                                     mesh, {k: next(it) for k in
+                                            sorted(leaf.shards)}))
+                  for leaf in sel])
+    loss_s = loss_s.item()
+    del placed, sel, shards, gs
+    torch.cuda.empty_cache()
+    cos = {k: F.cosine_similarity(got[k].float().flatten(),
+                                  want[k].float().flatten(), dim=0).item()
+           for k in want}
+    ratio = {k: (got[k].float().norm() / want[k].float().norm()).item()
+             for k in want}
+    rel = abs(loss_s - loss_u) / abs(loss_u)
+    nd, m = SHARDED["train"]
+    n = L * nd * m
+    flash = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    row = dict(arch=ARCH, n_layers=L, mesh=dict(mesh.shape), B=SHARDED["B"],
+               S=SHARDED["S"], loss_sharded=loss_s, loss_unsharded=loss_u,
+               loss_rel_diff=rel, cosine=cos, norm_ratio=ratio,
+               launches=launches, want_flash=flash,
+               tol=f"loss rel diff < 1e-3; per leaf cosine > 0.99 and "
+                   f"|norm ratio - 1| < {NORM_TOL}")
+    emit("sharded_train_check", **row)
+    require(math.isfinite(loss_s) and rel < 1e-3 and
+            all(c > 0.99 for c in cos.values()) and
+            all(abs(r - 1.0) < NORM_TOL for r in ratio.values()),
+            f"sharded: placed vs unsharded loss/grads: {row}")
+    require({k: launches.get(k, 0) for k in FLASH_KEYS} ==
+            dict(dict.fromkeys(FLASH_KEYS, 0), **flash),
+            f"sharded: flash launches {launches}, want {flash}")
+    return row
+
+
+def sharded_logits_check(params, mesh, n: int = 1536, arch=ARCH) -> dict:
+    """The first token's logits of one ``n``-token prompt served by a paged
+    engine on the state placed on ``mesh`` against the same engine on the
+    unsharded state: cosine > 0.99, the same top-1, finite.  ``arch``: a
+    name or a bundle (one cut in depth)."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.launch.serve import build_engine
+    bundle = get_bundle(arch) if isinstance(arch, str) else arch
+    prompt = prompts(1, n, n, SEED + 9, bundle.cfg.vocab)[0]
+    out = {}
+    with torch.no_grad():
+        for name, msh in (("sharded", mesh), ("unsharded", None)):
+            engine, _ = build_engine(
+                arch, smoke=False, max_len=2048, kv_mode="paged", slots=4,
+                max_new=2, page_size=16, prefill_chunk=256,
+                prefill_token_budget=1024, params=params, device="cuda",
+                mesh=msh, place=msh is not None)
+            out[name] = token_logits(engine, prompt, 1)[0]
+            del engine
+            torch.cuda.empty_cache()
+    a, b = out["sharded"], out["unsharded"]
+    cos = F.cosine_similarity(a, b, dim=0).item()
+    row = dict(arch=ARCH, prompt=n, mesh=dict(mesh.shape), cosine=cos,
+               n_layers=bundle.cfg.n_layers,
+               max_abs_diff=(a - b).abs().max().item(),
+               top1_equal=bool(a.argmax() == b.argmax()),
+               finite=bool(torch.isfinite(a).all()))
+    emit("sharded_logits_check", **row)
+    require(row["finite"] and cos > 0.99 and row["top1_equal"],
+            f"sharded: placed vs unsharded first-token logits: {row}")
+    return row
+
+
+def serve_sharded(params, mesh) -> dict:
+    """qwen3-4b served ``paged`` and ``paged_int8`` on its state placed on
+    ``mesh`` (the pool placed with it: each model rank's kv heads its own
+    tensor): every request reaches its token count (``serve``), each
+    decode tick launches the paged kernel L x m times (each rank's heads),
+    and the first-token logits hold against the unsharded engine's.  ->
+    the runs' launches."""
+    from repro_torch.configs import get_bundle
+    L = get_bundle(ARCH).cfg.n_layers
+    m = mesh.shape["model"]
+    launches: dict[str, int] = {}
+    with torch.no_grad():
+        for mode, key in (("paged", "paged_decode_bf16"),
+                          ("paged_int8", "paged_decode_int8")):
+            run = serve(mode, params, ARCH, mesh=mesh, phase="serve_sharded",
+                        place=True)
+            ticks = run["row"]["decode_steps"]
+            require(ticks > 0 and run["launches"].get(key, 0) ==
+                    L * m * ticks,
+                    f"serve_sharded {mode}: {key} launched "
+                    f"{run['launches'].get(key, 0)} times over {ticks} "
+                    f"decode ticks, want {L * m} a tick")
+            for k, c in run["launches"].items():
+                launches[k] = launches.get(k, 0) + c
+    sharded_logits_check(params, mesh)
+    return launches
+
+
+def train_sharded(mesh, unsharded_peak: int | None) -> dict:
+    """Three AdamW steps of qwen3-4b at full width (B 2 x S 2048) through
+    ``launch.train.run`` under ``mesh``, on the weights it draws from its
+    seed and places (params and moments by ``param_specs``): finite
+    losses, probed params moved, ``opt_step`` 3, the peak under 80 GB
+    (printed beside the unsharded ``train`` phase's), and L x nd x m of
+    each flash backward kernel a step, twice that of the forward.  s/step,
+    tok/s and each rank's state bytes are printed, not held."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import SEED as TRAIN_SEED, run
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import (held_nbytes, local_nbytes,
+                                               param_specs)
+    bundle = get_bundle(ARCH)
+    L = bundle.cfg.n_layers
+    nd, m = SHARDED["train"]
+
+    def probes(get):
+        return {"wq[0]": get("wq")[0, :64, :64],
+                f"w_gate[{L - 1}]": get("w_gate")[L - 1, :64, :64],
+                "embed": get("embed")[:64, :64]}
+
+    start = [bundle.init_params(TRAIN_SEED, device="cuda")]
+    before = {k: v.clone() for k, v in probes(
+        lambda n: start[0][n] if n == "embed" else
+        start[0]["layers"][n]).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = run(ARCH, smoke=False, steps=TRAIN_STEPS, seq_len=SHARDED["S"],
+              global_batch=SHARDED["B"], microbatches=1, device="cuda",
+              mesh_kind=mesh, params=start.pop())
+    wall = time.perf_counter() - t0
+    launches = {k: c for k, c in ops.LAUNCHES.items() if c}
+    peak = torch.cuda.max_memory_allocated()
+    p = out["params"]
+    after = probes(lambda n: (p[n] if n == "embed" else
+                              p["layers"][n]).at(model=0))
+    changed = {k: not torch.equal(before[k], after[k]) for k in before}
+    specs = param_specs(bundle.kind, p, mesh)
+    state = {"params": p, "opt": out["opt"]}
+    abstract = bundle.abstract_params()
+    moments = adamw_init(abstract)
+    per_rank = local_nbytes(
+        {"p": abstract, "mu": moments["mu"], "nu": moments["nu"]},
+        {"p": specs, "mu": specs, "nu": specs}, mesh)
+    steps_s = out["seconds"]
+    tokens = SHARDED["B"] * SHARDED["S"]
+    n = L * nd * m * TRAIN_STEPS
+    want = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    row = dict(arch=ARCH, mesh=dict(mesh.shape), B=SHARDED["B"],
+               S=SHARDED["S"], steps=len(steps_s), losses=out["losses"],
+               finite=[x["finite"] for x in out["metrics"]],
+               grad_norm=[x["grad_norm"] for x in out["metrics"]],
+               s_per_step=steps_s,
+               tok_per_s_after_first=tokens * (len(steps_s) - 1) /
+               sum(steps_s[1:]), wall_s=wall, max_memory_allocated=peak,
+               unsharded_max_memory_allocated=unsharded_peak,
+               state_bytes_held=held_nbytes(state),
+               state_bytes_per_rank=per_rank, params_changed=changed,
+               opt_step=int(out["opt"]["step"]), launches=launches,
+               want_flash=want, nvidia_smi=smi())
+    emit("train_sharded", **row)
+    require(all(math.isfinite(x) for x in out["losses"]) and
+            all(f == 1.0 for f in row["finite"]) and
+            len(steps_s) == TRAIN_STEPS and row["opt_step"] == TRAIN_STEPS
+            and all(changed.values()),
+            f"train_sharded: a loss, finite flag, step count or probe is "
+            f"bad: {row}")
+    require(peak < 80e9, f"train_sharded: peak {peak} bytes")
+    require({k: launches.get(k, 0) for k in FLASH_KEYS} ==
+            dict(dict.fromkeys(FLASH_KEYS, 0), **want),
+            f"train_sharded: flash launches {launches}, want {want}")
+    del out, p, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sharded_phase(unsharded_peak: int | None = None) -> dict:
+    """Phase 5d: qwen3-4b's (2, 4) placed step against the unsharded one,
+    served on a (1, 4) placed state, then trained three steps under (2, 4),
+    all at full width and depth; returns the served and trained runs'
+    launches (the main path's) for the kernels line."""
+    t0 = time.perf_counter()
+    params = init_params(ARCH)
+    sharded_train_check(params, sharded_mesh("train"))
+    torch.cuda.empty_cache()
+    served = serve_sharded(params, sharded_mesh("serve"))
+    del params
+    torch.cuda.empty_cache()
+    trained = train_sharded(sharded_mesh("train"), unsharded_peak)
+    emit("sharded", seconds=time.perf_counter() - t0, depth_cut=None)
     return {k: served.get(k, 0) + trained.get(k, 0)
             for k in served.keys() | trained.keys()}
 
@@ -4315,6 +4585,11 @@ def main() -> int:
     moe_mesh = moe_mesh_phase(moe["results"])
     torch.cuda.empty_cache()
 
+    # phase 5d: the sharded state: qwen3-4b placed by param_specs, trained
+    # under (2, 4) and served under (1, 4) on local rings
+    sharded = sharded_phase(trained["max_memory_allocated"])
+    torch.cuda.empty_cache()
+
     # phase 5b: train the vlm, hybrid, audio and ssm families at full width
     families_trained = train_families()
 
@@ -4327,11 +4602,11 @@ def main() -> int:
 
     # phase 7: the kernels line (one row per kernel route a main path runs),
     # launches from the paper-workload, serve, serve_fleet, serve_moe,
-    # serve_families, train, roofline, train_ring, moe_mesh, train_families
-    # and recovery phases
+    # serve_families, train, roofline, train_ring, moe_mesh, sharded,
+    # train_families and recovery phases
     phases = (paper, *(r["launches"] for r in served.values()), fleet,
               moe["launches"], families, trained["launches"], roofline, ring,
-              moe_mesh, families_trained, recovered)
+              moe_mesh, sharded, families_trained, recovered)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in rows}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

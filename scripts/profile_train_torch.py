@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's training step, on one CUDA card.
 
-    python3 scripts/profile_train_torch.py [--steps 3] [--arch ARCH] [--ring]
+    python3 scripts/profile_train_torch.py [--steps 3] [--arch ARCH]
+        [--ring | --sharded]
 
 Takes the ``train`` phase of ``chip_smoke.py``: qwen3-4b at full width,
 bf16, random weights from seed 0, AdamW steps of B 2 x S 2048 synthetic
@@ -10,8 +11,11 @@ one of ``chip_smoke.TRAIN_FAMILIES``, that family as ``train_families``
 runs it: its depth cut, its batch and the launcher's zero extras; or, with
 ``--ring``, the ``train_ring`` phase: qwen3-4b at B 1 x S 4096 under
 ``chip_smoke.ring_mesh()``, a (1, 4) local ring, so attention takes the
-ring), through ``training.make_train_step`` as ``launch.train.run`` builds
-it, each step under the mesh as ``run`` enters it.  After one
+ring; or, with ``--sharded``, the ``train_sharded`` phase: qwen3-4b at
+B 2 x S 2048 with its params and moments placed by ``param_specs`` on
+``chip_smoke.sharded_mesh("train")``, a (2, 4) mesh of local rings),
+through ``training.make_train_step`` as ``launch.train.run`` builds it,
+each step under the mesh as ``run`` enters it.  After one
 warm-up step it times ``--steps`` steps on the host clock (each ending in a
 device synchronise) and profiles one more under ``torch.profiler``.
 Prints one JSON line: the steps' seconds, tokens/s, peak memory, the
@@ -47,9 +51,14 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default=chip_smoke.ARCH,
                     help="qwen3-4b (B 2 x S 2048) or an arch of "
                          "chip_smoke.TRAIN_FAMILIES")
-    ap.add_argument("--ring", action="store_true",
-                    help="qwen3-4b at B 1 x S 4096 on the (1, 4) local "
-                         "ring (chip_smoke's train_ring)")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--ring", action="store_true",
+                      help="qwen3-4b at B 1 x S 4096 on the (1, 4) local "
+                           "ring (chip_smoke's train_ring)")
+    mode.add_argument("--sharded", action="store_true",
+                      help="qwen3-4b at B 2 x S 2048 on a state placed on "
+                           "the (2, 4) local mesh (chip_smoke's "
+                           "train_sharded)")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train_torch: no CUDA device", file=sys.stderr)
@@ -57,7 +66,7 @@ def main(argv=None) -> int:
     print(chip_smoke.smi(), flush=True)
     from repro_torch.configs import get_bundle
     from repro_torch.data import DataConfig, SyntheticLM
-    from repro_torch.launch.train import make_extras
+    from repro_torch.launch.train import make_extras, place_state
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.training import TrainHyper, make_train_step
     from repro_torch.parallel import set_mesh
@@ -65,13 +74,20 @@ def main(argv=None) -> int:
     if a.ring:
         bundle, mesh = get_bundle(chip_smoke.ARCH), chip_smoke.ring_mesh()
         B, S = (chip_smoke.RING_TRAIN[k] for k in "BS")
+    elif a.sharded:
+        bundle, mesh = get_bundle(chip_smoke.ARCH), \
+            chip_smoke.sharded_mesh("train")
+        B, S = (chip_smoke.SHARDED[k] for k in "BS")
     elif a.arch in chip_smoke.TRAIN_FAMILIES:
         bundle = chip_smoke.family_bundle(a.arch)
         B, S = (chip_smoke.TRAIN_FAMILIES[a.arch][k] for k in "BS")
     else:
         bundle, B, S = get_bundle(a.arch), 2, 2048
     params = bundle.init_params(chip_smoke.SEED, device="cuda")
-    opt = adamw_init(params)
+    if a.sharded:
+        params, opt = place_state(bundle, params, mesh)
+    else:
+        opt = adamw_init(params)
     n = a.steps + 2
     step_fn = make_train_step(bundle.forward, TrainHyper(
         optimizer=AdamWConfig(warmup_steps=5, total_steps=max(n, 10))))
@@ -112,7 +128,8 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     secs = [t for t, _ in timed]
     mean_s = sum(secs) / len(secs)
-    row = dict(arch=bundle.arch_id, ring=mesh is not None,
+    row = dict(arch=bundle.arch_id, ring=a.ring, sharded=a.sharded,
+               mesh=None if mesh is None else dict(mesh.shape),
                n_layers=bundle.cfg.n_layers, batch=B,
                seq_len=S, step_s=secs,
                losses=[loss for _, loss in timed],

@@ -43,8 +43,11 @@ What the port does differently, and why:
   of the state is ever made on the card.  A restore that fails its audit
   leaves ``like`` untouched.
 * The reference's ``sharding_fn`` (re-placing a restored tree on a mesh)
-  has no counterpart: the live tensors of ``like`` already sit where the
-  caller placed them.
+  is :meth:`CheckpointManager.restore`'s too: given one, the checkpoint is
+  read into a host tree of ``like``'s global shapes and handed to it (for
+  a state placed by ``parallel.sharding.shard_tree``, the copy into its
+  shards); without one, the live tensors of ``like`` already sit where the
+  caller placed them and take the leaves in place.
 
 Striped multi-host restore (:func:`restore_checkpoint_striped`): when a
 whole fleet restores the same shard (a gang cold start or a restart after
@@ -655,7 +658,8 @@ class CheckpointManager:
         return latest_step(self.path)
 
     def restore(self, like: Any, step: int | None = None,
-                stripe: tuple[int, int, Any] | None = None
+                stripe: tuple[int, int, Any] | None = None,
+                sharding_fn: Callable[[Any], Any] | None = None
                 ) -> tuple[int, Any] | None:
         """Restore `step` (default: newest) into `like`, falling back
         through older checkpoints when the newer ones fail verification.
@@ -669,7 +673,18 @@ class CheckpointManager:
         the same view of the checkpoint dir (shared filesystem), so all
         ranks walk the same step sequence in lockstep; an exchange
         timeout (a ``TimeoutError``) propagates rather than triggering
-        fallback, because peers may still be alive on the newer step."""
+        fallback, because peers may still be alive on the newer step.
+
+        ``sharding_fn`` (the reference's): the step is read into a host
+        tree of ``like``'s global shapes (``like`` may be placed), and
+        ``sharding_fn(host tree)`` is returned in its place."""
+        if sharding_fn is not None:
+            from repro_torch.parallel.sharding import host_like
+            target = host_like(like)
+            inner = self.restore(target, step, stripe)
+            return None if inner is None else (inner[0],
+                                               sharding_fn(inner[1]))
+
         def load(s: int) -> Any:
             if stripe is not None:
                 rank, world, exchange = stripe

@@ -8,12 +8,11 @@ Design mirrors a production multi-host input pipeline:
     host can compute any batch — restart/elastic re-shard need no data state
     beyond the step counter (checkpoint stores only `step`);
   * each host takes a disjoint slice of the global batch
-    (``ShardedLoader``) determined by (host_id, n_hosts);
+    (``ShardedLoader``) determined by (host_id, n_hosts): a data rank of a
+    process mesh loads its rows by its data index, and an elastic re-mesh
+    re-plans the slices with ``ShardedLoader.reshard``;
   * a background ``Prefetcher`` thread keeps `depth` batches ready so input
     never serializes with the step (compute/IO overlap on the host side).
-
-The reference's elastic ``ShardedLoader.reshard`` is left out: the port
-trains in one process.
 """
 from __future__ import annotations
 
@@ -96,6 +95,11 @@ class ShardedLoader:
         return self.source.batch(index, self.host_id * self.per_host,
                                  self.per_host)
 
+    def reshard(self, host_id: int, n_hosts: int) -> "ShardedLoader":
+        """Elastic re-shard after a host set change (no data state lost —
+        the stream is indexable)."""
+        return ShardedLoader(self.source, host_id, n_hosts)
+
 
 class Prefetcher:
     """Background thread that keeps `depth` batches ready."""
@@ -135,6 +139,9 @@ class Prefetcher:
 
 
 def make_train_iterator(cfg: DataConfig, host_id: int = 0, n_hosts: int = 1,
-                        start_step: int = 0, prefetch: int = 2) -> Prefetcher:
-    return Prefetcher(ShardedLoader(SyntheticLM(cfg), host_id, n_hosts),
-                      start_step=start_step, depth=prefetch)
+                        start_step: int = 0, prefetch: int = 2,
+                        loader: ShardedLoader | None = None) -> Prefetcher:
+    """A prefetching iterator over ``loader`` (default: host ``host_id``
+    of ``n_hosts`` of a fresh stream of ``cfg``) from ``start_step``."""
+    loader = loader or ShardedLoader(SyntheticLM(cfg), host_id, n_hosts)
+    return Prefetcher(loader, start_step=start_step, depth=prefetch)

@@ -21,9 +21,19 @@ route), and records:
     ``peak_gb_per_device``, their sum; ``output_size_gb``, what the step's
     outputs still hold, divided likewise.
 
-Two terms are partial, and the cell says so beside its numbers:
-``collectives_complete: false`` (only the ring's hops are issued until the
-step runs on sharded tensors) and ``temp_sharded_by: "data"``.
+The dense transformer cells count the step on a placed state
+(``parallel.sharding.shard_tree`` of params, moments and cache by their
+specs): the model axis splits heads, features and vocab and issues every
+collective of tensor parallelism, and the data ranks run in turn, so
+``collectives_complete`` is true, and the temporaries are one data rank's
+divided by the model axis (``temp_sharded_by: "model"``; a serving step
+runs all rows at once, divided by data x model).  The placed train step
+at (16, 16) costs about 130 s of CPU time a cell, so train cells count it
+on a (2, 4) mesh of local rings (``counted_on``); flops and kernel
+calls do not depend on the mesh, the collectives' bytes do.  Other
+families (and ``state="whole"``) keep the whole state on every rank:
+there only the ring's hops are issued (``collectives_complete: false``,
+``note`` says why) and ``temp_sharded_by: "data"``.
 
 Results stream into results/dryrun_torch/<cell>.json so an interrupted
 sweep resumes where it stopped.  Nothing here touches a card.
@@ -48,11 +58,36 @@ from repro_torch.analysis.roofline import (RooflineReport, collective_bytes,
 from repro_torch.configs import ARCH_IDS, SHAPES, get_bundle
 from repro_torch.launch.mesh import PRODUCTION_SHAPES
 from repro_torch.launch.specs import step_in_shardings
+from repro_torch.optim import adamw_init
 from repro_torch.parallel.mesh import make_mesh, set_mesh
-from repro_torch.parallel.sharding import local_nbytes
+from repro_torch.parallel.sharding import (kv_store_specs, local_nbytes,
+                                           shard_tree)
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
+
+
+# where a placed train step is counted: (16, 16) costs ~130 s of CPU
+PLACED_TRAIN_MESH = ((2, 4), ("data", "model"))
+WHOLE_NOTE = ("the state is whole on every rank (this family has no "
+              "tensor-parallel body on a placed state): only the "
+              "context-parallel ring's hops are issued, not the data "
+              "axis's gradient sum nor the model axis's tensor-parallel "
+              "collectives")
+
+
+def _placed_args(bundle, kind: str, args, specs, mesh):
+    """The step's arguments placed on ``mesh`` by their specs: params,
+    the AdamW state (train) or the cache (serving)."""
+    args = list(args)
+    args[0] = shard_tree(args[0], specs[0], mesh)
+    if kind == "train":
+        args[1] = adamw_init(args[0])
+    else:
+        cfg = bundle.cfg
+        args[2] = shard_tree(args[2], kv_store_specs(
+            args[2], mesh, kv_heads=cfg.n_kv_heads, head_dim=cfg.dh), mesh)
+    return args
 
 
 def _cell_path(arch, shape, mesh_name, ring=None):
@@ -77,12 +112,17 @@ def _argument_bytes(args, specs, mesh) -> int:
 
 
 def run_cell(arch: str, shape: str, mesh_name: str, *, force: bool = False,
-             ring: str | None = None) -> dict:
+             ring: str | None = None, state: str = "placed") -> dict:
     """Count one cell.  ``ring`` pins the context-parallel attention mode
     for this cell ('ring' | 'replicated' | 'off' | 'auto') via the
     REPRO_RING_ATTN policy env read at call time; None keeps the ambient
-    policy."""
+    policy.  ``state``: 'placed' (a dense transformer's state placed by
+    its specs; other families keep it whole) or 'whole'."""
+    if state not in ("placed", "whole"):
+        raise ValueError(f"state {state!r} not in ('placed', 'whole')")
     path = _cell_path(arch, shape, mesh_name, ring)
+    if state == "whole":
+        path = path.replace(".json", "__whole.json")
     if os.path.exists(path) and not force:
         with open(path) as f:
             return json.load(f)
@@ -108,15 +148,31 @@ def run_cell(arch: str, shape: str, mesh_name: str, *, force: bool = False,
                               if a in mesh.axis_names)
             args, specs, step, donate = step_in_shardings(bundle, shape,
                                                           mesh)
-            with set_mesh(mesh), CostMode() as counter, \
+            arg_bytes = _argument_bytes(args, specs, mesh)
+            kind = SHAPES[shape]["kind"]
+            placed = state == "placed" and bundle.kind == "dense"
+            count_mesh = mesh
+            if placed:
+                if kind == "train":
+                    count_mesh = make_mesh(*PLACED_TRAIN_MESH)
+                    args, specs, step, _ = step_in_shardings(
+                        bundle, shape, count_mesh)
+                args = _placed_args(bundle, kind, args, specs, count_mesh)
+            with set_mesh(count_mesh), CostMode() as counter, \
                     tel.span("count", cat="dryrun", arch=arch, shape=shape,
                              mesh=mesh_name):
                 out = step(*args)
             out_bytes = counter._live_bytes    # what the outputs still hold
             del out
             cost = counter.cost
-            arg_bytes = _argument_bytes(args, specs, mesh)
-            temp_bytes = counter.peak_bytes / dsize
+            if placed:
+                split = count_mesh.shape["model"] * (
+                    1 if kind == "train" else math.prod(
+                        n for a, n in count_mesh.shape.items()
+                        if a != "model"))
+            else:
+                split = dsize
+            temp_bytes = counter.peak_bytes / split
             sh = SHAPES[shape]
             tokens = sh["seq_len"] * sh["global_batch"] if \
                 sh["kind"] == "train" else sh["global_batch"]
@@ -147,15 +203,20 @@ def run_cell(arch: str, shape: str, mesh_name: str, *, force: bool = False,
                 donate=list(donate),
                 memory_analysis={
                     "argument_size_gb": arg_bytes / 1e9,
-                    "output_size_gb": out_bytes / dsize / 1e9,
+                    "output_size_gb": out_bytes / split / 1e9,
                     "temp_size_gb": temp_bytes / 1e9,
                     # donated params / opt state / cache are updated in
                     # place, so the peak is the arguments plus the temps
                     "peak_gb_per_device": (arg_bytes + temp_bytes) / 1e9,
                 },
-                collectives_complete=False,
-                temp_sharded_by="data",
+                collectives_complete=placed,
+                temp_sharded_by=("model" if kind == "train" else
+                                 "data, model") if placed else "data",
             )
+            if placed and count_mesh is not mesh:
+                result["counted_on"] = dict(count_mesh.shape)
+            if not placed:
+                result["note"] = WHOLE_NOTE
             tel.metrics.absorb(
                 {"flops": result["flops"], "hlo_bytes": result["hlo_bytes"],
                  "collective_bytes": result["collective_bytes"],

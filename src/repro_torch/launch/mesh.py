@@ -14,9 +14,10 @@ PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The (16, 16) ("data", "model") mesh, or with ``multi_pod`` the
     (2, 16, 16) ("pod", "data", "model") one, over the ranks of the
-    initialised process group.  Refuses unless the group has exactly those
-    ranks (256 or 512): the multi-host launch that starts them is not
-    ported yet."""
+    initialised process group (a state placed on it trains and serves
+    through ``parallel.sharding.shard_tree``).  Refuses unless the group
+    has exactly those ranks (256 or 512): the multi-host launch that
+    starts them, one a card, is not ported yet."""
     import torch.distributed as dist
     shape, axes = PRODUCTION_SHAPES[multi_pod]
     need = math.prod(shape)

@@ -42,6 +42,7 @@ import numpy as np
 
 from repro_torch.configs import ARCH_IDS, ArchBundle, get_bundle
 from repro_torch.device import resolve_device
+from repro_torch.parallel.sharding import param_specs, shard_tree
 from repro_torch.serving import LocalFleet, ServeConfig, ServingEngine
 
 
@@ -99,11 +100,14 @@ def build_engine(arch, *, smoke: bool = True, slots: int = 4,
                  prefill_chunk: int = 32, prefix_cache: bool = True,
                  seed: int = 0, temperature: float = 0.0, top_k: int = 0,
                  sample_seed: int = 0, telemetry=None, params=None,
-                 device=None, mesh=None, **serve_kw):
+                 device=None, mesh=None, place: bool = False, **serve_kw):
     """(engine, vocab) ready for submit()/run().  ``mesh`` (a
     ``parallel.Mesh`` of local rings, e.g. ``make_mesh((1, 4), ("data",
     "model"))`` on one card) is the one every model step runs under: a
-    MoE config's experts then split over its ``model`` axis.  ``params`` (a dict of
+    MoE config's experts then split over its ``model`` axis.  With
+    ``place`` the params are placed on it by ``param_specs`` (and the paged
+    pool with them): the model axis splits heads, features and vocab
+    (``parallel.tensor_parallel``).  ``params`` (a dict of
     tensors, e.g. converted reference weights from
     :func:`repro_torch.weights.from_jax_params`) replaces the seeded random
     init and is moved to ``device``; ``arch`` may be an ``ArchBundle`` in
@@ -115,6 +119,9 @@ def build_engine(arch, *, smoke: bool = True, slots: int = 4,
         params = bundle.init_params(seed, device=dev)
     else:
         params = _to(params, dev)
+    if place and mesh is not None:
+        params = shard_tree(params, param_specs(bundle.kind, params, mesh),
+                            mesh)
     extras = bundle.zero_extras(slots, bundle.cfg.dtype, dev)
     engine = ServingEngine(
         _BundleAdapter(bundle, extras), params,

@@ -37,10 +37,25 @@ CRC32 commit (``repro_torch.checkpoint``, the reference's file format),
 restore on start and on rollback, and a simulated fleet of ``n_hosts``:
 peers heartbeat on a per-step virtual clock, so silence and straggler
 chaos is deterministic, while host 0's compute is real.  A re-mesh
-re-plans the data shards over the survivors; with one device there is no
-mesh to rebuild, so the state is restored in place.  The LR schedule spans
-the run's global horizon (``warmup_steps=5``, ``total_steps=max(end_step,
-10)``), so a killed and restarted run resumes bit for bit.
+re-plans the data shards over the survivors (``ShardedLoader.reshard``);
+with one device there is no mesh to rebuild, so the state is restored in
+place.
+
+Under a mesh with an axis above one rank (``mesh_kind`` a ready
+:class:`Mesh`: local rings on one card, or processes), the params and
+AdamW moments are placed by ``param_specs`` (``parallel.sharding.
+shard_tree``; the moments' ``step`` replicated) and the step runs data-
+and tensor-parallel on the shards; a data rank of a process mesh loads
+its rows by its data index.  Checkpoints hold the global tree
+(``gather_tree``; rank 0 of a process mesh writes it), so a sharded run's
+checkpoint equals an unsharded run's leaf for leaf, and a restore places
+the host tree onto the mesh the run now drives (the reference's
+``sharding_fn``: the elastic re-shard).  ``place=False`` keeps the whole
+state on every rank, as the context-parallel ring takes it.
+
+The LR schedule spans the run's global horizon (``warmup_steps=5``,
+``total_steps=max(end_step, 10)``), so a killed and restarted run resumes
+bit for bit.
 
 Worker mode (``--process-id R --num-processes W``, launched by
 ``repro_torch.launch.supervisor``): this process is rank R of a real
@@ -85,10 +100,14 @@ import repro_torch.obs as obs
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ArchBundle, get_bundle
 from repro_torch.data import DataConfig, make_train_iterator
+from repro_torch.data.pipeline import ShardedLoader, SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_local_mesh, make_worker_mesh
 from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.parallel import tensor_parallel as tp
 from repro_torch.parallel.mesh import Mesh, set_mesh
+from repro_torch.parallel.sharding import (gather_tree, load_tree_,
+                                           param_specs, shard_tree)
 from repro_torch.runtime import (ChaosInjector, ChaosKilled, FleetWorker,
                                  HeartbeatMonitor, StragglerPolicy,
                                  plan_elastic_remesh, tree_fingerprint)
@@ -107,16 +126,36 @@ def make_extras(bundle, per_host_batch: int, device) -> dict:
 
 
 def resolve_mesh(mesh_kind) -> Mesh:
-    """``mesh_kind``: a ready :class:`Mesh` as it is (e.g. a (1, 4) local
-    ring of one card), or ``"local"`` (a (1, 1) mesh).  The reference's
-    ``"single"`` / ``"multi"`` production meshes wait for the multi-host
-    launch, which starts their process group."""
+    """``mesh_kind``: a ready :class:`Mesh` as it is (e.g. a (2, 4) mesh
+    of local rings on one card, or of processes), or ``"local"`` (a (1, 1)
+    mesh).  The reference's ``"single"`` / ``"multi"`` production meshes
+    wait for the multi-host launch, which starts their 256 or 512
+    processes."""
     if isinstance(mesh_kind, Mesh):
         return mesh_kind
     if mesh_kind != "local":
         raise ValueError(f"mesh {mesh_kind!r} not in ('local',): the "
-                         f"production meshes need the multi-host launch")
+                         f"production meshes need the multi-host launch "
+                         f"that starts their processes")
     return make_local_mesh()
+
+
+def data_shard(mesh: Mesh) -> tuple[int, int]:
+    """(index, count) of this process's rows among the data ranks of the
+    mesh's process axes (row-major over ``pod``, ``data``); (0, 1) when the
+    data axes are local rings."""
+    idx, n = 0, 1
+    for ring in tp.process_rings(mesh, tp.data_axes(mesh)):
+        idx, n = idx * ring.size + ring.rank, n * ring.size
+    return idx, n
+
+
+def place_state(bundle, params, mesh: Mesh) -> tuple[dict, dict]:
+    """(params, AdamW state) placed on ``mesh`` by ``param_specs``: the
+    moments as the params, ``step`` replicated."""
+    placed = shard_tree(params, param_specs(bundle.kind, params, mesh),
+                        mesh)
+    return placed, adamw_init(placed)
 
 
 def init_process_group(coordinator: str, num_processes: int,
@@ -154,15 +193,18 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
         trace_out: str | None = None, metrics_out: str | None = None,
         telemetry=None, total_steps: int | None = None,
         params=None, on_step=None,
-        fleet: FleetWorker | None = None) -> dict:
+        fleet: FleetWorker | None = None, place: bool = True) -> dict:
     """Train ``arch``, a config name (its smoke config with ``smoke``) or
     an ``ArchBundle`` taken as it is (e.g. a config cut in depth; ``smoke``
     does not apply), from random weights drawn from seed 0 (or from ``params``,
     which are updated in place), or from the newest intact checkpoint in
     ``ckpt_dir``, restored into them; ``steps`` more steps, or up to
     ``total_steps`` in all, each step under ``mesh_kind``'s mesh
-    (:func:`resolve_mesh`; attention over a ``model`` axis of more than one
-    rank takes the ring policy's paths).  ``chaos`` is a ``ChaosInjector``
+    (:func:`resolve_mesh`): with an axis above one rank the state is
+    placed on it (module docstring; ``params`` given are placed as copies,
+    and the returned ``params`` and ``opt`` are placed trees), unless
+    ``place`` is False, when attention over a ``model`` axis of more than
+    one rank takes the ring policy's paths.  ``chaos`` is a ``ChaosInjector``
     or a list of spec strings.  ``on_step(i, params, opt, metrics)``, if
     given, is called after each step the loop keeps (not one it rolls back
     or re-meshes over).  ``fleet`` runs the loop as one worker of a
@@ -196,8 +238,26 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
         get_bundle(arch, smoke=smoke)
     if params is None:
         params = bundle.init_params(SEED, device=dev)
-    opt = adamw_init(params)
+    sharded = place and any(n > 1 for n in mesh.shape.values())
+    if sharded:
+        params, opt = place_state(bundle, params, mesh)
+    else:
+        opt = adamw_init(params)
     state = {"params": params, "opt": opt}      # restored into in place
+    data_idx, data_n = data_shard(mesh) if sharded else (0, 1)
+    if data_n > 1 and n_hosts > 1:
+        raise ValueError("a simulated fleet (n_hosts) under a mesh of "
+                         "data processes")
+
+    def sharding_fn(host: dict) -> dict:
+        """A restored host tree placed onto the mesh this run drives, into
+        the live state (the reference's elastic re-shard)."""
+        return load_tree_(state, host)
+
+    def snapshot() -> dict:
+        """The global tree a checkpoint holds (a collective gather on a
+        process mesh: every rank calls it)."""
+        return gather_tree(state, device="cpu") if sharded else state
     data_cfg = DataConfig(vocab=bundle.cfg.vocab, seq_len=seq_len,
                           global_batch=global_batch)
 
@@ -208,6 +268,8 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
     # rank 0 alone writes checkpoints (it is host 0, the manifest writer);
     # every rank restores from the shared dir
     can_save = fleet is None or fleet.process_id == 0
+    if sharded and dist.is_initialized():
+        can_save = dist.get_rank() == 0
     if ckpt_dir:
         mgr = CheckpointManager(
             ckpt_dir, fault_hook=chaos.checkpoint_write_hook
@@ -220,7 +282,8 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
             exchange = fleet.make_exchange()
             if exchange is not None:
                 stripe = (fleet.process_id, fleet.num_processes, exchange)
-        restored = mgr.restore(state, stripe=stripe)
+        restored = mgr.restore(state, stripe=stripe,
+                               sharding_fn=sharding_fn if sharded else None)
         if restored is not None:
             start_step = restored[0]
             print(f"[train] restored step {start_step} from {ckpt_dir}"
@@ -239,7 +302,7 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
 
     # -- simulated fleet: host 0 is this process; peers heartbeat on a
     # per-step virtual clock so chaos silence/slowness is deterministic
-    host_id, rank, n_data_hosts = 0, 0, n_hosts
+    host_id, rank, n_data_hosts = 0, data_idx, max(n_hosts, data_n)
     if global_batch % n_hosts:
         raise ValueError(f"global_batch {global_batch} does not split over "
                          f"{n_hosts} hosts")
@@ -265,8 +328,8 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
         clock=lambda: vclock[0])
     guard = GradGuard(guard_policy or GuardPolicy())
 
-    it = make_train_iterator(data_cfg, host_id=rank, n_hosts=n_data_hosts,
-                             start_step=start_step)
+    loader = ShardedLoader(SyntheticLM(data_cfg), rank, n_data_hosts)
+    it = make_train_iterator(data_cfg, start_step=start_step, loader=loader)
     extras = make_extras(bundle, global_batch // n_data_hosts, dev)
 
     history, step_log, seconds, metrics_log, events = [], [], [], [], []
@@ -304,7 +367,8 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
             restored = None
             if mgr is not None:
                 ckpt_wait(at_step)
-                restored = mgr.restore(state)
+                restored = mgr.restore(
+                    state, sharding_fn=sharding_fn if sharded else None)
             if restored is None:
                 events.append({"kind": "rollback_unavailable",
                                "step": at_step, "reason": reason})
@@ -328,10 +392,11 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
         fired_seen = len(chaos.fired)
 
     def reopen_data(at_step: int) -> None:
-        nonlocal it, extras
+        nonlocal it, extras, loader
         it.close()
-        it = make_train_iterator(data_cfg, host_id=rank,
-                                 n_hosts=n_data_hosts, start_step=at_step)
+        loader = loader.reshard(rank, n_data_hosts)
+        it = make_train_iterator(data_cfg, start_step=at_step,
+                                 loader=loader)
         extras = make_extras(bundle, global_batch // n_data_hosts, dev)
 
     def recover(reason: str, at_step: int) -> int:
@@ -459,20 +524,23 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
             if on_step is not None:
                 on_step(i, params, opt, m)
 
+            if mgr and (i + 1) % ckpt_every == 0:
+                tree = snapshot()
             if mgr and can_save and (i + 1) % ckpt_every == 0:
                 with busy(i):
                     ckpt_wait(i)   # surface a prior failed write first
-                    mgr.save_async(i + 1, state)
+                    mgr.save_async(i + 1, tree)
                     last_saved = i + 1
                     if chaos is not None and chaos.wants_corrupt(i + 1):
                         if ckpt_wait(i + 1):   # land it, then damage it
                             chaos.maybe_corrupt(ckpt_dir, i + 1)
             i += 1
+        tree = snapshot() if mgr else None
         if mgr and can_save:
             with busy(end_step):
                 final_ok = ckpt_wait(end_step)
                 if last_saved != end_step or not final_ok:
-                    mgr.save_async(end_step, state)
+                    mgr.save_async(end_step, tree)
                     ckpt_wait(end_step)
     finally:
         # teardown must never displace an in-flight ChaosKilled (exit 43 is
@@ -521,7 +589,9 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8)
-    ap.add_argument("--mesh", default="local", choices=["local"])
+    ap.add_argument("--mesh", default="local", choices=["local"],
+                    help="the (1, 1) mesh; the production meshes wait for "
+                         "the multi-host launch")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--log-every", type=int, default=1)

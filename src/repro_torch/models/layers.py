@@ -16,9 +16,12 @@ and its top-k MoE MLP, Mamba-2, RecurrentGemma, Whisper):
     ``parallel.ring_attention``, or q shards against replicated k/v, on
     the flash kernels where the flash policy picks them), and the MoE MLP
     takes the reference's expert-parallel, token-split or TP-in-expert
-    branch (``moe_layer``).  Only local rings take global tensors;
-    ``shard_seq`` / ``gather_seq`` and the sharded parameter layouts wait
-    for the sharding slice.
+    branch (``moe_layer``).  Only local rings take global tensors there.
+  * on a state placed by ``parallel.sharding.shard_tree`` the model axis
+    splits heads and features instead (Megatron's tensor parallelism,
+    ``parallel.tensor_parallel``): :func:`head_plan` says which heads each
+    rank computes, and :func:`moe_layer_placed` takes the branch the
+    param specs imply.  ``shard_seq`` / ``gather_seq`` are not ported.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.device import card_like
+from repro_torch.parallel import tensor_parallel as tp
 from repro_torch.parallel.mesh import LocalRing, get_mesh, set_mesh
 from repro_torch.parallel.ring_attention import ring_attention
 
@@ -268,25 +272,28 @@ def _attention_ring(q, k, v, *, causal, window, ring: str | None = None,
       sequence threshold.
 
     Returns None when inapplicable (no mesh or model axis, indivisible
-    shapes, mode 'off').  A model axis whose ranks are processes needs the
-    sharding slice (its tensors would be this rank's shards): it raises
-    rather than compute unsharded."""
+    shapes, mode 'off').  Global tensors on a model axis whose ranks are
+    processes raise rather than compute unsharded: such a mesh takes a
+    state placed by the sharding slice's ``shard_tree`` (heads split over
+    the axis), or this rank's sequence shards through
+    ``parallel.ring_attention_local``."""
     mesh = _model_mesh()
     if mesh is None:
         return None
     transport = mesh.transport("model")
-    if not isinstance(transport, LocalRing):
-        raise NotImplementedError(
-            "attention over a model axis of processes needs the sharding "
-            "slice (parallel/sharding.py: the activations' sequence "
-            "shards); call parallel.ring_attention_local with this rank's "
-            "shards")
     m = transport.size
     S = q.shape[1]
-    if S % m != 0 or k.shape[1] != S:
-        return None
     mode = _ring_mode(S, m, ring)
     if mode == "off":
+        return None
+    if not isinstance(transport, LocalRing):
+        raise NotImplementedError(
+            "attention on global tensors over a model axis of processes: "
+            "place the state with parallel.sharding.shard_tree (the "
+            "sharding slice splits heads over the axis), or call "
+            "parallel.ring_attention_local with this rank's sequence "
+            "shards")
+    if S % m != 0 or k.shape[1] != S:
         return None
     if mode == "ring":
         out = ring_attention(q, k, v, causal=causal, window=window,
@@ -595,15 +602,31 @@ def moe_ep_local(x, router, w_gate, w_up, w_down, *, cfg: MoEConfig, ring,
     ``psum(out) / m``.  Returns (out, aux): out as ``x`` is laid out, aux
     the mean over the axis's ranks."""
     n = ring.size
-    E, K = cfg.n_experts, cfg.top_k
-    if E % n:
-        raise ValueError(f"{E} experts do not split over {n} ranks")
-    e_per = E // n
+    if cfg.n_experts % n:
+        raise ValueError(f"{cfg.n_experts} experts do not split over {n} "
+                         f"ranks")
     held = len(ring.index())
     xs = [x] * held if replicated else ring.split(x, 1)
-    wgs, wus, wds = (ring.split(w, 0) for w in (w_gate, w_up, w_down))
+    outs, auxs = moe_ep_ranks(xs, [router] * held,
+                              *(ring.split(w, 0)
+                                for w in (w_gate, w_up, w_down)),
+                              cfg=cfg, ring=ring)
+    aux = ring.all_sum(auxs)[0] / n
+    if replicated:
+        return ring.all_sum(outs)[0] / n, aux
+    return ring.join(outs, 1), aux
+
+
+def moe_ep_ranks(xs, routers, wgs, wus, wds, *, cfg: MoEConfig, ring):
+    """:func:`moe_ep_local`'s per-rank body: lists with an entry for each
+    rank this process holds of its (B, S_r, D) tokens, its router and its
+    (E / n, ...) experts.  Returns the ranks' outputs and aux terms, as
+    lists."""
+    n = ring.size
+    E, K = cfg.n_experts, cfg.top_k
+    e_per = E // n
     sends, plans, auxs = [], [], []
-    for x_r in xs:
+    for x_r, router in zip(xs, routers):
         B, S, D = x_r.shape
         T = B * S
         xt = x_r.reshape(T, D)
@@ -638,16 +661,13 @@ def moe_ep_local(x, router, w_gate, w_up, w_down, *, cfg: MoEConfig, ring,
     backs = ring.all_to_all(backs)
 
     outs = []
-    for back, (B, S, T, _, dst, gates) in zip(backs, plans):
+    for back, x_r, (B, S, T, _, dst, gates) in zip(backs, xs, plans):
         D = back.shape[-1]
         gathered = back[dst].float() * gates.reshape(-1)[:, None]
         # the scatter-add over tokens as a fixed-order sum over K
         outs.append(gathered.reshape(T, K, D).sum(1).reshape(B, S, D)
-                    .to(x.dtype))
-    aux = ring.all_sum(auxs)[0] / n
-    if replicated:
-        return ring.all_sum(outs)[0] / n, aux
-    return ring.join(outs, 1), aux
+                    .to(x_r.dtype))
+    return outs, auxs
 
 
 def _moe_token_split(x, params, cfg: MoEConfig, ring):
@@ -700,8 +720,10 @@ def moe_layer(x: torch.Tensor, params: dict,
     B splits over the data axes (``pod``, ``data``) first, so capacities
     count each data rank's tokens; the aux loss is the mean over all data
     x model ranks.  The mesh's axes must be local rings (global tensors,
-    every rank in this process): an axis of processes raises, and its
-    ranks call :func:`moe_ep_local` with their shards."""
+    every rank in this process): on an axis of processes the state is
+    placed (``parallel.sharding.shard_tree``; :func:`moe_layer_placed`),
+    or its ranks call :func:`moe_ep_local` with their shards, and global
+    tensors raise."""
     mesh = _model_mesh()
     if mesh is None:
         return _moe_local(x, params, cfg)
@@ -709,9 +731,10 @@ def moe_layer(x: torch.Tensor, params: dict,
     if not all(isinstance(mesh.transport(a), LocalRing)
                for a in ("model", *daxes)):
         raise NotImplementedError(
-            "the MoE layer over an axis of processes needs the sharding "
-            "slice (parallel/sharding.py: the tokens' and experts' shards); "
-            "call models.layers.moe_ep_local with this rank's shards")
+            "the MoE layer on global tensors over an axis of processes: "
+            "place the state with parallel.sharding.shard_tree "
+            "(moe_layer_placed), or call models.layers.moe_ep_local with "
+            "this rank's shards")
     nd = math.prod(mesh.shape[a] for a in daxes)
     ring = mesh.transport("model")
     m = ring.size
@@ -735,3 +758,158 @@ def moe_layer(x: torch.Tensor, params: dict,
     out = torch.cat([o for o, _ in runs], 0) if nd > 1 else runs[0][0]
     aux = LocalRing(nd).all_sum([a for _, a in runs])[0] / nd
     return out, aux
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism on a placed state
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class HeadShard:
+    """What one model rank computes of a GQA attention whose q / k / v
+    output features are cut over the ``model`` axis: it holds q features
+    [``q_lo``, ``q_hi``) and k / v features [``k_lo``, ``k_hi``), computes
+    q heads [``h0``, ``h1``) and reads kv heads [``kv0``, ``kv1``);
+    ``kv_index`` (None when the kv heads serve the q heads by GQA
+    grouping) picks, among those, each q head's own."""
+    q_lo: int
+    q_hi: int
+    k_lo: int
+    k_hi: int
+    h0: int
+    h1: int
+    kv0: int
+    kv1: int
+    kv_index: tuple | None
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadPlan:
+    """Every rank's :class:`HeadShard`, and whether the ranks must
+    all-gather the q or the k / v projections over ``model`` first (some
+    rank holds part of a head it computes: H or Kv does not divide the
+    axis)."""
+    shards: tuple
+    gather_q: bool
+    gather_kv: bool
+    head_dim: int
+
+
+def _chunk_range(size: int, n: int, r: int) -> tuple[int, int]:
+    step = -(-size // n)
+    lo = min(r * step, size)
+    return lo, min(lo + step, size)
+
+
+def head_plan(H: int, Kv: int, Dh: int, m: int) -> HeadPlan:
+    """The head split of an (H, Kv, Dh) attention over m model ranks whose
+    q / k / v features the param specs cut evenly: each rank computes the
+    q heads its q features (and ``wo``'s rows) touch, a head that straddles
+    two ranks on both, against the kv heads those q heads read."""
+    G = H // Kv
+    shards = []
+    for r in range(m):
+        a, b = _chunk_range(H * Dh, m, r)
+        c, d = _chunk_range(Kv * Dh, m, r)
+        if a == b:
+            raise ValueError(f"model rank {r} of {m} holds no q feature of "
+                             f"{H} x {Dh}")
+        h0, h1 = a // Dh, -(-b // Dh)
+        kvs = [h // G for h in range(h0, h1)]
+        kv0, kv1 = kvs[0], kvs[-1] + 1
+        nq, nk = h1 - h0, kv1 - kv0
+        grouped = nq % nk == 0 and all(
+            kv - kv0 == j // (nq // nk) for j, kv in enumerate(kvs))
+        shards.append(HeadShard(a, b, c, d, h0, h1, kv0, kv1,
+                                None if grouped else
+                                tuple(kv - kv0 for kv in kvs)))
+    return HeadPlan(
+        tuple(shards),
+        gather_q=any(s.q_lo != s.h0 * Dh or s.q_hi != s.h1 * Dh
+                     for s in shards),
+        gather_kv=any(s.k_lo != s.kv0 * Dh or s.k_hi != s.kv1 * Dh
+                      for s in shards),
+        head_dim=Dh)
+
+
+def heads_of(plan: HeadPlan, r: int, q: torch.Tensor,
+             gathered: bool) -> torch.Tensor:
+    """Rank ``r``'s q heads (B, S, h1 - h0, Dh) from its projection:
+    its own features, or the gathered whole's slice."""
+    sh, Dh = plan.shards[r], plan.head_dim
+    if gathered:
+        q = q[..., sh.h0 * Dh:sh.h1 * Dh]
+    return q.reshape(*q.shape[:-1], sh.h1 - sh.h0, Dh)
+
+
+def kv_heads_of(plan: HeadPlan, r: int, k: torch.Tensor,
+                gathered: bool) -> torch.Tensor:
+    """Rank ``r``'s kv heads (B, S, kv1 - kv0, Dh) from its projection
+    (the gathered whole's slice when ``gathered``)."""
+    sh, Dh = plan.shards[r], plan.head_dim
+    if gathered:
+        k = k[..., sh.kv0 * Dh:sh.kv1 * Dh]
+    return k.reshape(*k.shape[:-1], sh.kv1 - sh.kv0, Dh)
+
+
+def expand_kv(plan: HeadPlan, r: int, k: torch.Tensor) -> torch.Tensor:
+    """Rank ``r``'s kv heads as its attention reads them: as they are when
+    they serve its q heads by GQA grouping, else one for each q head."""
+    idx = plan.shards[r].kv_index
+    if idx is None:
+        return k
+    return k.index_select(-2, torch.tensor(idx, device=k.device))
+
+
+def out_features(plan: HeadPlan, r: int, o: torch.Tensor) -> torch.Tensor:
+    """The (B, S, q_hi - q_lo) features of rank ``r``'s attention output
+    (B, S, h1 - h0, Dh) that its rows of ``wo`` take."""
+    sh, Dh = plan.shards[r], plan.head_dim
+    o = o.reshape(*o.shape[:-2], -1)
+    return o[..., sh.q_lo - sh.h0 * Dh:sh.q_hi - sh.h0 * Dh]
+
+
+def moe_layer_placed(x: torch.Tensor, params: dict, cfg: MoEConfig,
+                     ring) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE MLP on a placed state, over the ranks of ``ring`` (the
+    ``model`` axis): the branch the param specs imply.  ``x`` (B, S, D) is
+    replicated; ``params`` are placed (router replicated, the experts cut
+    by ``parallel.sharding.param_specs``).
+
+      * E divisible by the axis (experts on ``model``): expert
+        parallelism, :func:`moe_ep_ranks`; each rank routes its S / m
+        tokens and the outputs are gathered, or, where S does not split
+        (decode), every rank routes all of them and the outputs are
+        summed and divided by m;
+      * otherwise (the experts' F on ``model``): TP in expert, each rank
+        routing all tokens against its F / m of every expert, the partial
+        outputs (rounded to x's dtype, as the reference's per-shard
+        ``_moe_local``) summed.
+
+    Returns (out, aux): aux the mean of the ranks' own terms."""
+    n = ring.size
+    E = cfg.n_experts
+    xs = tp.copy_to_model(x, ring)
+    routers = tp.copy_to_model(params["router"].at(), ring)
+    idx = ring.index()
+    wgs, wus, wds = ([params[k].at(model=r) for r in idx]
+                     for k in ("w_gate", "w_up", "w_down"))
+    if E % n == 0:
+        S = x.shape[1]
+        split = S % n == 0
+        if split:
+            xs = [x_r.narrow(1, r * (S // n), S // n)
+                  for r, x_r in zip(idx, xs)]
+        outs, auxs = moe_ep_ranks(xs, routers, wgs, wus, wds, cfg=cfg,
+                                  ring=ring)
+        out = tp.gather_from_model(outs, ring, 1) if split else \
+            tp.reduce_from_model(outs, ring) / n
+    else:
+        outs, auxs = [], []
+        for x_r, router, wg, wu, wd in zip(xs, routers, wgs, wus, wds):
+            o, a = _moe_local(x_r, {"router": router, "w_gate": wg,
+                                    "w_up": wu, "w_down": wd}, cfg)
+            outs.append(o)
+            auxs.append(a)
+        out = tp.reduce_from_model(outs, ring)
+    return out, tp.reduce_from_model(auxs, ring) / n

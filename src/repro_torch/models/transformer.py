@@ -15,6 +15,19 @@ slice assignment): a functional copy of a 1.2 GB pool per layer and tick
 would dominate a serving step on the card.  ``prefill``, ``decode_step``
 and ``paged_step`` therefore return the very cache or pool they were
 given, updated.
+
+On a state placed by ``parallel.sharding.shard_tree`` (params cut by
+``param_specs``; a cache or pool cut by ``cache_specs`` /
+``paged_pool_specs`` on its heads or head_dim) the same entry points run
+Megatron's tensor parallelism over the ``model`` axis
+(``parallel.tensor_parallel``): the vocabulary-parallel embedding; each
+rank's q / k / v from its output features, attention on its own heads
+(``layers.head_plan``: the projections all-gathered first where H or Kv
+does not divide the axis), ``wo`` and ``w_down`` row-parallel, their
+partials summed; the MoE by ``layers.moe_layer_placed``.  ``forward``
+then returns the logits as ``tensor_parallel.VocabShards`` (each rank's
+vocab range), the serving steps the logits gathered whole.  The data
+axes are the caller's: a train step hands each data rank's rows in turn.
 """
 from __future__ import annotations
 
@@ -24,10 +37,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel import tensor_parallel as tp
+from repro_torch.parallel.sharding import Placed
 
 from .layers import (MoEConfig, apply_rope, attention, decode_attention,
-                     moe_layer, paged_decode_attention, remat_call,
-                     seq_positions, quantize_kv, rms_norm, swiglu, unstack)
+                     expand_kv, head_plan, heads_of, kv_heads_of, moe_layer,
+                     moe_layer_placed, out_features, paged_decode_attention,
+                     remat_call, seq_positions, quantize_kv, rms_norm,
+                     swiglu, unstack)
 
 # Serving-engine capability flags (see configs/base.py and
 # serving/engine.py): prefill accepts ``true_lengths`` for length-bucketed
@@ -201,7 +218,10 @@ def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     is kept, and the backward recomputes it, aux included; at full width
     nothing else fits beside the optimizer state.  (The reference also
     saves the attention output across the recompute; here the flash
-    forward runs again.)"""
+    forward runs again.)  On a placed state the logits come back as each
+    model rank's vocab range (module docstring)."""
+    if placed(params):
+        return _forward_placed(cfg, params, tokens, vision_embeds)
     x = _embed(params, tokens, vision_embeds)
     positions = seq_positions(x.shape[1], x.device)
     aux = 0.0
@@ -250,7 +270,12 @@ def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     right-padded to a bucket size, and causality guarantees every position
     < true_lengths[b] is unaffected by the padding.  The cache length is
     set to the true length and the returned logits are taken at position
-    ``true_lengths - 1`` (lengths that count the prefix)."""
+    ``true_lengths - 1`` (lengths that count the prefix).  On a placed
+    state the cache is placed too (each model rank's heads or head_dim
+    slice; module docstring)."""
+    if placed(params):
+        return _prefill_placed(cfg, params, tokens, cache, vision_embeds,
+                               true_lengths)
     x = _embed(params, tokens, vision_embeds)
     B, S, _ = x.shape
     positions = seq_positions(S, x.device)
@@ -288,7 +313,10 @@ def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
 def decode_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
                 cache: dict):
     """tokens: (B, 1) -> (logits (B, 1, V), cache): one serving step that
-    writes each slot's new K/V at its own length, in place."""
+    writes each slot's new K/V at its own length, in place (a placed
+    cache on a placed state)."""
+    if placed(params):
+        return _decode_step_placed(cfg, params, tokens, cache)
     x = F.embedding(tokens, params["embed"])
     B = x.shape[0]
     length = cache["length"]
@@ -379,7 +407,12 @@ def paged_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     tokens and writes land in its first private page.  Pad/idle writes are
     routed to trash page 0.
 
-    Returns (logits (B, T, vocab), pool, lengths + counts)."""
+    Returns (logits (B, T, vocab), pool, lengths + counts).  On a placed
+    state the pool is placed too (each model rank's heads or head_dim
+    slice; module docstring)."""
+    if placed(params):
+        return _paged_step_placed(cfg, params, tokens, pool, page_table,
+                                  lengths, counts)
     x = F.embedding(tokens, params["embed"])
     B, T, _ = x.shape
     page = pool["k"].shape[2]
@@ -431,3 +464,319 @@ def paged_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
         x = x + _mlp(cfg, lp, x)[0]
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x @ params["lm_head"], pool, lengths + counts
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism on a placed state (module docstring)
+# ---------------------------------------------------------------------------
+
+def placed(params: dict) -> bool:
+    """Whether ``params`` were placed by ``parallel.sharding.shard_tree``."""
+    return isinstance(params.get("embed"), Placed)
+
+
+def _tp(cfg: TransformerConfig, params: dict):
+    """(the model axis's ring, the head plan over it)."""
+    ring = tp.model_ring(params["embed"].mesh)
+    return ring, head_plan(cfg.n_heads, cfg.n_kv_heads, cfg.dh, ring.size)
+
+
+def _qkv_placed(cfg: TransformerConfig, lp: dict, h: torch.Tensor,
+                positions, ring, plan, all_kv: bool = False):
+    """Each model rank's (q, k, v), per rank: q its heads (B, S, h1 - h0,
+    Dh), k / v its kv heads, normed and rotated, from its output features
+    (gathered over the axis first where a head straddles ranks).  With
+    ``all_kv`` a rank whose projections were gathered keeps every kv head
+    (the serving writes: a rank's cache holds a head_dim slice of each)."""
+    hs = tp.copy_to_model(h, ring)
+    idx = ring.index()
+    proj = {}
+    for name in ("q", "k", "v"):
+        out = []
+        for r, h_r in zip(idx, hs):
+            y = h_r @ lp["w" + name].at(model=r)
+            if cfg.qkv_bias:
+                y = y + lp["b" + name].at(model=r)
+            out.append(y)
+        gather = plan.gather_q if name == "q" else plan.gather_kv
+        proj[name] = tp.gather_to_model(out, ring, -1) if gather else out
+    if cfg.qk_norm:
+        qn = tp.copy_to_model(lp["q_norm"].at(), ring)
+        kn = tp.copy_to_model(lp["k_norm"].at(), ring)
+    res = []
+    for i, r in enumerate(idx):
+        q = heads_of(plan, r, proj["q"][i], plan.gather_q)
+        if all_kv and plan.gather_kv:
+            k, v = (proj[n][i].reshape(*proj[n][i].shape[:-1],
+                                       cfg.n_kv_heads, cfg.dh)
+                    for n in ("k", "v"))
+        else:
+            k, v = (kv_heads_of(plan, r, proj[n][i], plan.gather_kv)
+                    for n in ("k", "v"))
+        if cfg.qk_norm:
+            q = rms_norm(q, qn[i], cfg.norm_eps)
+            k = rms_norm(k, kn[i], cfg.norm_eps)
+        res.append((apply_rope(q, positions, cfg.rope_theta),
+                    apply_rope(k, positions, cfg.rope_theta), v))
+    return res
+
+
+def _mlp_placed(cfg: TransformerConfig, lp: dict, x: torch.Tensor, ring):
+    """The MLP on a placed state: swiglu column- then row-parallel, or the
+    MoE's placed branch.  -> (out, aux)."""
+    h = rms_norm(x, lp["ln2"].at(), cfg.norm_eps)
+    if cfg.moe:
+        return moe_layer_placed(h, lp, cfg.moe, ring)
+    parts = [swiglu(h_r, lp["w_gate"].at(model=r), lp["w_up"].at(model=r),
+                    lp["w_down"].at(model=r))
+             for r, h_r in zip(ring.index(), tp.copy_to_model(h, ring))]
+    return tp.reduce_from_model(parts, ring), 0.0
+
+
+def _attn_out(lp: dict, plan, ring, outs: list) -> torch.Tensor:
+    """The ranks' attention outputs through their rows of ``wo``, summed."""
+    parts = [out_features(plan, r, o) @ lp["wo"].at(model=r)
+             for r, o in zip(ring.index(), outs)]
+    return tp.reduce_from_model(parts, ring)
+
+
+def _block_train_placed(cfg: TransformerConfig, x: torch.Tensor, lp: dict,
+                        positions: torch.Tensor, ring, plan):
+    """:func:`_block_train` on a placed layer: -> (output, aux)."""
+    h = rms_norm(x, lp["ln1"].at(), cfg.norm_eps)
+    outs = [attention(q, expand_kv(plan, r, k), expand_kv(plan, r, v),
+                      causal=True, window=cfg.window, impl=cfg.attn_impl,
+                      ring="off")
+            for r, (q, k, v) in zip(ring.index(), _qkv_placed(
+                cfg, lp, h, positions, ring, plan))]
+    x = x + _attn_out(lp, plan, ring, outs)
+    mo, aux = _mlp_placed(cfg, lp, x, ring)
+    return x + mo, aux
+
+
+def _logits_placed(cfg: TransformerConfig, params: dict, x: torch.Tensor,
+                   ring) -> list[torch.Tensor]:
+    """Each rank's logits over its vocab range from the final norm."""
+    x = rms_norm(x, params["ln_f"].at(), cfg.norm_eps)
+    return [x_r @ params["lm_head"].at(model=r)
+            for r, x_r in zip(ring.index(), tp.copy_to_model(x, ring))]
+
+
+def _forward_placed(cfg: TransformerConfig, params: dict,
+                    tokens: torch.Tensor, vision_embeds):
+    """:func:`forward` on a placed state (module docstring).  The model
+    axis's ranks split heads, so attention takes no context-parallel path
+    of an active mesh (``ring="off"``)."""
+    ring, plan = _tp(cfg, params)
+    x = tp.vocab_embed(tokens, params["embed"], ring)
+    if vision_embeds is not None:
+        x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+    positions = seq_positions(x.shape[1], x.device)
+    aux = 0.0
+    for lp in unstack(params["layers"]):
+        x, a = remat_call(_block_train_placed, cfg, x, lp, positions, ring,
+                          plan)
+        aux = aux + a
+    logits = _logits_placed(cfg, params, x, ring)
+    return tp.VocabShards(logits, ring, cfg.vocab), aux
+
+
+def _kv_cut(pool_leaf: Placed) -> str:
+    """How the model ranks' shards of a cache or pool leaf cut the kv heads:
+    'heads' (its heads, its plan's kv range), 'head_dim' (a slice of every
+    head's features) or 'none' (every head, replicated)."""
+    spec = pool_leaf.spec
+    if spec[3] is not None and "model" in pool_leaf.axes:
+        return "heads"
+    if len(spec) > 4 and spec[4] is not None and "model" in pool_leaf.axes:
+        return "head_dim"
+    return "none"
+
+
+def _own(t: torch.Tensor, r: int, cut: str, ring) -> torch.Tensor:
+    """Rank ``r``'s part, as its cache or pool shard holds it, of its
+    new K/V (B, T, heads, Dh) or scales (B, T, heads): a slice of the
+    features in the head_dim cut, else as they are."""
+    if cut == "head_dim" and t.dim() == 4:
+        lo, hi = tp.vocab_range(t.shape[-1], ring.size, r)
+        return t[..., lo:hi]
+    return t
+
+
+def _kv_values(store: dict, k: torch.Tensor, v: torch.Tensor, r: int,
+               cut: str, ring) -> dict:
+    """Rank ``r``'s part of new K/V (B, T, heads, Dh) as its cache or pool
+    shard stores it: quantized with scales for an int8 store, a slice of
+    the features in the head_dim cut."""
+    if store["k"].dtype == torch.int8:
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        vals = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        vals = {"k": k.to(store["k"].dtype), "v": v.to(store["v"].dtype)}
+    return {n: _own(t, r, cut, ring) for n, t in vals.items()}
+
+
+def _kv_views(store: dict, i: int, ring, plan, cut: str) -> list[dict]:
+    """Each held rank's layer-i view of a placed cache or pool (k, v and
+    any scales) over the kv heads its q heads read: its shard, or the
+    shards gathered whole over the axis (head_dim cut), narrowed to its
+    plan's kv heads as contiguous tensors (the paged kernel takes a
+    contiguous pool)."""
+    idx = ring.index()
+    names = [n for n in ("k", "v", "k_scale", "v_scale") if n in store]
+    out = [{} for _ in idx]
+    for n in names:
+        ts = [store[n].at(model=r)[i] for r in idx]
+        if cut == "head_dim" and n in ("k", "v"):
+            ts = tp.gather_to_model(ts, ring, -1)
+        for j, (r, t) in enumerate(zip(idx, ts)):
+            if cut != "heads":
+                sh = plan.shards[r]
+                # (.., S or page, Kv[, Dh]): heads are dim 2 of a layer
+                t = t.narrow(2, sh.kv0, sh.kv1 - sh.kv0).contiguous()
+            out[j][n] = t
+    return out
+
+
+def _expand_views(plan, r: int, pg: dict) -> dict:
+    """A rank's views with one kv head for each of its q heads, where its
+    split breaks the GQA groups (``HeadShard.kv_index``)."""
+    if plan.shards[r].kv_index is None:
+        return pg
+    return {n: expand_kv(plan, r, t if t.dim() == 4 else t[..., None])
+            .reshape(*t.shape[:2], -1, *t.shape[3:]) for n, t in pg.items()}
+
+
+def _kv_of(plan, r: int, t: torch.Tensor, all_kv: bool) -> torch.Tensor:
+    """The kv heads rank ``r``'s attention reads of new K/V that hold
+    every head (``all_kv``) or its own already; expanded as
+    :func:`layers.expand_kv` says."""
+    if all_kv:
+        sh = plan.shards[r]
+        t = t.narrow(2, sh.kv0, sh.kv1 - sh.kv0)
+    return expand_kv(plan, r, t)
+
+
+def _prefill_placed(cfg: TransformerConfig, params: dict,
+                    tokens: torch.Tensor, cache: dict, vision_embeds,
+                    true_lengths):
+    """:func:`prefill` on a placed state and cache."""
+    ring, plan = _tp(cfg, params)
+    idx = ring.index()
+    cut = _kv_cut(cache["k"])
+    all_kv = cut != "heads"
+    x = tp.vocab_embed(tokens, params["embed"], ring)
+    if vision_embeds is not None:
+        x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+    B, S, _ = x.shape
+    positions = seq_positions(S, x.device)
+    for i, lp in enumerate(unstack(params["layers"])):
+        h = rms_norm(x, lp["ln1"].at(), cfg.norm_eps)
+        outs = []
+        for r, (q, k, v) in zip(idx, _qkv_placed(
+                cfg, lp, h, positions, ring, plan, all_kv=all_kv)):
+            for n, val in _kv_values(cache, k, v, r, cut, ring).items():
+                cache[n].at(model=r)[i, :, :S] = val
+            outs.append(attention(
+                q, _kv_of(plan, r, k, all_kv), _kv_of(plan, r, v, all_kv),
+                causal=True, window=cfg.window, impl=cfg.attn_impl,
+                ring="off"))
+        x = x + _attn_out(lp, plan, ring, outs)
+        x = x + _mlp_placed(cfg, lp, x, ring)[0]
+    length = cache["length"].at()
+    if true_lengths is None:
+        length.fill_(S)
+        last = x[:, -1:]
+    else:
+        length.copy_(true_lengths.to(torch.int32))
+        last = x[torch.arange(B, device=x.device),
+                 true_lengths.long() - 1][:, None]
+    logits = tp.gather_from_model(_logits_placed(cfg, params, last, ring),
+                                  ring, -1)
+    return logits, cache
+
+
+def _decode_step_placed(cfg: TransformerConfig, params: dict,
+                        tokens: torch.Tensor, cache: dict):
+    """:func:`decode_step` on a placed state and cache."""
+    ring, plan = _tp(cfg, params)
+    idx = ring.index()
+    cut = _kv_cut(cache["k"])
+    x = tp.vocab_embed(tokens, params["embed"], ring)
+    B = x.shape[0]
+    length = cache["length"].at()
+    positions = length[:, None]
+    rows = torch.arange(B, device=x.device)
+    pos = torch.clamp(length.long(), max=cache["k"].shape[2] - 1)
+    for i, lp in enumerate(unstack(params["layers"])):
+        h = rms_norm(x, lp["ln1"].at(), cfg.norm_eps)
+        qkv = _qkv_placed(cfg, lp, h, positions, ring, plan,
+                          all_kv=cut != "heads")
+        for r, (q, k, v) in zip(idx, qkv):
+            for n, val in _kv_values(cache, k, v, r, cut, ring).items():
+                cache[n].at(model=r)[i][rows, pos] = val[:, 0]
+        outs = []
+        for r, (q, _, _), pg in zip(idx, qkv, _kv_views(cache, i, ring, plan,
+                                                      cut)):
+            pg = _expand_views(plan, r, pg)
+            outs.append(decode_attention(q, pg["k"], pg["v"], length + 1,
+                                         pg.get("k_scale"),
+                                         pg.get("v_scale")))
+        x = x + _attn_out(lp, plan, ring, outs)
+        x = x + _mlp_placed(cfg, lp, x, ring)[0]
+    length += 1
+    logits = tp.gather_from_model(_logits_placed(cfg, params, x, ring),
+                                  ring, -1)
+    return logits, cache
+
+
+def _paged_step_placed(cfg: TransformerConfig, params: dict,
+                       tokens: torch.Tensor, pool: dict,
+                       page_table: torch.Tensor, lengths: torch.Tensor,
+                       counts: torch.Tensor):
+    """:func:`paged_step` on a placed state and pool: each model rank
+    writes its shard of the new K/V and runs the paged decode (its kernel
+    on the card at T == 1) for its q heads against its kv heads, the
+    layer's page view all-gathered over the axis first where the pool cuts
+    head_dim; the logits gathered whole."""
+    ring, plan = _tp(cfg, params)
+    x = tp.vocab_embed(tokens, params["embed"], ring)
+    B, T, _ = x.shape
+    page = pool["k"].shape[2]
+    MP = page_table.shape[1]
+    ar_t = torch.arange(T, device=x.device)
+    positions = lengths[:, None] + ar_t[None, :]
+    valid = ar_t[None, :] < counts[:, None]
+    lp_idx = torch.clamp(positions // page, 0, MP - 1).long()
+    phys = torch.where(valid, torch.gather(page_table, 1, lp_idx), 0).long()
+    off = (positions % page).long()
+    quantized = "k_scale" in pool
+    impl = cfg.attn_impl if T == 1 else "xla"
+    src = _trash_last_writer(phys, off, page) if cfg.moe else None
+    idx = ring.index()
+    cut = _kv_cut(pool["k"])
+    all_kv = cut != "heads"
+
+    def put(dst, val):
+        if src is not None:
+            val = val.reshape(B * T, *val.shape[2:])[src].reshape(val.shape)
+        dst[phys, off] = val
+
+    for i, lp in enumerate(unstack(params["layers"])):
+        h = rms_norm(x, lp["ln1"].at(), cfg.norm_eps)
+        qkv = _qkv_placed(cfg, lp, h, positions, ring, plan, all_kv=all_kv)
+        for r, (q, k, v) in zip(idx, qkv):
+            for n, val in _kv_values(pool, k, v, r, cut, ring).items():
+                put(pool[n].at(model=r)[i], val)
+        pages = _kv_views(pool, i, ring, plan, cut)
+        outs = []
+        for r, (q, _, _), pg in zip(idx, qkv, pages):
+            pg = _expand_views(plan, r, pg)
+            outs.append(paged_decode_attention(
+                q, pg["k"], pg["v"], page_table, lengths, pg.get("k_scale"),
+                pg.get("v_scale"), impl=impl))
+        x = x + _attn_out(lp, plan, ring, outs)
+        x = x + _mlp_placed(cfg, lp, x, ring)[0]
+    logits = tp.gather_from_model(_logits_placed(cfg, params, x, ring),
+                                  ring, -1)
+    return logits, pool, lengths + counts

@@ -4,6 +4,12 @@ Counterpart of ``repro.optim.adamw``, with the same arithmetic.  Optimizer
 state is f32 whatever the param dtype (mixed precision) and mirrors the
 param tree; its ``step`` is a 0-d int32 tensor on the host.
 
+A tree placed by ``parallel.sharding.shard_tree`` flattens to its shards
+(:func:`tree_leaves`), its moments are placed as the params are
+(:func:`adamw_init`; ``step`` replicated), the update runs shard by
+shard, and the global norm counts each shard once, summed over the
+process rings that cut it (:func:`clip_by_global_norm`).
+
 Where the reference returns new trees, :func:`adamw_update` updates the
 params and the moments IN PLACE, leaf by leaf and in slices of at most
 :data:`CHUNK` elements, so no f32 copy of the whole tree, nor of one whole
@@ -35,17 +41,27 @@ class AdamWConfig:
     min_lr_frac: float = 0.1
 
 
+def _placed():
+    from repro_torch.parallel.sharding import Placed
+    return Placed
+
+
 def tree_leaves(tree: Any) -> list[torch.Tensor]:
     """The tensors of a nested dict, in sorted-key order (as JAX flattens
-    a dict)."""
+    a dict); a placed leaf gives its shards, in coordinate order."""
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
+    if isinstance(tree, _placed()):
+        return tree.tensors()
     return [tree]
 
 
 def tree_map(fn, tree: Any) -> Any:
+    """``fn`` of every leaf; a placed leaf's shards each, placed alike."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, _placed()):
+        return tree.map(fn)
     return fn(tree)
 
 
@@ -72,15 +88,51 @@ def adamw_init(params: Any) -> dict:
             "step": torch.zeros((), dtype=torch.int32)}
 
 
-def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float
+def _sq(g: torch.Tensor) -> torch.Tensor:
+    return sum(c.float().square().sum() for c in chunks(g))
+
+
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float,
+                        params: Any = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """(scale, global norm) as 0-d f32 tensors, the norm taken in f32 over
     every grad.  The reference returns the scaled grads; here the caller
     multiplies each f32 slice by ``scale`` as it uses it, so a bf16 grad is
-    never rounded after scaling."""
-    sq = sum(c.float().square().sum() for g in grads for c in chunks(g))
+    never rounded after scaling.  With ``params`` a placed tree (``grads``
+    its :func:`tree_leaves`), each shard counts once: a leaf cut over
+    process rings sums its shards' squares over them, a replicated one
+    counts once."""
+    mesh = None if params is None else _mesh_of(params)
+    if mesh is None:
+        sq = sum(_sq(g) for g in grads)
+    else:
+        from repro_torch.parallel.tensor_parallel import (all_reduce_,
+                                                          process_rings)
+        by_axes: dict = {}
+        it = iter(grads)
+        for leaf in _leaves_placed(params):
+            placed = isinstance(leaf, _placed())
+            n = len(leaf.shards) if placed else 1
+            axes = tuple(a for a in leaf.axes
+                         if process_rings(mesh, (a,))) if placed else ()
+            by_axes[axes] = by_axes.get(axes, 0) + sum(
+                _sq(next(it)) for _ in range(n))
+        sq = sum(all_reduce_(part, process_rings(mesh, axes))
+                 for axes, part in by_axes.items())
     gnorm = torch.sqrt(sq)
     return torch.clamp(max_norm / (gnorm + 1e-9), max=1.0), gnorm
+
+
+def _leaves_placed(tree: Any) -> list:
+    """The leaves of a nested dict, placed or not, in sorted-key order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves_placed(tree[k])]
+    return [tree]
+
+
+def _mesh_of(tree: Any):
+    from repro_torch.parallel.sharding import tree_mesh
+    return tree_mesh(tree)
 
 
 @torch.no_grad()
@@ -91,7 +143,7 @@ def adamw_update(cfg: AdamWConfig, params: Any, grads: list[torch.Tensor],
     ``lr``."""
     leaves = tree_leaves(params)
     mus, nus = tree_leaves(state["mu"]), tree_leaves(state["nu"])
-    scale, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    scale, gnorm = clip_by_global_norm(grads, cfg.clip_norm, params=params)
     step = int(state["step"]) + 1
     lr = cosine_schedule(cfg, step)
     b1c = 1 - cfg.b1 ** step

@@ -13,6 +13,9 @@ gives each a *transport*, the ring its ranks form, with four operations:
     concat_axis=0``): each rank cuts its entry into ``size`` chunks, and
     rank ``j`` receives chunk ``j`` of every rank in rank order (the MoE's
     expert exchange, ``models.layers.moe_ep_local``);
+  * ``all_gather(xs, dim)``: every rank's entry, concatenated along
+    ``dim`` in rank order, for every rank (the tiled ``all_gather``: the
+    head-split attention's projections, a placed tree gathered whole);
   * ``index()``: the ``axis_index`` of each rank this process holds.
 
 A ring body is written once over these.  Its state is a list with one
@@ -27,7 +30,8 @@ transports:
     a hop sends to rank ``r + 1`` and receives from rank ``r - 1`` of the
     axis's process group (``torch.distributed`` point-to-point: gloo on
     the CPU, NCCL on the card); an all-to-all is
-    ``dist.all_to_all_single``.
+    ``dist.all_to_all_single``, an all-gather
+    ``dist.all_gather_into_tensor``.
 
 ``split(x, dim)`` turns a tensor into that list and ``join(xs, dim)`` back:
 a :class:`LocalRing` cuts a global tensor into its ``m`` shards along
@@ -131,6 +135,18 @@ class LocalRing:
         parts = [x.chunk(n, 0) for x in xs]
         return [torch.cat([p[j] for p in parts], 0) for j in range(n)]
 
+    def all_gather(self, xs: list, dim: int) -> list:
+        """The entries concatenated along ``dim`` in rank order: one
+        tensor, the entry of every rank (autograd hands each rank's entry
+        its slice of the cotangents summed over the ranks that use it).
+        Counted as the ``all-gather`` it would be between cards: the
+        gathered bytes at every rank."""
+        if self.size == 1:
+            return list(xs)
+        total = torch.cat(list(xs), dim)
+        collective("all-gather", self.size * _nbytes(total))
+        return [total] * self.size
+
 
 class _AllSum(torch.autograd.Function):
     """``dist.all_reduce`` into a copy (of a 16-bit float, in f32, rounded
@@ -171,13 +187,47 @@ class _AllToAll(torch.autograd.Function):
         return _AllToAll.apply(g.contiguous(), ctx.group), None
 
 
+def _gather_fn(dist):
+    """``dist.all_gather_into_tensor``, under the name a newer release
+    gives it where it has one."""
+    return getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+
+
+class _AllGather(torch.autograd.Function):
+    """``dist.all_gather_into_tensor`` of equal shards along ``dim``.  The
+    gathered tensor feeds this rank's own computation, so the cotangent
+    each rank holds is its part of the whole: the backward sums them over
+    the ranks (``all_reduce``; a 16-bit float in f32, rounded once) and
+    hands back this rank's slice, as the local ring's autograd does."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int, group, size: int,
+                rank: int) -> torch.Tensor:
+        import torch.distributed as dist
+        ctx.dim, ctx.group, ctx.rank, ctx.n = dim, group, rank, x.shape[dim]
+        moved = x.movedim(dim, 0).contiguous()
+        out = moved.new_empty((size * moved.shape[0], *moved.shape[1:]))
+        _gather_fn(dist)(out, moved, group=group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        import torch.distributed as dist
+        total = g.float() if _narrow(g.dtype) else g.clone()
+        dist.all_reduce(total, group=ctx.group)
+        part = total.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n).to(g.dtype)
+        return part, None, None, None, None
+
+
 class ProcessRing:
     """An axis whose ranks are processes: this process holds one rank of
     ``group`` (default: the whole world).  :meth:`shift` sends this rank's
     entries to rank ``r + 1`` of the group and receives rank ``r - 1``'s
     into fresh buffers (``dist.batch_isend_irecv``; group ranks translated
     to global ranks with ``dist.get_global_rank``); :meth:`all_sum` is
-    ``dist.all_reduce``, :meth:`all_to_all` ``dist.all_to_all_single``.
+    ``dist.all_reduce``, :meth:`all_to_all` ``dist.all_to_all_single``,
+    :meth:`all_gather` ``dist.all_gather_into_tensor``.
     ``hops`` counts the shifts."""
 
     def __init__(self, group=None):
@@ -234,11 +284,22 @@ class ProcessRing:
             return list(xs)
         return [_AllToAll.apply(xs[0], self.group)]
 
+    def all_gather(self, xs: list, dim: int) -> list:
+        """Every rank's entry (of one shape) concatenated along ``dim`` in
+        rank order (``dist.all_gather_into_tensor``; differentiable: the
+        backward is this rank's slice of the cotangents summed over the
+        ranks).  The op cost counter sees the c10d op itself."""
+        if self.size == 1:
+            return list(xs)
+        return [_AllGather.apply(xs[0], dim, self.group, self.size,
+                                 self.rank)]
+
 
 class Mesh:
     """Named axes with their sizes (``shape``, a dict as the reference's
     ``mesh.shape``) and a transport each (a :class:`LocalRing` unless
-    ``transports`` names another).  A mesh places nothing: a local ring's
+    ``transports`` names another).  A mesh places nothing itself
+    (``parallel.sharding.shard_tree`` places a tree on it): a local ring's
     shards live wherever its tensors are."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],

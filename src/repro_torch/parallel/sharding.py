@@ -21,11 +21,22 @@ tensor dim, each None (replicated), a mesh axis name, or a tuple of names
 DTensor placements over a mesh's axes, and :func:`local_shape` gives the
 shard a rank holds, by DTensor's uneven chunking.  A mesh is anything with
 ``axis_names`` and a ``shape`` dict (``parallel.mesh.Mesh``).
+
+:func:`shard_tree` places a tree by its specs, the counterpart of
+``jax.device_put(tree, NamedSharding)``: each leaf becomes a
+:class:`Placed`, the shards of it that this process holds (on a local
+ring every rank's; on a process ring this rank's), each its own
+contiguous tensor.  A leaf, or the part of a shard, that the spec
+replicates over an axis is held once: the ranks of a local ring share
+that one tensor, so a (2, 4) mesh on one card holds the state once.
+:func:`gather_tree` is the way back, the global tree on every rank.
 """
 from __future__ import annotations
 
 import math
 from typing import Any
+
+import torch
 
 Spec = tuple
 
@@ -153,6 +164,28 @@ def paged_pool_specs(mesh, *, kv_heads: int,
             "page_table": (None, None), "lengths": (None,)}
 
 
+def kv_store_specs(store: dict, mesh, *, kv_heads: int,
+                   head_dim: int) -> dict:
+    """The specs a dense cache (L, B, S, Hkv, Dh) or a paged pool (L, P,
+    page, Hkv, Dh) is placed by on a placed state: over ``model`` alone,
+    as :func:`cache_specs` / :func:`paged_pool_specs` cut the heads: kv
+    heads on ``model`` when they divide it, else head_dim when it divides,
+    else replicated; the scales (..., Hkv) follow the heads; lengths,
+    tables and the batch or page axis stay whole."""
+    m = _model_axis(mesh)
+    heads = kv_heads % mesh.shape[m] == 0
+    feat = not heads and head_dim % mesh.shape[m] == 0
+    out = {}
+    for k, v in store.items():
+        spec = [None] * v.dim()
+        if k in ("k", "v"):
+            spec[3 if heads else 4] = m if heads or feat else None
+        elif k in ("k_scale", "v_scale") and heads:
+            spec[3] = m
+        out[k] = tuple(spec)
+    return out
+
+
 def _names(entry) -> tuple[str, ...]:
     if entry is None:
         return ()
@@ -210,3 +243,218 @@ def local_nbytes(tree, specs, mesh) -> int:
         return 0
     return math.prod(local_shape(tuple(tree.shape), specs, mesh)) * \
         tree.element_size()
+
+
+# ---------------------------------------------------------------------------
+# placed trees
+# ---------------------------------------------------------------------------
+
+def _cuts(spec: Spec, mesh) -> list[tuple[int, str]]:
+    """(dim, axis) in the order ``spec`` cuts a tensor: dim by dim, each
+    dim's axes major first; axes of one rank cut nothing."""
+    return [(d, a) for d, e in enumerate(spec) for a in _names(e)
+            if mesh.shape[a] > 1]
+
+
+def _held(mesh, axis: str) -> list[int]:
+    """The ranks of ``axis`` this process holds: all of a local ring's,
+    this rank of a process ring."""
+    return list(mesh.transport(axis).index())
+
+
+def _cut(x: torch.Tensor, cuts, mesh, coords: tuple) -> torch.Tensor:
+    """The shard of ``x`` at ``coords`` (one index a cut), as
+    :func:`local_shape` sizes it: a view."""
+    for (d, a), i in zip(cuts, coords):
+        n = mesh.shape[a]
+        size = x.shape[d]
+        step = -(-size // n) if size else 0
+        x = x.narrow(d, min(i * step, size), _chunk(size, n, i))
+    return x
+
+
+class Placed:
+    """One tensor of a placed tree: the global ``shape`` and ``dtype``, its
+    ``spec`` over ``mesh``, and ``shards``, the pieces this process holds,
+    keyed by their coordinates on ``axes`` (the mesh axes the spec cuts,
+    in cut order; () for a replicated tensor, held once).  A rank's shard
+    is :meth:`at` its coordinates."""
+
+    __slots__ = ("shape", "dtype", "spec", "mesh", "cuts", "axes", "shards")
+
+    def __init__(self, shape, dtype, spec: Spec, mesh, shards: dict):
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.spec = tuple(spec)
+        self.mesh = mesh
+        self.cuts = _cuts(self.spec, mesh)
+        self.axes = tuple(a for _, a in self.cuts)
+        self.shards = shards
+
+    @classmethod
+    def place(cls, x: torch.Tensor, spec: Spec, mesh) -> "Placed":
+        """``x`` cut by ``spec``: a contiguous copy of each shard held."""
+        cuts = _cuts(tuple(spec), mesh)
+        keys = [()]
+        for _, a in cuts:
+            keys = [k + (i,) for k in keys for i in _held(mesh, a)]
+        shards = {k: _cut(x, cuts, mesh, k).clone(
+            memory_format=torch.contiguous_format) for k in keys}
+        return cls(x.shape, x.dtype, spec, mesh, shards)
+
+    def piece(self, x: torch.Tensor, key: tuple) -> torch.Tensor:
+        """The shard at ``key`` of a global tensor ``x`` laid out as this
+        one (a view)."""
+        return _cut(x, self.cuts, self.mesh, key)
+
+    def at(self, **coords: int) -> torch.Tensor:
+        """The shard of the rank at ``coords`` (axis name -> index; axes
+        the spec does not cut are ignored)."""
+        return self.shards[tuple(coords[a] for a in self.axes)]
+
+    def tensors(self) -> list[torch.Tensor]:
+        """The shards held, in coordinate order."""
+        return [self.shards[k] for k in sorted(self.shards)]
+
+    def map(self, fn) -> "Placed":
+        """``fn`` of every shard, placed as this tensor is."""
+        shards = {k: fn(v) for k, v in self.shards.items()}
+        dtype = next(iter(shards.values())).dtype
+        return Placed(self.shape, dtype, self.spec, self.mesh, shards)
+
+    def unbind(self, dim: int = 0) -> list["Placed"]:
+        """The layers of a stacked tensor (an uncut dim 0), each placed as
+        the rest of the spec says; each shard unbound once."""
+        if dim != 0 or self.spec[0] is not None and any(
+                self.mesh.shape[a] > 1 for a in _names(self.spec[0])):
+            raise ValueError(f"unbind of dim {dim} of spec {self.spec}")
+        cols = {k: v.unbind(0) for k, v in self.shards.items()}
+        return [Placed(self.shape[1:], self.dtype, self.spec[1:], self.mesh,
+                       {k: c[i] for k, c in cols.items()})
+                for i in range(self.shape[0])]
+
+    def dim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.shards.values())).device
+
+    def nbytes(self) -> int:
+        """Bytes of the shards this process holds."""
+        return sum(t.numel() * t.element_size()
+                   for t in self.shards.values())
+
+    def __repr__(self) -> str:
+        return (f"Placed({tuple(self.shape)}, {self.dtype}, spec="
+                f"{self.spec}, {len(self.shards)} shard(s))")
+
+
+def _walk(fn, tree, specs=None):
+    if isinstance(tree, dict):
+        return {k: _walk(fn, v, None if specs is None else specs[k])
+                for k, v in tree.items()}
+    return None if tree is None else fn(tree, specs)
+
+
+def shard_tree(tree: Any, specs: Any, mesh) -> Any:
+    """A (nested dict) tree of global tensors placed by the matching spec
+    tree: each leaf a :class:`Placed` holding copies of the shards this
+    process holds (every rank's on local rings, this rank's on process
+    rings), a replicated leaf or part once."""
+    return _walk(lambda x, s: Placed.place(x, s, mesh), tree, specs)
+
+
+def _merge(parts: dict, d: int, axis: str, mesh, pos: int) -> dict:
+    """Join the pieces along dim ``d`` over ``axis`` (coordinate ``pos``
+    of each key): concatenated in rank order on a local ring, gathered
+    from the ranks of a process ring."""
+    ring = mesh.transport(axis)
+    out: dict = {}
+    for k in sorted(parts):
+        rest = k[:pos] + k[pos + 1:]
+        out.setdefault(rest, []).append(parts[k])
+    if len(ring.index()) == ring.size:
+        return {k: torch.cat(v, d) for k, v in out.items()}
+    return {k: ring.all_gather(v, d)[0] for k, v in out.items()}
+
+
+def gather_leaf(leaf: Placed) -> torch.Tensor:
+    """The global tensor of a placed one, on every rank (a process ring
+    gathers it: every rank of the axis must call this, in the same order;
+    its shards must be equal in size)."""
+    parts = dict(leaf.shards)
+    for pos in reversed(range(len(leaf.cuts))):
+        d, a = leaf.cuts[pos]
+        parts = _merge(parts, d, a, leaf.mesh, pos)
+    out = parts[()]
+    if tuple(out.shape) != tuple(leaf.shape):
+        raise ValueError(f"gathered {tuple(out.shape)}, placed "
+                         f"{tuple(leaf.shape)}: uneven shards on a process "
+                         f"axis")
+    return out if leaf.cuts else out.clone()
+
+
+def gather_tree(tree: Any, device=None) -> Any:
+    """The global tree of a placed one (leaves that are not placed are
+    kept as they are), on every rank: the tree the unsharded step holds.
+    Collective on a process mesh.  With ``device`` each gathered leaf
+    moves there as it is made (a checkpoint's host copy, one leaf on the
+    card at a time)."""
+    def one(x, _):
+        if not isinstance(x, Placed):
+            return x
+        g = gather_leaf(x)
+        return g if device is None else g.to(device)
+    return _walk(one, tree)
+
+
+@torch.no_grad()
+def load_tree_(placed: Any, host: Any) -> Any:
+    """Copy a global tree (e.g. a restored host tree) into a placed tree
+    of the same structure, in place: each shard gets its cut, a leaf that
+    is not placed the whole.  Returns ``placed``."""
+    if isinstance(placed, dict):
+        for k in placed:
+            load_tree_(placed[k], host[k])
+    elif isinstance(placed, Placed):
+        for key, shard in placed.shards.items():
+            shard.copy_(placed.piece(host, key))
+    elif placed is not None:
+        placed.copy_(host)
+    return placed
+
+
+def host_like(tree: Any) -> Any:
+    """Empty CPU tensors of a (placed or plain) tree's global shapes and
+    dtypes: what a checkpoint restores before it is placed."""
+    def one(x, _):
+        return torch.empty(tuple(x.shape), dtype=x.dtype)
+    return _walk(one, tree)
+
+
+def is_placed(tree: Any) -> bool:
+    """Whether any leaf of a (nested dict) tree is :class:`Placed`."""
+    if isinstance(tree, dict):
+        return any(is_placed(v) for v in tree.values())
+    return isinstance(tree, Placed)
+
+
+def tree_mesh(tree: Any):
+    """The mesh of a placed tree's first placed leaf (None if none)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            m = tree_mesh(v)
+            if m is not None:
+                return m
+        return None
+    return tree.mesh if isinstance(tree, Placed) else None
+
+
+def held_nbytes(tree: Any) -> int:
+    """Bytes this process holds of a (nested dict) tree, placed or not."""
+    if isinstance(tree, dict):
+        return sum(held_nbytes(v) for v in tree.values())
+    if isinstance(tree, Placed):
+        return tree.nbytes()
+    return 0 if tree is None else tree.numel() * tree.element_size()

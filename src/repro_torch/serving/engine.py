@@ -5,7 +5,13 @@ Given a mesh of local rings (``mesh=``), every model step runs under it
 (``parallel.set_mesh``), so a MoE layer takes its expert-parallel,
 token-split or TP-in-expert branch; the paged pool's page count rounds up
 to a multiple of the data axes' ranks, and its sharding specs are recorded
-(``pool_specs``) and place nothing, as every local ring.  The fleet surface (``inflight``, ``cancel``, and the page
+(``pool_specs``).  Given params placed by ``parallel.sharding.shard_tree``
+(on local rings or a model axis of processes), the paged pool is placed
+too, by ``pool_specs`` over ``model`` (the dense slot pool alike): each
+model rank holds its kv heads (or, where they do not divide the axis, its
+head_dim slice) as its own contiguous tensor and runs the paged decode on
+them; the page and slot axes stay whole, as the host state (scheduler,
+allocator, rng) is the same on every rank.  The fleet surface (``inflight``, ``cancel``, and the page
 export / import of a cached prefix) lets ``serving.fleet.LocalFleet``
 route, hedge and migrate between engines.  Three KV modes behind one
 interface (``ServeConfig.kv_mode``):
@@ -52,8 +58,12 @@ import numpy as np
 import torch
 
 from repro_torch.obs import get_telemetry
+from repro_torch.optim.adamw import tree_leaves
 from repro_torch.parallel.mesh import LocalRing, set_mesh
-from repro_torch.parallel.sharding import _data_axes, paged_pool_specs
+from repro_torch.parallel.sharding import (Placed, _data_axes,
+                                           gather_leaf, is_placed,
+                                           kv_store_specs, paged_pool_specs,
+                                           shard_tree, tree_mesh)
 
 from .kv import BlockPoolKV, PagedKVConfig
 from .prefix import RadixPrefixCache
@@ -137,9 +147,11 @@ class ServingEngine:
     tokens, cache); the paged modes additionally need init_paged_pool /
     paged_step / supports_paged_kv (the transformer family; see
     configs/base.py).  Every tensor lives on ``device``, the device of the
-    params.  ``mesh``: a ``parallel.Mesh`` of local rings that every model
-    step runs under (its axes of processes need the sharded-state slice:
-    they raise)."""
+    params.  ``mesh``: a ``parallel.Mesh`` that every model step runs
+    under: local rings, or a model axis of processes when the params are
+    placed (module docstring).  A data axis of processes raises: the
+    reference's page axis over data is global (any slot's table points
+    anywhere), which needs per-rank page ownership."""
 
     # consecutive ticks with work queued but nothing executed before the
     # engine declares the scheduler wedged
@@ -150,12 +162,25 @@ class ServingEngine:
                  mesh: Any = None):
         if cfg.kv_mode not in KV_MODES:
             raise ValueError(f"kv_mode {cfg.kv_mode!r} not in {KV_MODES}")
-        if mesh is not None and not all(isinstance(t, LocalRing) for t in
-                                        mesh.transports.values()):
-            raise NotImplementedError(
-                f"{mesh}: an engine over an axis of processes needs the "
-                f"sharded-state slice (the pool's page shards); give it a "
-                f"mesh of local rings")
+        self.placed = is_placed(params)
+        if self.placed:
+            mesh = mesh or tree_mesh(params)
+        if mesh is not None:
+            for axis, t in mesh.transports.items():
+                if isinstance(t, LocalRing) or t.size == 1:
+                    continue
+                if axis != "model":
+                    raise NotImplementedError(
+                        f"{mesh}: an engine over a {axis} axis of processes "
+                        f"needs per-rank page ownership (the pool's page "
+                        f"axis over {axis} is global: any slot's table "
+                        f"points anywhere), which the sharded-state slice "
+                        f"does not place; give it local rings there")
+                if not self.placed:
+                    raise NotImplementedError(
+                        f"{mesh}: an engine over a model axis of processes "
+                        f"takes params placed by parallel.sharding."
+                        f"shard_tree (the sharded-state slice)")
         self.mesh = mesh
         self.bundle = bundle
         self.params = params
@@ -176,6 +201,16 @@ class ServingEngine:
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
+
+    def _place_kv(self, store: dict) -> dict:
+        """A dense cache or paged pool placed over ``model`` as the placed
+        params need it (``sharding.kv_store_specs``); as it is otherwise."""
+        if not self.placed:
+            return store
+        mcfg = self.bundle.cfg
+        return shard_tree(store, kv_store_specs(
+            store, self.mesh, kv_heads=mcfg.n_kv_heads, head_dim=mcfg.dh),
+            self.mesh)
 
     def _mesh_ctx(self):
         """The engine's mesh made active for a model step (the reference's
@@ -332,8 +367,9 @@ class ServingEngine:
                 break
             rid, prompt, _, deadline = self.queue.pop(0)
             if self._prefill_template is None:
-                self._prefill_template = self.bundle.init_cache(
-                    1, self.cfg.max_len, device=self.device)
+                self._prefill_template = self._place_kv(
+                    self.bundle.init_cache(1, self.cfg.max_len,
+                                           device=self.device))
             S = len(prompt)
             with self.obs.span("prefill", rid=rid, tokens=int(S)), \
                     self._mesh_ctx():
@@ -370,7 +406,10 @@ class ServingEngine:
                                     for k, v in cache.items()}
         for k, v in cache.items():
             ax = self._cache_axes[k]
-            v.select(ax, idx).copy_(one[k].select(ax, 0))
+            pairs = zip(v.tensors(), one[k].tensors()) \
+                if isinstance(v, Placed) else [(v, one[k])]
+            for dst, src in pairs:
+                dst.select(ax, idx).copy_(src.select(ax, 0))
         return cache
 
     def _expire_dense(self) -> None:
@@ -396,8 +435,8 @@ class ServingEngine:
     def _step_dense(self) -> None:
         cfg = self.cfg
         if self._dense_cache is None:
-            self._dense_cache = self.bundle.init_cache(
-                cfg.batch, cfg.max_len, device=self.device)
+            self._dense_cache = self._place_kv(self.bundle.init_cache(
+                cfg.batch, cfg.max_len, device=self.device))
         self._dense_tick += 1
         obs = self.obs
         self._expire_dense()
@@ -473,6 +512,9 @@ class ServingEngine:
         self.pool = self.bundle.init_paged_pool(num_pages, cfg.page_size,
                                                 kv_dtype=kv_dtype,
                                                 device=self.device)
+        # placed over model only: the page axis stays whole (the host
+        # state owns every page)
+        self.pool = self._place_kv(self.pool)
         self._requests: dict[int, Request] = {}
         self.cow_copies = 0
         self.ticks = 0
@@ -503,7 +545,7 @@ class ServingEngine:
         (all layers, K+V+scales) into the request's first private page,
         in place, then release the pin admission held on the source."""
         src, dst, _ = req.cow
-        for v in self.pool.values():
+        for v in tree_leaves(self.pool):
             v[:, dst].copy_(v[:, src])
         self.cow_copies += 1
         self.sched._drop_cow(self.kv, req)
@@ -719,7 +761,8 @@ class ServingEngine:
             return []
         idx = torch.tensor([n.page for n in nodes], dtype=torch.long,
                            device=self.device)
-        host = {k: v.index_select(1, idx).cpu() for k, v in self.pool.items()}
+        host = {k: (gather_leaf(v) if isinstance(v, Placed) else v)
+                .index_select(1, idx).cpu() for k, v in self.pool.items()}
         return [(node.tokens, {k: h[:, i] for k, h in host.items()})
                 for i, node in enumerate(nodes)]
 
@@ -748,7 +791,12 @@ class ServingEngine:
             except MemoryError:
                 break
             for k, v in self.pool.items():
-                v[:, page].copy_(torch.as_tensor(vals[k]))
+                val = torch.as_tensor(vals[k])
+                if not isinstance(v, Placed):
+                    v[:, page].copy_(val)
+                    continue
+                for key, shard in v.shards.items():
+                    shard[:, page:page + 1].copy_(v.piece(val[:, None], key))
             node = self.prefix.adopt_segment(node, seg, page)
             matched += ps
         return matched

@@ -7,6 +7,15 @@ opt_state, metrics)`` runs eagerly and updates ``params`` and
 ``opt_state`` in place (it returns the same dicts).  Per-layer activation
 checkpointing is the model's (``transformer.forward`` under grad).
 
+On a state placed by ``parallel.sharding.shard_tree`` (a placed tree in,
+the same placed tree out) the step is data- and tensor-parallel: the
+forward returns each model rank's vocab range of the logits and the loss
+takes its terms from them (``tensor_parallel.vocab_loss_terms``); the
+data ranks a process holds run their rows in turn, their gradients
+accumulating into one buffer, summed over the data axes of processes and
+averaged; the norm counts each shard once (``adamw.clip_by_global_norm``)
+and AdamW updates each shard in place.
+
 Nonfinite guard: every step forms a FINITE flag over the loss and every
 grad and reads it on the host once; when any value is nonfinite, the
 update is not applied, so params, moments and the schedule step stay
@@ -27,6 +36,8 @@ from repro_torch.obs import REGISTRY
 from repro_torch.optim import (AdamWConfig, adamw_update,
                                clip_by_global_norm, cosine_schedule)
 from repro_torch.optim.adamw import chunks, tree_leaves
+from repro_torch.parallel import tensor_parallel as tp
+from repro_torch.parallel.sharding import tree_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,13 +54,20 @@ def loss_fn(forward: Callable, params: Any, batch: dict,
 
     The label logit is a ``gather``: the reference's masked sum over the
     vocab axis exists only to keep GSPMD from all-gathering vocab-sharded
-    logits, and gives the same value."""
+    logits, and gives the same value.  Logits cut over the vocabulary
+    (``tensor_parallel.VocabShards``) give the same terms from their
+    ranks' maxima, sums and label owners."""
     logits, aux = forward(params, batch)
     labels = batch["labels"]
     T = labels.shape[1]
-    logits = logits[:, -T:].float()
-    logz = torch.logsumexp(logits, dim=-1)
-    at_label = logits.gather(-1, labels[..., None].long())[..., 0]
+    if isinstance(logits, tp.VocabShards):
+        logz, at_label = tp.vocab_loss_terms(
+            [z[:, -T:].float() for z in logits.shards], labels,
+            logits.ring, logits.vocab)
+    else:
+        logits = logits[:, -T:].float()
+        logz = torch.logsumexp(logits, dim=-1)
+        at_label = logits.gather(-1, labels[..., None].long())[..., 0]
     ce = (logz - at_label).mean()
     zloss = (logz ** 2).mean()
     return ce + aux_weight * aux + z_weight * zloss, (ce, aux)
@@ -60,6 +78,44 @@ def _all_finite(t: torch.Tensor) -> torch.Tensor:
     for c in chunks(t):
         ok &= torch.isfinite(c).all()
     return ok
+
+
+def placed_grads(forward: Callable, hyper: TrainHyper, params: Any,
+                 leaves: list, batch: dict) -> tuple:
+    """The loss terms and gradients of a placed state's step: each
+    (microbatch, data rank) part of the rows this process holds in turn,
+    its gradients accumulated into ``leaves``' ``grad`` (which must
+    require grad; any subset of the state's shards), then summed over the
+    data axes of processes and averaged, as are the loss terms.  ->
+    (loss, ce, aux, grads in ``leaves`` order)."""
+    mesh = tree_mesh(params)
+    parts = hyper.microbatches * tp.local_data_ranks(mesh)
+    rings = tp.process_rings(mesh, tp.data_axes(mesh))
+    n = parts * math.prod(r.size for r in rings)
+    for x in batch.values():
+        if x.shape[0] % parts:
+            raise ValueError(f"batch {x.shape[0]} does not split into "
+                             f"{parts} parts (microbatches x local data "
+                             f"ranks)")
+    total = None
+    for i in range(parts):
+        part = {k: x.reshape(parts, x.shape[0] // parts, *x.shape[1:])[i]
+                for k, x in batch.items()}
+        loss, (ce, aux) = loss_fn(forward, params, part,
+                                  aux_weight=hyper.aux_weight,
+                                  z_weight=hyper.z_weight)
+        torch.autograd.backward(loss, inputs=leaves)
+        terms = torch.stack([loss.detach(), ce.detach(), torch.as_tensor(
+            aux, device=loss.device).detach().float()])
+        total = terms if total is None else total + terms
+        del loss, ce, aux
+    grads = []
+    for p in leaves:
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        p.grad = None
+        grads.append(tp.all_reduce_(g, rings).mul_(1.0 / n))
+    loss, ce, aux = (tp.all_reduce_(total, rings) / n).unbind(0)
+    return loss, ce, aux, grads
 
 
 def make_train_step(forward: Callable, hyper: TrainHyper) -> Callable:
@@ -76,6 +132,8 @@ def make_train_step(forward: Callable, hyper: TrainHyper) -> Callable:
         return loss.detach(), ce.detach(), aux, list(grads)
 
     def compute_grads(params, leaves, batch):
+        if tree_mesh(params) is not None:
+            return placed_grads(forward, hyper, params, leaves, batch)
         mb = hyper.microbatches
         if mb == 1:
             return grad_fn(params, leaves, batch)
@@ -116,6 +174,11 @@ def make_train_step(forward: Callable, hyper: TrainHyper) -> Callable:
         finite = torch.isfinite(loss)
         for g in grads:
             finite &= _all_finite(g)
+        mesh = tree_mesh(params)
+        if mesh is not None:
+            # every rank of a process mesh takes the same branch
+            finite = tp.all_reduce_(finite.to(torch.int32),
+                                    tp.process_rings(mesh), "min").bool()
         cfg = hyper.optimizer
         # the step's one host read; meta tensors (the dry run) have no
         # values, and count the update a finite step makes
@@ -124,7 +187,8 @@ def make_train_step(forward: Callable, hyper: TrainHyper) -> Callable:
         else:
             # skip-step: params, moments AND the schedule step untouched;
             # the metrics are those the update would have reported
-            _, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+            _, gnorm = clip_by_global_norm(grads, cfg.clip_norm,
+                                           params=params)
             om = {"grad_norm": gnorm,
                   "lr": cosine_schedule(cfg, int(opt_state["step"]) + 1)}
         metrics = {"loss": loss, "ce": ce, "aux": aux,

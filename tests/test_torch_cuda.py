@@ -1672,3 +1672,64 @@ def test_train_step_counts_the_same_on_the_card_and_on_meta(dev):
     assert on_card.cost.totals() == on_meta.cost.totals()
     assert on_card.cost.kernels == on_meta.cost.kernels
     assert on_card.cost.kernels["flash_fwd"]["calls"] == 4
+
+
+# the sharded state at a small depth: qwen3-4b's full width cut to 2 layers,
+# bf16, its params placed by param_specs on meshes of local rings
+
+
+@functools.lru_cache(maxsize=1)
+def _sharded_model():
+    import dataclasses
+
+    from repro_torch.configs import get_bundle
+    full = get_bundle("qwen3-4b")
+    bundle = dataclasses.replace(full, cfg=dataclasses.replace(
+        full.cfg, n_layers=2))
+    return bundle, bundle.init_params(0, device="cuda")
+
+
+def test_sharded_step_on_the_card_matches_unsharded(dev):
+    """``chip_smoke.sharded_train_check`` at 2 layers: the (2, 4) placed
+    step's loss and grads against the unsharded step's, by
+    ``train_check``'s limits, and 2 x 2 x 4 launches of each flash
+    backward kernel (the forward twice), on the wgmma routes."""
+    from repro_torch.parallel import make_mesh
+    bundle, params = _sharded_model()
+    row = _chip_smoke().sharded_train_check(
+        params, make_mesh((2, 4), ("data", "model")), bundle=bundle)
+    assert row["launches"]["flash_bwd_dq"] == 2 * 2 * 4
+
+
+def test_sharded_paged_engine_on_the_card(dev):
+    """A paged engine on the 2-layer state placed on (1, 4): each decode
+    tick launches the paged kernel 2 x 4 times (each rank's two kv heads,
+    contiguous), bf16 and int8, and the first-token logits hold against
+    the unsharded engine's (cosine > 0.99, the same top-1)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.parallel import make_mesh
+    bundle, params = _sharded_model()
+    mesh = make_mesh((1, 4), ("data", "model"))
+    smoke = _chip_smoke()
+    for mode, key in (("paged", "paged_decode_bf16"),
+                      ("paged_int8", "paged_decode_int8")):
+        engine, _ = build_engine(bundle, max_len=512, kv_mode=mode, slots=2,
+                                 max_new=4, page_size=16, prefill_chunk=64,
+                                 params=params, device="cuda", mesh=mesh,
+                                 place=True)
+        watch = smoke.FiniteWatch(engine.bundle)
+        engine.bundle = watch
+        ops.reset_launches()
+        with torch.no_grad():
+            for p in smoke.prompts(3, 40, 90, 3, bundle.cfg.vocab):
+                engine.submit(p)
+            out = engine.run()
+        assert all(len(v) == 4 for v in out.values()) and len(out) == 3
+        assert bool(watch.finite.item())
+        assert ops.LAUNCHES[key] == 2 * 4 * watch.decode_steps > 0
+        leaf = engine.pool["k"]
+        assert len(leaf.shards) == 4 and all(
+            t.is_contiguous() and t.shape[3] == 2 for t in leaf.tensors())
+    row = smoke.sharded_logits_check(params, mesh, n=256, arch=bundle)
+    assert row["top1_equal"]

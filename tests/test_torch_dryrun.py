@@ -40,14 +40,57 @@ def _leaf_bytes(tree, specs, mesh):
         tree.element_size()
 
 
+def test_dense_train_cell_counts_the_placed_step(results):
+    """qwen3-4b x train_4k x single on the placed state: the step counted
+    on a (2, 4) mesh of local rings (``counted_on``; (16, 16) costs ~130 s
+    of CPU), within 15 s of CPU time: L x 2 x 4 launches of each flash
+    backward kernel (the forward twice), the tensor-parallel sums issued
+    and no ring hop, ``collectives_complete``, each rank's temporaries
+    (divided by the model axis, not the data axis), the production
+    mesh's argument bytes."""
+    cell = dryrun.run_cell("qwen3-4b", "train_4k", "single", force=True)
+    assert cell["status"] == "ok", cell.get("traceback")
+    assert REF_KEYS <= set(cell) and "note" not in cell
+    assert cell["cpu_s"] < 15.0 and cell["chips"] == 256
+    assert cell["counted_on"] == dict(zip(*reversed(
+        dryrun.PLACED_TRAIN_MESH)))
+    L = get_bundle("qwen3-4b").cfg.n_layers
+    n = L * 2 * 4
+    assert {k: v["calls"] for k, v in cell["kernels"].items()} == {
+        "flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    assert cell["collectives"]["all-reduce"] > 0
+    assert cell["collectives"]["collective-permute"] == 0
+    assert cell["collectives_complete"] is True
+    assert cell["temp_sharded_by"] == "model"
+    assert cell["model_flops"] == 6.0 * get_bundle(
+        "qwen3-4b").active_param_count() * 4096 * 256
+    # the arguments are the production mesh's shards
+    mesh = make_mesh(*PRODUCTION_SHAPES[False])
+    args, specs, _, _ = step_in_shardings(get_bundle("qwen3-4b"),
+                                          "train_4k", mesh)
+    assert cell["memory_analysis"]["argument_size_gb"] == sum(
+        _leaf_bytes(a, sp, mesh) for a, sp in zip(args, specs)) / 1e9
+
+
+def test_other_families_keep_the_whole_state(results):
+    cell = dryrun.run_cell("mamba2-370m", "decode_32k", "single",
+                           force=True)
+    assert cell["status"] == "ok"
+    assert cell["collectives_complete"] is False
+    assert cell["note"] == dryrun.WHOLE_NOTE
+    assert cell["temp_sharded_by"] == "data"
+
+
 def test_qwen3_train_cell_counts_the_ring_on_meta(results):
     """qwen3-4b x train_4k x single: the step counted on meta under a (16,
     16) mesh of local rings (the ring over the model axis at S 4,096: each
     hop the flash kernels' meta route), within 15 s of the cell's own CPU
     time (``cpu_s``; its wall time, ``compile_s``, also holds the waits for
     a core when the tests run in parallel), with the reference's keys and
-    the partial terms named."""
-    cell = dryrun.run_cell("qwen3-4b", "train_4k", "single", force=True)
+    the partial terms named, on the whole state (``state="whole"``; the
+    placed state is ``test_dense_train_cell_counts_the_placed_step``)."""
+    cell = dryrun.run_cell("qwen3-4b", "train_4k", "single", force=True,
+                           state="whole")
     assert cell["status"] == "ok", cell.get("traceback")
     assert REF_KEYS <= set(cell)
     assert REF_MEMORY_KEYS <= set(cell["memory_analysis"])

@@ -425,9 +425,9 @@ def _leaves(tree, pre=""):
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m"])
 def test_smoke_train_steps_under_mesh_equal_no_mesh(arch, monkeypatch):
     """Two steps of the smoke config (f32, capacity 8.0: nothing drops)
-    through ``launch.train.run`` under a (1, 4) local mesh, olmoe's 8
-    experts by expert parallelism and granite's 5 by the token split,
-    against the same steps with no mesh.
+    through ``launch.train.run`` under a (1, 4) local mesh on a whole
+    state (``place=False``), olmoe's 8 experts by expert parallelism and
+    granite's 5 by the token split, against the same steps with no mesh.
 
     Under a mesh the aux loss is the mean of each rank's own balance term
     (the reference's ``psum(aux) / n``), not the term of all tokens, so
@@ -449,7 +449,7 @@ def test_smoke_train_steps_under_mesh_equal_no_mesh(arch, monkeypatch):
     def both():
         base = train_mod.run(arch, mesh_kind="local", **kw)
         meshed = train_mod.run(arch, mesh_kind=make_mesh(
-            (1, 4), ("data", "model")), **kw)
+            (1, 4), ("data", "model")), place=False, **kw)
         return base, meshed
 
     base, meshed = both()

@@ -757,15 +757,16 @@ def test_train_step_through_the_ring_matches_reference(monkeypatch):
 
 
 def test_train_run_takes_a_mesh(monkeypatch):
-    """``launch.train.run`` trains under a ready mesh (its steps hop the
-    ring) and under ``mesh_kind="local"``; the production meshes refuse
-    without their process group."""
+    """``launch.train.run`` trains a whole-head state under a ready mesh
+    (``place=False``: its steps hop the ring) and under
+    ``mesh_kind="local"``; the production meshes refuse without their
+    process group."""
     from repro_torch.launch import train
     from repro_torch.launch.mesh import make_production_mesh
     monkeypatch.setenv("REPRO_RING_ATTN", "ring")
     mesh = make_mesh((1, 4), ("data", "model"))
     out = train.run("qwen3-4b", steps=1, seq_len=TRAIN_S, global_batch=1,
-                    mesh_kind=mesh, device="cpu", log_every=10)
+                    mesh_kind=mesh, device="cpu", log_every=10, place=False)
     assert np.isfinite(out["losses"]).all()
     assert mesh.transport("model").hops > 0
     with pytest.raises(RuntimeError, match="process group"):
