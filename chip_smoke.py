@@ -3783,6 +3783,353 @@ def train_families() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5e: the placed state of the other families: mamba2-370m,
+# recurrentgemma-9b and whisper-medium placed by param_specs on meshes of
+# local rings, each step through its tensor-parallel body
+# ---------------------------------------------------------------------------
+
+# per family: the depth run (None: the config's own), the batch (B splits
+# over the data axis), why a depth is cut, the first-token check's prompt,
+# and the leaves held against the unsharded step: (keys..., layer index,
+# ...) of the first and the last unit, the vocabulary tables whole
+SHARDED_FAMILIES = {
+    "mamba2-370m": dict(
+        n_layers=12, B=2, S=2048, check_len=1536,
+        cut="12 of 48 layers: a placed step at full depth takes 19-22 s "
+            "(8 rank bodies a layer in turn, each with its SSD chunk loop, "
+            "on the host), which would take the script past 1,100 s",
+        leaves=(("embed",), ("lm_head",), ("layers", "in_proj", 0),
+                ("layers", "in_proj", -1), ("layers", "out_proj", 0),
+                ("layers", "out_proj", -1), ("layers", "conv_w", 0),
+                ("layers", "gnorm", -1))),
+    "recurrentgemma-9b": dict(
+        n_layers=8, B=2, S=2048, check_len=3072,
+        cut="8 of 38 layers (TRAIN_FAMILIES'): 2 (rec, rec, attn) groups "
+            "and the 2-layer rec tail; the full 10.45 B params need 125 GB "
+            "of state",
+        leaves=(("embed",), ("lm_head",), ("rec_groups", "w_x", 0, 0),
+                ("rec_groups", "w_a", 0, 0), ("attn_groups", "wq", 0),
+                ("attn_groups", "wk", 0), ("attn_groups", "wv", -1),
+                ("attn_groups", "wo", -1), ("rec_tail", "w_out", -1),
+                ("rec_tail", "lam", -1))),
+    "whisper-medium": dict(
+        n_layers=None, B=2, S=1024, cut=None, check_len=1536,
+        leaves=(("embed",), ("enc", "attn", "wq", 0), ("enc", "mlp_w2", -1),
+                ("dec", "self", "wk", 0), ("dec", "self", "bo", 0),
+                ("dec", "cross", "wv", -1), ("dec", "mlp_w1", -1))),
+}
+SHARDED_FAMILY_MESH = dict(train=(2, 4), serve=(1, 4))
+
+
+def sharded_family_bundle(arch: str):
+    """``arch``'s full-width bundle, cut in depth where SHARDED_FAMILIES
+    says so."""
+    import dataclasses
+
+    from repro_torch.configs import get_bundle
+    bundle = get_bundle(arch)
+    n = SHARDED_FAMILIES[arch]["n_layers"]
+    if n is None:
+        return bundle
+    return dataclasses.replace(bundle, cfg=dataclasses.replace(
+        bundle.cfg, n_layers=n))
+
+
+def _keys(path: tuple) -> tuple:
+    return tuple(k for k in path if isinstance(k, str))
+
+
+def _leaf(tree, path: tuple):
+    for k in _keys(path):
+        tree = tree[k]
+    return tree
+
+
+def family_batch(bundle, B: int, S: int, seed: int) -> dict:
+    """A (B, S) token batch on the card with random f32 ``frames`` for the
+    audio kind (the encoder then sees more than its positions)."""
+    batch = token_batch(B, S, seed, bundle.cfg.vocab)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    for k, v in bundle.zero_extras(B, torch.float32, "cuda").items():
+        batch[k] = torch.randn(v.shape, generator=g, device="cuda")
+    return batch
+
+
+def sharded_family_check(params, bundle, mesh, leaves: tuple, B: int,
+                         S: int) -> dict:
+    """Loss and gradients of one (B, S) batch on ``bundle``'s state placed
+    on ``mesh`` (each data rank's rows in turn, each model rank's share
+    through its family's placed body) against the unsharded step's, both
+    under per-unit recompute: ``train_check``'s limits (loss rel diff <
+    1e-3; per leaf cosine > 0.99 and |norm ratio - 1| < NORM_TOL) on
+    ``leaves`` (SHARDED_FAMILIES' paths: a layer index after the keys
+    picks that unit's slice); the flash kernels launched the family's
+    attention calls x nd x m times a pass (the forward twice) on its
+    wgmma routes, none CUDA-core."""
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.sharding import (Placed, gather_leaf,
+                                               param_specs, shard_tree)
+    from repro_torch.training import TrainHyper, loss_fn
+    from repro_torch.training.step import placed_grads
+    batch = family_batch(bundle, B, S, SEED + 11)
+    names = list(dict.fromkeys(_keys(p) for p in leaves))
+
+    def slices(grads: dict) -> dict:
+        out = {}
+        for path in leaves:
+            g = grads[_keys(path)]
+            idx = tuple(i for i in path if isinstance(i, int))
+            out["/".join(map(str, path))] = g[idx].clone() if idx else g
+        return out
+
+    full = [_leaf(params, k) for k in names]
+    for p in full:
+        p.requires_grad_(True)
+    loss_u, _ = loss_fn(bundle.forward, params, batch)
+    grads = torch.autograd.grad(loss_u, full)
+    for p in full:
+        p.requires_grad_(False)
+    want, loss_u = slices(dict(zip(names, grads))), loss_u.item()
+    del grads
+    torch.cuda.empty_cache()
+
+    placed = shard_tree(params, param_specs(bundle.kind, params, mesh), mesh)
+    sel = [_leaf(placed, k) for k in names]
+    shards = [t for leaf in sel for t in leaf.tensors()]
+    for t in shards:
+        t.requires_grad_(True)
+    ops.reset_launches()
+    loss_s, _, _, gs = placed_grads(bundle.forward, TrainHyper(), placed,
+                                    shards, batch)
+    launches = {k: c for k, c in ops.LAUNCHES.items() if c}
+    for t in shards:
+        t.requires_grad_(False)
+    it = iter(gs)
+    got = slices({k: gather_leaf(Placed(leaf.shape, leaf.dtype, leaf.spec,
+                                        mesh, {c: next(it) for c in
+                                               sorted(leaf.shards)}))
+                  for k, leaf in zip(names, sel)})
+    loss_s = loss_s.item()
+    del placed, sel, shards, gs
+    torch.cuda.empty_cache()
+    cos = {k: F.cosine_similarity(got[k].float().flatten(),
+                                  want[k].float().flatten(), dim=0).item()
+           for k in want}
+    ratio = {k: (got[k].float().norm() / want[k].float().norm()).item()
+             for k in want}
+    rel = abs(loss_s - loss_u) / abs(loss_u)
+    flash = want_flash(bundle, 1)
+    for k, n in flash.items():      # each data and model rank's calls
+        flash[k] = n * math.prod(mesh.shape.values())
+    row = dict(arch=bundle.arch_id, kind=bundle.kind,
+               n_layers=bundle.cfg.n_layers, mesh=dict(mesh.shape), B=B,
+               S=S, loss_sharded=loss_s, loss_unsharded=loss_u,
+               loss_rel_diff=rel, cosine=cos, norm_ratio=ratio,
+               launches=launches, want_flash=flash,
+               tol=f"loss rel diff < 1e-3; per leaf cosine > 0.99 and "
+                   f"|norm ratio - 1| < {NORM_TOL}")
+    emit("sharded_family_check", **row)
+    require(math.isfinite(loss_s) and rel < 1e-3 and
+            all(c > 0.99 for c in cos.values()) and
+            all(abs(r - 1.0) < NORM_TOL for r in ratio.values()),
+            f"sharded_families {bundle.arch_id}: placed vs unsharded "
+            f"loss/grads: {row}")
+    require({k: launches.get(k, 0) for k in FLASH_KEYS} == flash,
+            f"sharded_families {bundle.arch_id}: flash launches "
+            f"{launches}, want {flash}")
+    return row
+
+
+class PrefillTap(FiniteWatch):
+    """FiniteWatch that keeps the last row of every prefill's logits."""
+
+    def __init__(self, bundle):
+        super().__init__(bundle)
+        self.rows = []
+
+    def prefill(self, *a, **kw):
+        out = super().prefill(*a, **kw)
+        self.rows.append(out[0][0, -1].float())
+        return out
+
+
+def sharded_family_logits(params, bundle, mesh, n: int) -> dict:
+    """The first token's logits of one ``n``-token prompt served by a
+    dense engine on the state placed on ``mesh`` (its cache placed by the
+    family's rule) against the same engine on the unsharded state: cosine
+    > 0.99, the same top-1, finite; both engines then serve it to 4
+    tokens.  -> the row, with the placed engine's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_engine
+    prompt = prompts(1, n, n, SEED + 9, bundle.cfg.vocab)[0]
+    out, launches = {}, {}
+    with torch.no_grad():
+        for name, msh in (("sharded", mesh), ("unsharded", None)):
+            engine, _ = build_engine(
+                bundle, kv_mode="dense", slots=1, max_len=n + 4, max_new=4,
+                params=params, device="cuda", mesh=msh,
+                place=msh is not None)
+            tap = PrefillTap(engine.bundle)
+            engine.bundle = tap
+            ops.reset_launches()
+            engine.submit(prompt)
+            res = engine.run()
+            if msh is not None:
+                launches = {k: c for k, c in ops.LAUNCHES.items() if c}
+            require(len(res[0]) == 4 and bool(tap.finite.item()),
+                    f"sharded_families {bundle.arch_id} {name}: {res}")
+            out[name] = tap.rows[0]
+            del engine, tap
+            torch.cuda.empty_cache()
+    a, b = out["sharded"], out["unsharded"]
+    cos = F.cosine_similarity(a, b, dim=0).item()
+    row = dict(arch=bundle.arch_id, kind=bundle.kind, prompt=n,
+               mesh=dict(mesh.shape), n_layers=bundle.cfg.n_layers,
+               cosine=cos, max_abs_diff=(a - b).abs().max().item(),
+               top1_equal=bool(a.argmax() == b.argmax()),
+               finite=bool(torch.isfinite(a).all()), launches=launches)
+    emit("sharded_family_logits", **row)
+    require(row["finite"] and cos > 0.99 and row["top1_equal"],
+            f"sharded_families {bundle.arch_id}: placed vs unsharded "
+            f"first-token logits: {row}")
+    return row
+
+
+def train_sharded_family(bundle, mesh, B: int, S: int,
+                         probes: tuple) -> dict:
+    """``TRAIN_STEPS`` AdamW steps of ``bundle`` through
+    ``launch.train.run`` under ``mesh`` on the weights drawn from its
+    seed, placed (params and moments by ``param_specs``): finite losses,
+    every probe (TRAIN_FAMILIES' paths; model rank 0's shard after) moved,
+    ``opt_step`` equal to the steps, the peak under 80 GB, the family's
+    flash launches x nd x m a step.  s/step, tok/s and the state's bytes a
+    rank are printed, not held.  -> the row."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import SEED as TRAIN_SEED, run
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import (held_nbytes, local_nbytes,
+                                               param_specs)
+
+    def probe(tree, path, placed):
+        t = tree
+        for key in path:
+            if isinstance(key, str):
+                t = t[key]
+        t = t.at(model=0) if placed else t
+        idx = [i for i in path if isinstance(i, int)]
+        return (t[idx[0]] if idx else t)[:64, :64]
+
+    start = [bundle.init_params(TRAIN_SEED, device="cuda")]
+    before = {"/".join(map(str, p)): probe(start[0], p, False).clone()
+              for p in probes}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = run(bundle, steps=TRAIN_STEPS, seq_len=S, global_batch=B,
+              microbatches=1, device="cuda", mesh_kind=mesh,
+              params=start.pop())
+    wall = time.perf_counter() - t0
+    launches = {k: c for k, c in ops.LAUNCHES.items() if c}
+    peak = torch.cuda.max_memory_allocated()
+    p = out["params"]
+    changed = {k: not torch.equal(before[k], probe(p, path, True))
+               for k, path in zip(before, probes)}
+    specs = param_specs(bundle.kind, p, mesh)
+    abstract = bundle.abstract_params()
+    moments = adamw_init(abstract)
+    per_rank = local_nbytes(
+        {"p": abstract, "mu": moments["mu"], "nu": moments["nu"]},
+        {"p": specs, "mu": specs, "nu": specs}, mesh)
+    steps_s = out["seconds"]
+    want = want_flash(bundle, TRAIN_STEPS)
+    for k, n in want.items():
+        want[k] = n * math.prod(mesh.shape.values())
+    row = dict(arch=bundle.arch_id, kind=bundle.kind,
+               n_layers=bundle.cfg.n_layers, mesh=dict(mesh.shape), B=B, S=S,
+               steps=len(steps_s), losses=out["losses"],
+               finite=[x["finite"] for x in out["metrics"]],
+               grad_norm=[x["grad_norm"] for x in out["metrics"]],
+               s_per_step=steps_s,
+               tok_per_s_after_first=B * S * (len(steps_s) - 1) /
+               sum(steps_s[1:]), wall_s=wall, max_memory_allocated=peak,
+               state_bytes_held=held_nbytes({"params": p,
+                                             "opt": out["opt"]}),
+               state_bytes_per_rank=per_rank, params_changed=changed,
+               opt_step=int(out["opt"]["step"]), launches=launches,
+               want_flash=want)
+    emit("train_sharded_family", **row)
+    require(all(math.isfinite(x) for x in out["losses"]) and
+            all(f == 1.0 for f in row["finite"]) and
+            len(steps_s) == TRAIN_STEPS and row["opt_step"] == TRAIN_STEPS
+            and all(changed.values()),
+            f"train_sharded_family {bundle.arch_id}: a loss, finite flag, "
+            f"step count or probe is bad: {row}")
+    require(peak < 80e9,
+            f"train_sharded_family {bundle.arch_id}: peak {peak} bytes")
+    require({k: launches.get(k, 0) for k in FLASH_KEYS} == want,
+            f"train_sharded_family {bundle.arch_id}: flash launches "
+            f"{launches}, want {want}")
+    del out, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def sharded_family(arch: str, bundle=None, B: int | None = None,
+                   S: int | None = None, check_len: int | None = None,
+                   train: bool = True) -> dict:
+    """One family of SHARDED_FAMILIES (``bundle``, B, S and the check's
+    prompt override its row, as the card tests' small depths do): the
+    (2, 4) placed step against the unsharded one, the (1, 4) placed dense
+    engine's first token against the unsharded engine's, then (``train``)
+    3 steps under (2, 4) through ``launch.train.run``.  -> the served and
+    trained runs' launches (the main path's)."""
+    from repro_torch.parallel import make_mesh
+    spec = SHARDED_FAMILIES[arch]
+    cut = spec["cut"] if bundle is None else \
+        f"{bundle.cfg.n_layers} layers (given)"
+    bundle = bundle or sharded_family_bundle(arch)
+    B, S = B or spec["B"], S or spec["S"]
+    meshes = {k: make_mesh(v, ("data", "model"))
+              for k, v in SHARDED_FAMILY_MESH.items()}
+    t0 = time.perf_counter()
+    params = bundle.init_params(SEED, device="cuda")
+    sharded_family_check(params, bundle, meshes["train"], spec["leaves"],
+                         B, S)
+    torch.cuda.empty_cache()
+    served = sharded_family_logits(params, bundle, meshes["serve"],
+                                   check_len or spec["check_len"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = dict(served["launches"])
+    if train:
+        trained = train_sharded_family(bundle, meshes["train"], B, S,
+                                       TRAIN_FAMILIES[arch]["probes"])
+        for k, c in trained["launches"].items():
+            launches[k] = launches.get(k, 0) + c
+    emit("sharded_family", arch=arch, n_layers=bundle.cfg.n_layers,
+         cut=cut, seconds=time.perf_counter() - t0)
+    return launches
+
+
+def sharded_families_phase() -> dict:
+    """Phase 5e: each family of SHARDED_FAMILIES in turn on an empty card.
+    -> the served and trained runs' launches, summed (the kernels line)."""
+    t0 = time.perf_counter()
+    total: dict[str, int] = {}
+    for arch in SHARDED_FAMILIES:
+        for k, n in sharded_family(arch).items():
+            total[k] = total.get(k, 0) + n
+    emit("sharded_families", seconds=time.perf_counter() - t0,
+         depth_cut={a: s["cut"] for a, s in SHARDED_FAMILIES.items()
+                    if s["cut"]})
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 6: recovery — kill and restart the full-width training
 # ---------------------------------------------------------------------------
 
@@ -4590,6 +4937,12 @@ def main() -> int:
     sharded = sharded_phase(trained["max_memory_allocated"])
     torch.cuda.empty_cache()
 
+    # phase 5e: the placed state of mamba2-370m, recurrentgemma-9b and
+    # whisper-medium: each family's (2, 4) step against the unsharded one,
+    # its (1, 4) placed dense engine, 3 steps under (2, 4)
+    sharded_families = sharded_families_phase()
+    torch.cuda.empty_cache()
+
     # phase 5b: train the vlm, hybrid, audio and ssm families at full width
     families_trained = train_families()
 
@@ -4603,10 +4956,11 @@ def main() -> int:
     # phase 7: the kernels line (one row per kernel route a main path runs),
     # launches from the paper-workload, serve, serve_fleet, serve_moe,
     # serve_families, train, roofline, train_ring, moe_mesh, sharded,
-    # train_families and recovery phases
+    # sharded_families, train_families and recovery phases
     phases = (paper, *(r["launches"] for r in served.values()), fleet,
               moe["launches"], families, trained["launches"], roofline, ring,
-              moe_mesh, sharded, families_trained, recovered)
+              moe_mesh, sharded, sharded_families, families_trained,
+              recovered)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in rows}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -27,6 +27,7 @@ from typing import Any
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel.sharding import store_specs
 
 SHAPES = {
     "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
@@ -257,6 +258,28 @@ class ArchBundle:
 
     def decode_step(self, params, tokens, cache):
         return self.family.decode_step(self.cfg, params, tokens, cache)
+
+    # -- placed state --------------------------------------------------------
+    @property
+    def has_placed_body(self) -> bool:
+        """Whether the family's entry points take a state placed by
+        ``parallel.sharding.shard_tree`` (its module's ``placed``)."""
+        return callable(getattr(self.family, "placed", None))
+
+    def require_placed_body(self) -> None:
+        """Raise ValueError, naming the kind, unless the family has a
+        placed body: a placed state never reaches a body that cannot take
+        it, and nothing falls back to the whole state unasked."""
+        if not self.has_placed_body:
+            raise ValueError(
+                f"{self.arch_id}: kind {self.kind!r} has no tensor-parallel "
+                f"body on a placed state (its module has no placed()); "
+                f"place=False keeps the whole state on every rank")
+
+    def store_specs(self, store: dict, mesh) -> dict:
+        """The specs a cache or pool of this family is placed by on a
+        placed state (``parallel.sharding.store_specs``)."""
+        return store_specs(self.kind, store, mesh, self.cfg)
 
     # -- serving capabilities ---------------------------------------------
     @property

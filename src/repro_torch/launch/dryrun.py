@@ -21,19 +21,21 @@ route), and records:
     ``peak_gb_per_device``, their sum; ``output_size_gb``, what the step's
     outputs still hold, divided likewise.
 
-The dense transformer cells count the step on a placed state
+Every family's cells count the step on a placed state
 (``parallel.sharding.shard_tree`` of params, moments and cache by their
-specs): the model axis splits heads, features and vocab and issues every
+specs; the cache by the family's rule, ``parallel.sharding.store_specs``):
+the model axis splits heads, features and vocab and issues every
 collective of tensor parallelism, and the data ranks run in turn, so
 ``collectives_complete`` is true, and the temporaries are one data rank's
 divided by the model axis (``temp_sharded_by: "model"``; a serving step
 runs all rows at once, divided by data x model).  The placed train step
 at (16, 16) costs about 130 s of CPU time a cell, so train cells count it
 on a (2, 4) mesh of local rings (``counted_on``); flops and kernel
-calls do not depend on the mesh, the collectives' bytes do.  Other
-families (and ``state="whole"``) keep the whole state on every rank:
-there only the ring's hops are issued (``collectives_complete: false``,
-``note`` says why) and ``temp_sharded_by: "data"``.
+calls do not depend on the mesh, the collectives' bytes do (a kind
+whose family has no placed body is an error cell).  ``state="whole"``
+keeps the whole state on every rank: there only the ring's hops are
+issued (``collectives_complete: false``, ``note`` says why) and
+``temp_sharded_by: "data"``.
 
 Results stream into results/dryrun_torch/<cell>.json so an interrupted
 sweep resumes where it stopped.  Nothing here touches a card.
@@ -60,8 +62,7 @@ from repro_torch.launch.mesh import PRODUCTION_SHAPES
 from repro_torch.launch.specs import step_in_shardings
 from repro_torch.optim import adamw_init
 from repro_torch.parallel.mesh import make_mesh, set_mesh
-from repro_torch.parallel.sharding import (kv_store_specs, local_nbytes,
-                                           shard_tree)
+from repro_torch.parallel.sharding import local_nbytes, shard_tree
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
@@ -69,9 +70,8 @@ RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 
 # where a placed train step is counted: (16, 16) costs ~130 s of CPU
 PLACED_TRAIN_MESH = ((2, 4), ("data", "model"))
-WHOLE_NOTE = ("the state is whole on every rank (this family has no "
-              "tensor-parallel body on a placed state): only the "
-              "context-parallel ring's hops are issued, not the data "
+WHOLE_NOTE = ("the state is whole on every rank (state='whole'): only "
+              "the context-parallel ring's hops are issued, not the data "
               "axis's gradient sum nor the model axis's tensor-parallel "
               "collectives")
 
@@ -84,9 +84,8 @@ def _placed_args(bundle, kind: str, args, specs, mesh):
     if kind == "train":
         args[1] = adamw_init(args[0])
     else:
-        cfg = bundle.cfg
-        args[2] = shard_tree(args[2], kv_store_specs(
-            args[2], mesh, kv_heads=cfg.n_kv_heads, head_dim=cfg.dh), mesh)
+        args[2] = shard_tree(args[2], bundle.store_specs(args[2], mesh),
+                             mesh)
     return args
 
 
@@ -116,8 +115,8 @@ def run_cell(arch: str, shape: str, mesh_name: str, *, force: bool = False,
     """Count one cell.  ``ring`` pins the context-parallel attention mode
     for this cell ('ring' | 'replicated' | 'off' | 'auto') via the
     REPRO_RING_ATTN policy env read at call time; None keeps the ambient
-    policy.  ``state``: 'placed' (a dense transformer's state placed by
-    its specs; other families keep it whole) or 'whole'."""
+    policy.  ``state``: 'placed' (the state placed by its specs) or
+    'whole'."""
     if state not in ("placed", "whole"):
         raise ValueError(f"state {state!r} not in ('placed', 'whole')")
     path = _cell_path(arch, shape, mesh_name, ring)
@@ -150,9 +149,10 @@ def run_cell(arch: str, shape: str, mesh_name: str, *, force: bool = False,
                                                           mesh)
             arg_bytes = _argument_bytes(args, specs, mesh)
             kind = SHAPES[shape]["kind"]
-            placed = state == "placed" and bundle.kind == "dense"
+            placed = state == "placed"
             count_mesh = mesh
             if placed:
+                bundle.require_placed_body()
                 if kind == "train":
                     count_mesh = make_mesh(*PLACED_TRAIN_MESH)
                     args, specs, step, _ = step_in_shardings(

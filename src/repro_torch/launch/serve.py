@@ -77,6 +77,9 @@ class _BundleAdapter:
     def cache_batch_axes(self, cache):
         return self.bundle.cache_batch_axes(cache)
 
+    def store_specs(self, store, mesh):
+        return self.bundle.store_specs(store, mesh)
+
     def init_paged_pool(self, num_pages, page_size, kv_dtype=None,
                         device=None):
         return self.bundle.init_paged_pool(num_pages, page_size,
@@ -106,8 +109,9 @@ def build_engine(arch, *, smoke: bool = True, slots: int = 4,
     "model"))`` on one card) is the one every model step runs under: a
     MoE config's experts then split over its ``model`` axis.  With
     ``place`` the params are placed on it by ``param_specs`` (and the paged
-    pool with them): the model axis splits heads, features and vocab
-    (``parallel.tensor_parallel``).  ``params`` (a dict of
+    pool or dense cache with them, by the family's rule): the model axis
+    splits heads, features and vocab (``parallel.tensor_parallel``); a
+    kind without a placed body raises ValueError.  ``params`` (a dict of
     tensors, e.g. converted reference weights from
     :func:`repro_torch.weights.from_jax_params`) replaces the seeded random
     init and is moved to ``device``; ``arch`` may be an ``ArchBundle`` in
@@ -115,6 +119,8 @@ def build_engine(arch, *, smoke: bool = True, slots: int = 4,
     (``prefill_token_budget`` and the graceful-degradation knobs)."""
     dev = resolve_device(device)
     bundle = _bundle(arch, smoke)
+    if place and mesh is not None:
+        bundle.require_placed_body()
     if params is None:
         params = bundle.init_params(seed, device=dev)
     else:

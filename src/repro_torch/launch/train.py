@@ -202,9 +202,10 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
     ``total_steps`` in all, each step under ``mesh_kind``'s mesh
     (:func:`resolve_mesh`): with an axis above one rank the state is
     placed on it (module docstring; ``params`` given are placed as copies,
-    and the returned ``params`` and ``opt`` are placed trees), unless
-    ``place`` is False, when attention over a ``model`` axis of more than
-    one rank takes the ring policy's paths.  ``chaos`` is a ``ChaosInjector``
+    and the returned ``params`` and ``opt`` are placed trees; a kind
+    without a placed body raises ValueError), unless ``place`` is False,
+    when attention over a ``model`` axis of more than one rank takes the
+    ring policy's paths.  ``chaos`` is a ``ChaosInjector``
     or a list of spec strings.  ``on_step(i, params, opt, metrics)``, if
     given, is called after each step the loop keeps (not one it rolls back
     or re-meshes over).  ``fleet`` runs the loop as one worker of a
@@ -236,9 +237,11 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
     n_procs = dist.get_world_size() if dist.is_initialized() else 1
     bundle = arch if isinstance(arch, ArchBundle) else \
         get_bundle(arch, smoke=smoke)
+    sharded = place and any(n > 1 for n in mesh.shape.values())
+    if sharded:
+        bundle.require_placed_body()
     if params is None:
         params = bundle.init_params(SEED, device=dev)
-    sharded = place and any(n > 1 for n in mesh.shape.values())
     if sharded:
         params, opt = place_state(bundle, params, mesh)
     else:

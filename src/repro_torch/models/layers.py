@@ -20,8 +20,12 @@ and its top-k MoE MLP, Mamba-2, RecurrentGemma, Whisper):
   * on a state placed by ``parallel.sharding.shard_tree`` the model axis
     splits heads and features instead (Megatron's tensor parallelism,
     ``parallel.tensor_parallel``): :func:`head_plan` says which heads each
-    rank computes, and :func:`moe_layer_placed` takes the branch the
-    param specs imply.  ``shard_seq`` / ``gather_seq`` are not ported.
+    rank computes, :func:`moe_layer_placed` takes the branch the param
+    specs imply, and every family's placed body shares
+    :func:`project_placed`, :func:`logits_placed` and the placed caches'
+    helpers (:func:`kv_cut`, :func:`kv_values`, :func:`kv_views`) and
+    :func:`attn_out_placed`.
+    ``shard_seq`` / ``gather_seq`` are not ported.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import torch.utils.checkpoint
 from repro_torch.device import card_like
 from repro_torch.parallel import tensor_parallel as tp
 from repro_torch.parallel.mesh import LocalRing, get_mesh, set_mesh
+from repro_torch.parallel.sharding import Placed
 from repro_torch.parallel.ring_attention import ring_attention
 
 NEG_INF = -1e30
@@ -842,11 +847,15 @@ def heads_of(plan: HeadPlan, r: int, q: torch.Tensor,
     return q.reshape(*q.shape[:-1], sh.h1 - sh.h0, Dh)
 
 
-def kv_heads_of(plan: HeadPlan, r: int, k: torch.Tensor,
-                gathered: bool) -> torch.Tensor:
+def kv_heads_of(plan: HeadPlan, r: int, k: torch.Tensor, gathered: bool,
+                all_kv: bool = False) -> torch.Tensor:
     """Rank ``r``'s kv heads (B, S, kv1 - kv0, Dh) from its projection
-    (the gathered whole's slice when ``gathered``)."""
+    (the gathered whole's slice when ``gathered``); with ``all_kv`` a
+    gathered projection keeps every kv head (a placed cache's writes, where
+    a rank's shard holds a head_dim slice of each)."""
     sh, Dh = plan.shards[r], plan.head_dim
+    if all_kv and gathered:
+        return k.reshape(*k.shape[:-1], -1, Dh)
     if gathered:
         k = k[..., sh.kv0 * Dh:sh.kv1 * Dh]
     return k.reshape(*k.shape[:-1], sh.kv1 - sh.kv0, Dh)
@@ -867,6 +876,114 @@ def out_features(plan: HeadPlan, r: int, o: torch.Tensor) -> torch.Tensor:
     sh, Dh = plan.shards[r], plan.head_dim
     o = o.reshape(*o.shape[:-2], -1)
     return o[..., sh.q_lo - sh.h0 * Dh:sh.q_hi - sh.h0 * Dh]
+
+
+def kv_cut(pool_leaf: Placed) -> str:
+    """How the model ranks' shards of a cache or pool leaf cut the kv heads:
+    'heads' (its heads, its plan's kv range), 'head_dim' (a slice of every
+    head's features) or 'none' (every head, replicated)."""
+    spec = pool_leaf.spec
+    if spec[3] is not None and "model" in pool_leaf.axes:
+        return "heads"
+    if len(spec) > 4 and spec[4] is not None and "model" in pool_leaf.axes:
+        return "head_dim"
+    return "none"
+
+
+def _own(t: torch.Tensor, r: int, cut: str, ring) -> torch.Tensor:
+    """Rank ``r``'s part, as its cache or pool shard holds it, of its
+    new K/V (B, T, heads, Dh) or scales (B, T, heads): a slice of the
+    features in the head_dim cut, else as they are."""
+    if cut == "head_dim" and t.dim() == 4:
+        lo, hi = tp.vocab_range(t.shape[-1], ring.size, r)
+        return t[..., lo:hi]
+    return t
+
+
+def kv_values(store: dict, k: torch.Tensor, v: torch.Tensor, r: int,
+               cut: str, ring) -> dict:
+    """Rank ``r``'s part of new K/V (B, T, heads, Dh) as its cache or pool
+    shard stores it: quantized with scales for an int8 store, a slice of
+    the features in the head_dim cut."""
+    if store["k"].dtype == torch.int8:
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        vals = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        vals = {"k": k.to(store["k"].dtype), "v": v.to(store["v"].dtype)}
+    return {n: _own(t, r, cut, ring) for n, t in vals.items()}
+
+
+def kv_views(store: dict, i: int, ring, plan, cut: str) -> list[dict]:
+    """Each held rank's layer-i view of a placed cache or pool (k, v and
+    any scales) over the kv heads its q heads read: its shard, or the
+    shards gathered whole over the axis (head_dim cut), narrowed to its
+    plan's kv heads as contiguous tensors (the paged kernel takes a
+    contiguous pool)."""
+    idx = ring.index()
+    names = [n for n in ("k", "v", "k_scale", "v_scale") if n in store]
+    out = [{} for _ in idx]
+    for n in names:
+        ts = [store[n].at(model=r)[i] for r in idx]
+        if cut == "head_dim" and n in ("k", "v"):
+            ts = tp.gather_to_model(ts, ring, -1)
+        for j, (r, t) in enumerate(zip(idx, ts)):
+            if cut != "heads":
+                sh = plan.shards[r]
+                # (.., S or page, Kv[, Dh]): heads are dim 2 of a layer
+                t = t.narrow(2, sh.kv0, sh.kv1 - sh.kv0).contiguous()
+            out[j][n] = t
+    return out
+
+
+def expand_views(plan, r: int, pg: dict) -> dict:
+    """A rank's views with one kv head for each of its q heads, where its
+    split breaks the GQA groups (``HeadShard.kv_index``)."""
+    if plan.shards[r].kv_index is None:
+        return pg
+    return {n: expand_kv(plan, r, t if t.dim() == 4 else t[..., None])
+            .reshape(*t.shape[:2], -1, *t.shape[3:]) for n, t in pg.items()}
+
+
+def kv_of(plan, r: int, t: torch.Tensor, all_kv: bool) -> torch.Tensor:
+    """The kv heads rank ``r``'s attention reads of new K/V that hold
+    every head (``all_kv``) or its own already; expanded as
+    :func:`expand_kv` says."""
+    if all_kv:
+        sh = plan.shards[r]
+        t = t.narrow(2, sh.kv0, sh.kv1 - sh.kv0)
+    return expand_kv(plan, r, t)
+
+
+def project_placed(hs: list, w, ring, gather: bool, bias=None) -> list:
+    """Each model rank's output features of ``h @ w (+ bias)`` (``w`` and
+    ``bias`` placed, cut on their last dim; ``hs`` the per-rank input,
+    :func:`tensor_parallel.copy_to_model`), all-gathered whole over the
+    axis where ``gather`` (a head straddles ranks)."""
+    out = []
+    for r, h_r in zip(ring.index(), hs):
+        y = h_r @ w.at(model=r)
+        if bias is not None:
+            y = y + bias.at(model=r)
+        out.append(y)
+    return tp.gather_to_model(out, ring, -1) if gather else out
+
+
+def attn_out_placed(wo, plan: HeadPlan, ring, outs: list) -> torch.Tensor:
+    """The ranks' attention outputs (B, S, heads, Dh) through their rows
+    of ``wo`` (placed, cut on its rows), summed over the axis."""
+    parts = [out_features(plan, r, o) @ wo.at(model=r)
+             for r, o in zip(ring.index(), outs)]
+    return tp.reduce_from_model(parts, ring)
+
+
+def logits_placed(x: torch.Tensor, w, ring,
+                  tied: bool = False) -> list[torch.Tensor]:
+    """Each model rank's logits over its vocab range from the replicated
+    final activations ``x``: ``x @ w`` of its (D, V / m) columns of an
+    output head, or, ``tied``, ``x @ w.T`` of its (V / m, D) rows of the
+    embedding."""
+    return [x_r @ (w.at(model=r).T if tied else w.at(model=r))
+            for r, x_r in zip(ring.index(), tp.copy_to_model(x, ring))]
 
 
 def moe_layer_placed(x: torch.Tensor, params: dict, cfg: MoEConfig,

@@ -10,6 +10,25 @@ reference's is XLA code: no Pallas kernel runs in this family.
 
 ``prefill`` and ``decode_step`` write the states into the cache they are
 given, in place, and return it (as the transformer's serving steps do).
+
+On a state placed by ``parallel.sharding.shard_tree`` (``param_specs``:
+``in_proj`` cut on its output columns, ``out_proj`` on its rows, the conv
+and SSM parameters and ``gnorm`` replicated) the same entry points run
+tensor parallelism over the ``model`` axis (``parallel.tensor_parallel``),
+a rank owning the heads its rows of ``out_proj`` touch
+(``layers.head_plan`` over Din = H x P: whole heads when the axis divides
+H).  The even column cut of ``in_proj`` does not line up with its z | xBC
+| dt boundaries, so its output is all-gathered over the axis first
+(``gather_to_model``); each rank then takes its heads' z, x and dt and the
+whole B and C, runs the depthwise conv on those channels (B and C on
+every rank) and the SSD scan over its heads.  ``gnorm``'s RMS is over the
+whole Din: each rank's sum of squares over its own features, summed over
+the axis (``reduce_from_model``, f32).  Each rank multiplies its rows of
+``out_proj`` and the partials are summed.  The vocabulary-parallel
+embedding; ``forward`` returns ``tensor_parallel.VocabShards``, the serving
+steps the logits gathered whole.  A placed cache holds the SSM state cut
+on its heads where the axis divides H (else whole, each rank reading and
+writing its heads), the conv window whole (each rank its channels).
 """
 from __future__ import annotations
 
@@ -19,8 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel import tensor_parallel as tp
+from repro_torch.parallel.sharding import Placed
 
-from .layers import remat_call, rms_norm, unstack
+from .layers import head_plan, logits_placed, remat_call, rms_norm, unstack
 
 # Pooled-serving slot layout (see serving/engine.py _write_slot): batch axis
 # of every cache entry.  SSM state caches are position-free, so padded
@@ -163,17 +184,19 @@ def _split_proj(cfg: Mamba2Config, zxbcdt):
     return z, xbc, dt
 
 
-def _conv_seq(cfg: Mamba2Config, lp: dict, xbc: torch.Tensor):
-    """Causal depthwise conv over a whole sequence, then SiLU.
-    -> (activations (B, L, d_xbc) f32, the last d_conv - 1 inputs)."""
-    B, L, _ = xbc.shape
-    pad = torch.zeros((B, cfg.d_conv - 1, cfg.d_xbc), dtype=torch.float32,
+def _conv_seq(cfg: Mamba2Config, conv_w: torch.Tensor,
+              conv_b: torch.Tensor, xbc: torch.Tensor):
+    """Causal depthwise conv over a whole sequence of C channels (``conv_w``
+    (d_conv, C), ``conv_b`` (C,)), then SiLU.  -> (activations (B, L, C)
+    f32, the last d_conv - 1 inputs)."""
+    B, L, C = xbc.shape
+    pad = torch.zeros((B, cfg.d_conv - 1, C), dtype=torch.float32,
                       device=xbc.device)
     seq = torch.cat([pad, xbc.float()], dim=1)
-    conv_w = lp["conv_w"].float()
+    conv_w = conv_w.float()
     out = sum(seq[:, i:i + L] * conv_w[i][None, None]
               for i in range(cfg.d_conv))
-    return F.silu(out + lp["conv_b"].float()), seq[:, L:]
+    return F.silu(out + conv_b.float()), seq[:, L:]
 
 
 def _heads(cfg: Mamba2Config, lp: dict, xc: torch.Tensor, dt: torch.Tensor):
@@ -202,18 +225,21 @@ def _mix_seq(cfg: Mamba2Config, lp: dict, h: torch.Tensor,
     conv state (B, d_conv - 1, d_xbc), final SSM state (B, H, P, N))."""
     L = h.shape[1]
     z, xbc, dt = _split_proj(cfg, h @ lp["in_proj"])
-    xc, conv_state = _conv_seq(cfg, lp, xbc)
+    xc, conv_state = _conv_seq(cfg, lp["conv_w"], lp["conv_b"], xbc)
     xs, Bm, Cm, A, dtv = _heads(cfg, lp, xc, dt)
     y = _ssd_chunked(xs, dtv, A, Bm, Cm, min(cfg.chunk, L))
     out = _out(cfg, lp, y, xs, z)
     if not states:
         return out
-    # final state: S = sum_j exp(sum_{k>j} a_k) dt_j B_j x_j over the
-    # whole sequence
+    return out, conv_state, _final_state(dtv, A, Bm, xs)
+
+
+def _final_state(dtv, A, Bm, xs):
+    """The SSM state after a whole sequence: S = sum_j exp(sum_{k>j} a_k)
+    dt_j B_j x_j.  -> (B, H, P, N)."""
     a = dtv * A
     a_rev = torch.cumsum(a.flip(1), dim=1).flip(1) - a
-    S = torch.einsum("bjn,bjh,bjhp->bhpn", Bm, torch.exp(a_rev) * dtv, xs)
-    return out, conv_state, S
+    return torch.einsum("bjn,bjh,bjhp->bhpn", Bm, torch.exp(a_rev) * dtv, xs)
 
 
 def _layer_train(cfg: Mamba2Config, lp: dict, x):
@@ -223,7 +249,11 @@ def _layer_train(cfg: Mamba2Config, lp: dict, x):
 def forward(cfg: Mamba2Config, params: dict, tokens: torch.Tensor):
     """tokens: (B, S) -> (logits (B, S, vocab), 0.0).  With grad enabled
     each layer runs under ``torch.utils.checkpoint``
-    (:func:`layers.remat_call`), as the reference does."""
+    (:func:`layers.remat_call`), as the reference does.  On a placed state
+    the logits come back as each model rank's vocab range (module
+    docstring)."""
+    if placed(params):
+        return _forward_placed(cfg, params, tokens)
     x = F.embedding(tokens, params["embed"])
     for lp in unstack(params["layers"]):
         x = remat_call(_layer_train, cfg, lp, x)
@@ -251,7 +281,10 @@ def init_cache(cfg: Mamba2Config, batch: int, max_len: int = 0,
 def prefill(cfg: Mamba2Config, params: dict, tokens: torch.Tensor,
             cache: dict):
     """The forward pass, leaving each layer's final (conv, ssm) states in
-    ``cache`` (in place).  Returns (last-token logits (B, 1, V), cache)."""
+    ``cache`` (in place).  Returns (last-token logits (B, 1, V), cache).
+    On a placed state the cache is placed too (module docstring)."""
+    if placed(params):
+        return _prefill_placed(cfg, params, tokens, cache)
     x = F.embedding(tokens, params["embed"])
     L = x.shape[1]
     for i, lp in enumerate(unstack(params["layers"])):
@@ -282,7 +315,10 @@ def _mix_step(cfg: Mamba2Config, lp: dict, h, conv_state, ssm_state):
 
 def decode_step(cfg: Mamba2Config, params: dict, tokens: torch.Tensor,
                 cache: dict):
-    """tokens: (B, 1) -> (logits (B, 1, V), cache updated in place)."""
+    """tokens: (B, 1) -> (logits (B, 1, V), cache updated in place; a
+    placed cache on a placed state)."""
+    if placed(params):
+        return _decode_step_placed(cfg, params, tokens, cache)
     x = F.embedding(tokens, params["embed"])
     for i, lp in enumerate(unstack(params["layers"])):
         h = rms_norm(x, lp["ln"], cfg.norm_eps)
@@ -294,3 +330,208 @@ def decode_step(cfg: Mamba2Config, params: dict, tokens: torch.Tensor,
     cache["length"] += 1
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x @ params["lm_head"], cache
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism on a placed state (module docstring)
+# ---------------------------------------------------------------------------
+
+def placed(params: dict) -> bool:
+    """Whether ``params`` were placed by ``parallel.sharding.shard_tree``."""
+    return isinstance(params.get("embed"), Placed)
+
+
+def _tp(cfg: Mamba2Config, params: dict):
+    """(the model axis's ring, the head plan of Din = H x P over it)."""
+    ring = tp.model_ring(params["embed"].mesh)
+    return ring, head_plan(cfg.n_heads, cfg.n_heads, cfg.headdim, ring.size)
+
+
+def _channels(cfg: Mamba2Config, t: torch.Tensor, sh) -> torch.Tensor:
+    """A rank's xBC channels (its heads' x, then the whole B and C) of a
+    (..., d_xbc) tensor."""
+    P, Din = cfg.headdim, cfg.d_inner
+    return torch.cat([t[..., sh.h0 * P:sh.h1 * P], t[..., Din:]], -1)
+
+
+class _RankMix:
+    """One model rank's share of a mixer: its z, xBC channels and dt
+    from the gathered ``in_proj`` output, and its slices of the replicated
+    conv and SSM parameters."""
+
+    def __init__(self, cfg: Mamba2Config, sh, zxbcdt: torch.Tensor,
+                 rep: dict):
+        P, Din, H0, H1 = cfg.headdim, cfg.d_inner, sh.h0, sh.h1
+        self.sh = sh
+        self.z = zxbcdt[..., H0 * P:H1 * P]
+        self.xbc = _channels(cfg, zxbcdt[..., Din:Din + cfg.d_xbc], sh)
+        dt0 = Din + cfg.d_xbc
+        self.dt = zxbcdt[..., dt0 + H0:dt0 + H1]
+        self.conv_w = _channels(cfg, rep["conv_w"], sh)
+        self.conv_b = _channels(cfg, rep["conv_b"], sh)
+        self.A = -torch.exp(rep["A_log"][H0:H1].float())
+        self.dt_bias = rep["dt_bias"][H0:H1]
+        self.d_skip = rep["D_skip"][H0:H1]
+        self.gnorm = rep["gnorm"]
+
+    def heads(self, cfg: Mamba2Config, xc: torch.Tensor):
+        """-> xs (B, L, h, P), Bm, Cm (B, L, N), dt (B, L, h) f32 of the
+        rank's heads from its conv output."""
+        nx = (self.sh.h1 - self.sh.h0) * cfg.headdim
+        N = cfg.d_state
+        xs = xc[..., :nx].reshape(*xc.shape[:2], -1, cfg.headdim)
+        dt = F.softplus(self.dt.float() + self.dt_bias.float())
+        return xs, xc[..., nx:nx + N], xc[..., nx + N:], dt
+
+
+_REPLICATED = ("conv_w", "conv_b", "A_log", "dt_bias", "D_skip", "gnorm")
+
+
+def _ranks(cfg: Mamba2Config, lp: dict, h: torch.Tensor, ring, plan):
+    """Every held rank's :class:`_RankMix` of a layer for the replicated
+    input ``h``: the ``in_proj`` output all-gathered over the axis."""
+    idx = ring.index()
+    hs = tp.copy_to_model(h, ring)
+    proj = tp.gather_to_model([h_r @ lp["in_proj"].at(model=r)
+                               for r, h_r in zip(idx, hs)], ring, -1)
+    reps = {n: tp.copy_to_model(lp[n].at(), ring) for n in _REPLICATED}
+    return [_RankMix(cfg, plan.shards[r], proj[i],
+                     {n: reps[n][i] for n in _REPLICATED})
+            for i, r in enumerate(idx)]
+
+
+def _out_placed(cfg: Mamba2Config, lp: dict, ranks: list, ys: list,
+                xss: list, ring) -> torch.Tensor:
+    """The ranks' SSM outputs (B, L, h, P) f32 through the skip, the gate,
+    ``gnorm`` over the whole Din (each rank's sum of squares over its own
+    features, summed over the axis) and their rows of ``out_proj``,
+    summed."""
+    own, sums = [], []
+    for rk, y, xs in zip(ranks, ys, xss):
+        sh = rk.sh
+        y = y + rk.d_skip.float()[None, None, :, None] * xs
+        y = y.reshape(*xs.shape[:2], -1) * F.silu(rk.z.float())
+        base = sh.h0 * cfg.headdim
+        y = y.to(cfg.dtype)[..., sh.q_lo - base:sh.q_hi - base].float()
+        own.append(y)
+        sums.append((y * y).sum(-1, keepdim=True))
+    total = tp.copy_to_model(tp.reduce_from_model(sums, ring), ring)
+    parts = []
+    for i, (r, rk, y) in enumerate(zip(ring.index(), ranks, own)):
+        sh = rk.sh
+        inv = torch.rsqrt(total[i] / cfg.d_inner + cfg.norm_eps)
+        y = (y * inv * rk.gnorm[sh.q_lo:sh.q_hi].float()).to(cfg.dtype)
+        parts.append(y @ lp["out_proj"].at(model=r))
+    return tp.reduce_from_model(parts, ring)
+
+
+def _mix_seq_placed(cfg: Mamba2Config, lp: dict, h: torch.Tensor, ring,
+                    plan, states: bool = False):
+    """:func:`_mix_seq` on a placed layer.  -> out, or with ``states``
+    (out, each rank's conv state (B, d_conv - 1, its channels) and final
+    SSM state (B, its heads, P, N))."""
+    L = h.shape[1]
+    ranks = _ranks(cfg, lp, h, ring, plan)
+    ys, xss, convs, finals = [], [], [], []
+    for rk in ranks:
+        xc, conv_state = _conv_seq(cfg, rk.conv_w, rk.conv_b, rk.xbc)
+        xs, Bm, Cm, dtv = rk.heads(cfg, xc)
+        ys.append(_ssd_chunked(xs, dtv, rk.A, Bm, Cm, min(cfg.chunk, L)))
+        xss.append(xs)
+        if states:
+            convs.append(conv_state)
+            finals.append(_final_state(dtv, rk.A, Bm, xs))
+    out = _out_placed(cfg, lp, ranks, ys, xss, ring)
+    return (out, convs, finals) if states else out
+
+
+def _layer_train_placed(cfg: Mamba2Config, lp: dict, x, ring, plan):
+    h = rms_norm(x, lp["ln"].at(), cfg.norm_eps)
+    return x + _mix_seq_placed(cfg, lp, h, ring, plan)
+
+
+def _logits(cfg: Mamba2Config, params: dict, x, ring) -> list:
+    x = rms_norm(x, params["ln_f"].at(), cfg.norm_eps)
+    return logits_placed(x, params["lm_head"], ring)
+
+
+def _forward_placed(cfg: Mamba2Config, params: dict, tokens: torch.Tensor):
+    """:func:`forward` on a placed state."""
+    ring, plan = _tp(cfg, params)
+    x = tp.vocab_embed(tokens, params["embed"], ring)
+    for lp in unstack(params["layers"]):
+        x = remat_call(_layer_train_placed, cfg, lp, x, ring, plan)
+    return tp.VocabShards(_logits(cfg, params, x, ring), ring,
+                          cfg.vocab), 0.0
+
+
+def _ssm_view(cache: dict, i: int, r: int, sh) -> torch.Tensor:
+    """Rank ``r``'s layer-i SSM state (B, its heads, P, N): its shard, or
+    its heads of the whole state."""
+    leaf = cache["ssm"]
+    t = leaf.at(model=r)[i]
+    return t if "model" in leaf.axes else t[:, sh.h0:sh.h1]
+
+
+def _conv_put(cfg: Mamba2Config, cache: dict, i: int, sh,
+              state: torch.Tensor) -> None:
+    """Write a rank's conv window (B, d_conv - 1, its channels) into its
+    channels of the whole layer-i window."""
+    conv = cache["conv"].at()[i]
+    P, Din, nx = cfg.headdim, cfg.d_inner, (sh.h1 - sh.h0) * cfg.headdim
+    conv[..., sh.h0 * P:sh.h1 * P] = state[..., :nx]
+    conv[..., Din:] = state[..., nx:]
+
+
+def _prefill_placed(cfg: Mamba2Config, params: dict, tokens: torch.Tensor,
+                    cache: dict):
+    """:func:`prefill` on a placed state and cache."""
+    ring, plan = _tp(cfg, params)
+    x = tp.vocab_embed(tokens, params["embed"], ring)
+    for i, lp in enumerate(unstack(params["layers"])):
+        h = rms_norm(x, lp["ln"].at(), cfg.norm_eps)
+        o, convs, finals = _mix_seq_placed(cfg, lp, h, ring, plan,
+                                           states=True)
+        x = x + o
+        for r, conv_s, S in zip(ring.index(), convs, finals):
+            sh = plan.shards[r]
+            _conv_put(cfg, cache, i, sh, conv_s)
+            _ssm_view(cache, i, r, sh).copy_(S)
+    cache["length"].at().fill_(tokens.shape[1])
+    logits = _logits(cfg, params, x[:, -1:], ring)
+    return tp.gather_from_model(logits, ring, -1), cache
+
+
+def _decode_step_placed(cfg: Mamba2Config, params: dict,
+                        tokens: torch.Tensor, cache: dict):
+    """:func:`decode_step` on a placed state and cache."""
+    ring, plan = _tp(cfg, params)
+    x = tp.vocab_embed(tokens, params["embed"], ring)
+    for i, lp in enumerate(unstack(params["layers"])):
+        h = rms_norm(x, lp["ln"].at(), cfg.norm_eps)
+        ranks = _ranks(cfg, lp, h, ring, plan)
+        ys, xss, puts = [], [], []
+        for r, rk in zip(ring.index(), ranks):
+            sh = rk.sh
+            conv = _channels(cfg, cache["conv"].at()[i], sh)
+            win = torch.cat([conv, rk.xbc.float()], dim=1)
+            xc = F.silu((win * rk.conv_w.float()[None]).sum(1) +
+                        rk.conv_b.float())[:, None]
+            xs, Bm, Cm, dtv = rk.heads(cfg, xc)
+            state = _ssm_view(cache, i, r, sh)
+            dA = torch.exp(dtv[:, 0] * rk.A)
+            Sc = torch.einsum("bn,bh,bhp->bhpn", Bm[:, 0], dtv[:, 0],
+                              xs[:, 0])
+            new = dA[..., None, None] * state + Sc
+            ys.append(torch.einsum("bn,bhpn->bhp", Cm[:, 0], new)[:, None])
+            xss.append(xs)
+            puts.append((sh, win[:, 1:], state, new))
+        # the ranks of a local ring share the whole conv window (and the
+        # SSM state where it is whole): every rank reads before any writes
+        for sh, win, state, new in puts:
+            _conv_put(cfg, cache, i, sh, win)
+            state.copy_(new)
+        x = x + _out_placed(cfg, lp, ranks, ys, xss, ring)
+    cache["length"].at().add_(1)
+    logits = _logits(cfg, params, x, ring)
+    return tp.gather_from_model(logits, ring, -1), cache

@@ -16,6 +16,25 @@ layer, as the reference does.
 
 ``prefill`` and ``decode_step`` write the states and the ring cache into
 the cache they are given, in place, and return it.
+
+On a state placed by ``parallel.sharding.shard_tree`` (``param_specs``:
+``w_x`` / ``w_y`` cut on W, ``w_a`` / ``w_i`` on their output W, ``w_out``
+on its rows, the MLPs column / column / row, the attention as the
+transformer's, ``lam`` and ``conv_w`` replicated) the same entry points run
+tensor parallelism over the ``model`` axis (``parallel.tensor_parallel``).
+The RG-LRU is elementwise over W, so a rank owns a W / m slice: it
+convolves its slice of u with its slice of ``conv_w``, but its slices of
+the gates r and i take the whole conv output (``w_a`` and ``w_i`` keep
+every input row), which is all-gathered over the axis first; it runs the
+scan on its slice, gates it with its slice of the GeLU branch and
+multiplies its rows of ``w_out``, and the partials are summed.  The local
+attention is MQA: the one kv head does not split, so the ranks gather the
+k / v projections (``layers.head_plan``) and each attends with its q heads.
+The vocabulary-parallel embedding; ``forward`` returns
+``tensor_parallel.VocabShards``, the serving steps the logits gathered
+whole.  A placed cache holds the recurrent states cut on W and the window
+ring cut as the transformer's cache (its one kv head's head_dim over the
+axis where it divides; decode gathers it, ``layers.kv_views``).
 """
 from __future__ import annotations
 
@@ -25,9 +44,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel import tensor_parallel as tp
+from repro_torch.parallel.sharding import Placed
 
-from .layers import (apply_rope, attention, decode_attention, geglu, gelu,
-                     remat_call, rms_norm, seq_positions, unstack)
+from .layers import (apply_rope, attention, attn_out_placed,
+                     decode_attention, expand_views, geglu, gelu, head_plan,
+                     heads_of, kv_cut, kv_heads_of, kv_of, kv_values,
+                     kv_views, logits_placed, project_placed, remat_call,
+                     rms_norm, seq_positions, unstack)
 
 RG_LRU_C = 8.0
 
@@ -171,42 +195,45 @@ def _rec_mixer(cfg: RGConfig, lp: dict, x, conv_state=None, lru_state=None):
     """Griffin recurrent block mixer. x: (B, L, D); with ``conv_state`` /
     ``lru_state`` given, one decode step (L == 1).  -> (out, new conv
     state (B, cw - 1, W), new LRU state (B, W))."""
-    B, L, _ = x.shape
-    W = cfg.lru_width
     u = x @ lp["w_x"]                                  # (B, L, W)
     gate = gelu((x @ lp["w_y"]).float())
-    conv_w = lp["conv_w"].float()                      # (cw, W)
-    single_step = conv_state is not None
-
-    if single_step:
-        win = torch.cat([conv_state, u.float()], dim=1)
-        new_conv = win[:, 1:]
-        u = (win * conv_w[None]).sum(1)[:, None]       # (B, 1, W)
-    else:
-        pad = torch.zeros((B, cfg.conv_width - 1, W), dtype=torch.float32,
-                          device=x.device)
-        seq = torch.cat([pad, u.float()], dim=1)
-        u = sum(seq[:, j:j + L] * conv_w[j][None, None]
-                for j in range(cfg.conv_width))
-        new_conv = seq[:, L:]
-
-    uf = u.float()
+    uf, new_conv = _conv(cfg, lp["conv_w"], u, conv_state)
     r = torch.sigmoid(torch.einsum("blw,wv->blv", uf, lp["w_a"].float()))
     ig = torch.sigmoid(torch.einsum("blw,wv->blv", uf, lp["w_i"].float()))
-    lam = lp["lam"].float()
-
-    if single_step:
-        a = torch.exp(-RG_LRU_C * F.softplus(lam) * r[:, 0])
-        h = a * lru_state + torch.sqrt(torch.clamp(1 - a * a, min=0.0)) * \
-            (ig[:, 0] * uf[:, 0])
-        new_lru = h
-        h = h[:, None]
-    else:
-        h = _rg_lru_scan(uf, r, ig, lam)
-        new_lru = h[:, -1]
-
+    h, new_lru = _lru(uf, r, ig, lp["lam"], lru_state)
     out = (h * gate).to(cfg.dtype) @ lp["w_out"]
     return out, new_conv, new_lru
+
+
+def _conv(cfg: RGConfig, conv_w, u, conv_state=None):
+    """The causal depthwise conv of u (B, L, C) over its C channels
+    (``conv_w`` (cw, C)); with ``conv_state`` one decode step.  -> (the
+    conv output f32, the new conv state (B, cw - 1, C))."""
+    B, L, C = u.shape
+    conv_w = conv_w.float()                            # (cw, C)
+    if conv_state is not None:
+        win = torch.cat([conv_state, u.float()], dim=1)
+        return (win * conv_w[None]).sum(1)[:, None], win[:, 1:]
+    pad = torch.zeros((B, cfg.conv_width - 1, C), dtype=torch.float32,
+                      device=u.device)
+    seq = torch.cat([pad, u.float()], dim=1)
+    out = sum(seq[:, j:j + L] * conv_w[j][None, None]
+              for j in range(cfg.conv_width))
+    return out, seq[:, L:]
+
+
+def _lru(uf, r, ig, lam, lru_state=None):
+    """The RG-LRU over the channels of uf, r, ig (B, L, C) with ``lam``
+    (C,); with ``lru_state`` one decode step.  -> (h (B, L, C), the new
+    state (B, C))."""
+    lam = lam.float()
+    if lru_state is None:
+        h = _rg_lru_scan(uf, r, ig, lam)
+        return h, h[:, -1]
+    a = torch.exp(-RG_LRU_C * F.softplus(lam) * r[:, 0])
+    h = a * lru_state + torch.sqrt(torch.clamp(1 - a * a, min=0.0)) * \
+        (ig[:, 0] * uf[:, 0])
+    return h[:, None], h
 
 
 def _mlp(cfg: RGConfig, lp: dict, x):
@@ -257,7 +284,11 @@ def _tail_train(cfg: RGConfig, x, lp: dict):
 def forward(cfg: RGConfig, params: dict, tokens: torch.Tensor):
     """tokens: (B, S) -> (logits (B, S, vocab), 0.0).  With grad enabled
     each group and each tail layer runs under ``torch.utils.checkpoint``
-    (:func:`layers.remat_call`), the reference's units."""
+    (:func:`layers.remat_call`), the reference's units.  On a placed state
+    the logits come back as each model rank's vocab range (module
+    docstring)."""
+    if placed(params):
+        return _forward_placed(cfg, params, tokens)
     x = F.embedding(tokens, params["embed"])
     positions = seq_positions(tokens.shape[1], x.device)
     for rec2, attnp in _groups(params):
@@ -303,7 +334,10 @@ def decode_step(cfg: RGConfig, params: dict, tokens: torch.Tensor,
                 cache: dict):
     """tokens: (B, 1) -> (logits (B, 1, V), cache updated in place).  Each
     slot writes its new K/V at ring slot ``length % wlen`` and attends
-    over ``min(length + 1, wlen)`` slots."""
+    over ``min(length + 1, wlen)`` slots.  A placed cache on a placed
+    state (module docstring)."""
+    if placed(params):
+        return _decode_step_placed(cfg, params, tokens, cache)
     x = F.embedding(tokens, params["embed"])
     B = x.shape[0]
     length = cache["length"]
@@ -339,7 +373,10 @@ def prefill(cfg: RGConfig, params: dict, tokens: torch.Tensor, cache: dict):
     """The forward pass, leaving each recurrent block's final states and
     each attention block's last ``wlen`` keys (in their ring slots, ``pos %
     wlen``, the rest zero) in ``cache``, in place.  Returns (last-token
-    logits (B, 1, V), cache)."""
+    logits (B, 1, V), cache).  A placed cache on a placed state (module
+    docstring)."""
+    if placed(params):
+        return _prefill_placed(cfg, params, tokens, cache)
     x = F.embedding(tokens, params["embed"])
     L = tokens.shape[1]
     positions = seq_positions(L, x.device)
@@ -363,3 +400,222 @@ def prefill(cfg: RGConfig, params: dict, tokens: torch.Tensor, cache: dict):
     cache["length"].fill_(L)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x[:, -1:] @ params["lm_head"], cache
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism on a placed state (module docstring)
+# ---------------------------------------------------------------------------
+
+def placed(params: dict) -> bool:
+    """Whether ``params`` were placed by ``parallel.sharding.shard_tree``."""
+    return isinstance(params.get("embed"), Placed)
+
+
+def _tp(cfg: RGConfig, params: dict):
+    """(the model axis's ring, the attention's head plan over it)."""
+    ring = tp.model_ring(params["embed"].mesh)
+    return ring, head_plan(cfg.n_heads, cfg.n_kv_heads, cfg.dh, ring.size)
+
+
+def _rec_mixer_placed(cfg: RGConfig, lp: dict, x, ring, conv_states=None,
+                      lru_states=None):
+    """:func:`_rec_mixer` on a placed block: each rank's W slice (module
+    docstring); ``conv_states`` / ``lru_states`` each rank's (decode).
+    -> (out, each rank's new conv state, each rank's new LRU state)."""
+    idx = ring.index()
+    W = cfg.lru_width
+    xs = tp.copy_to_model(x, ring)
+    cws = tp.copy_to_model(lp["conv_w"].at(), ring)
+    lams = tp.copy_to_model(lp["lam"].at(), ring)
+    cuts = [tp.vocab_range(W, ring.size, r) for r in idx]
+    us, gates, convs = [], [], []
+    for i, (r, (lo, hi)) in enumerate(zip(idx, cuts)):
+        u = xs[i] @ lp["w_x"].at(model=r)
+        gates.append(gelu((xs[i] @ lp["w_y"].at(model=r)).float()))
+        uf, conv = _conv(cfg, cws[i][:, lo:hi], u,
+                         None if conv_states is None else conv_states[i])
+        us.append(uf)
+        convs.append(conv)
+    whole = tp.gather_to_model(us, ring, -1)
+    outs, lrus = [], []
+    for i, (r, (lo, hi)) in enumerate(zip(idx, cuts)):
+        r_ = torch.sigmoid(torch.einsum("blw,wv->blv", whole[i],
+                                        lp["w_a"].at(model=r).float()))
+        ig = torch.sigmoid(torch.einsum("blw,wv->blv", whole[i],
+                                        lp["w_i"].at(model=r).float()))
+        h, lru = _lru(us[i], r_, ig, lams[i][lo:hi],
+                      None if lru_states is None else lru_states[i])
+        outs.append((h * gates[i]).to(cfg.dtype) @ lp["w_out"].at(model=r))
+        lrus.append(lru)
+    return tp.reduce_from_model(outs, ring), convs, lrus
+
+
+def _mlp_placed(cfg: RGConfig, lp: dict, x, ring):
+    """:func:`_mlp` column- then row-parallel."""
+    h = rms_norm(x, lp["ln2"].at(), cfg.norm_eps)
+    parts = [geglu(h_r, lp["mlp_gate"].at(model=r), lp["mlp_up"].at(model=r),
+                   lp["mlp_down"].at(model=r))
+             for r, h_r in zip(ring.index(), tp.copy_to_model(h, ring))]
+    return x + tp.reduce_from_model(parts, ring)
+
+
+def _rec_block_placed(cfg: RGConfig, lp: dict, x, ring, conv_states=None,
+                      lru_states=None):
+    h = rms_norm(x, lp["ln1"].at(), cfg.norm_eps)
+    o, convs, lrus = _rec_mixer_placed(cfg, lp, h, ring, conv_states,
+                                       lru_states)
+    return _mlp_placed(cfg, lp, x + o, ring), convs, lrus
+
+
+def _qkv_placed(cfg: RGConfig, lp: dict, h, positions, ring, plan,
+                all_kv: bool = False):
+    """Each rank's (q, k, v), rotated: q its heads, k / v its kv heads (or
+    every kv head with ``all_kv``, the serving writes), from the
+    projections all-gathered where a head straddles ranks."""
+    hs = tp.copy_to_model(h, ring)
+    q = project_placed(hs, lp["wq"], ring, plan.gather_q)
+    k = project_placed(hs, lp["wk"], ring, plan.gather_kv)
+    v = project_placed(hs, lp["wv"], ring, plan.gather_kv)
+    res = []
+    for i, r in enumerate(ring.index()):
+        qr = heads_of(plan, r, q[i], plan.gather_q)
+        kr, vr = (kv_heads_of(plan, r, t[i], plan.gather_kv, all_kv)
+                  for t in (k, v))
+        res.append((apply_rope(qr, positions, cfg.rope_theta),
+                    apply_rope(kr, positions, cfg.rope_theta), vr))
+    return res
+
+
+def _attn_block_placed(cfg: RGConfig, lp: dict, x, positions, ring, plan,
+                       all_kv: bool = False):
+    """:func:`_attn_block` on a placed block: each rank's q heads through
+    the flash path (``ring="off"``: the ranks split heads).  -> (out, each
+    rank's k, v: its kv heads, or every kv head with ``all_kv``)."""
+    h = rms_norm(x, lp["ln1"].at(), cfg.norm_eps)
+    qkv = _qkv_placed(cfg, lp, h, positions, ring, plan, all_kv)
+    outs = [attention(q, kv_of(plan, r, k, all_kv), kv_of(plan, r, v, all_kv),
+                      causal=True, window=cfg.window, impl=cfg.attn_impl,
+                      ring="off")
+            for r, (q, k, v) in zip(ring.index(), qkv)]
+    x = x + attn_out_placed(lp["wo"], plan, ring, outs)
+    return _mlp_placed(cfg, lp, x, ring), [(k, v) for _, k, v in qkv]
+
+
+def _group_train_placed(cfg: RGConfig, x, rec2: list[dict], attnp: dict,
+                        positions, ring, plan):
+    for lp in rec2:
+        x = _rec_block_placed(cfg, lp, x, ring)[0]
+    return _attn_block_placed(cfg, attnp, x, positions, ring, plan)[0]
+
+
+def _tail_train_placed(cfg: RGConfig, x, lp: dict, ring):
+    return _rec_block_placed(cfg, lp, x, ring)[0]
+
+
+def _logits(cfg: RGConfig, params: dict, x, ring) -> list:
+    x = rms_norm(x, params["ln_f"].at(), cfg.norm_eps)
+    return logits_placed(x, params["lm_head"], ring)
+
+
+def _forward_placed(cfg: RGConfig, params: dict, tokens: torch.Tensor):
+    """:func:`forward` on a placed state."""
+    ring, plan = _tp(cfg, params)
+    x = tp.vocab_embed(tokens, params["embed"], ring)
+    positions = seq_positions(tokens.shape[1], x.device)
+    for rec2, attnp in _groups(params):
+        x = remat_call(_group_train_placed, cfg, x, rec2, attnp, positions,
+                       ring, plan)
+    for lp in unstack(params["rec_tail"]):
+        x = remat_call(_tail_train_placed, cfg, x, lp, ring)
+    return tp.VocabShards(_logits(cfg, params, x, ring), ring,
+                          cfg.vocab), 0.0
+
+
+def _state_shards(cache: dict, name: str, ring, *index) -> list:
+    """Each held rank's shard of a placed recurrent state at ``index``."""
+    return [cache[name].at(model=r)[index] for r in ring.index()]
+
+
+def _rec_step_placed(cfg: RGConfig, lp: dict, x, cache: dict, ring,
+                     conv: str, lru: str, index: tuple, decode: bool):
+    """A placed recurrent block over the sequence (``decode``: one step
+    from the states) whose new states land in the cache's ``conv`` /
+    ``lru`` shards at ``index``."""
+    cs = _state_shards(cache, conv, ring, *index)
+    ls = _state_shards(cache, lru, ring, *index)
+    x, convs, lrus = _rec_block_placed(cfg, lp, x, ring,
+                                       cs if decode else None,
+                                       ls if decode else None)
+    for dst, src in zip(cs + ls, convs + lrus):
+        dst.copy_(src)
+    return x
+
+
+def _prefill_placed(cfg: RGConfig, params: dict, tokens: torch.Tensor,
+                    cache: dict):
+    """:func:`prefill` on a placed state and cache."""
+    ring, plan = _tp(cfg, params)
+    idx = ring.index()
+    cut = kv_cut(cache["k"])
+    x = tp.vocab_embed(tokens, params["embed"], ring)
+    L = tokens.shape[1]
+    positions = seq_positions(L, x.device)
+    wlen = cache["k"].shape[2]
+    take = min(L, wlen)
+    slots = (torch.arange(take, device=x.device) + max(0, L - take)) % wlen
+    for g, (rec2, attnp) in enumerate(_groups(params)):
+        for j, lp in enumerate(rec2):
+            x = _rec_step_placed(cfg, lp, x, cache, ring, "conv_g", "lru_g",
+                                 (g, j), decode=False)
+        x, kvs = _attn_block_placed(cfg, attnp, x, positions, ring, plan,
+                                    all_kv=cut != "heads")
+        for r, (k, v) in zip(idx, kvs):
+            for n, new in kv_values(cache, k, v, r, cut, ring).items():
+                dst = cache[n].at(model=r)[g]
+                dst.zero_()
+                dst[:, slots] = new[:, -take:]
+    for t, lp in enumerate(unstack(params["rec_tail"])):
+        x = _rec_step_placed(cfg, lp, x, cache, ring, "conv_t", "lru_t",
+                             (t,), decode=False)
+    cache["length"].at().fill_(L)
+    logits = _logits(cfg, params, x[:, -1:], ring)
+    return tp.gather_from_model(logits, ring, -1), cache
+
+
+def _decode_step_placed(cfg: RGConfig, params: dict, tokens: torch.Tensor,
+                        cache: dict):
+    """:func:`decode_step` on a placed state and cache."""
+    ring, plan = _tp(cfg, params)
+    idx = ring.index()
+    cut = kv_cut(cache["k"])
+    x = tp.vocab_embed(tokens, params["embed"], ring)
+    B = x.shape[0]
+    length = cache["length"].at()
+    positions = length[:, None]
+    wlen = cache["k"].shape[2]
+    rows = torch.arange(B, device=x.device)
+    slots = (length % wlen).long()
+    n_valid = torch.clamp(length + 1, max=wlen)
+    for g, (rec2, attnp) in enumerate(_groups(params)):
+        for j, lp in enumerate(rec2):
+            x = _rec_step_placed(cfg, lp, x, cache, ring, "conv_g", "lru_g",
+                                 (g, j), decode=True)
+        h = rms_norm(x, attnp["ln1"].at(), cfg.norm_eps)
+        qkv = _qkv_placed(cfg, attnp, h, positions, ring, plan,
+                          all_kv=cut != "heads")
+        for r, (_, k, v) in zip(idx, qkv):
+            for n, new in kv_values(cache, k, v, r, cut, ring).items():
+                cache[n].at(model=r)[g][rows, slots] = new[:, 0]
+        outs = []
+        for r, (q, _, _), pg in zip(idx, qkv, kv_views(cache, g, ring, plan,
+                                                      cut)):
+            pg = expand_views(plan, r, pg)
+            outs.append(decode_attention(q, pg["k"], pg["v"], n_valid))
+        x = x + attn_out_placed(attnp["wo"], plan, ring, outs)
+        x = _mlp_placed(cfg, attnp, x, ring)
+    for t, lp in enumerate(unstack(params["rec_tail"])):
+        x = _rec_step_placed(cfg, lp, x, cache, ring, "conv_t", "lru_t",
+                             (t,), decode=True)
+    length += 1
+    logits = _logits(cfg, params, x, ring)
+    return tp.gather_from_model(logits, ring, -1), cache

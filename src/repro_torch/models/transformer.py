@@ -40,11 +40,12 @@ from repro_torch.device import resolve_device
 from repro_torch.parallel import tensor_parallel as tp
 from repro_torch.parallel.sharding import Placed
 
-from .layers import (MoEConfig, apply_rope, attention, decode_attention,
-                     expand_kv, head_plan, heads_of, kv_heads_of, moe_layer,
-                     moe_layer_placed, out_features, paged_decode_attention,
-                     remat_call, seq_positions, quantize_kv, rms_norm,
-                     swiglu, unstack)
+from .layers import (MoEConfig, apply_rope, attention, attn_out_placed,
+                     decode_attention, expand_kv, expand_views, head_plan,
+                     heads_of, kv_cut, kv_heads_of, kv_of, kv_values,
+                     kv_views, moe_layer, moe_layer_placed,
+                     paged_decode_attention, project_placed, remat_call,
+                     seq_positions, quantize_kv, rms_norm, swiglu, unstack)
 
 # Serving-engine capability flags (see configs/base.py and
 # serving/engine.py): prefill accepts ``true_lengths`` for length-bucketed
@@ -489,30 +490,18 @@ def _qkv_placed(cfg: TransformerConfig, lp: dict, h: torch.Tensor,
     ``all_kv`` a rank whose projections were gathered keeps every kv head
     (the serving writes: a rank's cache holds a head_dim slice of each)."""
     hs = tp.copy_to_model(h, ring)
-    idx = ring.index()
-    proj = {}
-    for name in ("q", "k", "v"):
-        out = []
-        for r, h_r in zip(idx, hs):
-            y = h_r @ lp["w" + name].at(model=r)
-            if cfg.qkv_bias:
-                y = y + lp["b" + name].at(model=r)
-            out.append(y)
-        gather = plan.gather_q if name == "q" else plan.gather_kv
-        proj[name] = tp.gather_to_model(out, ring, -1) if gather else out
+    proj = {name: project_placed(
+        hs, lp["w" + name], ring,
+        plan.gather_q if name == "q" else plan.gather_kv,
+        lp["b" + name] if cfg.qkv_bias else None) for name in ("q", "k", "v")}
     if cfg.qk_norm:
         qn = tp.copy_to_model(lp["q_norm"].at(), ring)
         kn = tp.copy_to_model(lp["k_norm"].at(), ring)
     res = []
-    for i, r in enumerate(idx):
+    for i, r in enumerate(ring.index()):
         q = heads_of(plan, r, proj["q"][i], plan.gather_q)
-        if all_kv and plan.gather_kv:
-            k, v = (proj[n][i].reshape(*proj[n][i].shape[:-1],
-                                       cfg.n_kv_heads, cfg.dh)
-                    for n in ("k", "v"))
-        else:
-            k, v = (kv_heads_of(plan, r, proj[n][i], plan.gather_kv)
-                    for n in ("k", "v"))
+        k, v = (kv_heads_of(plan, r, proj[n][i], plan.gather_kv, all_kv)
+                for n in ("k", "v"))
         if cfg.qk_norm:
             q = rms_norm(q, qn[i], cfg.norm_eps)
             k = rms_norm(k, kn[i], cfg.norm_eps)
@@ -533,13 +522,6 @@ def _mlp_placed(cfg: TransformerConfig, lp: dict, x: torch.Tensor, ring):
     return tp.reduce_from_model(parts, ring), 0.0
 
 
-def _attn_out(lp: dict, plan, ring, outs: list) -> torch.Tensor:
-    """The ranks' attention outputs through their rows of ``wo``, summed."""
-    parts = [out_features(plan, r, o) @ lp["wo"].at(model=r)
-             for r, o in zip(ring.index(), outs)]
-    return tp.reduce_from_model(parts, ring)
-
-
 def _block_train_placed(cfg: TransformerConfig, x: torch.Tensor, lp: dict,
                         positions: torch.Tensor, ring, plan):
     """:func:`_block_train` on a placed layer: -> (output, aux)."""
@@ -549,7 +531,7 @@ def _block_train_placed(cfg: TransformerConfig, x: torch.Tensor, lp: dict,
                       ring="off")
             for r, (q, k, v) in zip(ring.index(), _qkv_placed(
                 cfg, lp, h, positions, ring, plan))]
-    x = x + _attn_out(lp, plan, ring, outs)
+    x = x + attn_out_placed(lp["wo"], plan, ring, outs)
     mo, aux = _mlp_placed(cfg, lp, x, ring)
     return x + mo, aux
 
@@ -581,89 +563,13 @@ def _forward_placed(cfg: TransformerConfig, params: dict,
     return tp.VocabShards(logits, ring, cfg.vocab), aux
 
 
-def _kv_cut(pool_leaf: Placed) -> str:
-    """How the model ranks' shards of a cache or pool leaf cut the kv heads:
-    'heads' (its heads, its plan's kv range), 'head_dim' (a slice of every
-    head's features) or 'none' (every head, replicated)."""
-    spec = pool_leaf.spec
-    if spec[3] is not None and "model" in pool_leaf.axes:
-        return "heads"
-    if len(spec) > 4 and spec[4] is not None and "model" in pool_leaf.axes:
-        return "head_dim"
-    return "none"
-
-
-def _own(t: torch.Tensor, r: int, cut: str, ring) -> torch.Tensor:
-    """Rank ``r``'s part, as its cache or pool shard holds it, of its
-    new K/V (B, T, heads, Dh) or scales (B, T, heads): a slice of the
-    features in the head_dim cut, else as they are."""
-    if cut == "head_dim" and t.dim() == 4:
-        lo, hi = tp.vocab_range(t.shape[-1], ring.size, r)
-        return t[..., lo:hi]
-    return t
-
-
-def _kv_values(store: dict, k: torch.Tensor, v: torch.Tensor, r: int,
-               cut: str, ring) -> dict:
-    """Rank ``r``'s part of new K/V (B, T, heads, Dh) as its cache or pool
-    shard stores it: quantized with scales for an int8 store, a slice of
-    the features in the head_dim cut."""
-    if store["k"].dtype == torch.int8:
-        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
-        vals = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-    else:
-        vals = {"k": k.to(store["k"].dtype), "v": v.to(store["v"].dtype)}
-    return {n: _own(t, r, cut, ring) for n, t in vals.items()}
-
-
-def _kv_views(store: dict, i: int, ring, plan, cut: str) -> list[dict]:
-    """Each held rank's layer-i view of a placed cache or pool (k, v and
-    any scales) over the kv heads its q heads read: its shard, or the
-    shards gathered whole over the axis (head_dim cut), narrowed to its
-    plan's kv heads as contiguous tensors (the paged kernel takes a
-    contiguous pool)."""
-    idx = ring.index()
-    names = [n for n in ("k", "v", "k_scale", "v_scale") if n in store]
-    out = [{} for _ in idx]
-    for n in names:
-        ts = [store[n].at(model=r)[i] for r in idx]
-        if cut == "head_dim" and n in ("k", "v"):
-            ts = tp.gather_to_model(ts, ring, -1)
-        for j, (r, t) in enumerate(zip(idx, ts)):
-            if cut != "heads":
-                sh = plan.shards[r]
-                # (.., S or page, Kv[, Dh]): heads are dim 2 of a layer
-                t = t.narrow(2, sh.kv0, sh.kv1 - sh.kv0).contiguous()
-            out[j][n] = t
-    return out
-
-
-def _expand_views(plan, r: int, pg: dict) -> dict:
-    """A rank's views with one kv head for each of its q heads, where its
-    split breaks the GQA groups (``HeadShard.kv_index``)."""
-    if plan.shards[r].kv_index is None:
-        return pg
-    return {n: expand_kv(plan, r, t if t.dim() == 4 else t[..., None])
-            .reshape(*t.shape[:2], -1, *t.shape[3:]) for n, t in pg.items()}
-
-
-def _kv_of(plan, r: int, t: torch.Tensor, all_kv: bool) -> torch.Tensor:
-    """The kv heads rank ``r``'s attention reads of new K/V that hold
-    every head (``all_kv``) or its own already; expanded as
-    :func:`layers.expand_kv` says."""
-    if all_kv:
-        sh = plan.shards[r]
-        t = t.narrow(2, sh.kv0, sh.kv1 - sh.kv0)
-    return expand_kv(plan, r, t)
-
-
 def _prefill_placed(cfg: TransformerConfig, params: dict,
                     tokens: torch.Tensor, cache: dict, vision_embeds,
                     true_lengths):
     """:func:`prefill` on a placed state and cache."""
     ring, plan = _tp(cfg, params)
     idx = ring.index()
-    cut = _kv_cut(cache["k"])
+    cut = kv_cut(cache["k"])
     all_kv = cut != "heads"
     x = tp.vocab_embed(tokens, params["embed"], ring)
     if vision_embeds is not None:
@@ -675,13 +581,13 @@ def _prefill_placed(cfg: TransformerConfig, params: dict,
         outs = []
         for r, (q, k, v) in zip(idx, _qkv_placed(
                 cfg, lp, h, positions, ring, plan, all_kv=all_kv)):
-            for n, val in _kv_values(cache, k, v, r, cut, ring).items():
+            for n, val in kv_values(cache, k, v, r, cut, ring).items():
                 cache[n].at(model=r)[i, :, :S] = val
             outs.append(attention(
-                q, _kv_of(plan, r, k, all_kv), _kv_of(plan, r, v, all_kv),
+                q, kv_of(plan, r, k, all_kv), kv_of(plan, r, v, all_kv),
                 causal=True, window=cfg.window, impl=cfg.attn_impl,
                 ring="off"))
-        x = x + _attn_out(lp, plan, ring, outs)
+        x = x + attn_out_placed(lp["wo"], plan, ring, outs)
         x = x + _mlp_placed(cfg, lp, x, ring)[0]
     length = cache["length"].at()
     if true_lengths is None:
@@ -701,7 +607,7 @@ def _decode_step_placed(cfg: TransformerConfig, params: dict,
     """:func:`decode_step` on a placed state and cache."""
     ring, plan = _tp(cfg, params)
     idx = ring.index()
-    cut = _kv_cut(cache["k"])
+    cut = kv_cut(cache["k"])
     x = tp.vocab_embed(tokens, params["embed"], ring)
     B = x.shape[0]
     length = cache["length"].at()
@@ -713,16 +619,16 @@ def _decode_step_placed(cfg: TransformerConfig, params: dict,
         qkv = _qkv_placed(cfg, lp, h, positions, ring, plan,
                           all_kv=cut != "heads")
         for r, (q, k, v) in zip(idx, qkv):
-            for n, val in _kv_values(cache, k, v, r, cut, ring).items():
+            for n, val in kv_values(cache, k, v, r, cut, ring).items():
                 cache[n].at(model=r)[i][rows, pos] = val[:, 0]
         outs = []
-        for r, (q, _, _), pg in zip(idx, qkv, _kv_views(cache, i, ring, plan,
+        for r, (q, _, _), pg in zip(idx, qkv, kv_views(cache, i, ring, plan,
                                                       cut)):
-            pg = _expand_views(plan, r, pg)
+            pg = expand_views(plan, r, pg)
             outs.append(decode_attention(q, pg["k"], pg["v"], length + 1,
                                          pg.get("k_scale"),
                                          pg.get("v_scale")))
-        x = x + _attn_out(lp, plan, ring, outs)
+        x = x + attn_out_placed(lp["wo"], plan, ring, outs)
         x = x + _mlp_placed(cfg, lp, x, ring)[0]
     length += 1
     logits = tp.gather_from_model(_logits_placed(cfg, params, x, ring),
@@ -754,7 +660,7 @@ def _paged_step_placed(cfg: TransformerConfig, params: dict,
     impl = cfg.attn_impl if T == 1 else "xla"
     src = _trash_last_writer(phys, off, page) if cfg.moe else None
     idx = ring.index()
-    cut = _kv_cut(pool["k"])
+    cut = kv_cut(pool["k"])
     all_kv = cut != "heads"
 
     def put(dst, val):
@@ -766,16 +672,16 @@ def _paged_step_placed(cfg: TransformerConfig, params: dict,
         h = rms_norm(x, lp["ln1"].at(), cfg.norm_eps)
         qkv = _qkv_placed(cfg, lp, h, positions, ring, plan, all_kv=all_kv)
         for r, (q, k, v) in zip(idx, qkv):
-            for n, val in _kv_values(pool, k, v, r, cut, ring).items():
+            for n, val in kv_values(pool, k, v, r, cut, ring).items():
                 put(pool[n].at(model=r)[i], val)
-        pages = _kv_views(pool, i, ring, plan, cut)
+        pages = kv_views(pool, i, ring, plan, cut)
         outs = []
         for r, (q, _, _), pg in zip(idx, qkv, pages):
-            pg = _expand_views(plan, r, pg)
+            pg = expand_views(plan, r, pg)
             outs.append(paged_decode_attention(
                 q, pg["k"], pg["v"], page_table, lengths, pg.get("k_scale"),
                 pg.get("v_scale"), impl=impl))
-        x = x + _attn_out(lp, plan, ring, outs)
+        x = x + attn_out_placed(lp["wo"], plan, ring, outs)
         x = x + _mlp_placed(cfg, lp, x, ring)[0]
     logits = tp.gather_from_model(_logits_placed(cfg, params, x, ring),
                                   ring, -1)

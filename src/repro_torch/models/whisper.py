@@ -14,6 +14,22 @@ autograd the backward pair); decode attends through the plain
 
 ``prefill`` and ``decode_step`` write into the cache they are given, in
 place, and return it.
+
+On a state placed by ``parallel.sharding.shard_tree`` (``param_specs``:
+``wq``, ``wk``, ``wv``, ``bq``, ``bv`` and ``mlp_w1`` / ``mlp_b1`` cut on
+their output features, ``wo`` and ``mlp_w2`` on their rows, ``embed`` on
+its vocabulary; ``bo``, ``mlp_b2``, the norms and ``pos_dec`` replicated)
+the same entry points run tensor parallelism over the ``model`` axis
+(``parallel.tensor_parallel``): each rank attends with its heads
+(``layers.head_plan``; the projections all-gathered where a head straddles
+ranks), the cross-attention taking its heads' k and v from the replicated
+encoder output; ``wo`` and ``mlp_w2`` are row-parallel, and ``bo`` and
+``mlp_b2`` are added once, after the partials' sum.  The output embedding
+is tied: rank r's logits are ``x @ embed.at(model=r).T`` over its vocab
+rows, and ``embed``'s gradient sums the lookup's and the logits' parts.
+``forward`` returns ``tensor_parallel.VocabShards``, the serving steps the
+logits gathered whole.  A placed cache holds the self and cross K/V cut as
+the transformer's (its heads on the axis where it divides them).
 """
 from __future__ import annotations
 
@@ -23,9 +39,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel import tensor_parallel as tp
+from repro_torch.parallel.sharding import Placed
 
-from .layers import (attention, decode_attention, gelu_mlp, layer_norm,
-                     remat_call,
+from .layers import (attention, attn_out_placed, decode_attention,
+                     expand_views, gelu, gelu_mlp, head_plan, heads_of,
+                     kv_cut, kv_heads_of, kv_of, kv_values, kv_views,
+                     layer_norm, logits_placed, project_placed, remat_call,
                      unstack)
 
 # Pooled-serving slot layout (see serving/engine.py _write_slot): batch axis
@@ -138,9 +158,16 @@ def encode(cfg: WhisperConfig, params: dict,
            frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, S_enc, D) precomputed embeddings (stub frontend).  With
     grad enabled each layer runs under ``torch.utils.checkpoint``
-    (:func:`layers.remat_call`)."""
+    (:func:`layers.remat_call`).  On a placed state each layer runs its
+    placed body (module docstring); the output is replicated."""
     x = frames.to(cfg.dtype) + _sinusoidal(
         frames.shape[1], cfg.d_model, frames.device).to(cfg.dtype)[None]
+    if placed(params):
+        ring, plan = _tp(cfg, params)
+        for lp in unstack(params["enc"]):
+            x = remat_call(_enc_layer_placed, cfg, lp, x, ring, plan)
+        return layer_norm(x, params["ln_enc_w"].at(),
+                          params["ln_enc_b"].at(), cfg.norm_eps)
     for lp in unstack(params["enc"]):
         x = remat_call(_enc_layer, cfg, lp, x)
     return layer_norm(x, params["ln_enc_w"], params["ln_enc_b"],
@@ -178,7 +205,10 @@ def forward(cfg: WhisperConfig, params: dict, tokens: torch.Tensor,
     """Teacher-forced forward: (tokens (B, S_dec), frames (B, S_enc, D))
     -> (logits (B, S_dec, vocab), 0.0).  With grad enabled each encoder
     and each decoder layer runs under ``torch.utils.checkpoint``, the
-    reference's units."""
+    reference's units.  On a placed state the logits come back as each
+    model rank's vocab range (module docstring)."""
+    if placed(params):
+        return _forward_placed(cfg, params, tokens, frames)
     enc_out = encode(cfg, params, frames)
     S = tokens.shape[1]
     x = _embed(params, tokens,
@@ -213,7 +243,10 @@ def prefill(cfg: WhisperConfig, params: dict, tokens: torch.Tensor,
             cache: dict, frames: torch.Tensor):
     """Encode the audio, keep each layer's cross K/V and run the prompt
     through the decoder, writing into ``cache`` in place.  Returns
-    (last-token logits (B, 1, V), cache)."""
+    (last-token logits (B, 1, V), cache).  A placed cache on a placed
+    state (module docstring)."""
+    if placed(params):
+        return _prefill_placed(cfg, params, tokens, cache, frames)
     enc_out = encode(cfg, params, frames)
     S = tokens.shape[1]
     x = _embed(params, tokens, torch.arange(S, device=tokens.device)[None])
@@ -231,7 +264,10 @@ def decode_step(cfg: WhisperConfig, params: dict, tokens: torch.Tensor,
                 cache: dict):
     """tokens: (B, 1) -> (logits (B, 1, V), cache updated in place): each
     slot writes its self K/V at its own length and attends over
-    ``length + 1`` positions, then over all ``n_audio_ctx`` frames."""
+    ``length + 1`` positions, then over all ``n_audio_ctx`` frames.  A
+    placed cache on a placed state (module docstring)."""
+    if placed(params):
+        return _decode_step_placed(cfg, params, tokens, cache)
     B = tokens.shape[0]
     H, Dh = cfg.n_heads, cfg.dh
     length = cache["length"]
@@ -260,3 +296,179 @@ def decode_step(cfg: WhisperConfig, params: dict, tokens: torch.Tensor,
         x = _mlp(cfg, lp, x, 3)
     cache["length"] += 1
     return _logits(cfg, params, x), cache
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism on a placed state (module docstring)
+# ---------------------------------------------------------------------------
+
+def placed(params: dict) -> bool:
+    """Whether ``params`` were placed by ``parallel.sharding.shard_tree``."""
+    return isinstance(params.get("embed"), Placed)
+
+
+def _tp(cfg: WhisperConfig, params: dict):
+    """(the model axis's ring, the head plan over it)."""
+    ring = tp.model_ring(params["embed"].mesh)
+    return ring, head_plan(cfg.n_heads, cfg.n_heads, cfg.dh, ring.size)
+
+
+def _mha_placed(cfg: WhisperConfig, lp: dict, xq, xkv, ring, plan, *,
+                causal: bool, all_kv: bool = False):
+    """:func:`_mha` on a placed block: each rank's heads (``ring="off"``:
+    the ranks split heads), ``wo`` row-parallel, ``bo`` added once after
+    the sum.  -> (out, each rank's (k, v))."""
+    idx = ring.index()
+    hq = tp.copy_to_model(xq, ring)
+    hk = hq if xkv is xq else tp.copy_to_model(xkv, ring)
+    q = project_placed(hq, lp["wq"], ring, plan.gather_q, lp["bq"])
+    k = project_placed(hk, lp["wk"], ring, plan.gather_kv)
+    v = project_placed(hk, lp["wv"], ring, plan.gather_kv, lp["bv"])
+    outs, kvs = [], []
+    for i, r in enumerate(idx):
+        kr, vr = (kv_heads_of(plan, r, t[i], plan.gather_kv, all_kv)
+                  for t in (k, v))
+        outs.append(attention(heads_of(plan, r, q[i], plan.gather_q),
+                              kv_of(plan, r, kr, all_kv),
+                              kv_of(plan, r, vr, all_kv), causal=causal,
+                              window=None, impl=cfg.attn_impl, ring="off"))
+        kvs.append((kr, vr))
+    return attn_out_placed(lp["wo"], plan, ring, outs) + lp["bo"].at(), kvs
+
+
+def _mlp_placed(cfg: WhisperConfig, lp: dict, x, ring, ln: int):
+    """:func:`_mlp` column- then row-parallel, ``mlp_b2`` added once."""
+    h = layer_norm(x, lp[f"ln{ln}_w"].at(), lp[f"ln{ln}_b"].at(),
+                   cfg.norm_eps)
+    parts = [gelu(h_r @ lp["mlp_w1"].at(model=r) + lp["mlp_b1"].at(model=r))
+             @ lp["mlp_w2"].at(model=r)
+             for r, h_r in zip(ring.index(), tp.copy_to_model(h, ring))]
+    return x + (tp.reduce_from_model(parts, ring) + lp["mlp_b2"].at())
+
+
+def _enc_layer_placed(cfg: WhisperConfig, lp: dict, x, ring, plan):
+    h = layer_norm(x, lp["ln1_w"].at(), lp["ln1_b"].at(), cfg.norm_eps)
+    x = x + _mha_placed(cfg, lp["attn"], h, h, ring, plan, causal=False)[0]
+    return _mlp_placed(cfg, lp, x, ring, 2)
+
+
+def _dec_layer_placed(cfg: WhisperConfig, lp: dict, x, enc_out, ring, plan,
+                      all_kv: bool = False):
+    """:func:`_dec_layer` on a placed layer. -> (x, each rank's self
+    (k, v), each rank's cross (k, v))."""
+    h = layer_norm(x, lp["ln1_w"].at(), lp["ln1_b"].at(), cfg.norm_eps)
+    o, kvs = _mha_placed(cfg, lp["self"], h, h, ring, plan, causal=True,
+                         all_kv=all_kv)
+    x = x + o
+    h = layer_norm(x, lp["ln2_w"].at(), lp["ln2_b"].at(), cfg.norm_eps)
+    o, xkvs = _mha_placed(cfg, lp["cross"], h, enc_out, ring, plan,
+                          causal=False, all_kv=all_kv)
+    return _mlp_placed(cfg, lp, x + o, ring, 3), kvs, xkvs
+
+
+def _dec_train_placed(cfg: WhisperConfig, lp: dict, x, enc_out, ring, plan):
+    return _dec_layer_placed(cfg, lp, x, enc_out, ring, plan)[0]
+
+
+def _embed_placed(params: dict, tokens: torch.Tensor, positions, ring):
+    pos = params["pos_dec"].at()
+    return tp.vocab_embed(tokens, params["embed"], ring) + \
+        pos[positions % pos.shape[0]]
+
+
+def _logits_placed(cfg: WhisperConfig, params: dict, x, ring) -> list:
+    x = layer_norm(x, params["ln_dec_w"].at(), params["ln_dec_b"].at(),
+                   cfg.norm_eps)
+    return logits_placed(x, params["embed"], ring, tied=True)
+
+
+def _forward_placed(cfg: WhisperConfig, params: dict, tokens: torch.Tensor,
+                    frames: torch.Tensor):
+    """:func:`forward` on a placed state."""
+    ring, plan = _tp(cfg, params)
+    enc_out = encode(cfg, params, frames)
+    S = tokens.shape[1]
+    x = _embed_placed(params, tokens,
+                      torch.arange(S, device=tokens.device)[None], ring)
+    for lp in unstack(params["dec"]):
+        x = remat_call(_dec_train_placed, cfg, lp, x, enc_out, ring, plan)
+    return tp.VocabShards(_logits_placed(cfg, params, x, ring), ring,
+                          cfg.vocab), 0.0
+
+
+def _cross(cache: dict) -> dict:
+    """The cross K/V of a cache under the names ``layers.kv_values`` and
+    ``layers.kv_views`` read."""
+    return {"k": cache["xk"], "v": cache["xv"]}
+
+
+def _prefill_placed(cfg: WhisperConfig, params: dict, tokens: torch.Tensor,
+                    cache: dict, frames: torch.Tensor):
+    """:func:`prefill` on a placed state and cache."""
+    ring, plan = _tp(cfg, params)
+    idx = ring.index()
+    cut, xcut = kv_cut(cache["k"]), kv_cut(cache["xk"])
+    enc_out = encode(cfg, params, frames)
+    S = tokens.shape[1]
+    x = _embed_placed(params, tokens,
+                      torch.arange(S, device=tokens.device)[None], ring)
+    for i, lp in enumerate(unstack(params["dec"])):
+        x, kvs, xkvs = _dec_layer_placed(cfg, lp, x, enc_out, ring, plan,
+                                         all_kv=cut != "heads")
+        for r, (k, v), (xk, xv) in zip(idx, kvs, xkvs):
+            for n, val in kv_values(cache, k, v, r, cut, ring).items():
+                cache[n].at(model=r)[i, :, :S] = val
+            for n, val in kv_values(_cross(cache), xk, xv, r, xcut,
+                                    ring).items():
+                cache["x" + n].at(model=r)[i] = val
+    cache["length"].at().fill_(S)
+    logits = _logits_placed(cfg, params, x[:, -1:], ring)
+    return tp.gather_from_model(logits, ring, -1), cache
+
+
+def _decode_step_placed(cfg: WhisperConfig, params: dict,
+                        tokens: torch.Tensor, cache: dict):
+    """:func:`decode_step` on a placed state and cache."""
+    ring, plan = _tp(cfg, params)
+    idx = ring.index()
+    cut, xcut = kv_cut(cache["k"]), kv_cut(cache["xk"])
+    all_kv = cut != "heads"
+    B = tokens.shape[0]
+    length = cache["length"].at()
+    x = _embed_placed(params, tokens, length[:, None].long(), ring)
+    rows = torch.arange(B, device=x.device)
+    pos = torch.clamp(length.long(), max=cache["k"].shape[2] - 1)
+    frames = torch.full((B,), cache["xk"].shape[2], dtype=torch.int32,
+                        device=x.device)
+    for i, lp in enumerate(unstack(params["dec"])):
+        sa, ca = lp["self"], lp["cross"]
+        h = layer_norm(x, lp["ln1_w"].at(), lp["ln1_b"].at(), cfg.norm_eps)
+        hs = tp.copy_to_model(h, ring)
+        q = project_placed(hs, sa["wq"], ring, plan.gather_q, sa["bq"])
+        k = project_placed(hs, sa["wk"], ring, plan.gather_kv)
+        v = project_placed(hs, sa["wv"], ring, plan.gather_kv, sa["bv"])
+        for j, r in enumerate(idx):
+            kr, vr = (kv_heads_of(plan, r, t[j], plan.gather_kv, all_kv)
+                      for t in (k, v))
+            for n, val in kv_values(cache, kr, vr, r, cut, ring).items():
+                cache[n].at(model=r)[i][rows, pos] = val[:, 0]
+        outs = [decode_attention(heads_of(plan, r, q[j], plan.gather_q),
+                                 pg["k"], pg["v"], length + 1)
+                for j, (r, pg) in enumerate(zip(idx, (
+                    expand_views(plan, r, pg) for r, pg in zip(
+                        idx, kv_views(cache, i, ring, plan, cut)))))]
+        x = x + (attn_out_placed(sa["wo"], plan, ring, outs) + sa["bo"].at())
+        h = layer_norm(x, lp["ln2_w"].at(), lp["ln2_b"].at(), cfg.norm_eps)
+        q = project_placed(tp.copy_to_model(h, ring), ca["wq"], ring,
+                           plan.gather_q, ca["bq"])
+        outs = [decode_attention(heads_of(plan, r, q[j], plan.gather_q),
+                                 pg["k"], pg["v"], frames)
+                for j, (r, pg) in enumerate(zip(idx, (
+                    expand_views(plan, r, pg) for r, pg in zip(
+                        idx, kv_views(_cross(cache), i, ring, plan,
+                                      xcut)))))]
+        x = x + (attn_out_placed(ca["wo"], plan, ring, outs) + ca["bo"].at())
+        x = _mlp_placed(cfg, lp, x, ring, 3)
+    length += 1
+    logits = _logits_placed(cfg, params, x, ring)
+    return tp.gather_from_model(logits, ring, -1), cache

@@ -170,20 +170,65 @@ def kv_store_specs(store: dict, mesh, *, kv_heads: int,
     page, Hkv, Dh) is placed by on a placed state: over ``model`` alone,
     as :func:`cache_specs` / :func:`paged_pool_specs` cut the heads: kv
     heads on ``model`` when they divide it, else head_dim when it divides,
-    else replicated; the scales (..., Hkv) follow the heads; lengths,
-    tables and the batch or page axis stay whole."""
+    else replicated (``k`` / ``v``, and an encoder-decoder's cross ``xk`` /
+    ``xv``); the scales (..., Hkv) follow the heads; lengths, tables, the
+    batch or page axis and any other entry stay whole."""
     m = _model_axis(mesh)
     heads = kv_heads % mesh.shape[m] == 0
     feat = not heads and head_dim % mesh.shape[m] == 0
     out = {}
     for k, v in store.items():
         spec = [None] * v.dim()
-        if k in ("k", "v"):
+        if k in ("k", "v", "xk", "xv"):
             spec[3 if heads else 4] = m if heads or feat else None
         elif k in ("k_scale", "v_scale") and heads:
             spec[3] = m
         out[k] = tuple(spec)
     return out
+
+
+# the recurrent states of the hybrid kind, cut on their last dim (W) as
+# the block's w_x columns are
+RECURRENT_STATES = ("conv_g", "lru_g", "conv_t", "lru_t")
+
+
+def store_specs(kind: str, store: dict, mesh, cfg) -> dict:
+    """The specs a ``kind`` family's serving cache or paged pool is placed
+    by on a placed state, over ``model`` alone: each model rank's shard
+    holds what its placed body reads and writes.
+
+      * the transformer kinds (``dense``, ``moe``, ``vlm``): their K/V by
+        :func:`kv_store_specs`;
+      * ``audio`` (whisper): self and cross K/V alike, over its heads;
+      * ``hybrid`` (recurrentgemma): the window ring's one kv head alike
+        (head_dim on ``model`` where it divides), the recurrent states
+        (:data:`RECURRENT_STATES`) on W;
+      * ``ssm`` (mamba2): the SSM state (L, B, H, P, N) on its heads where
+        the axis divides them, the conv window whole (a rank's channels
+        are its heads' x and the whole B and C: no even cut).
+
+    Raises ValueError for a kind without a rule."""
+    m = _model_axis(mesh)
+    if kind in ("dense", "moe", "vlm"):
+        return kv_store_specs(store, mesh, kv_heads=cfg.n_kv_heads,
+                              head_dim=cfg.dh)
+    if kind == "audio":
+        return kv_store_specs(store, mesh, kv_heads=cfg.n_heads,
+                              head_dim=cfg.dh)
+    if kind == "hybrid":
+        out = kv_store_specs(store, mesh, kv_heads=cfg.n_kv_heads,
+                             head_dim=cfg.dh)
+        for k in RECURRENT_STATES:
+            if k in store:
+                out[k] = (None,) * (store[k].dim() - 1) + (m,)
+        return out
+    if kind == "ssm":
+        heads = cfg.n_heads % mesh.shape[m] == 0
+        out = {k: (None,) * v.dim() for k, v in store.items()}
+        if heads and "ssm" in store:
+            out["ssm"] = (None, None, m, None, None)
+        return out
+    raise ValueError(f"no cache placement rule for kind {kind!r}")
 
 
 def _names(entry) -> tuple[str, ...]:

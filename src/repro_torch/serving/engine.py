@@ -7,11 +7,13 @@ token-split or TP-in-expert branch; the paged pool's page count rounds up
 to a multiple of the data axes' ranks, and its sharding specs are recorded
 (``pool_specs``).  Given params placed by ``parallel.sharding.shard_tree``
 (on local rings or a model axis of processes), the paged pool is placed
-too, by ``pool_specs`` over ``model`` (the dense slot pool alike): each
-model rank holds its kv heads (or, where they do not divide the axis, its
-head_dim slice) as its own contiguous tensor and runs the paged decode on
-them; the page and slot axes stay whole, as the host state (scheduler,
-allocator, rng) is the same on every rank.  The fleet surface (``inflight``, ``cancel``, and the page
+too, by ``pool_specs`` over ``model`` (the dense slot pool by the
+family's rule, ``parallel.sharding.store_specs``): each model rank holds
+its kv heads (or, where they do not divide the axis, its head_dim slice;
+a recurrent family's states as its placed body cuts them) as its own
+contiguous tensor and runs the paged decode on them; the page and slot
+axes stay whole, as the host state (scheduler, allocator, rng) is the same
+on every rank.  The fleet surface (``inflight``, ``cancel``, and the page
 export / import of a cached prefix) lets ``serving.fleet.LocalFleet``
 route, hedge and migrate between engines.  Three KV modes behind one
 interface (``ServeConfig.kv_mode``):
@@ -62,8 +64,8 @@ from repro_torch.optim.adamw import tree_leaves
 from repro_torch.parallel.mesh import LocalRing, set_mesh
 from repro_torch.parallel.sharding import (Placed, _data_axes,
                                            gather_leaf, is_placed,
-                                           kv_store_specs, paged_pool_specs,
-                                           shard_tree, tree_mesh)
+                                           paged_pool_specs, shard_tree,
+                                           tree_mesh)
 
 from .kv import BlockPoolKV, PagedKVConfig
 from .prefix import RadixPrefixCache
@@ -183,6 +185,9 @@ class ServingEngine:
                         f"shard_tree (the sharded-state slice)")
         self.mesh = mesh
         self.bundle = bundle
+        # bound here: a wrapper set on ``self.bundle`` later need not
+        # forward it
+        self._store_specs = bundle.store_specs if self.placed else None
         self.params = params
         self.cfg = cfg
         self.device = torch.device(device)
@@ -204,13 +209,12 @@ class ServingEngine:
 
     def _place_kv(self, store: dict) -> dict:
         """A dense cache or paged pool placed over ``model`` as the placed
-        params need it (``sharding.kv_store_specs``); as it is otherwise."""
+        params need it (the bundle's ``store_specs``, its family's rule:
+        ``parallel.sharding.store_specs``); as it is otherwise."""
         if not self.placed:
             return store
-        mcfg = self.bundle.cfg
-        return shard_tree(store, kv_store_specs(
-            store, self.mesh, kv_heads=mcfg.n_kv_heads, head_dim=mcfg.dh),
-            self.mesh)
+        return shard_tree(store, self._store_specs(store, self.mesh),
+                          self.mesh)
 
     def _mesh_ctx(self):
         """The engine's mesh made active for a model step (the reference's

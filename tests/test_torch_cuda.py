@@ -1733,3 +1733,40 @@ def test_sharded_paged_engine_on_the_card(dev):
             t.is_contiguous() and t.shape[3] == 2 for t in leaf.tensors())
     row = smoke.sharded_logits_check(params, mesh, n=256, arch=bundle)
     assert row["top1_equal"]
+
+
+# the other families' placed state at a small depth: each full-width
+# config cut to 2 layers (recurrentgemma-9b to 5: one (rec, rec, attn)
+# group, so its attention runs, and the 2-layer rec tail its probe reads),
+# bf16, on meshes of local rings
+
+SHARDED_FAMILY_LAYERS = {"mamba2-370m": 2, "recurrentgemma-9b": 5,
+                         "whisper-medium": 2}
+
+
+@pytest.mark.parametrize("arch", sorted(SHARDED_FAMILY_LAYERS))
+def test_sharded_families_on_the_card(dev, arch):
+    """``chip_smoke.sharded_family`` at a small depth (B 2 x S 1,024): the
+    (2, 4) placed step's loss and grads against the unsharded step's by
+    ``train_check``'s limits with the family's flash launches x 2 x 4 on
+    its wgmma routes, the (1, 4) placed dense engine's first token
+    against the unsharded engine's (cosine > 0.99, the same top-1), and 3
+    placed steps through ``launch.train.run``."""
+    import dataclasses
+
+    from repro_torch.configs import get_bundle
+    full = get_bundle(arch)
+    bundle = dataclasses.replace(full, cfg=dataclasses.replace(
+        full.cfg, n_layers=SHARDED_FAMILY_LAYERS[arch]))
+    smoke = _chip_smoke()
+    # the phase requires the exact flash launches of its check and of its
+    # train steps; the served and trained runs together launch only the
+    # family's wgmma routes
+    launches = smoke.sharded_family(arch, bundle=bundle, B=2, S=1024,
+                                    check_len=256)
+    flash = {k for k, n in launches.items() if k.startswith("flash") and n}
+    routes = {"hybrid": {"flash_fwd_d256", "flash_bwd_dq_d256",
+                         "flash_bwd_dkv_d256"},
+              "audio": {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"},
+              "ssm": set()}[bundle.kind]
+    assert flash == routes, launches

@@ -73,12 +73,60 @@ def test_dense_train_cell_counts_the_placed_step(results):
 
 
 def test_other_families_keep_the_whole_state(results):
+    """``state="whole"`` keeps a family's state whole on every rank (every
+    family has a placed body now, so it is the one way to the whole
+    state): no tensor-parallel collective, the note says why."""
     cell = dryrun.run_cell("mamba2-370m", "decode_32k", "single",
-                           force=True)
+                           force=True, state="whole")
     assert cell["status"] == "ok"
     assert cell["collectives_complete"] is False
     assert cell["note"] == dryrun.WHOLE_NOTE
     assert cell["temp_sharded_by"] == "data"
+    assert cell["collective_bytes"] == 0
+
+
+def test_mamba2_cell_counts_the_placed_step(results):
+    """mamba2-370m x decode_32k x single on the placed state (its params
+    by ``param_specs``, its cache by the family's rule): the in_proj
+    output's all-gather and the partial sums issued,
+    ``collectives_complete``, no note, the temporaries divided by data x
+    model, the production mesh's argument bytes."""
+    cell = dryrun.run_cell("mamba2-370m", "decode_32k", "single",
+                           force=True)
+    assert cell["status"] == "ok", cell.get("traceback")
+    assert REF_KEYS <= set(cell) and "note" not in cell
+    assert cell["collectives_complete"] is True
+    assert cell["collectives"]["all-gather"] > 0
+    assert cell["collectives"]["all-reduce"] > 0
+    assert cell["collectives"]["collective-permute"] == 0
+    assert cell["temp_sharded_by"] == "data, model"
+    assert "counted_on" not in cell
+    mesh = make_mesh(*PRODUCTION_SHAPES[False])
+    args, specs, _, _ = step_in_shardings(get_bundle("mamba2-370m"),
+                                          "decode_32k", mesh)
+    assert cell["memory_analysis"]["argument_size_gb"] == sum(
+        _leaf_bytes(a, sp, mesh) for a, sp in zip(args, specs)) / 1e9
+
+
+def test_whisper_train_cell_counts_the_placed_step(results):
+    """whisper-medium x train_4k x single on the placed state, counted on
+    the (2, 4) mesh: its 3 attention calls a layer pair (encoder self,
+    decoder self and cross) through each data and model rank, L x 3 x 2
+    x 4 launches of each flash backward kernel (the forward twice), the
+    tensor-parallel sums issued, no ring hop."""
+    cell = dryrun.run_cell("whisper-medium", "train_4k", "single",
+                           force=True)
+    assert cell["status"] == "ok", cell.get("traceback")
+    assert "note" not in cell and cell["collectives_complete"] is True
+    assert cell["cpu_s"] < 15.0
+    assert cell["counted_on"] == dict(zip(*reversed(
+        dryrun.PLACED_TRAIN_MESH)))
+    n = get_bundle("whisper-medium").cfg.n_layers * 3 * 2 * 4
+    assert {k: v["calls"] for k, v in cell["kernels"].items()} == {
+        "flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    assert cell["collectives"]["all-reduce"] > 0
+    assert cell["collectives"]["collective-permute"] == 0
+    assert cell["temp_sharded_by"] == "model"
 
 
 def test_qwen3_train_cell_counts_the_ring_on_meta(results):
@@ -129,11 +177,16 @@ def test_qwen3_train_cell_counts_the_ring_on_meta(results):
 
 
 def test_mamba2_long_context_cell(results):
+    """The one-token decode at a 524,288 context on the placed state: no
+    kernel (mamba2 attends nowhere), the tensor-parallel collectives only
+    (no ring hop), memory-bound."""
     cell = dryrun.run_cell("mamba2-370m", "long_500k", "single", force=True)
     assert cell["status"] == "ok", cell.get("traceback")
     assert REF_KEYS <= set(cell)
     assert cell["cpu_s"] < 15.0
-    assert cell["kernels"] == {} and cell["collective_bytes"] == 0
+    assert cell["kernels"] == {} and cell["collectives_complete"] is True
+    assert cell["collective_bytes"] == cell["collectives"]["all-gather"] + \
+        cell["collectives"]["all-reduce"] > 0
     assert cell["model_flops"] == 2.0 * get_bundle(
         "mamba2-370m").active_param_count()
     assert dryrun.roofline_from_cell(cell).dominant == "memory"
