@@ -76,7 +76,10 @@ bit-identical, and a gang restart from that run's last checkpoint that
 restores striped over the TCP stripe exchange; then the smoke-width
 ``repro_torch.launch.supervisor``
 with and without ``--distributed torch`` and the three
-``examples/*_torch.py``), and
+``examples/*_torch.py``), runs the multi-process slice
+(``process_mesh``: NCCL at a world of one, then four processes on the
+card at the (2, 2) stand-in of ``--mesh single``, training qwen3-4b cut
+to 4 layers and serving it paged), and
 checks what comes out.  Each phase prints JSON lines (``paper_workloads``
 one per workload); a failed phase exits non-zero before the result line.  Each
 kernel time is given twice: ``ms``, the span a caller waits for (the
@@ -120,8 +123,15 @@ def _plain(o):
     return o.item() if hasattr(o, "item") else str(o)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}, default=_plain), flush=True)
+    """One JSON line of ``phase``, with the seconds since the script
+    started (``at_s``)."""
+    print(json.dumps({"phase": phase, **kw,
+                      "at_s": time.perf_counter() - _T0},
+                     default=_plain), flush=True)
 
 
 class PhaseError(RuntimeError):
@@ -4824,6 +4834,506 @@ def train_fleet() -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 6b: the multi-process slice: NCCL at a world of one, then four
+# processes on the one card at the (2, 2) stand-in of ``--mesh single``
+# (gloo by the backend rule: four local ranks share one card)
+# ---------------------------------------------------------------------------
+
+PROCESS_MESH_WORKER = "--process-mesh-worker"
+# the production meshes' stand-ins, set in each worker's own process
+PROCESS_MESH_SHAPES = {False: ((2, 2), ("data", "model")),
+                       True: ((2, 1, 2), ("pod", "data", "model"))}
+# qwen3-4b at full width cut to 4 of its 36 layers.  Memory allows 8: the
+# state is 12 bytes a param (bf16 params and grads, f32 moments), half of
+# it a rank at model 2, so 8 layers (1.59 B params) take ~9.5 GB a process
+# (11.9 GB peak, one H100), where 36 (4.4 B) would need ~105 GB for four
+# processes.  Time cut it to 4: at 8 the phase took 108.7-132.7 s and the
+# script 850-1,120 s, over its 1,100 s aim in a slow call; the step's
+# gloo sums and a decode tick's scale with the depth
+PROCESS_MESH = dict(arch="qwen3-4b-4l", layers=4, world=4, B=2, S=2048,
+                    steps=3, timeout_s=400, logits_prompt=1536)
+PROCESS_MESH_LEAVES = SHARDED_LEAVES
+PROCESS_MESH_MODES = (("paged", "paged_decode_bf16"),
+                      ("paged_int8", "paged_decode_int8"))
+
+
+def process_mesh_bundle():
+    """qwen3-4b's full bundle cut in depth only, under its own id."""
+    import dataclasses
+    from repro_torch.configs import get_bundle
+    b = get_bundle(ARCH)
+    return dataclasses.replace(
+        b, arch_id=PROCESS_MESH["arch"],
+        cfg=dataclasses.replace(b.cfg, n_layers=PROCESS_MESH["layers"]))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def nccl_world_one() -> dict:
+    """(a) NCCL alone: ``init_process_group("nccl")`` at world 1, a (1, 1)
+    process mesh, and each of ``ProcessRing``'s c10d paths applied
+    directly (the ring skips a size-1 axis) to bf16 and f32 tensors on the
+    card: the sum (in f32), the all-gather, the all-to-all and a
+    ``batch_isend_irecv`` to itself; each result must equal its input bit
+    for bit."""
+    import os
+
+    import torch.distributed as dist
+    from repro_torch.parallel.mesh import (ProcessRing, _AllGather, _AllSum,
+                                           _AllToAll, make_process_mesh)
+    os.environ.update(RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(free_port()))
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="env://",
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_process_mesh((1, 1), ("data", "model"))
+        ring = ProcessRing()
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        ops_ = {}
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(4, 256, 128, generator=g, device="cuda").to(dt)
+            back = torch.empty_like(x)
+            ring._send_recv([x], [back], 0, 0)
+            got = {"all_sum": _AllSum.apply(x, ring),
+                   "all_gather": _AllGather.apply(x, 1, ring),
+                   "all_to_all": _AllToAll.apply(x, ring),
+                   "send_recv_self": back}
+            torch.cuda.synchronize()
+            for k, v in got.items():
+                ops_[f"{k}/{str(dt).replace('torch.', '')}"] = \
+                    same_bits(v, x)
+        return dict(backend=str(dist.get_backend()),
+                    nccl=".".join(map(str, torch.cuda.nccl.version())),
+                    ring_backend=ring.backend,
+                    stages_hop=ring.stages_hop, staged=ring.staged,
+                    mesh=repr(mesh), bit_equal=ops_)
+    finally:
+        dist.destroy_process_group()
+
+
+def _held(tree, L: int, keep: bool = True) -> dict:
+    """The first and last layer's slices of ``PROCESS_MESH_LEAVES`` (and
+    the embedding and lm_head whole) of a tree, gathered where placed (a
+    collective on a process mesh: every rank calls it), as f32 host
+    tensors; nothing is kept unless ``keep``."""
+    from repro_torch.parallel.sharding import Placed, gather_leaf
+    out = {}
+    for n in PROCESS_MESH_LEAVES:
+        leaf = tree[n] if n in ("embed", "lm_head") else tree["layers"][n]
+        whole = gather_leaf(leaf) if isinstance(leaf, Placed) else leaf
+        if keep and n in ("embed", "lm_head"):
+            out[n] = whole.float().cpu()
+        elif keep:
+            out[f"{n}[0]"] = whole[0].float().cpu()
+            out[f"{n}[{L - 1}]"] = whole[L - 1].float().cpu()
+        del whole
+    return out
+
+
+def _probes(get) -> dict:
+    return {"wq[0]": get("wq")[0, :64, :64].clone(),
+            "w_gate[last]": get("w_gate")[-1, :64, :64].clone(),
+            "embed": get("embed")[:64, :64].clone()}
+
+
+def process_mesh_rank(out_dir: Path) -> dict:
+    """(b) One of the four processes (torchrun's variables set by the
+    parent): the production meshes' stand-ins in this process, then
+    ``launch.train.run(mesh_kind="single")`` (it joins the group: gloo by
+    the rule) for 3 AdamW steps at B 2 x S 2048, the first moments after
+    step 1 of the held leaves gathered, then placed ``paged`` and
+    ``paged_int8`` engines on the same mesh.  Rank 0 writes its held
+    leaves and first-token logits to ``out_dir``."""
+    import os
+
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import train as ltrain
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.parallel.sharding import gather_leaf, tree_mesh
+    lmesh.PRODUCTION_SHAPES.update(PROCESS_MESH_SHAPES)
+    rank = int(os.environ["RANK"])
+    bundle = process_mesh_bundle()
+    L, cfg = bundle.cfg.n_layers, bundle.cfg
+    start = [bundle.init_params(SEED, device="cuda")]
+    before = _probes(lambda n: start[0][n] if n == "embed" else
+                     start[0]["layers"][n])
+    held = {}
+
+    def on_step(i, p, opt, m):
+        if i == 0:
+            held.update(_held(opt["mu"], L, keep=rank == 0))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = ltrain.run(bundle, smoke=False, steps=PROCESS_MESH["steps"],
+                     seq_len=PROCESS_MESH["S"],
+                     global_batch=PROCESS_MESH["B"], microbatches=1,
+                     mesh_kind="single", params=start.pop(),
+                     on_step=on_step, log_every=100)
+    train_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    p = out["params"]
+    mesh = tree_mesh(p)
+    after = _probes(lambda n: gather_leaf(p[n] if n == "embed" else
+                                          p["layers"][n]))
+    moved = {k: not torch.equal(before[k], after[k]) for k in before}
+    row = dict(rank=rank, backend=out["backend"], mesh=repr(mesh),
+               losses=out["losses"],
+               finite=[m["finite"] for m in out["metrics"]],
+               grad_norm=[m["grad_norm"] for m in out["metrics"]],
+               s_per_step=out["seconds"],
+               tok_per_s_after_first=PROCESS_MESH["B"] * PROCESS_MESH["S"]
+               * (len(out["seconds"]) - 1) / sum(out["seconds"][1:]),
+               params_moved=moved, opt_step=int(out["opt"]["step"]),
+               train_launches=train_launches,
+               train_peak_bytes=torch.cuda.max_memory_allocated())
+    if rank == 0:
+        torch.save(held, out_dir / "held_r0.pt")
+    del out, p, held, before, after
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    serves = {}
+    for mode, key in PROCESS_MESH_MODES:
+        reqs, kw = workload(mode, cfg.vocab)
+        engine, _ = build_engine(bundle, smoke=False, max_len=2048,
+                                 kv_mode=mode, device="cuda", mesh=mesh,
+                                 place=True, **kw)
+        watch = FiniteWatch(engine.bundle)
+        engine.bundle = watch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        for q in reqs:
+            engine.submit(q)
+        results = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        engine.check_kv()
+        n_tok = sum(len(v) for v in results.values())
+        serves[mode] = dict(
+            tokens=results, outcomes=sorted(set(engine.outcomes.values())),
+            max_new=kw["max_new"], generated_tokens=n_tok, wall_s=wall,
+            tok_per_s=n_tok / wall, decode_steps=watch.decode_steps,
+            finite=bool(watch.finite.item()),
+            launches={k: v for k, v in ops.LAUNCHES.items() if v},
+            key=key, owner=[engine.owner, engine.owners],
+            pages_held=engine.pool["k"].shape[1],
+            pages_total=engine.kv.cfg.total_pages,
+            prefix=engine.prefix_stats(),
+            peak_bytes=torch.cuda.max_memory_allocated())
+        del engine, watch
+        torch.cuda.empty_cache()
+    # the first token's logits of one prompt alone: slot 0 is data rank
+    # 0's, so ranks 0 and 1 hold its row
+    prompt = prompts(1, PROCESS_MESH["logits_prompt"],
+                     PROCESS_MESH["logits_prompt"], SEED + 9, cfg.vocab)[0]
+    engine, _ = build_engine(bundle, smoke=False, max_len=2048,
+                             kv_mode="paged", slots=4, max_new=2,
+                             page_size=16, prefill_chunk=256,
+                             prefill_token_budget=1024, device="cuda",
+                             mesh=mesh, place=True)
+    with torch.no_grad():
+        logits = token_logits(engine, prompt, 1)[0]
+    if rank == 0:
+        torch.save(logits.cpu(), out_dir / "logits_r0.pt")
+    del engine
+    row.update(serve=serves, staged_bytes={
+        a: t.staged for a, t in mesh.transports.items()
+        if hasattr(t, "staged")},
+        stages_hop={a: t.stages_hop for a, t in mesh.transports.items()
+                    if hasattr(t, "stages_hop")})
+    dist.destroy_process_group()
+    return row
+
+
+def process_mesh_worker(argv: list[str]) -> int:
+    """``python chip_smoke.py --process-mesh-worker nccl|rank OUT_DIR``:
+    one worker of the ``process_mesh`` phase; prints its row as one
+    ``[process-mesh-worker]`` JSON line and returns 0, or 1 after
+    printing the error."""
+    from repro_torch.kernels import ops
+    code = 0
+    try:
+        row = nccl_world_one() if argv[0] == "nccl" else \
+            process_mesh_rank(Path(argv[1]))
+    except BaseException as e:  # noqa: BLE001 — reported to the parent
+        import traceback
+        traceback.print_exc()
+        row, code = {"error": f"{type(e).__name__}: {e}"}, 1
+    row["exit"] = code
+    row.setdefault("launches", {k: v for k, v in ops.LAUNCHES.items() if v})
+    print("[process-mesh-worker] " + json.dumps(row, default=_plain),
+          flush=True)
+    return code
+
+
+def _start_workers(cmds: list[tuple[list[str], dict]]) -> list:
+    """Start every (argv, env) at once, their output piped."""
+    import os
+    return [subprocess.Popen(argv, env={**os.environ, **env},
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for argv, env in cmds]
+
+
+def _collect_workers(procs: list, timeout_s: float) -> list[dict]:
+    """Wait up to ``timeout_s`` for every started worker, kill what is
+    left; each one's ``[process-mesh-worker]`` row (with the end of its
+    output when it has none)."""
+    outs, t0 = [], time.perf_counter()
+    try:
+        for pr in procs:
+            left = max(1.0, timeout_s - (time.perf_counter() - t0))
+            try:
+                outs.append(pr.communicate(timeout=left)[0])
+            except subprocess.TimeoutExpired:
+                pr.kill()
+                outs.append(pr.communicate()[0])
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    rows = []
+    for text in outs:
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith("[process-mesh-worker] ")]
+        rows.append(json.loads(lines[-1].split(" ", 1)[1]) if lines else
+                    {"exit": None, "log_tail": text[-3000:]})
+    return rows
+
+
+def process_mesh_refs(bundle, ref_dir: Path) -> dict:
+    """In the parent, before the workers: the unsharded step at the same
+    depth (its loss and the held leaves' first moments after step 1), the
+    same 3 steps on a (2, 2) mesh of local rings (its losses), and the
+    unsharded engines' tokens and first-token logits."""
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.launch.train import run
+    from repro_torch.parallel import make_mesh
+    L = bundle.cfg.n_layers
+    kw = dict(smoke=False, seq_len=PROCESS_MESH["S"],
+              global_batch=PROCESS_MESH["B"], microbatches=1,
+              device="cuda", log_every=100)
+    held = {}
+
+    def on_step(i, p, opt, m):
+        if i == 0:
+            held.update(_held(opt["mu"], L))
+    one = run(bundle, steps=1, on_step=on_step, **kw)
+    torch.save(held, ref_dir / "held_unsharded.pt")
+    loss_unsharded = one["losses"][0]
+    del one, held
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    local = run(bundle, steps=PROCESS_MESH["steps"],
+                mesh_kind=make_mesh(*PROCESS_MESH_SHAPES[False]), **kw)
+    local_row = dict(losses=local["losses"], s_per_step=local["seconds"],
+                     grad_norm=[m["grad_norm"] for m in local["metrics"]],
+                     wall_s=time.perf_counter() - t0)
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = bundle.init_params(SEED, device="cuda")
+    tokens = {}
+    with torch.no_grad():
+        for mode, _ in PROCESS_MESH_MODES:
+            reqs, skw = workload(mode, bundle.cfg.vocab)
+            engine, _ = build_engine(bundle, smoke=False, max_len=2048,
+                                     kv_mode=mode, params=params,
+                                     device="cuda", **skw)
+            for q in reqs:
+                engine.submit(q)
+            tokens[mode] = engine.run()
+            del engine
+        prompt = prompts(1, PROCESS_MESH["logits_prompt"],
+                         PROCESS_MESH["logits_prompt"], SEED + 9,
+                         bundle.cfg.vocab)[0]
+        engine, _ = build_engine(bundle, smoke=False, max_len=2048,
+                                 kv_mode="paged", slots=4, max_new=2,
+                                 page_size=16, prefill_chunk=256,
+                                 prefill_token_budget=1024, params=params,
+                                 device="cuda")
+        logits = token_logits(engine, prompt, 1)[0].cpu()
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(loss_unsharded=loss_unsharded, local=local_row,
+                tokens=tokens, logits=logits)
+
+
+def process_mesh_phase() -> dict:
+    """Phase 6b: (a) NCCL at world 1 in a subprocess (every ring path bit
+    for bit; backend and NCCL version printed); (b) four processes on the
+    one card, started through this script's worker entry with torchrun's
+    variables, at the (2, 2) stand-in of ``--mesh single`` (gloo by the
+    rule, the ring staging only the point-to-point hop through pinned
+    host memory): qwen3-4b at full width cut to ``PROCESS_MESH["layers"]``
+    trained 3 steps at B 2 x S 2048 (finite losses, probed params moved,
+    each step's loss within 1e-5 relative of the same (2, 2) mesh of local
+    rings, the held leaves' first moments after step 1 within
+    ``train_check``'s limits of the unsharded step's, flash launches L x
+    (2 fwd + dq + dkv) a step on the wgmma routes in each process), then
+    placed ``paged`` and ``paged_int8`` engines (every request its tokens,
+    half the pages a rank, the pool's invariants, L paged-decode launches
+    a decoding tick in each process, the first token's logits cosine >
+    0.99 and top-1 equal against the unsharded engine; token agreement
+    printed).  The workers' launches stay on this phase's line."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    bundle = process_mesh_bundle()
+    L = bundle.cfg.n_layers
+    root = ROOT / "build" / "process_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    me = [sys.executable, str(ROOT / "chip_smoke.py"), PROCESS_MESH_WORKER]
+    # (a) runs beside the parent's references and then the four ranks (it
+    # moves a few MB), and is collected with the ranks
+    procs = _start_workers([(me + ["nccl"], {})])
+    try:
+        refs = process_mesh_refs(bundle, root)
+        torch.cuda.empty_cache()
+        t_refs = time.perf_counter() - t0
+        world, port = PROCESS_MESH["world"], free_port()
+        env = lambda r: dict(RANK=str(r), WORLD_SIZE=str(world),  # noqa
+                             LOCAL_RANK=str(r),
+                             LOCAL_WORLD_SIZE=str(world),
+                             MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        t1 = time.perf_counter()
+        procs += _start_workers(
+            [(me + ["rank", str(root)], env(r)) for r in range(world)])
+        nccl, *ranks = _collect_workers(procs, PROCESS_MESH["timeout_s"])
+        t_ranks = time.perf_counter() - t1
+        held = torch.load(root / "held_r0.pt") \
+            if (root / "held_r0.pt").is_file() else None
+        want_held = torch.load(root / "held_unsharded.pt")
+        logits = torch.load(root / "logits_r0.pt") \
+            if (root / "logits_r0.pt").is_file() else None
+    finally:
+        for pr in procs:                    # stopped if still running
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+    require(nccl.get("exit") == 0 and nccl["backend"] == "nccl" and
+            all(nccl["bit_equal"].values()),
+            f"process_mesh (a) NCCL at world 1: {nccl}")
+    require(all(r.get("exit") == 0 for r in ranks),
+            f"process_mesh (b): workers {ranks}")
+    local = refs["local"]["losses"]
+    rel = [max(abs(a - b) / abs(b) for a, b in zip(r["losses"], local))
+           for r in ranks]
+    bits = [r["losses"] == local for r in ranks]
+    cos, ratio, t2 = None, None, time.perf_counter()
+    if held is not None:
+        # in f64 (an f32 dot of the 389 M embedding terms reads above 1),
+        # on the card: on the host the two 389 M leaves take seconds
+        cos, ratio = {}, {}
+        for k in list(want_held):
+            a = held.pop(k).cuda().double().flatten()
+            b = want_held.pop(k).cuda().double().flatten()
+            cos[k] = F.cosine_similarity(a, b, dim=0).item()
+            ratio[k] = (a.norm() / b.norm()).item()
+            del a, b
+        torch.cuda.empty_cache()
+    t_compare = time.perf_counter() - t2
+    loss_rel = abs(ranks[0]["losses"][0] - refs["loss_unsharded"]) / \
+        abs(refs["loss_unsharded"])
+    want_flash = {"flash_fwd": 2 * L * PROCESS_MESH["steps"],
+                  "flash_bwd_dq": L * PROCESS_MESH["steps"],
+                  "flash_bwd_dkv": L * PROCESS_MESH["steps"]}
+    lg = None
+    if logits is not None:
+        a, b = logits.float(), refs["logits"].float()
+        lg = dict(cosine=F.cosine_similarity(a, b, dim=0).item(),
+                  top1_equal=bool(a.argmax() == b.argmax()),
+                  max_abs_diff=(a - b).abs().max().item(),
+                  finite=bool(torch.isfinite(a).all()))
+    agree = {mode: [agreement({int(k): v for k, v in
+                               r["serve"][mode]["tokens"].items()},
+                              refs["tokens"][mode]) for r in ranks]
+             for mode, _ in PROCESS_MESH_MODES}
+    row = dict(
+        arch=ARCH, n_layers=L, depth_cut=f"{L} of 36 layers: the "
+        f"script's time (memory allows 8)", world=world,
+        shapes={str(k): v for k, v in PROCESS_MESH_SHAPES.items()},
+        B=PROCESS_MESH["B"], S=PROCESS_MESH["S"], nccl=nccl,
+        backend=[r["backend"] for r in ranks],
+        stages_hop=ranks[0]["stages_hop"],
+        losses=[r["losses"] for r in ranks], local_losses=local,
+        grad_norm=[r["grad_norm"] for r in ranks],
+        local_grad_norm=refs["local"]["grad_norm"],
+        loss_rel_diff_vs_local=rel, loss_bit_equal_vs_local=bits,
+        local_s_per_step=refs["local"]["s_per_step"],
+        loss_unsharded_step0=refs["loss_unsharded"],
+        loss_rel_diff_vs_unsharded=loss_rel, held_cosine=cos,
+        held_norm_ratio=ratio,
+        s_per_step=[r["s_per_step"] for r in ranks],
+        tok_per_s_after_first=[r["tok_per_s_after_first"] for r in ranks],
+        train_peak_bytes=[r["train_peak_bytes"] for r in ranks],
+        serve={mode: [{k: v for k, v in r["serve"][mode].items()
+                       if k != "tokens"} for r in ranks]
+               for mode, _ in PROCESS_MESH_MODES},
+        token_agreement_vs_unsharded=agree, logits=lg,
+        staged_bytes=[r["staged_bytes"] for r in ranks],
+        launches=[{"train": r["train_launches"],
+                   **{m: r["serve"][m]["launches"]
+                      for m, _ in PROCESS_MESH_MODES}} for r in ranks],
+        want_flash=want_flash, refs_s=t_refs, ranks_s=t_ranks,
+        compare_s=t_compare,
+        seconds=time.perf_counter() - t0, nvidia_smi=smi())
+    emit("process_mesh", **row)
+    require(all(b == "gloo" for b in row["backend"]),
+            f"process_mesh: backends {row['backend']}, want gloo (four "
+            f"local ranks on one card)")
+    require(all(all(math.isfinite(x) for x in r["losses"]) and
+                all(f == 1.0 for f in r["finite"]) and
+                len(r["losses"]) == PROCESS_MESH["steps"] and
+                r["opt_step"] == PROCESS_MESH["steps"] and
+                all(r["params_moved"].values()) for r in ranks),
+            "process_mesh: a loss, finite flag, step or probe is bad: "
+            + str([(r['losses'], r['finite'], r['params_moved'])
+                   for r in ranks]))
+    require(max(rel) < 1e-5,
+            f"process_mesh: loss vs the local (2, 2) mesh: rel {rel}")
+    require(cos is not None and loss_rel < 1e-3 and
+            all(c > 0.99 for c in cos.values()) and
+            all(abs(x - 1.0) < NORM_TOL for x in ratio.values()),
+            f"process_mesh: step 1 vs unsharded: loss rel {loss_rel}, "
+            f"cosine {cos}, norm ratio {ratio}")
+    for r in ranks:
+        fl = r["train_launches"]
+        require({k: fl.get(k, 0) for k in FLASH_KEYS} ==
+                dict(dict.fromkeys(FLASH_KEYS, 0), **want_flash),
+                f"process_mesh rank {r['rank']}: flash launches {fl}, "
+                f"want {want_flash}")
+        for mode, key in PROCESS_MESH_MODES:
+            s = r["serve"][mode]
+            require(s["outcomes"] == ["ok"] and s["finite"] and
+                    len(s["tokens"]) == len(workload(mode, 2)[0]) and
+                    all(len(v) == s["max_new"] for v in s["tokens"].values())
+                    and s["pages_held"] * 2 == s["pages_total"]
+                    and s["decode_steps"] > 0
+                    and s["launches"].get(key, 0) == L * s["decode_steps"],
+                    f"process_mesh rank {r['rank']} {mode}: {s}")
+    require(lg is not None and lg["finite"] and lg["cosine"] > 0.99 and
+            lg["top1_equal"],
+            f"process_mesh: first-token logits vs unsharded: {lg}")
+    return row
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -4953,6 +5463,10 @@ def main() -> int:
     # (their launches are on the phase's own line, not the kernels line)
     train_fleet()
 
+    # phase 6b: the multi-process slice: NCCL at world 1, four processes
+    # at the (2, 2) stand-in of --mesh single (launches on its own line)
+    process_mesh_phase()
+
     # phase 7: the kernels line (one row per kernel route a main path runs),
     # launches from the paper-workload, serve, serve_fleet, serve_moe,
     # serve_families, train, roofline, train_ring, moe_mesh, sharded,
@@ -4984,6 +5498,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [TRAIN_FLEET_WORKER]:
         sys.exit(train_fleet_worker(sys.argv[2:]))
+    if sys.argv[1:2] == [PROCESS_MESH_WORKER]:
+        sys.exit(process_mesh_worker(sys.argv[2:]))
     try:
         sys.exit(main())
     except PhaseError as e:

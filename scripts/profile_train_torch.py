@@ -13,9 +13,12 @@ runs it: its depth cut, its batch and the launcher's zero extras; or, with
 ``chip_smoke.ring_mesh()``, a (1, 4) local ring, so attention takes the
 ring; or, with ``--sharded``, the ``train_sharded`` phase: qwen3-4b at
 B 2 x S 2048 with its params and moments placed by ``param_specs`` on
-``chip_smoke.sharded_mesh("train")``, a (2, 4) mesh of local rings),
-through ``training.make_train_step`` as ``launch.train.run`` builds it,
-each step under the mesh as ``run`` enters it.  After one
+``chip_smoke.sharded_mesh("train")``, a (2, 4) mesh of local rings;
+or, with ``--sharded --arch`` one of ``chip_smoke.SHARDED_FAMILIES``, that
+family's ``train_sharded_family`` run: its depth cut, its batch, placed
+on the (2, 4) local mesh), through ``training.make_train_step`` as
+``launch.train.run`` builds it, each step under the mesh as ``run``
+enters it.  After one
 warm-up step it times ``--steps`` steps on the host clock (each ending in a
 device synchronise) and profiles one more under ``torch.profiler``.
 Prints one JSON line: the steps' seconds, tokens/s, peak memory, the
@@ -56,9 +59,11 @@ def main(argv=None) -> int:
                       help="qwen3-4b at B 1 x S 4096 on the (1, 4) local "
                            "ring (chip_smoke's train_ring)")
     mode.add_argument("--sharded", action="store_true",
-                      help="qwen3-4b at B 2 x S 2048 on a state placed on "
-                           "the (2, 4) local mesh (chip_smoke's "
-                           "train_sharded)")
+                      help="qwen3-4b at B 2 x S 2048 (or --arch of "
+                           "chip_smoke.SHARDED_FAMILIES at its row) on a "
+                           "state placed on the (2, 4) local mesh "
+                           "(chip_smoke's train_sharded, "
+                           "train_sharded_family)")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train_torch: no CUDA device", file=sys.stderr)
@@ -74,6 +79,12 @@ def main(argv=None) -> int:
     if a.ring:
         bundle, mesh = get_bundle(chip_smoke.ARCH), chip_smoke.ring_mesh()
         B, S = (chip_smoke.RING_TRAIN[k] for k in "BS")
+    elif a.sharded and a.arch in chip_smoke.SHARDED_FAMILIES:
+        from repro_torch.parallel import make_mesh
+        bundle = chip_smoke.sharded_family_bundle(a.arch)
+        mesh = make_mesh(chip_smoke.SHARDED_FAMILY_MESH["train"],
+                         ("data", "model"))
+        B, S = (chip_smoke.SHARDED_FAMILIES[a.arch][k] for k in "BS")
     elif a.sharded:
         bundle, mesh = get_bundle(chip_smoke.ARCH), \
             chip_smoke.sharded_mesh("train")

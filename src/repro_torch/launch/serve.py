@@ -106,12 +106,16 @@ def build_engine(arch, *, smoke: bool = True, slots: int = 4,
                  device=None, mesh=None, place: bool = False, **serve_kw):
     """(engine, vocab) ready for submit()/run().  ``mesh`` (a
     ``parallel.Mesh`` of local rings, e.g. ``make_mesh((1, 4), ("data",
-    "model"))`` on one card) is the one every model step runs under: a
-    MoE config's experts then split over its ``model`` axis.  With
-    ``place`` the params are placed on it by ``param_specs`` (and the paged
-    pool or dense cache with them, by the family's rule): the model axis
-    splits heads, features and vocab (``parallel.tensor_parallel``); a
-    kind without a placed body raises ValueError.  ``params`` (a dict of
+    "model"))`` on one card, or of processes, e.g.
+    ``launch.mesh.make_production_mesh()`` in each rank of a process
+    group) is the one every model step runs under: a MoE config's experts
+    then split over its ``model`` axis.  With ``place`` the params are
+    placed on it by ``param_specs`` (and the paged pool or dense cache
+    with them, by the family's rule): the model axis splits heads,
+    features and vocab (``parallel.tensor_parallel``), and over data axes
+    of processes each data rank owns its slots and their pages
+    (``serving.engine``); a kind without a placed body raises
+    ValueError.  ``params`` (a dict of
     tensors, e.g. converted reference weights from
     :func:`repro_torch.weights.from_jax_params`) replaces the seeded random
     init and is moved to ``device``; ``arch`` may be an ``ArchBundle`` in

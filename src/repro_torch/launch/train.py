@@ -76,10 +76,28 @@ its peers over loopback TCP (``--striped-restore --stripe-ports``).
 ``--total-steps`` is the run's global horizon, so a restarted worker
 resumes from its checkpoint and stops where the uninterrupted run would:
 the bit-identical-resume contract.  ``--distributed torch`` also joins a
-``gloo`` process group at ``--coordinator`` (gloo, as NCCL refuses two
-ranks on one card); supervision never depends on it, and a group that
-does not form within its timeout leaves ``dist_ok`` false with a printed
-warning, as the reference's ``--distributed jax`` does.
+process group at ``--coordinator``, on the backend
+``launch.mesh.process_group_backend`` picks (``nccl`` where each worker
+has a card of its own, else ``gloo``: NCCL refuses two ranks on one
+card); supervision never depends on it, and a group that does not form
+within its timeout leaves ``dist_ok`` false with a printed warning, as
+the reference's ``--distributed jax`` does.
+
+Production meshes (``--mesh single|multi``): one process a rank, started
+by torchrun, each on card ``LOCAL_RANK % device_count``::
+
+    torchrun --nnodes 16 --nproc-per-node 16 ... \
+        -m repro_torch.launch.train --arch qwen3-4b --full --mesh single
+
+A run given ``single`` or ``multi`` with no process group up joins one
+from torchrun's environment (``launch.mesh.join_production_group``:
+``env://``, the backend by the same rule, decided before the group forms,
+printed in the run's start line and returned as ``backend``); without
+that environment, or in a group of the wrong size, it raises
+``make_production_mesh``'s error and never drops to a local mesh.  This
+is the port's counterpart of the reference's single controller that sees
+every chip, so a failure to join is fatal here, unlike the fleet
+worker's optional group.
 
 The run takes the CUDA card unless given ``device="cpu"``; a worker
 given no device takes the current card (``make_worker_mesh``) and raises
@@ -102,7 +120,9 @@ from repro_torch.configs import ArchBundle, get_bundle
 from repro_torch.data import DataConfig, make_train_iterator
 from repro_torch.data.pipeline import ShardedLoader, SyntheticLM
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import make_local_mesh, make_worker_mesh
+from repro_torch.launch.mesh import (join_production_group, make_local_mesh,
+                                    make_production_mesh, make_worker_mesh,
+                                    process_group_backend)
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.parallel import tensor_parallel as tp
 from repro_torch.parallel.mesh import Mesh, set_mesh
@@ -125,29 +145,29 @@ def make_extras(bundle, per_host_batch: int, device) -> dict:
     return bundle.zero_extras(per_host_batch, torch.float32, device)
 
 
-def resolve_mesh(mesh_kind) -> Mesh:
+MESH_KINDS = ("local", "single", "multi")
+
+
+def resolve_mesh(mesh_kind, device=None) -> Mesh:
     """``mesh_kind``: a ready :class:`Mesh` as it is (e.g. a (2, 4) mesh
-    of local rings on one card, or of processes), or ``"local"`` (a (1, 1)
-    mesh).  The reference's ``"single"`` / ``"multi"`` production meshes
-    wait for the multi-host launch, which starts their 256 or 512
-    processes."""
+    of local rings on one card, or of processes), ``"local"`` (a (1, 1)
+    mesh), or the reference's production meshes, ``"single"``
+    (``make_production_mesh()``) and ``"multi"``
+    (``make_production_mesh(multi_pod=True)``), over the process group;
+    with none up, this process first joins one from torchrun's
+    environment for ``device`` (``join_production_group``), and raises
+    without it."""
     if isinstance(mesh_kind, Mesh):
         return mesh_kind
-    if mesh_kind != "local":
-        raise ValueError(f"mesh {mesh_kind!r} not in ('local',): the "
-                         f"production meshes need the multi-host launch "
-                         f"that starts their processes")
-    return make_local_mesh()
-
-
-def data_shard(mesh: Mesh) -> tuple[int, int]:
-    """(index, count) of this process's rows among the data ranks of the
-    mesh's process axes (row-major over ``pod``, ``data``); (0, 1) when the
-    data axes are local rings."""
-    idx, n = 0, 1
-    for ring in tp.process_rings(mesh, tp.data_axes(mesh)):
-        idx, n = idx * ring.size + ring.rank, n * ring.size
-    return idx, n
+    if mesh_kind not in MESH_KINDS:
+        raise ValueError(f"mesh {mesh_kind!r} not in {MESH_KINDS}")
+    if mesh_kind == "local":
+        return make_local_mesh()
+    multi = mesh_kind == "multi"
+    if not dist.is_initialized():
+        join_production_group("cuda" if device is None else device,
+                              multi_pod=multi)
+    return make_production_mesh(multi_pod=multi)
 
 
 def place_state(bundle, params, mesh: Mesh) -> tuple[dict, dict]:
@@ -159,17 +179,18 @@ def place_state(bundle, params, mesh: Mesh) -> tuple[dict, dict]:
 
 
 def init_process_group(coordinator: str, num_processes: int,
-                       process_id: int) -> bool:
-    """Join the ``gloo`` process group at ``tcp://<coordinator>`` as rank
-    ``process_id`` of ``num_processes``; True iff it formed (every peer
-    joined) within ``DIST_TIMEOUT_S``, or was up already.  Any failure is a
-    printed warning and False: the group is an upgrade, never a
-    requirement, as the reference's ``compat.distributed_initialize``."""
+                       process_id: int, backend: str = "gloo") -> bool:
+    """Join the ``backend`` process group at ``tcp://<coordinator>`` as
+    rank ``process_id`` of ``num_processes``; True iff it formed (every
+    peer joined) within ``DIST_TIMEOUT_S``, or was up already.  Any failure
+    is a printed warning and False, with no other backend tried: the group
+    is an upgrade, never a requirement, as the reference's
+    ``compat.distributed_initialize``."""
     if dist.is_initialized():
         return True
     try:
         dist.init_process_group(
-            "gloo", init_method=f"tcp://{coordinator}",
+            backend, init_method=f"tcp://{coordinator}",
             world_size=num_processes, rank=process_id,
             timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
         return True
@@ -223,20 +244,31 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
     if chaos is not None and not isinstance(chaos, ChaosInjector):
         chaos = ChaosInjector(chaos, seed=chaos_seed)
     if fleet is not None:
-        resolve_device(device)      # no card and no device: raise first
+        first = resolve_device(device)  # no card and no device: raise first
         if fleet.distributed == "torch" and fleet.coordinator:
+            # the workers share this host: each has a card of its own
+            # where there are as many cards as workers
             fleet.dist_ok = init_process_group(
-                fleet.coordinator, fleet.num_processes, fleet.process_id)
+                fleet.coordinator, fleet.num_processes, fleet.process_id,
+                process_group_backend(
+                    first, fleet.num_processes,
+                    torch.cuda.device_count() if first.type == "cuda"
+                    else 0))
         mesh = make_worker_mesh()   # this rank's card becomes current
     else:
-        mesh = resolve_mesh(mesh_kind)
+        mesh = resolve_mesh(mesh_kind, device)
     dev = resolve_device(device)
+    backend = str(dist.get_backend()) if dist.is_initialized() else None
     # with the process group up, the GLOBAL process count (1 means the
     # group never formed)
     n_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
     n_procs = dist.get_world_size() if dist.is_initialized() else 1
     bundle = arch if isinstance(arch, ArchBundle) else \
         get_bundle(arch, smoke=smoke)
+    print(f"[train] start: {bundle.arch_id}, mesh {mesh}, process group "
+          f"{backend or 'none'}"
+          f"{f' (rank {dist.get_rank()} of {n_procs})' if backend else ''},"
+          f" device {dev}")
     sharded = place and any(n > 1 for n in mesh.shape.values())
     if sharded:
         bundle.require_placed_body()
@@ -247,7 +279,8 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
     else:
         opt = adamw_init(params)
     state = {"params": params, "opt": opt}      # restored into in place
-    data_idx, data_n = data_shard(mesh) if sharded else (0, 1)
+    # this process's rows among the data ranks of the mesh's process axes
+    data_idx, data_n = tp.data_index(mesh) if sharded else (0, 1)
     if data_n > 1 and n_hosts > 1:
         raise ValueError("a simulated fleet (n_hosts) under a mesh of "
                          "data processes")
@@ -580,7 +613,7 @@ def run(arch, *, smoke: bool = True, steps: int = 20,
         })
     return {"losses": history, "steps": step_log, "seconds": seconds,
             "metrics": metrics_log, "events": events, "params": params,
-            "opt": opt,
+            "opt": opt, "backend": backend,
             "telemetry": tel.snapshot() if tel.enabled else None}
 
 
@@ -592,9 +625,10 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8)
-    ap.add_argument("--mesh", default="local", choices=["local"],
-                    help="the (1, 1) mesh; the production meshes wait for "
-                         "the multi-host launch")
+    ap.add_argument("--mesh", default="local", choices=list(MESH_KINDS),
+                    help="local: the (1, 1) mesh; single / multi: the "
+                         "production meshes, one process a rank under "
+                         "torchrun (module docstring)")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--log-every", type=int, default=1)
@@ -636,8 +670,10 @@ def main(argv=None):
     ap.add_argument("--striped-restore", action="store_true")
     ap.add_argument("--distributed", default="none",
                     choices=["none", "torch"],
-                    help="'torch' also joins a gloo process group at "
-                         "--coordinator (supervision never depends on it)")
+                    help="'torch' also joins a process group at "
+                         "--coordinator, nccl where each worker has a card "
+                         "of its own, else gloo (supervision never depends "
+                         "on it)")
     ap.add_argument("--result-out", default=None, metavar="PATH")
     ap.add_argument("--total-steps", type=int, default=None,
                     help="global step horizon (restart-safe endpoint); "

@@ -99,8 +99,11 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float,
     every grad.  The reference returns the scaled grads; here the caller
     multiplies each f32 slice by ``scale`` as it uses it, so a bf16 grad is
     never rounded after scaling.  With ``params`` a placed tree (``grads``
-    its :func:`tree_leaves`), each shard counts once: a leaf cut over
-    process rings sums its shards' squares over them, a replicated one
+    its :func:`tree_leaves`), each shard counts once: the leaves are
+    grouped by the axes that cut them, each rank's squares summed in leaf
+    order, then the ranks' sums over the group's axes (a local ring's in
+    rank order, a process ring's by ``all_reduce``), so a mesh of local
+    rings sums in the order a mesh of processes does; a replicated leaf
     counts once."""
     mesh = None if params is None else _mesh_of(params)
     if mesh is None:
@@ -108,17 +111,23 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float,
     else:
         from repro_torch.parallel.tensor_parallel import (all_reduce_,
                                                           process_rings)
+        # axes -> {a rank's coordinates on the group's local rings -> sum}
         by_axes: dict = {}
         it = iter(grads)
         for leaf in _leaves_placed(params):
             placed = isinstance(leaf, _placed())
-            n = len(leaf.shards) if placed else 1
-            axes = tuple(a for a in leaf.axes
-                         if process_rings(mesh, (a,))) if placed else ()
-            by_axes[axes] = by_axes.get(axes, 0) + sum(
-                _sq(next(it)) for _ in range(n))
-        sq = sum(all_reduce_(part, process_rings(mesh, axes))
-                 for axes, part in by_axes.items())
+            axes = leaf.axes if placed else ()
+            part = by_axes.setdefault(axes, {})
+            for key in sorted(leaf.shards) if placed else [()]:
+                local = tuple(i for a, i in zip(axes, key)
+                              if not process_rings(mesh, (a,)))
+                part[local] = part.get(local, 0) + _sq(next(it))
+        sq = 0
+        for axes, part in by_axes.items():
+            total = 0
+            for local in sorted(part):
+                total = total + part[local]
+            sq = sq + all_reduce_(total, process_rings(mesh, axes))
     gnorm = torch.sqrt(sq)
     return torch.clamp(max_norm / (gnorm + 1e-9), max=1.0), gnorm
 

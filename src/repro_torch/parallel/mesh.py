@@ -28,10 +28,16 @@ transports:
     ranks; the ranks run one after another.
   * :class:`ProcessRing` holds one rank per process: a one-entry list, and
     a hop sends to rank ``r + 1`` and receives from rank ``r - 1`` of the
-    axis's process group (``torch.distributed`` point-to-point: gloo on
-    the CPU, NCCL on the card); an all-to-all is
-    ``dist.all_to_all_single``, an all-gather
-    ``dist.all_gather_into_tensor``.
+    axis's process group (``torch.distributed`` point-to-point); an
+    all-to-all is ``dist.all_to_all_single``, an all-gather
+    ``dist.all_gather_into_tensor``.  On NCCL (a card a rank) every op
+    carries CUDA tensors as they are.  On gloo (the CPU, or a card that
+    several ranks share) the collectives do too, but gloo refuses a
+    point-to-point send of a CUDA tensor, so the hop is *staged*: the ring
+    copies each CUDA tensor to pinned host memory, sends it from there and
+    copies what it receives back.  Whether the hop is staged is fixed by
+    the group's backend when the ring is built, and its bytes are counted
+    (``ProcessRing.staged``, and ``op_cost.collective("host-staging")``).
 
 ``split(x, dim)`` turns a tensor into that list and ``join(xs, dim)`` back:
 a :class:`LocalRing` cuts a global tensor into its ``m`` shards along
@@ -68,6 +74,34 @@ def _nbytes(t: torch.Tensor) -> int:
 def _narrow(dtype: torch.dtype) -> bool:
     """A float of fewer than 32 bits, which a sum takes in f32."""
     return dtype.is_floating_point and torch.finfo(dtype).bits < 32
+
+
+class _LocalCopy(torch.autograd.Function):
+    """``n`` views of ``x``, one for each rank a local ring holds, whose
+    cotangents are summed in rank order (a 16-bit float in f32, rounded
+    once) as a process ring's ``all_reduce`` sums them: each rank's own
+    uses of its view accumulate first, so a local ring's gradients equal
+    a process ring's bit for bit (a 2-rank sum is order-free).  The
+    backward counts as the all-reduce it would be between cards."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, n: int):
+        return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        collective("all-reduce", len(gs) * _nbytes(gs[0]))
+        dt = gs[0].dtype
+        total = gs[0].float() if _narrow(dt) else gs[0]
+        for g in gs[1:]:
+            total = total + g
+        return total.to(dt), None
+
+
+def local_copies(x: torch.Tensor, n: int) -> list[torch.Tensor]:
+    """``x`` for each of the ``n`` ranks of a local ring
+    (:class:`_LocalCopy`: their cotangents summed as a process ring's)."""
+    return [x] if n == 1 else list(_LocalCopy.apply(x, n))
 
 
 class LocalRing:
@@ -136,20 +170,27 @@ class LocalRing:
         return [torch.cat([p[j] for p in parts], 0) for j in range(n)]
 
     def all_gather(self, xs: list, dim: int) -> list:
-        """The entries concatenated along ``dim`` in rank order: one
-        tensor, the entry of every rank (autograd hands each rank's entry
-        its slice of the cotangents summed over the ranks that use it).
-        Counted as the ``all-gather`` it would be between cards: the
-        gathered bytes at every rank."""
+        """The entries concatenated along ``dim`` in rank order, for every
+        rank (:func:`local_copies` of one tensor: each rank's entry gets
+        its slice of the cotangents summed over the ranks, as a process
+        ring's backward sums them).  Counted as the ``all-gather`` it
+        would be between cards: the gathered bytes at every rank."""
         if self.size == 1:
             return list(xs)
         total = torch.cat(list(xs), dim)
         collective("all-gather", self.size * _nbytes(total))
-        return [total] * self.size
+        return local_copies(total, self.size)
+
+
+# gloo on CUDA tensors, by the card's probe (scripts/probe_gloo_cuda_torch.py;
+# torch 2.11, one H100): all-reduce, all-gather and all-to-all give the
+# right bf16 and f32 results; a point-to-point send of a device pointer
+# ends the process (gloo::IoException, "writev: Bad address"), so a gloo
+# ring stages its hop through pinned host memory (ProcessRing._send_recv)
 
 
 class _AllSum(torch.autograd.Function):
-    """``dist.all_reduce`` into a copy (of a 16-bit float, in f32, rounded
+    """``all_reduce`` into a copy (of a 16-bit float, in f32, rounded
     once, as the local ring sums; the c10d op then moves f32 bytes).  Its
     result is the same on every rank, and each rank's loss takes that
     replica with the same cotangent, so the backward hands this rank's
@@ -158,10 +199,9 @@ class _AllSum(torch.autograd.Function):
     one gradient too.)"""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
-        import torch.distributed as dist
+    def forward(ctx, x: torch.Tensor, ring: "ProcessRing") -> torch.Tensor:
         total = x.float() if _narrow(x.dtype) else x.clone()
-        dist.all_reduce(total, group=group)
+        ring.reduce_(total)
         return total.to(x.dtype)
 
     @staticmethod
@@ -170,21 +210,20 @@ class _AllSum(torch.autograd.Function):
 
 
 class _AllToAll(torch.autograd.Function):
-    """``dist.all_to_all_single`` with equal splits on dim 0.  The exchange
-    is its own inverse, so the backward sends the gradient the same way.
+    """``all_to_all_single`` with equal splits on dim 0.  The exchange is
+    its own inverse, so the backward sends the gradient the same way.
     The op cost counter sees the c10d op itself (``alltoall_base_``)."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
-        import torch.distributed as dist
-        ctx.group = group
+    def forward(ctx, x: torch.Tensor, ring: "ProcessRing") -> torch.Tensor:
+        ctx.ring = ring
         out = torch.empty_like(x)
-        dist.all_to_all_single(out, x.contiguous(), group=group)
+        ring.exchange_(out, x.contiguous())
         return out
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        return _AllToAll.apply(g.contiguous(), ctx.group), None
+        return _AllToAll.apply(g.contiguous(), ctx.ring), None
 
 
 def _gather_fn(dist):
@@ -195,29 +234,24 @@ def _gather_fn(dist):
 
 
 class _AllGather(torch.autograd.Function):
-    """``dist.all_gather_into_tensor`` of equal shards along ``dim``.  The
+    """``all_gather_into_tensor`` of equal shards along ``dim``.  The
     gathered tensor feeds this rank's own computation, so the cotangent
     each rank holds is its part of the whole: the backward sums them over
     the ranks (``all_reduce``; a 16-bit float in f32, rounded once) and
     hands back this rank's slice, as the local ring's autograd does."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, dim: int, group, size: int,
-                rank: int) -> torch.Tensor:
-        import torch.distributed as dist
-        ctx.dim, ctx.group, ctx.rank, ctx.n = dim, group, rank, x.shape[dim]
-        moved = x.movedim(dim, 0).contiguous()
-        out = moved.new_empty((size * moved.shape[0], *moved.shape[1:]))
-        _gather_fn(dist)(out, moved, group=group)
-        return out.movedim(0, dim)
+    def forward(ctx, x: torch.Tensor, dim: int,
+                ring: "ProcessRing") -> torch.Tensor:
+        ctx.dim, ctx.ring, ctx.n = dim, ring, x.shape[dim]
+        return ring.gather(x, dim)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        import torch.distributed as dist
         total = g.float() if _narrow(g.dtype) else g.clone()
-        dist.all_reduce(total, group=ctx.group)
-        part = total.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n).to(g.dtype)
-        return part, None, None, None, None
+        ctx.ring.reduce_(total)
+        part = total.narrow(ctx.dim, ctx.ring.rank * ctx.n, ctx.n)
+        return part.to(g.dtype), None, None
 
 
 class ProcessRing:
@@ -227,8 +261,12 @@ class ProcessRing:
     into fresh buffers (``dist.batch_isend_irecv``; group ranks translated
     to global ranks with ``dist.get_global_rank``); :meth:`all_sum` is
     ``dist.all_reduce``, :meth:`all_to_all` ``dist.all_to_all_single``,
-    :meth:`all_gather` ``dist.all_gather_into_tensor``.
-    ``hops`` counts the shifts."""
+    :meth:`all_gather` ``dist.all_gather_into_tensor``.  Every c10d call
+    of the port's mesh code goes through :meth:`reduce_`, :meth:`gather`,
+    :meth:`exchange_` or :meth:`shift`.  On gloo (``stages_hop``) the
+    shift stages a CUDA tensor through pinned host memory; ``staged``
+    counts the bytes it copied between the card and the host (both ways),
+    ``hops`` the shifts."""
 
     def __init__(self, group=None):
         import torch.distributed as dist
@@ -238,6 +276,9 @@ class ProcessRing:
         self.group = group
         self.size = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
+        self.backend = str(dist.get_backend(group))
+        self.stages_hop = self.backend == "gloo"
+        self.staged = 0
         self.hops = 0
 
     def _global(self, r: int) -> int:
@@ -245,6 +286,66 @@ class ProcessRing:
         if self.group is None or self.group is dist.group.WORLD:
             return r
         return dist.get_global_rank(self.group, r)
+
+    # -- the c10d calls
+
+    def reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t`` reduced over the group in place (``dist.all_reduce``;
+        ``op`` 'sum', 'max' or 'min')."""
+        import torch.distributed as dist
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+               "min": dist.ReduceOp.MIN}[op]
+        dist.all_reduce(t, op=red, group=self.group)
+        return t
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``x`` (of one shape) concatenated along ``dim`` in
+        rank order (``dist.all_gather_into_tensor``), outside autograd."""
+        import torch.distributed as dist
+        moved = x.movedim(dim, 0).contiguous()
+        out = moved.new_empty((self.size * moved.shape[0], *moved.shape[1:]))
+        _gather_fn(dist)(out, moved, group=self.group)
+        return out.movedim(0, dim)
+
+    def exchange_(self, out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """``dist.all_to_all_single`` of ``x`` into ``out`` (equal splits
+        on dim 0)."""
+        import torch.distributed as dist
+        dist.all_to_all_single(out, x, group=self.group)
+        return out
+
+    def _stage(self, t: torch.Tensor) -> torch.Tensor:
+        """A pinned host copy of the CUDA tensor ``t`` (its bytes counted
+        as staged)."""
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t)
+        self._count(_nbytes(t))
+        return h
+
+    def _count(self, nbytes: int) -> None:
+        self.staged += nbytes
+        collective("host-staging", nbytes)
+
+    def _send_recv(self, sends: list, outs: list, dst: int,
+                   src: int) -> None:
+        """Send ``sends`` to global rank ``dst`` and receive ``outs`` from
+        ``src`` (``dist.batch_isend_irecv``), through pinned host copies
+        on gloo."""
+        import torch.distributed as dist
+        stage = self.stages_hop and any(t.is_cuda for t in sends + outs)
+        wire = [self._stage(s) for s in sends] if stage else sends
+        recv = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                for o in outs] if stage else outs
+        ops = [dist.P2POp(dist.isend, s, dst, self.group) for s in wire]
+        ops += [dist.P2POp(dist.irecv, o, src, self.group) for o in recv]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        if stage:
+            for o, h in zip(outs, recv):
+                o.copy_(h)
+                self._count(_nbytes(h))
+
+    # -- the transport's operations
 
     def index(self) -> list[int]:
         return [self.rank]
@@ -256,7 +357,6 @@ class ProcessRing:
         return xs[0]
 
     def shift(self, *xs: list) -> tuple[list, ...]:
-        import torch.distributed as dist
         self.hops += 1
         if self.size == 1:
             return xs
@@ -264,14 +364,11 @@ class ProcessRing:
         src = self._global((self.rank - 1) % self.size)
         sends = [x[0].contiguous() for x in xs]
         outs = [torch.empty_like(s) for s in sends]
-        ops = [dist.P2POp(dist.isend, s, dst, self.group) for s in sends]
-        ops += [dist.P2POp(dist.irecv, o, src, self.group) for o in outs]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+        self._send_recv(sends, outs, dst, src)
         return tuple([o] for o in outs)
 
     def all_sum(self, xs: list) -> list:
-        return [_AllSum.apply(xs[0], self.group)]
+        return [_AllSum.apply(xs[0], self)]
 
     def all_to_all(self, xs: list) -> list:
         """This rank's entry cut into ``size`` chunks on dim 0, chunk ``j``
@@ -282,7 +379,7 @@ class ProcessRing:
                              f"over {self.size} ranks")
         if self.size == 1:
             return list(xs)
-        return [_AllToAll.apply(xs[0], self.group)]
+        return [_AllToAll.apply(xs[0], self)]
 
     def all_gather(self, xs: list, dim: int) -> list:
         """Every rank's entry (of one shape) concatenated along ``dim`` in
@@ -291,8 +388,7 @@ class ProcessRing:
         ranks).  The op cost counter sees the c10d op itself."""
         if self.size == 1:
             return list(xs)
-        return [_AllGather.apply(xs[0], dim, self.group, self.size,
-                                 self.rank)]
+        return [_AllGather.apply(xs[0], dim, self)]
 
 
 class Mesh:

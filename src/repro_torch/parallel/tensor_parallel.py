@@ -22,9 +22,11 @@ between the two:
     backward (``ring.all_gather``).
 
 On a :class:`LocalRing` the ranks share the process and its autograd
-graph: a replicated value is held once and used by every rank, so
-autograd itself sums what each rank hands back, and the conjugates are
-the list built and the entries summed or joined.  Any replicated tensor
+graph: a replicated value is held once, and each rank uses its own view
+of it (``mesh.local_copies``), whose cotangents are summed in f32 in rank
+order, rounded once, as a process ring's all-reduce sums them, so a
+local ring's bf16 gradients equal a process ring's bit for bit; the
+other conjugates are the entries summed or joined.  Any replicated tensor
 a rank uses for its own part (a normed activation, a router, a qk-norm
 weight) passes :func:`copy_to_model` first, so on a process ring its
 gradient is the whole too.
@@ -37,7 +39,7 @@ from collections.abc import Sequence
 import torch
 
 from ..analysis.op_cost import collective
-from .mesh import LocalRing, _gather_fn, _narrow, _nbytes
+from .mesh import LocalRing, _narrow, _nbytes, local_copies
 
 DATA_AXES = ("pod", "data")
 
@@ -55,18 +57,17 @@ def _local(ring) -> bool:
 
 class _CopyToModel(torch.autograd.Function):
     """Identity forward; ``all_reduce`` of the cotangent backward (in f32
-    for a 16-bit float, rounded once)."""
+    for a 16-bit float, rounded once; ``ProcessRing.reduce_``)."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
-        ctx.group = group
+    def forward(ctx, x: torch.Tensor, ring) -> torch.Tensor:
+        ctx.ring = ring
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        import torch.distributed as dist
         total = g.float() if _narrow(g.dtype) else g.clone()
-        dist.all_reduce(total, group=ctx.group)
+        ctx.ring.reduce_(total)
         return total.to(g.dtype), None
 
 
@@ -75,26 +76,23 @@ class _GatherFromModel(torch.autograd.Function):
     of the (whole, replicated) cotangent backward."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, dim: int, group, size: int,
-                rank: int) -> torch.Tensor:
-        import torch.distributed as dist
-        ctx.dim, ctx.rank, ctx.n = dim, rank, x.shape[dim]
-        moved = x.movedim(dim, 0).contiguous()
-        out = moved.new_empty((size * moved.shape[0], *moved.shape[1:]))
-        _gather_fn(dist)(out, moved, group=group)
-        return out.movedim(0, dim)
+    def forward(ctx, x: torch.Tensor, dim: int, ring) -> torch.Tensor:
+        ctx.dim, ctx.rank, ctx.n = dim, ring.rank, x.shape[dim]
+        return ring.gather(x, dim)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        return (g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None,
-                None, None)
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
 
 
 def copy_to_model(x: torch.Tensor, ring) -> list[torch.Tensor]:
-    """A replicated tensor as a per-rank list."""
-    if _local(ring) or ring.size == 1:
+    """A replicated tensor as a per-rank list (on a local ring, views
+    whose cotangents are summed as a process ring's: ``local_copies``)."""
+    if ring.size == 1:
         return [x] * len(ring.index())
-    return [_CopyToModel.apply(x, ring.group)]
+    if _local(ring):
+        return local_copies(x, ring.size)
+    return [_CopyToModel.apply(x, ring)]
 
 
 def reduce_from_model(xs: Sequence[torch.Tensor], ring) -> torch.Tensor:
@@ -114,8 +112,7 @@ def gather_from_model(xs: Sequence[torch.Tensor], ring,
         out = torch.cat(list(xs), dim)
         collective("all-gather", ring.size * _nbytes(out))
         return out
-    return _GatherFromModel.apply(xs[0], dim, ring.group, ring.size,
-                                  ring.rank)
+    return _GatherFromModel.apply(xs[0], dim, ring)
 
 
 def gather_to_model(xs: Sequence[torch.Tensor], ring,
@@ -134,10 +131,7 @@ def all_max(xs: Sequence[torch.Tensor], ring) -> torch.Tensor:
     if _local(ring):
         collective("all-reduce", ring.size * _nbytes(xs[0]))
         return torch.stack(xs).amax(0)
-    import torch.distributed as dist
-    out = xs[0].clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=ring.group)
-    return out
+    return ring.reduce_(xs[0].clone(), "max")
 
 
 class VocabShards:
@@ -213,6 +207,25 @@ def local_data_ranks(mesh) -> int:
                      if _local(mesh.transport(a)))
 
 
+def data_index(mesh) -> tuple[int, int]:
+    """(index, count) of this process among the data ranks of the mesh's
+    process axes (row-major over ``pod``, ``data``); (0, 1) when the data
+    axes are local rings."""
+    idx, n = 0, 1
+    for ring in process_rings(mesh, data_axes(mesh)):
+        idx, n = idx * ring.size + ring.rank, n * ring.size
+    return idx, n
+
+
+def gather_data(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every data process's ``x`` (of one shape) concatenated on dim 0 in
+    the order of :func:`data_index`, outside autograd (the inner axis
+    first, then the outer)."""
+    for ring in reversed(process_rings(mesh, data_axes(mesh))):
+        x = ring.gather(x, 0)
+    return x
+
+
 def process_rings(mesh, axes: Sequence[str] | None = None) -> list:
     """The process rings among ``axes`` (default: every axis)."""
     axes = mesh.axis_names if axes is None else axes
@@ -228,11 +241,11 @@ def all_reduce_(t: torch.Tensor, rings: Sequence, op: str = "sum"
     'min'."""
     if not rings:
         return t
-    import torch.distributed as dist
-    red = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}[op]
+    if op not in ("sum", "min"):
+        raise ValueError(f"op {op!r} not in ('sum', 'min')")
     acc = t.float() if op == "sum" and _narrow(t.dtype) else t
     for ring in rings:
-        dist.all_reduce(acc, op=red, group=ring.group)
+        ring.reduce_(acc, op)
     if acc is not t:
         t.copy_(acc)
     return t

@@ -1,22 +1,35 @@
 """Serving engine: continuous batching over a dense OR paged KV cache.
 
-Counterpart of ``repro.serving.engine`` for a single engine on one device.
-Given a mesh of local rings (``mesh=``), every model step runs under it
-(``parallel.set_mesh``), so a MoE layer takes its expert-parallel,
-token-split or TP-in-expert branch; the paged pool's page count rounds up
-to a multiple of the data axes' ranks, and its sharding specs are recorded
-(``pool_specs``).  Given params placed by ``parallel.sharding.shard_tree``
-(on local rings or a model axis of processes), the paged pool is placed
-too, by ``pool_specs`` over ``model`` (the dense slot pool by the
-family's rule, ``parallel.sharding.store_specs``): each model rank holds
-its kv heads (or, where they do not divide the axis, its head_dim slice;
-a recurrent family's states as its placed body cuts them) as its own
-contiguous tensor and runs the paged decode on them; the page and slot
-axes stay whole, as the host state (scheduler, allocator, rng) is the same
-on every rank.  The fleet surface (``inflight``, ``cancel``, and the page
-export / import of a cached prefix) lets ``serving.fleet.LocalFleet``
-route, hedge and migrate between engines.  Three KV modes behind one
-interface (``ServeConfig.kv_mode``):
+Counterpart of ``repro.serving.engine``.  Given a mesh of local rings
+(``mesh=``), every model step runs under it (``parallel.set_mesh``), so a
+MoE layer takes its expert-parallel, token-split or TP-in-expert branch;
+the paged pool's page count rounds up to a multiple of the data axes'
+ranks, and its sharding specs are recorded (``pool_specs``).  Given
+params placed by ``parallel.sharding.shard_tree`` (on local rings or on
+processes), the paged pool is placed too, by ``pool_specs`` over
+``model`` (the dense slot pool by the family's rule,
+``parallel.sharding.store_specs``): each model rank holds its kv heads
+(or, where they do not divide the axis, its head_dim slice; a recurrent
+family's states as its placed body cuts them) as its own contiguous
+tensor and runs the paged decode on them.
+
+Over data axes of processes (d data ranks: ``pod`` x ``data``) ownership
+is fixed, where the reference's GSPMD moves pages to whichever rank reads
+them: slot ``s`` belongs to data rank ``s // (batch / d)`` and page ``p``
+to rank ``p // (pages / d)`` (``serving.kv.BlockPoolKV``'s owners), and
+each rank holds only its shard, ``pages / d`` pages of every layer (the
+dense mode: its ``batch / d`` slots).  The host state (scheduler,
+allocator, prefix tries, rng) is replicated: every rank runs it on the
+same requests and takes the same decisions.  A rank runs only its own
+slots' rows, its page-table entries turned into shard-local ids, and the
+picked tokens (greedy) or logit rows (sampling) are all-gathered over the
+data axes, so every rank's host state advances alike.  Tokens equal the
+unsharded engine's; which pages hold them, and which prefix hits occur,
+may differ.  The page axis and slot axis are otherwise whole.  The fleet
+surface (``inflight``, ``cancel``, and the page export / import of a
+cached prefix, the last not over data processes) lets
+``serving.fleet.LocalFleet`` route, hedge and migrate between engines.
+Three KV modes behind one interface (``ServeConfig.kv_mode``):
 
 ``dense``
     A fixed pool of ``batch`` slots, each reserving ``max_len`` KV up
@@ -61,6 +74,7 @@ import torch
 
 from repro_torch.obs import get_telemetry
 from repro_torch.optim.adamw import tree_leaves
+from repro_torch.parallel import tensor_parallel as tp
 from repro_torch.parallel.mesh import LocalRing, set_mesh
 from repro_torch.parallel.sharding import (Placed, _data_axes,
                                            gather_leaf, is_placed,
@@ -84,9 +98,9 @@ class _TracedPrefix:
         self._prefix = prefix
         self._obs = obs
 
-    def match(self, tokens):
+    def match(self, tokens, owner: int = 0):
         h = self._obs.begin("prefix_match", tokens=int(len(tokens)))
-        m = self._prefix.match(tokens)
+        m = self._prefix.match(tokens, owner)
         self._obs.finish(h, matched=int(m.matched), hit=bool(m.hit))
         return m
 
@@ -150,10 +164,9 @@ class ServingEngine:
     paged_step / supports_paged_kv (the transformer family; see
     configs/base.py).  Every tensor lives on ``device``, the device of the
     params.  ``mesh``: a ``parallel.Mesh`` that every model step runs
-    under: local rings, or a model axis of processes when the params are
-    placed (module docstring).  A data axis of processes raises: the
-    reference's page axis over data is global (any slot's table points
-    anywhere), which needs per-rank page ownership."""
+    under: local rings, or axes of processes when the params are placed;
+    over data axes of processes each data rank owns its slots and their
+    pages (module docstring), and ``slots`` must divide over them."""
 
     # consecutive ticks with work queued but nothing executed before the
     # engine declares the scheduler wedged
@@ -171,19 +184,28 @@ class ServingEngine:
             for axis, t in mesh.transports.items():
                 if isinstance(t, LocalRing) or t.size == 1:
                     continue
-                if axis != "model":
+                if axis not in ("model", *tp.DATA_AXES):
+                    raise NotImplementedError(
+                        f"{mesh}: an engine over a {axis} axis of processes")
+                if not self.placed:
+                    why = "" if axis == "model" else \
+                        "; each data rank then owns its slots and holds " \
+                        "their pages (per-rank page ownership)"
                     raise NotImplementedError(
                         f"{mesh}: an engine over a {axis} axis of processes "
-                        f"needs per-rank page ownership (the pool's page "
-                        f"axis over {axis} is global: any slot's table "
-                        f"points anywhere), which the sharded-state slice "
-                        f"does not place; give it local rings there")
-                if not self.placed:
-                    raise NotImplementedError(
-                        f"{mesh}: an engine over a model axis of processes "
                         f"takes params placed by parallel.sharding."
-                        f"shard_tree (the sharded-state slice)")
+                        f"shard_tree (the sharded-state slice){why}")
         self.mesh = mesh
+        # this process's data rank among ``owners`` data processes
+        self.owner, self.owners = tp.data_index(mesh) if mesh is not None \
+            else (0, 1)
+        if cfg.batch % self.owners:
+            raise ValueError(f"{cfg.batch} slots do not split over "
+                             f"{self.owners} data processes")
+        # the slots this process runs (all of them on one data process)
+        self._per = cfg.batch // self.owners
+        self._own = slice(self.owner * self._per,
+                          (self.owner + 1) * self._per)
         self.bundle = bundle
         # bound here: a wrapper set on ``self.bundle`` later need not
         # forward it
@@ -215,6 +237,15 @@ class ServingEngine:
             return store
         return shard_tree(store, self._store_specs(store, self.mesh),
                           self.mesh)
+
+    def _share(self, local: torch.Tensor) -> np.ndarray:
+        """The picked ids or logit rows of the slots this process runs (all
+        of them, or over data processes its own), with the other data
+        processes' gathered in slot order, on the host: what every rank's
+        host state advances by."""
+        if self.owners > 1:
+            local = tp.gather_data(local, self.mesh)
+        return local.cpu().numpy()
 
     def _mesh_ctx(self):
         """The engine's mesh made active for a model step (the reference's
@@ -273,9 +304,9 @@ class ServingEngine:
                       deadline_tick=None if deadline is None
                       else self.ticks + deadline)
         need = self.kv.pages_for(total) + 1     # +1 decode headroom
-        if need > self.kv.cfg.total_pages - 1:
+        if need > self.kv.cfg.pages_per_owner - 1:
             raise ValueError(f"request {rid}: needs {need} pages, pool has "
-                             f"{self.kv.cfg.total_pages - 1}")
+                             f"{self.kv.cfg.pages_per_owner - 1}")
         self._requests[rid] = req
         self.sched.submit(req)
         return rid
@@ -365,11 +396,21 @@ class ServingEngine:
 
     def _admit(self, cache):
         """Prefill queued requests into free slots (per-slot batch=1,
-        length-bucketed)."""
+        length-bucketed); over data processes only a slot's owner
+        prefills it, and the first tokens are shared after the last
+        admission."""
+        firsts = []
         for slot_idx in self._free_slots():
             if not self.queue:
                 break
             rid, prompt, _, deadline = self.queue.pop(0)
+            s = self.slots[slot_idx]
+            s.request_id = rid
+            s.remaining = self.cfg.max_new_tokens - 1
+            s.deadline_tick = deadline
+            if not self._own.start <= slot_idx < self._own.stop:
+                firsts.append((slot_idx, None))
+                continue
             if self._prefill_template is None:
                 self._prefill_template = self._place_kv(
                     self.bundle.init_cache(1, self.cfg.max_len,
@@ -387,13 +428,26 @@ class ServingEngine:
                     logits, c1 = self.bundle.prefill(
                         self.params, self._dev(prompt[None]),
                         self._prefill_template)
-            nxt = self._pick(logits[0, -1])
-            self._write_slot(cache, c1, slot_idx)
-            s = self.slots[slot_idx]
-            s.request_id = rid
-            s.generated = [nxt]
-            s.remaining = self.cfg.max_new_tokens - 1
-            s.deadline_tick = deadline
+            self._write_slot(cache, c1, slot_idx - self._own.start)
+            firsts.append((slot_idx, logits[0, -1]))
+        if self.owners == 1:
+            for slot_idx, row in firsts:
+                self.slots[slot_idx].generated = [self._pick(row)]
+        elif firsts:
+            # every rank takes part: the admissions are the same on each
+            local = torch.zeros((self._per,) if self._greedy else
+                                (self._per, self.bundle.cfg.vocab),
+                                dtype=torch.long if self._greedy else
+                                torch.float32, device=self.device)
+            for slot_idx, row in firsts:
+                if row is not None:
+                    local[slot_idx - self._own.start] = row.argmax() \
+                        if self._greedy else row.float()
+            shared = self._share(local)
+            for slot_idx, _ in firsts:
+                self.slots[slot_idx].generated = [
+                    int(shared[slot_idx]) if self._greedy
+                    else self._pick(shared[slot_idx])]
         return cache
 
     def _write_slot(self, cache, one, idx):
@@ -440,7 +494,8 @@ class ServingEngine:
         cfg = self.cfg
         if self._dense_cache is None:
             self._dense_cache = self._place_kv(self.bundle.init_cache(
-                cfg.batch, cfg.max_len, device=self.device))
+                self._per, cfg.max_len,
+                device=self.device))
         self._dense_tick += 1
         obs = self.obs
         self._expire_dense()
@@ -449,17 +504,18 @@ class ServingEngine:
         if not any(s.request_id is not None for s in self.slots):
             return
         with obs.span("decode", tick=self._dense_tick), self._mesh_ctx():
-            # one decode tick for the whole pool
+            # one decode tick for the whole pool (over data processes,
+            # this rank's slots)
             last = np.zeros((cfg.batch, 1), np.int32)
             for i, s in enumerate(self.slots):
                 if s.request_id is not None:
                     last[i, 0] = s.generated[-1]
             logits, self._dense_cache = self.bundle.decode_step(
-                self.params, self._dev(last), self._dense_cache)
+                self.params, self._dev(last[self._own]), self._dense_cache)
             # greedy: batch argmax on the device, ints cross to the host;
             # sampled: one host copy of the rows feeds the seeded picker
-            nxt = logits[:, 0].argmax(-1).cpu().numpy() if self._greedy \
-                else logits[:, 0].float().cpu().numpy()
+            nxt = self._share(logits[:, 0].argmax(-1) if self._greedy
+                              else logits[:, 0].float())
         for i, s in enumerate(self.slots):
             if s.request_id is None:
                 continue
@@ -503,7 +559,8 @@ class ServingEngine:
             num_slots=cfg.batch, max_len=cfg.max_len,
             page_size=cfg.page_size, num_pages=num_pages,
             n_layers=mcfg.n_layers, kv_heads=mcfg.n_kv_heads,
-            head_dim=mcfg.dh, kv_bytes=kv_bytes, quantize=quant))
+            head_dim=mcfg.dh, kv_bytes=kv_bytes, quantize=quant,
+            owners=self.owners))
         # the radix prefix cache registers itself as the pool's reclaim
         # hook: page pressure drains cold cached prefixes before anyone
         # preempts a live request
@@ -513,11 +570,11 @@ class ServingEngine:
             prefill_token_budget=cfg.prefill_token_budget,
             max_admission_retries=cfg.max_admission_retries,
             admission_backoff=cfg.admission_backoff))
-        self.pool = self.bundle.init_paged_pool(num_pages, cfg.page_size,
-                                                kv_dtype=kv_dtype,
-                                                device=self.device)
-        # placed over model only: the page axis stays whole (the host
-        # state owns every page)
+        # this rank's shard of the pages (all of them on one data
+        # process), placed over model
+        self.pool = self.bundle.init_paged_pool(
+            self.kv.cfg.pages_per_owner, cfg.page_size, kv_dtype=kv_dtype,
+            device=self.device)
         self.pool = self._place_kv(self.pool)
         self._requests: dict[int, Request] = {}
         self.cow_copies = 0
@@ -533,11 +590,18 @@ class ServingEngine:
         return min(per_slot, _pow2_at_least(self.kv.pages_for(max_tokens)))
 
     def _exec_step(self, tokens: np.ndarray, counts: np.ndarray, mp: int):
-        """Run one paged_step + row-gather + argmax over the whole slot
-        pool.  Returns ``(rows, picked)`` on the device."""
-        pt = self._dev(np.ascontiguousarray(self.kv.page_table[:, :mp],
-                                            np.int32))
-        lens = self._dev(self.kv.lengths.astype(np.int32))
+        """Run one paged_step + row-gather + argmax over the slots this
+        process runs: the whole pool, or over data processes its own slots
+        on its shard (page ids made shard-local).  ``tokens`` and
+        ``counts`` cover every slot.  Returns ``(rows, picked)`` of those
+        slots on the device."""
+        pt, lens = self.kv.page_table[:, :mp], self.kv.lengths
+        if self.owners > 1:
+            own = self._own
+            tokens, counts, lens = tokens[own], counts[own], lens[own]
+            pt = pt[own] - self.kv.trash(self.owner)
+        pt = self._dev(np.ascontiguousarray(pt, np.int32))
+        lens = self._dev(lens.astype(np.int32))
         with self._mesh_ctx():
             rows, picked, self.pool = pick_step(
                 self.bundle.paged_step, self.params, self._dev(tokens),
@@ -549,8 +613,10 @@ class ServingEngine:
         (all layers, K+V+scales) into the request's first private page,
         in place, then release the pin admission held on the source."""
         src, dst, _ = req.cow
-        for v in tree_leaves(self.pool):
-            v[:, dst].copy_(v[:, src])
+        if self.kv.slot_owner(req.slot) == self.owner:  # its rank's shard
+            base = self.kv.trash(self.owner)
+            for v in tree_leaves(self.pool):
+                v[:, dst - base].copy_(v[:, src - base])
         self.cow_copies += 1
         self.sched._drop_cow(self.kv, req)
 
@@ -675,8 +741,8 @@ class ServingEngine:
             int(self.kv.lengths[s]) + int(counts[s])
             for s in range(B) if counts[s] > 0))
         rows_dev, picked_dev = self._exec_step(tokens, counts, mp)
-        picked = picked_dev.cpu().numpy() if self._greedy \
-            else rows_dev.float().cpu().numpy()
+        picked = self._share(picked_dev if self._greedy
+                             else rows_dev.float())
 
         by_slot = {j.req.slot: j for j in jobs}
         tr, page = self._traffic, self.kv.cfg.page_size
@@ -758,6 +824,7 @@ class ServingEngine:
         rest.  Each pool entry's pages are gathered on the device (the
         (L, P, page, Hkv, Dh) layout strides a page across L) and cross
         to the host in one copy, which waits for the device."""
+        self._single_data_process("export_prefix_pages")
         if getattr(self, "prefix", None) is None:
             return []
         nodes = self.prefix.path_nodes(tokens, n_tokens)
@@ -778,6 +845,7 @@ class ServingEngine:
         are skipped; a dry pool ends the import early (partial import is
         fine, the remainder is recomputed).  Returns the prefix tokens
         now cached locally."""
+        self._single_data_process("import_prefix_pages")
         if getattr(self, "prefix", None) is None:
             return 0
         node, matched = self.prefix.root, 0
@@ -804,6 +872,13 @@ class ServingEngine:
             node = self.prefix.adopt_segment(node, seg, page)
             matched += ps
         return matched
+
+    def _single_data_process(self, what: str) -> None:
+        if self.owners > 1:
+            raise NotImplementedError(
+                f"{what} over {self.owners} data processes: each rank "
+                f"holds only its own pages, and a fleet over such engines "
+                f"is not in the reference either")
 
     def drop_prefix_path(self, tokens, n_tokens: int) -> int:
         """Migration SOURCE, after a successful transfer: drop the local
@@ -880,10 +955,11 @@ class ServingEngine:
         if self.cfg.kv_mode != "dense":
             return self.kv.stats()
         if self._dense_cache is None:         # the first tick builds it
-            self._dense_cache = self.bundle.init_cache(
-                self.cfg.batch, self.cfg.max_len, device=self.device)
+            self._dense_cache = self._place_kv(self.bundle.init_cache(
+                self._per, self.cfg.max_len,
+                device=self.device))
         total = sum(t.numel() * t.element_size()
-                    for t in self._dense_cache.values())
+                    for t in tree_leaves(self._dense_cache))
         return {"bytes_resident": total, "peak_bytes": total,
                 "pages_total": 0, "pages_used": 0, "utilization": 1.0,
                 "fragmentation": 0.0, "evictions": 0}

@@ -34,6 +34,15 @@ Pool sizing/accounting knows the per-page byte cost (layers x page_size x
 kv_heads x head_dim x dtype, doubled for K+V, plus f32 scale tables when
 the pool is int8-quantized) so ``bytes_resident()`` reports the real HBM
 footprint of the cached tokens.
+
+OWNERS (``PagedKVConfig.owners``, d): an engine over d data ranks of
+processes splits the pool into d shards, and each rank holds only its
+own.  Slot ``s`` belongs to owner ``s // (num_slots / d)`` and page ``p``
+to owner ``p // (total_pages / d)``; each owner has its own free list and
+its own trash page (its shard's first page, local id 0), and a slot maps
+only its owner's pages.  With d == 1 (the default) there is one owner
+and page 0 is the trash page, as above.  Every rank runs the same
+allocator on the same requests, so the host state needs no messages.
 """
 from __future__ import annotations
 
@@ -55,6 +64,7 @@ class PagedKVConfig:
     head_dim: int = 1
     kv_bytes: int = 2              # bf16 = 2; int8 pools pass 1
     quantize: bool = False         # adds f32 scale tables to accounting
+    owners: int = 1                # pool shards (module docstring)
 
     @property
     def pages_per_slot(self) -> int:
@@ -66,6 +76,14 @@ class PagedKVConfig:
             return self.num_pages
         # default: full reservation + trash (degenerates to dense capacity)
         return self.num_slots * self.pages_per_slot + 1
+
+    @property
+    def pages_per_owner(self) -> int:
+        return self.total_pages // self.owners
+
+    @property
+    def slots_per_owner(self) -> int:
+        return self.num_slots // self.owners
 
     @property
     def page_bytes(self) -> int:
@@ -83,8 +101,10 @@ class BlockPoolKV:
     Invariants (property-tested in tests/test_prefix.py):
       * every page with refcount > 0 is absent from the free list and
         every free page has refcount 0;
-      * free_pages + referenced pages == total_pages - 1 always;
-      * page 0 (trash) is never allocated and never enters the free list;
+      * free_pages + referenced pages == total_pages - owners always;
+      * a trash page (page 0; with owners, each shard's first) is never
+        allocated and never enters a free list;
+      * every page of a slot's table belongs to the slot's owner;
       * a page's refcount equals the number of slot-table mappings plus
         the number of external (prefix-trie) references;
       * a slot only writes pages it owns exclusively — shared (refcount
@@ -96,13 +116,19 @@ class BlockPoolKV:
 
     def __init__(self, cfg: PagedKVConfig):
         self.cfg = cfg
-        n = cfg.total_pages
-        if n < 2:
+        n, d = cfg.total_pages, cfg.owners
+        if d < 1 or n % d or cfg.num_slots % d:
+            raise ValueError(f"{n} pages and {cfg.num_slots} slots do not "
+                             f"split over {d} owners")
+        per = n // d
+        if per < 2:
             raise ValueError("pool needs at least one page beyond trash")
-        # LIFO free list: recently freed pages are re-used first (keeps the
-        # hot working set dense in the pool — the fragmentation counter
-        # below measures how well that works).
-        self._free: list[int] = list(range(n - 1, 0, -1))
+        self.owners = d
+        # LIFO free lists, one an owner: recently freed pages are re-used
+        # first (keeps the hot working set dense in the pool — the
+        # fragmentation counter below measures how well that works).
+        self._free: list[list[int]] = [
+            list(range((o + 1) * per - 1, o * per, -1)) for o in range(d)]
         self.refcount = np.zeros((n,), np.int32)
         self._slot_pages: list[list[int]] = [[] for _ in range(cfg.num_slots)]
         # per-slot count of SHARED (read-only, prefix-cache) leading pages
@@ -110,10 +136,12 @@ class BlockPoolKV:
         self.lengths = np.zeros((cfg.num_slots,), np.int64)
         self.page_table = np.zeros((cfg.num_slots, cfg.pages_per_slot),
                                    np.int32)
-        # invoked with the page deficit when the free list runs dry; must
-        # return the number of pages it actually freed (the prefix cache
-        # registers its leaf-first LRU eviction here)
-        self.reclaim_hook: Callable[[int], int] | None = None
+        for slot in range(cfg.num_slots):
+            self.page_table[slot, :] = self.trash(self.slot_owner(slot))
+        # invoked with the page deficit and the owner whose free list ran
+        # dry; must return the number of pages it actually freed (the
+        # prefix cache registers its leaf-first LRU eviction here)
+        self.reclaim_hook: Callable[[int, int], int] | None = None
         # counters
         self.alloc_count = 0
         self.free_count = 0
@@ -125,11 +153,28 @@ class BlockPoolKV:
 
     @property
     def free_pages(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._free)
+
+    def free_pages_of(self, owner: int) -> int:
+        return len(self._free[owner])
 
     @property
     def used_pages(self) -> int:
-        return (self.cfg.total_pages - 1) - len(self._free)
+        return (self.cfg.total_pages - self.owners) - self.free_pages
+
+    def slot_owner(self, slot: int) -> int:
+        return slot // self.cfg.slots_per_owner
+
+    def page_owner(self, page: int) -> int:
+        return page // self.cfg.pages_per_owner
+
+    def trash(self, owner: int = 0) -> int:
+        """``owner``'s trash page: its shard's first (page 0 for owner 0)."""
+        return owner * self.cfg.pages_per_owner
+
+    def owner_slots(self, owner: int) -> range:
+        per = self.cfg.slots_per_owner
+        return range(owner * per, (owner + 1) * per)
 
     def slot_pages(self, slot: int) -> tuple[int, ...]:
         return tuple(self._slot_pages[slot])
@@ -142,18 +187,18 @@ class BlockPoolKV:
     def pages_for(self, n_tokens: int) -> int:
         return -(-n_tokens // self.cfg.page_size)
 
-    def can_alloc(self, n_pages: int) -> bool:
-        return n_pages <= len(self._free)
+    def can_alloc(self, n_pages: int, owner: int = 0) -> bool:
+        return n_pages <= len(self._free[owner])
 
-    def reserve(self, n_pages: int) -> bool:
+    def reserve(self, n_pages: int, owner: int = 0) -> bool:
         """Like :meth:`can_alloc`, but allowed to RECLAIM cold cache pages
-        through ``reclaim_hook`` (prefix-trie leaf-first LRU eviction)
-        before answering — preempting live requests is the caller's last
-        resort, not its first."""
-        deficit = n_pages - len(self._free)
+        of ``owner`` through ``reclaim_hook`` (prefix-trie leaf-first LRU
+        eviction) before answering — preempting live requests is the
+        caller's last resort, not its first."""
+        deficit = n_pages - len(self._free[owner])
         if deficit > 0 and self.reclaim_hook is not None:
-            self.reclaim_hook(deficit)
-        return n_pages <= len(self._free)
+            self.reclaim_hook(deficit, owner)
+        return n_pages <= len(self._free[owner])
 
     def capacity(self, slot: int) -> int:
         """Token capacity currently mapped for ``slot``."""
@@ -164,8 +209,8 @@ class BlockPoolKV:
     def retain(self, page: int) -> None:
         """Add one external reference to a LIVE page (prefix-trie insert,
         shared-slot mapping)."""
-        if page == self.TRASH:
-            raise ValueError("cannot retain the trash page")
+        if page == self.trash(self.page_owner(page)):
+            raise ValueError("cannot retain a trash page")
         if self.refcount[page] <= 0:
             raise ValueError(f"retain of unreferenced page {page}")
         self.refcount[page] += 1
@@ -177,41 +222,46 @@ class BlockPoolKV:
             raise ValueError(f"release of unreferenced page {page}")
         self.refcount[page] -= 1
         if self.refcount[page] == 0:
-            self._free.append(page)
+            self._free[self.page_owner(page)].append(page)
             self.free_count += 1
             return True
         return False
 
     # -- mutation -----------------------------------------------------------
 
-    def _alloc_page(self) -> int:
-        page = self._free.pop()
+    def _alloc_page(self, owner: int) -> int:
+        page = self._free[owner].pop()
         self.refcount[page] = 1
         self.alloc_count += 1
         return page
 
-    def adopt_page(self) -> int:
-        """Allocate one page held by an EXTERNAL owner (no slot table
-        entry) — the landing pad for a KV page migrated in from another
-        host, which the importer then hands to the prefix trie.  The
-        caller owns the single reference and must ``release`` it (or
-        ``retain`` on the trie's behalf, then ``release``) to balance.
-        Runs ``reclaim_hook`` first so a warm cache does not starve
-        migrations."""
-        if not self._free and self.reclaim_hook is not None:
-            self.reclaim_hook(1)
-        if not self._free:
+    def adopt_page(self, owner: int = 0) -> int:
+        """Allocate one of ``owner``'s pages held by an EXTERNAL holder (no
+        slot table entry) — the landing pad for a KV page migrated in
+        from another host, which the importer then hands to the prefix
+        trie.  The caller owns the single reference and must ``release``
+        it (or ``retain`` on the trie's behalf, then ``release``) to
+        balance.  Runs ``reclaim_hook`` first so a warm cache does not
+        starve migrations."""
+        if not self._free[owner] and self.reclaim_hook is not None:
+            self.reclaim_hook(1, owner)
+        if not self._free[owner]:
             raise MemoryError("pool dry: cannot adopt a migrated page")
-        page = self._alloc_page()
+        page = self._alloc_page(owner)
         self.peak_pages = max(self.peak_pages, self.used_pages)
         return page
 
     def map_shared(self, slot: int, pages: list[int]) -> None:
         """Map prefix-cache pages read-only at the FRONT of an empty
         slot's table (cache-hit admission).  The slot takes one reference
-        per page; it must never write positions inside them."""
+        per page; it must never write positions inside them.  The pages
+        must be the slot's owner's."""
         if self._slot_pages[slot]:
             raise RuntimeError(f"slot {slot}: map_shared on non-empty slot")
+        owner = self.slot_owner(slot)
+        if any(self.page_owner(p) != owner for p in pages):
+            raise ValueError(f"slot {slot} of owner {owner}: shared pages "
+                             f"{list(pages)} are not all its owner's")
         for i, page in enumerate(pages):
             self.retain(page)
             self._slot_pages[slot].append(page)
@@ -231,15 +281,17 @@ class BlockPoolKV:
         need = self.pages_for(target_len) - len(self._slot_pages[slot])
         if need <= 0:
             return 0
-        if need > len(self._free) and self.reclaim_hook is not None:
-            self.reclaim_hook(need - len(self._free))
-        if need > len(self._free):
+        owner = self.slot_owner(slot)
+        free = self._free[owner]
+        if need > len(free) and self.reclaim_hook is not None:
+            self.reclaim_hook(need - len(free), owner)
+        if need > len(free):
             raise MemoryError(
                 f"pool dry: slot {slot} needs {need} pages, "
-                f"{len(self._free)} free")
+                f"{len(free)} free")
         added = 0
         for _ in range(need):
-            page = self._alloc_page()
+            page = self._alloc_page(owner)
             idx = len(self._slot_pages[slot])
             self._slot_pages[slot].append(page)
             self.page_table[slot, idx] = page
@@ -279,7 +331,7 @@ class BlockPoolKV:
                 released += 1
         pages.clear()
         self._slot_shared[slot] = 0
-        self.page_table[slot, :] = self.TRASH
+        self.page_table[slot, :] = self.trash(self.slot_owner(slot))
         self.lengths[slot] = 0
         if evicted:
             self.evict_count += 1
@@ -298,7 +350,7 @@ class BlockPoolKV:
         cap = sum(len(p) for p in self._slot_pages) * self.cfg.page_size
         toks = int(self.lengths.sum())
         return {
-            "pages_total": self.cfg.total_pages - 1,
+            "pages_total": self.cfg.total_pages - self.owners,
             "pages_used": self.used_pages,
             "pages_free": self.free_pages,
             "pages_shared": int((self.refcount > 1).sum()),
@@ -325,9 +377,14 @@ class BlockPoolKV:
         (callers that cannot see the trie) refcounts must merely cover
         the slot mappings."""
         slot_refs: dict[int, int] = {}
+        trash = {self.trash(o) for o in range(self.owners)}
         for slot, pages in enumerate(self._slot_pages):
+            owner = self.slot_owner(slot)
             for i, p in enumerate(pages):
-                assert p != self.TRASH, f"slot {slot} mapped to trash"
+                assert p not in trash, f"slot {slot} mapped to trash"
+                assert self.page_owner(p) == owner, \
+                    f"slot {slot} of owner {owner} maps page {p} of " \
+                    f"owner {self.page_owner(p)}"
                 assert self.page_table[slot, i] == p
                 slot_refs[p] = slot_refs.get(p, 0) + 1
             shared = self._slot_shared[slot]
@@ -338,16 +395,23 @@ class BlockPoolKV:
                 # shared prefix — never checked here because the trie may
                 # legitimately hold a finished slot's tail pages
                 assert self.refcount[p] >= 1
-            assert (self.page_table[slot, len(pages):] == self.TRASH).all()
+            assert (self.page_table[slot, len(pages):] ==
+                    self.trash(owner)).all()
             assert self.lengths[slot] <= len(pages) * self.cfg.page_size
-        free = set(self._free)
-        assert len(free) == len(self._free), "free list duplicates"
-        assert self.TRASH not in free, "trash page entered the free list"
+        for o, lst in enumerate(self._free):
+            assert all(self.page_owner(p) == o for p in lst), \
+                f"owner {o}'s free list holds another owner's page"
+        free = {p for lst in self._free for p in lst}
+        assert len(free) == self.free_pages, "free list duplicates"
+        assert not (trash & free), "trash page entered the free list"
         referenced = {int(p) for p in np.nonzero(self.refcount > 0)[0]}
+        assert not (trash & referenced), "trash page referenced"
         assert not (free & referenced), "page both free and referenced"
-        assert free | referenced == set(range(1, self.cfg.total_pages)), \
+        assert free | referenced == \
+            set(range(self.cfg.total_pages)) - trash, \
             "page leaked: neither free nor referenced"
-        assert len(free) + len(referenced) == self.cfg.total_pages - 1
+        assert len(free) + len(referenced) == \
+            self.cfg.total_pages - self.owners
         for p in slot_refs:
             assert self.refcount[p] >= slot_refs[p], \
                 f"page {p}: refcount {self.refcount[p]} < slot maps"

@@ -30,6 +30,11 @@ no live slot maps (refcount 1, held by the trie alone) — it is registered
 as the pool's ``reclaim_hook`` so allocation pressure drains the cache
 before anyone preempts a live request.
 
+Under a pool of several OWNERS (``BlockPoolKV.owners``: the data ranks of
+an engine over processes, each holding its own pages) the cache keeps one
+trie an owner (``roots``): a match, an insert and an eviction stay within
+one owner's pages, so a slot maps only pages its rank holds.
+
 Like the scheduler, this module is host-side control logic: it
 plans COW copies (src page, valid tokens) but the ENGINE executes them on
 the device arrays.  Invariants are property-tested in
@@ -101,13 +106,16 @@ def _common_prefix(a, b) -> int:
 
 
 class RadixPrefixCache:
-    """Page-granular radix trie over ``kv``'s pool; registers itself as
-    the pool's ``reclaim_hook``."""
+    """Page-granular radix trie over ``kv``'s pool, one an owner of its
+    pages (``roots``; ``root`` is owner 0's); registers itself as the
+    pool's ``reclaim_hook``."""
 
     def __init__(self, kv: BlockPoolKV):
         self.kv = kv
         self.page_size = kv.cfg.page_size
-        self.root = _Node((), BlockPoolKV.TRASH, None)
+        self.roots = [_Node((), kv.trash(o), None)
+                      for o in range(kv.owners)]
+        self.root = self.roots[0]
         self._clock = itertools.count(1)
         # counters (surfaced by stats(); bench_traffic reports them)
         self.lookups = 0
@@ -121,40 +129,54 @@ class RadixPrefixCache:
 
     # -- lookup -------------------------------------------------------------
 
-    def match(self, tokens) -> PrefixMatch:
-        """Longest cached prefix of ``tokens``, capped at ``len - 1`` so
-        at least one prompt token is always prefilled (admission needs
-        fresh last-token logits to sample the first output from)."""
+    def _walk_match(self, tokens, owner: int):
+        """(the matched nodes, the COW node or None, the PrefixMatch) of
+        ``tokens`` in ``owner``'s trie, touching nothing."""
         tokens = [int(t) for t in tokens]
         usable = len(tokens) - 1
-        self.lookups += 1
-        node, pos, pages = self.root, 0, []
-        now = next(self._clock)
+        node, pos, nodes = self.roots[owner], 0, []
         while usable - pos >= self.page_size:
             child = node.children.get(tuple(tokens[pos:pos + self.page_size]))
             if child is None or child.n_tokens < self.page_size:
                 break
-            child.last_use = now
-            pages.append(child.page)
+            nodes.append(child)
             pos += self.page_size
             node = child
-        cow = None
+        best = None
         if pos < usable:
             # best mid-page overlap among this node's children -> COW
-            best, best_n = None, 0
+            best_n = 0
             for child in node.children.values():
                 n = _common_prefix(child.tokens, tokens[pos:usable])
                 if n > best_n:
                     best, best_n = child, n
-            if best is not None:
-                best.last_use = now
-                cow = (best.page, best_n)
-                self.cow_count += 1
-        m = PrefixMatch(full_pages=tuple(pages), matched_full=pos, cow=cow)
+        cow = (best.page, best_n) if best is not None else None
+        return nodes, best, PrefixMatch(
+            full_pages=tuple(n.page for n in nodes), matched_full=pos,
+            cow=cow)
+
+    def peek(self, tokens, owner: int = 0) -> PrefixMatch:
+        """What :meth:`match` would return in ``owner``'s trie, with no
+        counter or recency touched (admission compares the owners)."""
+        return self._walk_match(tokens, owner)[2]
+
+    def match(self, tokens, owner: int = 0) -> PrefixMatch:
+        """Longest cached prefix of ``tokens`` among ``owner``'s pages,
+        capped at ``len - 1`` so at least one prompt token is always
+        prefilled (admission needs fresh last-token logits to sample the
+        first output from)."""
+        self.lookups += 1
+        nodes, best, m = self._walk_match(tokens, owner)
+        now = next(self._clock)
+        for node in nodes:
+            node.last_use = now
+        if best is not None:
+            best.last_use = now
+            self.cow_count += 1
         if m.hit:
             self.hits += 1
             self.matched_tokens += m.matched
-            self.matched_pages += len(pages)
+            self.matched_pages += len(nodes)
         return m
 
     # -- insert -------------------------------------------------------------
@@ -167,10 +189,11 @@ class RadixPrefixCache:
         first ``n_tokens`` are actually cached (the final sampled token's
         KV was never written).  Pages whose content is already in the trie
         are skipped (they stay slot-owned and free on release); new pages
-        are RETAINED by the trie and survive the slot.  Returns the number
-        of pages adopted."""
+        are RETAINED by the trie and survive the slot.  The pages go into
+        their owner's trie.  Returns the number of pages adopted."""
         tokens = [int(t) for t in tokens]
-        node, pos, idx, adopted = self.root, 0, 0, 0
+        owner = self.kv.page_owner(int(pages[0])) if len(pages) else 0
+        node, pos, idx, adopted = self.roots[owner], 0, 0, 0
         now = next(self._clock)
         while pos < n_tokens:
             n = min(self.page_size, n_tokens - pos)
@@ -241,16 +264,16 @@ class RadixPrefixCache:
 
     # -- eviction (the pool's reclaim hook) ---------------------------------
 
-    def evict(self, n_pages: int) -> int:
-        """Free at least ``n_pages`` by dropping trie leaves no live slot
-        maps (page refcount 1 — held by the trie alone), least-recently
-        used first.  Interior nodes become evictable as their subtrees
-        drain, so the cache sheds leaf-first along cold paths.  Returns
-        the number of pages actually freed."""
+    def evict(self, n_pages: int, owner: int = 0) -> int:
+        """Free at least ``n_pages`` of ``owner``'s by dropping trie leaves
+        no live slot maps (page refcount 1 — held by the trie alone),
+        least-recently used first.  Interior nodes become evictable as
+        their subtrees drain, so the cache sheds leaf-first along cold
+        paths.  Returns the number of pages actually freed."""
         freed = 0
         while freed < n_pages:
             victim = None
-            for node in self._leaves():
+            for node in self._leaves(owner):
                 if self.kv.refcount[node.page] != 1:
                     continue        # pinned by a live slot
                 if victim is None or node.last_use < victim.last_use:
@@ -263,8 +286,8 @@ class RadixPrefixCache:
             self.evicted_pages += 1
         return freed
 
-    def _leaves(self):
-        stack = list(self.root.children.values())
+    def _leaves(self, owner: int = 0):
+        stack = list(self.roots[owner].children.values())
         while stack:
             node = stack.pop()
             if node.children:
@@ -278,7 +301,7 @@ class RadixPrefixCache:
         """page -> number of trie references (for invariant audits:
         pool refcount == slot mappings + these)."""
         refs: dict[int, int] = {}
-        stack = list(self.root.children.values())
+        stack = [c for r in self.roots for c in r.children.values()]
         while stack:
             node = stack.pop()
             refs[node.page] = refs.get(node.page, 0) + 1
@@ -304,19 +327,21 @@ class RadixPrefixCache:
 
     def check_invariants(self) -> None:
         """Structural audit: page-aligned runs, no orphaned references,
-        every non-tail node holds a full page."""
-        stack = [(self.root, True)]
+        every non-tail node holds a full page of its trie's owner."""
+        stack = [(r, o) for o, r in enumerate(self.roots)]
         while stack:
-            node, _ = stack.pop()
+            node, owner = stack.pop()
             for child in node.children.values():
                 assert child.parent is node
+                assert self.kv.page_owner(child.page) == owner, \
+                    f"owner {owner}'s trie holds page {child.page}"
                 assert 1 <= child.n_tokens <= self.page_size
                 if child.children:
                     assert child.n_tokens == self.page_size, \
                         "interior trie node with a partial page"
                 assert self.kv.refcount[child.page] >= 1, \
                     f"trie holds unreferenced page {child.page}"
-                stack.append((child, False))
+                stack.append((child, owner))
         self.kv.check_invariants(external_refs=self.page_refs())
 
 

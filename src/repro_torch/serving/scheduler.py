@@ -50,6 +50,12 @@ zero-config path):
   * load shedding — :meth:`shed_waiting` drops queued sub-priority work
     wholesale; the engine invokes it when pool pressure stays critical.
 
+Owners: over a pool split among the data ranks of processes
+(``BlockPoolKV.owners`` > 1) a request goes to a slot of one owner and
+maps only that owner's pages (:meth:`PhaseScheduler._place` gives
+the rule); every rank runs this scheduler on the same requests and takes
+the same decisions.
+
 The scheduler is host-side control logic over :class:`~repro_torch.serving.kv.
 BlockPoolKV` — no tensor imports — so policies are unit-testable in
 microseconds.  The engine executes the plans it returns.
@@ -155,10 +161,13 @@ class PhaseScheduler:
 
     # -- admission + preemption ---------------------------------------------
 
-    def _evictable_below(self, priority: int) -> Request | None:
+    def _evictable_below(self, priority: int,
+                         slots=None) -> Request | None:
         """Lowest-priority active request strictly below ``priority``
-        (latest arrival breaks ties — it has the least sunk work)."""
-        cands = [r for r in self._active.values() if r.priority < priority]
+        (latest arrival breaks ties — it has the least sunk work), among
+        the requests in ``slots`` when given."""
+        cands = [r for r in self._active.values() if r.priority < priority
+                 and (slots is None or r.slot in slots)]
         if not cands:
             return None
         return min(cands, key=lambda r: (r.priority, -r.arrival))
@@ -212,30 +221,8 @@ class PhaseScheduler:
             if req.next_admit_tick > now:        # backing off
                 deferred.append(item)
                 continue
-            match = prefix.match(req.prompt) if prefix is not None else None
-            shared = list(match.full_pages) if match is not None else []
-            # PIN the matched pages (and a COW source) for the duration of
-            # this attempt: the reclaim hook below must not evict the very
-            # pages the match promised
-            pinned = list(shared)
-            if match is not None and match.cow is not None:
-                pinned.append(match.cow[0])
-            for p in pinned:
-                kv.retain(p)
-            need = kv.pages_for(len(req.prompt)) - len(shared) + \
-                self.cfg.decode_headroom_pages
-            # page pressure: reclaim cold cache pages (reserve's hook),
-            # then evict strictly-lower-priority work
-            while (not kv.reserve(need)) or \
-                    (len(self._active) >= self.cfg.num_slots):
-                victim = self._evictable_below(req.priority)
-                if victim is None:
-                    break
-                self._evict(kv, victim)
-            if not kv.reserve(need) or \
-                    len(self._active) >= self.cfg.num_slots:
-                for p in pinned:
-                    kv.release(p)
+            placed = self._place(kv, req, prefix)
+            if placed is None:
                 if not retrying:
                     deferred.append(item)
                     break                        # seed: head blocks
@@ -249,8 +236,8 @@ class PhaseScheduler:
                         2 ** (req.admit_attempts - 1)
                     deferred.append(item)
                 continue
-            slot = next(i for i in range(self.cfg.num_slots)
-                        if i not in self._active)
+            slot, match, pinned = placed
+            shared = list(match.full_pages) if match is not None else []
             if shared:
                 kv.map_shared(slot, shared)
             kv.ensure(slot, len(req.prompt) +
@@ -277,6 +264,63 @@ class PhaseScheduler:
         for item in deferred:
             heapq.heappush(self._waiting, item)
         return admitted
+
+    @staticmethod
+    def _pin(kv: BlockPoolKV, match) -> list[int]:
+        """PIN the matched pages (and a COW source) for the duration of an
+        admission attempt: the reclaim hook must not evict the very pages
+        the match promised.  Returns the pinned pages."""
+        pinned = list(match.full_pages) if match is not None else []
+        if match is not None and match.cow is not None:
+            pinned.append(match.cow[0])
+        for p in pinned:
+            kv.retain(p)
+        return pinned
+
+    def _need(self, kv: BlockPoolKV, req: Request, match) -> int:
+        shared = len(match.full_pages) if match is not None else 0
+        return kv.pages_for(len(req.prompt)) - shared + \
+            self.cfg.decode_headroom_pages
+
+    def _place(self, kv: BlockPoolKV, req: Request, prefix):
+        """(slot, prefix match or None, pinned pages) for ``req``, or None
+        when it cannot be admitted now (nothing left pinned), by a rule
+        every rank computes alike: the owners with a free slot are ranked
+        by the longest cached prefix among their pages, then the most free
+        slots, the most free pages and the lowest index, and the first
+        whose pages can take the request (its cold cache pages reclaimed
+        first: ``reserve``'s hook) gets it, in its lowest free slot.  When
+        none can, the lowest-priority active request below ``req``'s is
+        evicted, wherever it is, and the owners are ranked again.  With
+        one owner that is the lowest free slot, reclaiming, then evicting
+        strictly-lower-priority work.  The trie counts a lookup (and
+        refreshes the match's recency) only for the attempt that admits
+        (``peek`` before)."""
+        while True:
+            ranked = []
+            for o in range(kv.owners):
+                free = [s for s in kv.owner_slots(o) if s not in self._active]
+                if free:
+                    m = prefix.peek(req.prompt, o) \
+                        if prefix is not None else None
+                    ranked.append(((-(m.matched if m else 0), -len(free),
+                                    -kv.free_pages_of(o), o), free[0]))
+            for key, slot in sorted(ranked):
+                o = key[-1]
+                match = prefix.peek(req.prompt, o) \
+                    if prefix is not None else None
+                pinned = self._pin(kv, match)
+                if kv.reserve(self._need(kv, req, match), o):
+                    # the pinned match is the one counted
+                    if prefix is not None:
+                        match = prefix.match(req.prompt, o)
+                    return slot, match, pinned
+                for p in pinned:
+                    kv.release(p)
+            victim = self._evictable_below(req.priority)
+            if victim is None:
+                return None
+            self._evict(kv, victim)
 
     @staticmethod
     def _drop_cow(kv: BlockPoolKV, req: Request) -> None:
@@ -405,7 +449,9 @@ class PhaseScheduler:
                     # strictly-lower-priority work goes first; when none
                     # exists the needy slot evicts ITSELF (equal-priority
                     # peers are never targeted, per the admission contract)
-                    victim = self._evictable_below(req.priority) or req
+                    victim = self._evictable_below(
+                        req.priority,
+                        kv.owner_slots(kv.slot_owner(req.slot))) or req
                     self._evict(kv, victim)
                     evicted.append(victim)
                     if victim is req:

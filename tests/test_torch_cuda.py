@@ -1770,3 +1770,94 @@ def test_sharded_families_on_the_card(dev, arch):
               "audio": {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"},
               "ssm": set()}[bundle.kind]
     assert flash == routes, launches
+
+
+def test_nccl_world_one_ring_paths_are_bit_equal(dev):
+    """Phase ``process_mesh`` (a), in a process of its own: NCCL at a
+    world of one, each of ``ProcessRing``'s c10d paths (the f32 sum, the
+    all-gather, the all-to-all, a ``batch_isend_irecv`` to itself) on
+    bf16 and f32 tensors of the card equal to its input bit for bit."""
+    import json
+    import subprocess
+    import sys
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, str(root / "chip_smoke.py"),
+         "--process-mesh-worker", "nccl"], capture_output=True, text=True,
+        timeout=300)
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("[process-mesh-worker] ")]
+    assert lines, out.stdout[-2000:] + out.stderr[-2000:]
+    row = json.loads(lines[-1].split(" ", 1)[1])
+    assert row["exit"] == 0 and row["backend"] == "nccl", row
+    assert row["stages_hop"] is False and len(row["bit_equal"]) == 8
+    assert all(row["bit_equal"].values()), row
+
+
+def _gloo_card_rank(rank: int, port: int, out: str) -> None:
+    import torch.distributed as dist
+
+    from repro_torch.parallel import tensor_parallel as tp
+    from repro_torch.parallel.mesh import LocalRing, make_process_mesh
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    try:
+        torch.cuda.set_device(0)
+        ring = make_process_mesh((1, 2), ("data", "model")) \
+            .transport("model")
+        local = LocalRing(2)
+        g = torch.Generator(device="cuda").manual_seed(5)
+        res = {}
+        for dt in (torch.bfloat16, torch.float32):
+            # both ranks' entries, drawn alike on each rank
+            xs = [torch.randn(4, 64, 32, generator=g, device="cuda").to(dt)
+                  for _ in range(2)]
+            want = {"all_sum": local.all_sum(xs)[rank],
+                    "all_gather": local.all_gather(xs, 1)[rank],
+                    "all_to_all": local.all_to_all(xs)[rank],
+                    "shift": local.shift(xs)[0][rank],
+                    "all_max": torch.stack(xs).amax(0)}
+            got = {"all_sum": ring.all_sum([xs[rank]])[0],
+                   "all_gather": ring.all_gather([xs[rank]], 1)[0],
+                   "all_to_all": ring.all_to_all([xs[rank]])[0],
+                   "shift": ring.shift([xs[rank]])[0][0],
+                   "all_max": tp.all_max([xs[rank]], ring)}
+            tag = str(dt).replace("torch.", "")
+            for k in want:
+                res[f"{k}/{tag}"] = bool(
+                    got[k].is_cuda and got[k].dtype == want[k].dtype and
+                    torch.equal(got[k], want[k]))
+        torch.save({"ops": res, "staged": ring.staged,
+                    "stages_hop": ring.stages_hop,
+                    "backend": ring.backend}, f"{out}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_gloo_process_ring_on_the_card_equals_the_local_ring(dev,
+                                                             tmp_path):
+    """Two gloo processes sharing the card at (1, 2): each ``ProcessRing``
+    op on CUDA tensors (bf16 and f32) equals the local ring's bit for bit;
+    only the point-to-point hop is staged through host memory."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = torch.multiprocessing.get_context("spawn")
+    out = str(tmp_path / "r")
+    procs = [ctx.Process(target=_gloo_card_rank, args=(r, port, out))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=240)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert [p.exitcode for p in procs] == [0, 0]
+    for r in range(2):
+        got = torch.load(f"{out}.{r}")
+        assert got["backend"] == "gloo" and got["stages_hop"] is True
+        assert len(got["ops"]) == 10 and all(got["ops"].values()), got
+        # only the two hops (bf16, f32): (4, 64, 32) out and back
+        assert got["staged"] == 2 * 4 * 64 * 32 * (2 + 4)

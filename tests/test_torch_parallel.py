@@ -771,7 +771,12 @@ def test_train_run_takes_a_mesh(monkeypatch):
     assert mesh.transport("model").hops > 0
     with pytest.raises(RuntimeError, match="process group"):
         make_production_mesh()
-    with pytest.raises(ValueError, match="multi-host"):
+    # with no torchrun environment to join a group from, the production
+    # mesh's error, never a local mesh
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+              "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="256 ranks"):
         train.run("qwen3-4b", steps=1, mesh_kind="single", device="cpu")
 
 

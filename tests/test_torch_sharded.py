@@ -221,8 +221,12 @@ def test_local_all_gather_joins_in_rank_order_and_counts():
     xs = [torch.full((2, 3), float(r)) for r in range(4)]
     with CostMode() as m:
         out = ring.all_gather(xs, 1)
-    assert len(out) == 4 and all(o is out[0] for o in out)
-    assert torch.equal(out[0], torch.cat(xs, 1))
+    # one gathered tensor held once: each rank's entry a view of it (its
+    # cotangents are summed as a process ring's backward sums them)
+    assert len(out) == 4 and all(
+        o.untyped_storage().data_ptr() ==
+        out[0].untyped_storage().data_ptr() for o in out)
+    assert all(torch.equal(o, torch.cat(xs, 1)) for o in out)
     # the gathered (2, 12) f32 bytes at each of the 4 ranks
     assert m.cost.collectives["all-gather"] == 4 * 2 * 12 * 4
 
@@ -471,9 +475,10 @@ def test_process_ranks_equal_the_local_mesh():
 
 
 def test_engine_takes_a_model_axis_of_processes_only_placed():
-    """An engine refuses a data axis of processes (per-rank page
-    ownership is what is missing) and global tensors on a model axis of
-    processes."""
+    """An engine refuses global tensors on a model or a data axis of
+    processes: both take params placed by ``shard_tree`` (over data
+    processes each rank then owns its slots' pages,
+    ``tests/test_torch_multihost.py``)."""
     from repro_torch.launch.serve import build_engine
 
     class FakeProcessRing:
