@@ -112,7 +112,8 @@ import repro_torch  # noqa: E402,F401  (fails at once outside a checkout)
 # the card's peaks and each kernel's work have one definition, in the
 # package (analysis.roofline, analysis.kernel_work)
 from repro_torch.analysis import kernel_work  # noqa: E402
-from repro_torch.analysis.op_cost import CostMode  # noqa: E402
+from repro_torch.analysis.op_cost import (CollectiveMode,  # noqa: E402
+                                          CostMode)
 from repro_torch.analysis.roofline import PEAK_FLOPS  # noqa: E402
 ARCH = "qwen3-4b"
 MOE_ARCH = "olmoe-1b-7b"
@@ -2258,13 +2259,13 @@ def train(params) -> dict:
             f"train: params did not change: after step 1 {after_first}, "
             f"after step 3 {changed}")
     require(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == L * 3
-            and launches["flash_fwd"] == 2 * L * 3
+            and launches["flash_fwd"] == L * 3
             and launches["flash_fwd_simt"] == 0
             and launches["flash_bwd_dq_simt"] == 0
             and launches["flash_bwd_dkv_simt"] == 0,
             f"train: flash launches {launches}, want wgmma bwd {L * 3} each, "
-            f"wgmma fwd {2 * L * 3} (forward + per-layer recompute) and no "
-            f"CUDA-core flash kernel")
+            f"wgmma fwd {L * 3} (the forward only: the per-layer recompute "
+            f"keeps attn_out) and no CUDA-core flash kernel")
     del out
     return row
 
@@ -2403,12 +2404,12 @@ def roofline_phase(params, served: dict) -> dict:
             f"{c.kernels} differs from the meta count {m.totals()} "
             f"{m.kernels}")
     flash = {k: n for k in FLASH_ROUTE_KEYS if (n := counted_launches[k])}
-    require(flash == {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+    require(flash == {"flash_fwd": L, "flash_bwd_dq": L,
                       "flash_bwd_dkv": L} and
             {k: v["calls"] for k, v in c.kernels.items()} ==
-            {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L},
+            {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L},
             f"roofline: flash launches {flash} and reports "
-            f"{c.kernels}, want {2 * L} forward and {L} of each backward")
+            f"{c.kernels}, want {L} of the forward and of each backward")
 
     # the live roofline's rows
     for mode in ("paged", "paged_int8"):
@@ -2811,9 +2812,9 @@ def ring_train_check(params) -> dict:
             all(c > 0.99 for c in cos.values()) and
             all(abs(r - 1.0) < NORM_TOL for r in ratio.values()),
             f"ring vs unsharded loss/grads: {row}")
-    require(lna.get("flash_fwd") == 2 * hops and
+    require(lna.get("flash_fwd") == hops and
             lna.get("flash_bwd_dq") == lna.get("flash_bwd_dkv") == hops and
-            lnb.get("flash_fwd") == 2 * L,
+            lnb.get("flash_fwd") == L,
             f"ring_train_check launches: ring {lna}, unsharded {lnb}")
     return row
 
@@ -2824,8 +2825,8 @@ def train_ring(params) -> dict:
     RING_M) local mesh, on ``params`` (updated in place): finite losses,
     probed params moved, ``opt_step`` 3, the peak under 80 GB, and the
     flash launches of the formula: each of L layers folds m ranks x m
-    hops, the forward twice (the step's forward and the per-layer
-    recompute), each backward kernel once."""
+    hops, the forward once (the per-layer recompute keeps the ring's o and
+    lse), each backward kernel once."""
     from repro_torch.kernels import ops
     from repro_torch.launch.train import run
     L = params["layers"]["wq"].shape[0]
@@ -2849,7 +2850,7 @@ def train_ring(params) -> dict:
     steps_s = out["seconds"]
     tokens = RING_TRAIN["B"] * RING_TRAIN["S"]
     n = L * RING_M * RING_M * TRAIN_STEPS
-    want = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    want = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
     row = dict(arch=ARCH, m=RING_M, **RING_TRAIN, steps=len(steps_s),
                losses=out["losses"],
                finite=[m["finite"] for m in out["metrics"]],
@@ -3286,7 +3287,8 @@ def train_moe_mesh(params, mesh) -> dict:
     (B 1 x S 4,096, the config's capacity) through ``launch.train.run``
     under ``mesh``, on ``params`` (updated in place): finite losses,
     ``opt_step`` 3, the peak under 80 GB, and the flash kernels of the
-    ring launched (L x m x m a pass, the forward twice)."""
+    ring launched (L x m x m a pass, the forward once: the recompute
+    keeps attn_out)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.train import run
     L = params["layers"]["wq"].shape[0]
@@ -3306,7 +3308,7 @@ def train_moe_mesh(params, mesh) -> dict:
     steps_s = out["seconds"]
     tokens = MOE_TRAIN["B"] * MOE_TRAIN["S"]
     n = L * m * m * TRAIN_STEPS
-    want = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    want = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
     row = dict(arch=GRANITE, **MOE_TRAIN, steps=len(steps_s),
                losses=out["losses"],
                finite=[x["finite"] for x in out["metrics"]],
@@ -3370,6 +3372,16 @@ def sharded_mesh(kind: str):
     return make_mesh(SHARDED[kind], ("data", "model"))
 
 
+def sp_collectives(mode, mesh, S: int) -> dict:
+    """A step's collective bytes by kind from the op cost counter (a local
+    ring's counted at every rank), and whether its residual was
+    sequence-sharded (the model axis divides S: ``layers.shard_seq``'s
+    rule)."""
+    m = mesh.shape.get("model", 1)
+    return {"by_kind": {k: int(v) for k, v in mode.cost.collectives.items()},
+            "seq_sharded": m > 1 and S % m == 0}
+
+
 def sharded_train_check(params, mesh, bundle=None) -> dict:
     """Loss and gradients of one (B 2, S 2048) batch on qwen3-4b's state
     placed on ``mesh`` (each data rank's row in turn, each model rank's
@@ -3378,7 +3390,8 @@ def sharded_train_check(params, mesh, bundle=None) -> dict:
     1e-3; per leaf cosine > 0.99 and |norm ratio - 1| < NORM_TOL) on the
     embedding, the lm_head, and wq, wk, wv, wo and w_down of the first and
     the last layer; the flash kernels launched L x nd x m times a pass
-    (the forward twice), none of them CUDA-core.  ``bundle``: qwen3-4b's
+    (the forward once: the recompute keeps attn_out), none of them
+    CUDA-core.  ``bundle``: qwen3-4b's
     (default) or one cut in depth (the card tests)."""
     from repro_torch.configs import get_bundle
     from repro_torch.kernels import ops
@@ -3422,8 +3435,9 @@ def sharded_train_check(params, mesh, bundle=None) -> dict:
     for t in shards:
         t.requires_grad_(True)
     ops.reset_launches()
-    loss_s, _, _, gs = placed_grads(bundle.forward, TrainHyper(), placed,
-                                    shards, batch)
+    with CollectiveMode() as coll:
+        loss_s, _, _, gs = placed_grads(bundle.forward, TrainHyper(),
+                                        placed, shards, batch)
     launches = {k: c for k, c in ops.LAUNCHES.items() if c}
     for t in shards:
         t.requires_grad_(False)
@@ -3443,11 +3457,12 @@ def sharded_train_check(params, mesh, bundle=None) -> dict:
     rel = abs(loss_s - loss_u) / abs(loss_u)
     nd, m = SHARDED["train"]
     n = L * nd * m
-    flash = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    flash = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
     row = dict(arch=ARCH, n_layers=L, mesh=dict(mesh.shape), B=SHARDED["B"],
                S=SHARDED["S"], loss_sharded=loss_s, loss_unsharded=loss_u,
                loss_rel_diff=rel, cosine=cos, norm_ratio=ratio,
                launches=launches, want_flash=flash,
+               collective_bytes=sp_collectives(coll, mesh, SHARDED["S"]),
                tol=f"loss rel diff < 1e-3; per leaf cosine > 0.99 and "
                    f"|norm ratio - 1| < {NORM_TOL}")
     emit("sharded_train_check", **row)
@@ -3458,6 +3473,11 @@ def sharded_train_check(params, mesh, bundle=None) -> dict:
     require({k: launches.get(k, 0) for k in FLASH_KEYS} ==
             dict(dict.fromkeys(FLASH_KEYS, 0), **flash),
             f"sharded: flash launches {launches}, want {flash}")
+    coll = row["collective_bytes"]
+    require(coll["seq_sharded"] and
+            coll["by_kind"].get("reduce-scatter", 0) > 0,
+            f"sharded: the sequence-sharded residual's reduce-scatter is "
+            f"missing: {coll}")
     return row
 
 
@@ -3528,7 +3548,7 @@ def train_sharded(mesh, unsharded_peak: int | None) -> dict:
     seed and places (params and moments by ``param_specs``): finite
     losses, probed params moved, ``opt_step`` 3, the peak under 80 GB
     (printed beside the unsharded ``train`` phase's), and L x nd x m of
-    each flash backward kernel a step, twice that of the forward.  s/step,
+    each flash kernel a step (the recompute keeps attn_out).  s/step,
     tok/s and each rank's state bytes are printed, not held."""
     from repro_torch.configs import get_bundle
     from repro_torch.kernels import ops
@@ -3573,7 +3593,7 @@ def train_sharded(mesh, unsharded_peak: int | None) -> dict:
     steps_s = out["seconds"]
     tokens = SHARDED["B"] * SHARDED["S"]
     n = L * nd * m * TRAIN_STEPS
-    want = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    want = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
     row = dict(arch=ARCH, mesh=dict(mesh.shape), B=SHARDED["B"],
                S=SHARDED["S"], steps=len(steps_s), losses=out["losses"],
                finite=[x["finite"] for x in out["metrics"]],
@@ -3682,16 +3702,19 @@ def attention_calls(bundle) -> int:
 
 
 def want_flash(bundle, steps: int) -> dict:
-    """The flash launches ``steps`` train steps must make: the forward
-    twice per attention call (the step's forward and the per-layer
-    recompute), each backward kernel once, all on the family's routes."""
+    """The flash launches ``steps`` train steps must make: the forward once
+    per attention call where the family's recompute keeps ``attn_out``
+    (the transformer's ``SAVED``), else twice (the step's forward and the
+    per-unit recompute), each backward kernel once, all on the family's
+    routes."""
     n = attention_calls(bundle) * steps
+    fwd = n if "attn_out" in getattr(bundle.family, "SAVED", ()) else 2 * n
     want = dict.fromkeys(FLASH_KEYS, 0)
     if bundle.kind == "hybrid":         # head_dim 256
-        want.update(flash_fwd_d256=2 * n, flash_bwd_dq_d256=n,
+        want.update(flash_fwd_d256=fwd, flash_bwd_dq_d256=n,
                     flash_bwd_dkv_d256=n)
     elif n:
-        want.update(flash_fwd=2 * n, flash_bwd_dq=n, flash_bwd_dkv=n)
+        want.update(flash_fwd=fwd, flash_bwd_dq=n, flash_bwd_dkv=n)
     return want
 
 
@@ -3804,7 +3827,7 @@ def train_families() -> dict:
 # ...) of the first and the last unit, the vocabulary tables whole
 SHARDED_FAMILIES = {
     "mamba2-370m": dict(
-        n_layers=12, B=2, S=2048, check_len=1536,
+        n_layers=12, B=2, S=2048, check_len=1536, cfg=dict(sp=True),
         cut="12 of 48 layers: a placed step at full depth takes 19-22 s "
             "(8 rank bodies a layer in turn, each with its SSD chunk loop, "
             "on the host), which would take the script past 1,100 s",
@@ -3838,11 +3861,12 @@ def sharded_family_bundle(arch: str):
 
     from repro_torch.configs import get_bundle
     bundle = get_bundle(arch)
-    n = SHARDED_FAMILIES[arch]["n_layers"]
-    if n is None:
-        return bundle
+    spec = SHARDED_FAMILIES[arch]
+    over = dict(spec.get("cfg", {}))
+    if spec["n_layers"] is not None:
+        over["n_layers"] = spec["n_layers"]
     return dataclasses.replace(bundle, cfg=dataclasses.replace(
-        bundle.cfg, n_layers=n))
+        bundle.cfg, **over)) if over else bundle
 
 
 def _keys(path: tuple) -> tuple:
@@ -3875,8 +3899,9 @@ def sharded_family_check(params, bundle, mesh, leaves: tuple, B: int,
     1e-3; per leaf cosine > 0.99 and |norm ratio - 1| < NORM_TOL) on
     ``leaves`` (SHARDED_FAMILIES' paths: a layer index after the keys
     picks that unit's slice); the flash kernels launched the family's
-    attention calls x nd x m times a pass (the forward twice) on its
-    wgmma routes, none CUDA-core."""
+    attention calls x nd x m times a pass (the forward twice, or once
+    where the recompute keeps attn_out: ``want_flash``) on its wgmma
+    routes, none CUDA-core."""
     from repro_torch.kernels import ops
     from repro_torch.parallel.sharding import (Placed, gather_leaf,
                                                param_specs, shard_tree)
@@ -3910,8 +3935,9 @@ def sharded_family_check(params, bundle, mesh, leaves: tuple, B: int,
     for t in shards:
         t.requires_grad_(True)
     ops.reset_launches()
-    loss_s, _, _, gs = placed_grads(bundle.forward, TrainHyper(), placed,
-                                    shards, batch)
+    with CollectiveMode() as coll:
+        loss_s, _, _, gs = placed_grads(bundle.forward, TrainHyper(),
+                                        placed, shards, batch)
     launches = {k: c for k, c in ops.LAUNCHES.items() if c}
     for t in shards:
         t.requires_grad_(False)
@@ -3937,6 +3963,8 @@ def sharded_family_check(params, bundle, mesh, leaves: tuple, B: int,
                S=S, loss_sharded=loss_s, loss_unsharded=loss_u,
                loss_rel_diff=rel, cosine=cos, norm_ratio=ratio,
                launches=launches, want_flash=flash,
+               sp=getattr(bundle.cfg, "sp", True),
+               collective_bytes=sp_collectives(coll, mesh, S),
                tol=f"loss rel diff < 1e-3; per leaf cosine > 0.99 and "
                    f"|norm ratio - 1| < {NORM_TOL}")
     emit("sharded_family_check", **row)
@@ -3948,6 +3976,11 @@ def sharded_family_check(params, bundle, mesh, leaves: tuple, B: int,
     require({k: launches.get(k, 0) for k in FLASH_KEYS} == flash,
             f"sharded_families {bundle.arch_id}: flash launches "
             f"{launches}, want {flash}")
+    coll = row["collective_bytes"]
+    require(not (row["sp"] and coll["seq_sharded"]) or
+            coll["by_kind"].get("reduce-scatter", 0) > 0,
+            f"sharded_families {bundle.arch_id}: the sequence-sharded "
+            f"residual's reduce-scatter is missing: {coll}")
     return row
 
 
@@ -4248,7 +4281,7 @@ def recovery() -> dict:
             "flash_bwd_dq_simt", "flash_bwd_dkv_simt")}
 
     def want_flash(steps):
-        return {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+        return {"flash_fwd": L * steps, "flash_bwd_dq": L * steps,
                 "flash_bwd_dkv": L * steps, "flash_fwd_simt": 0,
                 "flash_bwd_dq_simt": 0, "flash_bwd_dkv_simt": 0}
 
@@ -4816,8 +4849,8 @@ def train_fleet() -> dict:
                             "flash_fwd_simt", "flash_bwd_dq_simt",
                             "flash_bwd_dkv_simt"))
                         and fl.get("flash_fwd", 0)
-                        == 2 * fl.get("flash_bwd_dq", 0)
-                        == 2 * fl.get("flash_bwd_dkv", 0),
+                        == fl.get("flash_bwd_dq", 0)
+                        == fl.get("flash_bwd_dkv", 0),
                         f"train_fleet {run['name']} rank {t}: worker "
                         f"launches {w}")
         # the steps each attempt runs: B's rank 1 dies at step 5 and
@@ -4879,14 +4912,15 @@ def nccl_world_one() -> dict:
     """(a) NCCL alone: ``init_process_group("nccl")`` at world 1, a (1, 1)
     process mesh, and each of ``ProcessRing``'s c10d paths applied
     directly (the ring skips a size-1 axis) to bf16 and f32 tensors on the
-    card: the sum (in f32), the all-gather, the all-to-all and a
-    ``batch_isend_irecv`` to itself; each result must equal its input bit
-    for bit."""
+    card: the sum (in f32), the all-gather, the reduce-scatter (in f32),
+    the all-to-all and a ``batch_isend_irecv`` to itself; each result must
+    equal its input bit for bit."""
     import os
 
     import torch.distributed as dist
     from repro_torch.parallel.mesh import (ProcessRing, _AllGather, _AllSum,
-                                           _AllToAll, make_process_mesh)
+                                           _AllToAll, _ReduceScatter,
+                                           make_process_mesh)
     os.environ.update(RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
                       MASTER_PORT=str(free_port()))
     torch.cuda.set_device(0)
@@ -4903,6 +4937,7 @@ def nccl_world_one() -> dict:
             ring._send_recv([x], [back], 0, 0)
             got = {"all_sum": _AllSum.apply(x, ring),
                    "all_gather": _AllGather.apply(x, 1, ring),
+                   "reduce_scatter": _ReduceScatter.apply(x, 1, ring),
                    "all_to_all": _AllToAll.apply(x, ring),
                    "send_recv_self": back}
             torch.cuda.synchronize()
@@ -4958,6 +4993,7 @@ def process_mesh_rank(out_dir: Path) -> dict:
     from repro_torch.launch import mesh as lmesh
     from repro_torch.launch import train as ltrain
     from repro_torch.launch.serve import build_engine
+    from repro_torch.models import layers
     from repro_torch.parallel.sharding import gather_leaf, tree_mesh
     lmesh.PRODUCTION_SHAPES.update(PROCESS_MESH_SHAPES)
     rank = int(os.environ["RANK"])
@@ -4966,19 +5002,47 @@ def process_mesh_rank(out_dir: Path) -> dict:
     start = [bundle.init_params(SEED, device="cuda")]
     before = _probes(lambda n: start[0][n] if n == "embed" else
                      start[0]["layers"][n])
-    held = {}
+    held, marks = {}, {}
+    # step 0's saved-for-backward bytes: what autograd's saved-tensor hooks
+    # see outside the remat units (each distinct tensor once, parameters
+    # not counted) and the units' own inputs (``layers.unit_inputs``)
+    outside = {"on": True, "seen": set(), "bytes": 0}
+
+    def pack(t):
+        if outside["on"] and not (t.is_leaf and t.requires_grad):
+            key = (t.untyped_storage().data_ptr(), t.storage_offset(),
+                   tuple(t.shape), t.dtype)
+            if key not in outside["seen"]:
+                outside["seen"].add(key)
+                outside["bytes"] += t.numel() * t.element_size()
+        return t
 
     def on_step(i, p, opt, m):
         if i == 0:
+            outside["on"] = False
+            marks["units"] = list(units)
             held.update(_held(opt["mu"], L, keep=rank == 0))
+        # the counter's totals after steps 0 and 1 (the held leaves'
+        # gathers in step 0's): step 1's collectives are their difference
+        if i < 2:
+            marks[i] = dict(coll.cost.collectives)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    out = ltrain.run(bundle, smoke=False, steps=PROCESS_MESH["steps"],
-                     seq_len=PROCESS_MESH["S"],
-                     global_batch=PROCESS_MESH["B"], microbatches=1,
-                     mesh_kind="single", params=start.pop(),
-                     on_step=on_step, log_every=100)
+    with CollectiveMode() as coll, layers.unit_inputs() as units, \
+            torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = ltrain.run(bundle, smoke=False, steps=PROCESS_MESH["steps"],
+                         seq_len=PROCESS_MESH["S"],
+                         global_batch=PROCESS_MESH["B"], microbatches=1,
+                         mesh_kind="single", params=start.pop(),
+                         on_step=on_step, log_every=100)
     train_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    D = cfg.d_model
+    unit_bytes = [sum(math.prod(sh) * dt.itemsize for sh, dt in seen)
+                  for seen in marks["units"]]
+    # each unit's residual rows: its saved (B_rank, rows, D) inputs
+    residual = [sum(math.prod(sh) for sh, dt in seen
+                    if dt.is_floating_point and len(sh) == 3
+                    and sh[-1] == D) for seen in marks["units"]]
     p = out["params"]
     mesh = tree_mesh(p)
     after = _probes(lambda n: gather_leaf(p[n] if n == "embed" else
@@ -4993,7 +5057,13 @@ def process_mesh_rank(out_dir: Path) -> dict:
                * (len(out["seconds"]) - 1) / sum(out["seconds"][1:]),
                params_moved=moved, opt_step=int(out["opt"]["step"]),
                train_launches=train_launches,
-               train_peak_bytes=torch.cuda.max_memory_allocated())
+               train_peak_bytes=torch.cuda.max_memory_allocated(),
+               collective_bytes_step1={k: int(v - marks[0].get(k, 0))
+                                       for k, v in marks[1].items()},
+               saved_bytes_step0=outside["bytes"] + sum(unit_bytes),
+               saved_outside_units_bytes=outside["bytes"],
+               unit_saved_bytes=unit_bytes,
+               residual_elems_per_unit=residual)
     if rank == 0:
         torch.save(held, out_dir / "held_r0.pt")
     del out, p, held, before, after
@@ -5251,7 +5321,12 @@ def process_mesh_phase() -> dict:
     t_compare = time.perf_counter() - t2
     loss_rel = abs(ranks[0]["losses"][0] - refs["loss_unsharded"]) / \
         abs(refs["loss_unsharded"])
-    want_flash = {"flash_fwd": 2 * L * PROCESS_MESH["steps"],
+    gbits = [r["grad_norm"] == refs["local"]["grad_norm"] for r in ranks]
+    (nd, m), _ = PROCESS_MESH_SHAPES[False]
+    # a process's rows of the residual: its B / d rows x S / m positions
+    want_res = PROCESS_MESH["B"] // nd * PROCESS_MESH["S"] // m * \
+        process_mesh_bundle().cfg.d_model
+    want_flash = {"flash_fwd": L * PROCESS_MESH["steps"],
                   "flash_bwd_dq": L * PROCESS_MESH["steps"],
                   "flash_bwd_dkv": L * PROCESS_MESH["steps"]}
     lg = None
@@ -5283,6 +5358,14 @@ def process_mesh_phase() -> dict:
         s_per_step=[r["s_per_step"] for r in ranks],
         tok_per_s_after_first=[r["tok_per_s_after_first"] for r in ranks],
         train_peak_bytes=[r["train_peak_bytes"] for r in ranks],
+        grad_norm_bit_equal_vs_local=gbits,
+        collective_bytes_step1=[r["collective_bytes_step1"] for r in ranks],
+        saved_bytes_step0=[r["saved_bytes_step0"] for r in ranks],
+        saved_outside_units_bytes=[r["saved_outside_units_bytes"]
+                                   for r in ranks],
+        residual_elems_per_unit=[r["residual_elems_per_unit"]
+                                 for r in ranks],
+        want_residual_elems=want_res,
         serve={mode: [{k: v for k, v in r["serve"][mode].items()
                        if k != "tokens"} for r in ranks]
                for mode, _ in PROCESS_MESH_MODES},
@@ -5308,6 +5391,17 @@ def process_mesh_phase() -> dict:
                    for r in ranks]))
     require(max(rel) < 1e-5,
             f"process_mesh: loss vs the local (2, 2) mesh: rel {rel}")
+    require(all(bits) and all(gbits),
+            f"process_mesh: losses {bits} and grad norms {gbits} not bit "
+            f"for bit the local (2, 2) mesh's")
+    require(all(r["residual_elems_per_unit"] == [want_res] * L
+                for r in ranks) and
+            all(r["collective_bytes_step1"].get("reduce-scatter", 0) > 0
+                for r in ranks),
+            f"process_mesh: each unit must keep its process's {want_res} "
+            f"residual elements and the step reduce-scatter: "
+            f"{[r['residual_elems_per_unit'] for r in ranks]} "
+            f"{[r['collective_bytes_step1'] for r in ranks]}")
     require(cos is not None and loss_rel < 1e-3 and
             all(c > 0.99 for c in cos.values()) and
             all(abs(x - 1.0) < NORM_TOL for x in ratio.values()),

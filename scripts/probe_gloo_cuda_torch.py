@@ -38,8 +38,8 @@ def _port() -> int:
 
 
 OPS = ("all_reduce", "all_reduce_max", "all_gather_into_tensor",
-       "all_gather", "all_to_all_single", "broadcast", "send_recv",
-       "batch_isend_irecv")
+       "all_gather", "reduce_scatter_tensor", "all_to_all_single",
+       "broadcast", "send_recv", "batch_isend_irecv")
 
 
 def _ops(rank: int, world: int, dev: torch.device, only=None,
@@ -81,6 +81,19 @@ def _ops(rank: int, world: int, dev: torch.device, only=None,
             os_ = [torch.empty_like(x) for _ in range(world)]
             dist.all_gather(os_, x)
             return all(bool((o == r).all()) for r, o in enumerate(os_))
+
+        def reduce_scatter_tensor():
+            # rank r contributes r + 1 at every element; chunk j of the
+            # sum lands on rank j, marked by its index
+            x = (torch.arange(world, dtype=dt, device=dev)[:, None]
+                 .expand(world, 4) * 0 + float(rank + 1)).contiguous()
+            x += torch.arange(world, dtype=dt, device=dev)[:, None]
+            o = x.new_empty((4,))
+            fn = getattr(dist, "reduce_scatter_single", None) or \
+                dist.reduce_scatter_tensor
+            fn(o, x.reshape(-1))
+            want = sum(range(1, world + 1)) + world * rank
+            return bool((o == want).all())
 
         def all_to_all_single():
             x = torch.arange(world * 2, dtype=dt, device=dev) + 100 * rank
@@ -127,6 +140,7 @@ def _ops(rank: int, world: int, dev: torch.device, only=None,
                          ("all_reduce_max", all_reduce_max),
                          ("all_gather_into_tensor", all_gather_into_tensor),
                          ("all_gather", all_gather_list),
+                         ("reduce_scatter_tensor", reduce_scatter_tensor),
                          ("all_to_all_single", all_to_all_single),
                          ("broadcast", broadcast),
                          ("send_recv", send_recv),

@@ -338,6 +338,25 @@ class CostMode(TorchDispatchMode):
         return out
 
 
+class CollectiveMode(CostMode):
+    """A :class:`CostMode` that counts the collectives alone (``cost.
+    collectives``; the rings' reports through :func:`collective`, and the
+    ``torch.distributed`` ops), every other op running as it is: a
+    step's collective bytes by kind on the card at a small part of the
+    full count's host time."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        ns = func.namespace
+        if ns in ("c10d", "_c10d_functional") and not self._inside:
+            table = _C10D if ns == "c10d" else _FUNCTIONAL
+            kind = table.get(func._opname, func._opname)
+            if kind is not None:
+                src = tree_leaves(args[0] if ns == "c10d" else out)
+                self._collective(kind, sum(_nbytes(t) for t in src))
+        return out
+
+
 def active() -> CostMode | None:
     """The innermost active :class:`CostMode`, or None."""
     for m in reversed(_get_current_dispatch_mode_stack()):

@@ -59,6 +59,7 @@ from ..analysis import kernel_work
 from ..analysis.op_cost import kernel as kernel_cost
 from ..core.cuda_bridge import SM_COUNT, pow2_floor
 from ..device import card_like
+from ..remat import keep
 from . import _build
 
 NEG_INF = -1e30  # avoid nan from (-inf) - (-inf)
@@ -989,8 +990,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention, the counterpart of the reference's
     custom VJP ``flash_attention_train``.  q: (B, H, Sq, D), k/v: (B, Hkv,
-    Sk, D).  The forward saves (q, k, v, o, lse) and the offsets; the
-    backward is :func:`flash_attention_bwd`, cast to the inputs' dtypes.
+    Sk, D).  The forward saves (q, k, v, o, lse) and the offsets, and
+    names (o, lse) ``"attn_out"`` (``repro_torch.remat.keep``: the
+    recompute of a unit that saves that name reuses them and launches
+    nothing); the backward is :func:`flash_attention_bwd`, cast to the
+    inputs' dtypes.
     On CUDA tensors each half launches its kernels (or raises) on the
     dense grid when ``prune`` is False; on meta tensors each takes the
     kernels' meta routes; on CPU tensors it runs the plain versions, at
@@ -1001,11 +1005,16 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, prune=True, blocks=None,
                 q_offset=0, k_offset=0):
         offs = dict(q_offset=q_offset, k_offset=k_offset)
-        with kernel_cost(functools.partial(
-                kernel_work.flash_fwd_of, q, k, causal=causal,
-                window=window, **offs)):
-            o, lse = flash_fwd_any(q, k, v, causal=causal, window=window,
-                                   prune=prune, blocks=blocks, **offs)
+
+        def run():
+            with kernel_cost(functools.partial(
+                    kernel_work.flash_fwd_of, q, k, causal=causal,
+                    window=window, **offs)):
+                return flash_fwd_any(q, k, v, causal=causal, window=window,
+                                     prune=prune, blocks=blocks, **offs)
+        # a remat unit that saves "attn_out" hands its recompute the
+        # forward's o and lse: no second launch
+        o, lse = keep("attn_out", run)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         ctx.prune, ctx.blocks, ctx.offs = prune, blocks, offs

@@ -53,6 +53,8 @@ import os
 import time
 import traceback
 
+import torch
+
 from repro_torch.analysis.op_cost import CostMode
 from repro_torch.analysis.roofline import (RooflineReport, collective_bytes,
                                            model_flops_decode,
@@ -129,7 +131,10 @@ def run_cell(arch: str, shape: str, mesh_name: str, *, force: bool = False,
     from repro_torch.obs import get_telemetry
     tel = get_telemetry()
     bundle = get_bundle(arch)
-    t0, c0 = time.time(), time.process_time()
+    # ``cpu_s`` is this thread's CPU time (the meta count and its backward
+    # run on the calling thread) with intra-op threads at one: no other
+    # thread's spinning, and so no load on the machine, counts in it
+    t0, c0 = time.time(), time.thread_time()
     result = {"arch": arch, "shape": shape, "mesh": mesh_name}
     if ring:
         result["ring"] = ring
@@ -138,6 +143,8 @@ def run_cell(arch: str, shape: str, mesh_name: str, *, force: bool = False,
         result.update(status="skipped", reason=why)
     else:
         prev_ring = os.environ.get("REPRO_RING_ATTN")
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
         try:
             if ring:
                 os.environ["REPRO_RING_ATTN"] = ring
@@ -191,7 +198,7 @@ def run_cell(arch: str, shape: str, mesh_name: str, *, force: bool = False,
                 status="ok",
                 chips=chips,
                 compile_s=round(time.time() - t0, 1),   # the count's wall
-                cpu_s=round(time.process_time() - c0, 1),
+                cpu_s=round(time.thread_time() - c0, 1),
                 flops=cost.flops,
                 hlo_bytes=cost.bytes,
                 collective_bytes=float(sum(coll.values())),
@@ -232,6 +239,7 @@ def run_cell(arch: str, shape: str, mesh_name: str, *, force: bool = False,
             print(f"[dryrun] {arch} x {shape} x {mesh_name}: "
                   f"FAIL {type(e).__name__}: {e}")
         finally:
+            torch.set_num_threads(threads)
             if ring:
                 if prev_ring is None:
                     os.environ.pop("REPRO_RING_ATTN", None)

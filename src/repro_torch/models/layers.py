@@ -24,12 +24,20 @@ and its top-k MoE MLP, Mamba-2, RecurrentGemma, Whisper):
     specs imply, and every family's placed body shares
     :func:`project_placed`, :func:`logits_placed` and the placed caches'
     helpers (:func:`kv_cut`, :func:`kv_values`, :func:`kv_views`) and
-    :func:`attn_out_placed`.
-    ``shard_seq`` / ``gather_seq`` are not ported.
+    :func:`attn_out_parts`.
+  * the placed train bodies carry the reference's Megatron-SP residual
+    stream (:func:`shard_seq` / :func:`gather_seq`): where the model axis
+    has more than one rank and divides the sequence, the residual between
+    blocks is each rank's rows (a list, one entry a held rank), the
+    normed rows are all-gathered before the projections, and the
+    row-parallel partial sums are reduce-scattered onto the rows
+    (:func:`add_partials`); elsewhere the residual is one replicated
+    tensor and the partials are all-reduced.
 """
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
 import math
 
@@ -37,6 +45,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch import remat as _remat
 from repro_torch.device import card_like
 from repro_torch.parallel import tensor_parallel as tp
 from repro_torch.parallel.mesh import LocalRing, get_mesh, set_mesh
@@ -69,22 +78,167 @@ def checkpoint(fn, *args, use_reentrant: bool, **kw):
         **kw)
 
 
-def remat_call(fn, *args):
-    """``fn(*args)``; with grad enabled, under ``torch.utils.checkpoint``
-    (the reference's per-layer ``remat``, on by default, under
-    ``nothing_saveable``): only the inputs are kept, and the backward runs
-    ``fn`` again, flash forward kernel (or ring) included, under the mesh
-    the forward saw (autograd may recompute on another thread, where the
-    active mesh is not set), keeping no RNG state (:func:`checkpoint`).
-    Serving paths run under ``torch.no_grad()`` and call ``fn`` plainly."""
-    if not torch.is_grad_enabled():
+_UNIT_INPUTS: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_unit_inputs", default=None)
+
+
+def _flatten(args: tuple) -> tuple[list, list]:
+    """``args`` with each list of tensors spread into its tensors, and the
+    list lengths (None for an argument kept whole) to rebuild them."""
+    flat, sizes = [], []
+    for a in args:
+        if isinstance(a, list) and a and all(isinstance(t, torch.Tensor)
+                                             for t in a):
+            flat.extend(a)
+            sizes.append(len(a))
+        else:
+            flat.append(a)
+            sizes.append(None)
+    return flat, sizes
+
+
+def _rebuild(flat: tuple, sizes: list) -> list:
+    out, i = [], 0
+    for n in sizes:
+        if n is None:
+            out.append(flat[i])
+            i += 1
+        else:
+            out.append(list(flat[i:i + n]))
+            i += n
+    return out
+
+
+def remat_call(fn, *args, remat: bool = True, save: tuple[str, ...] = ()):
+    """``fn(*args)``; with grad enabled and ``remat`` (the config's switch,
+    the reference's per-layer ``remat``, on by default), under
+    ``torch.utils.checkpoint``: the unit keeps its inputs (a list of
+    tensors in ``args``, a sequence-sharded residual, is handed to the
+    checkpoint tensor by tensor, so autograd's saved-tensor hooks see what
+    is kept) and the values of the :func:`repro_torch.remat.keep` calls
+    named in ``save`` (the reference's ``save_only_these_names``; none:
+    ``nothing_saveable``), and the backward runs ``fn`` again under the
+    mesh the forward saw (autograd may recompute on another thread,
+    where the active mesh is not set), keeping no RNG state
+    (:func:`checkpoint`).  Serving paths run under ``torch.no_grad()``
+    and call ``fn`` plainly, as ``remat=False`` does."""
+    if not (remat and torch.is_grad_enabled()):
         return fn(*args)
     mesh = get_mesh()
-    if mesh is None:
-        return checkpoint(fn, *args, use_reentrant=False)
-    return checkpoint(fn, *args, use_reentrant=False,
-                      context_fn=lambda: (contextlib.nullcontext(),
-                                          set_mesh(mesh)))
+    kept = _remat.Saved(save)
+    flat, sizes = _flatten(args)
+
+    def unit(*flat):
+        return fn(*_rebuild(flat, sizes))
+
+    @contextlib.contextmanager
+    def under(replay: bool):
+        with set_mesh(mesh), kept.active(replay):
+            yield
+
+    def contexts():
+        return under(False), under(True)
+
+    record, seen = _UNIT_INPUTS.get(), []
+    hooks = contextlib.nullcontext() if record is None else \
+        torch.autograd.graph.saved_tensors_hooks(
+            lambda t: seen.append((tuple(t.shape), t.dtype)) or t,
+            lambda t: t)
+    with hooks:
+        out = checkpoint(unit, *flat, use_reentrant=False,
+                         context_fn=contexts)
+    if record is not None:
+        record.append(seen)
+    return out
+
+
+@contextlib.contextmanager
+def unit_inputs():
+    """Inside the ``with`` block, each :func:`remat_call` under autograd
+    appends to the list this yields the (shape, dtype) of every tensor
+    autograd saved as the unit's inputs (through
+    ``torch.autograd.graph.saved_tensors_hooks``): what a checkpointed
+    layer keeps for its backward, a sequence-sharded residual's rows
+    among them."""
+    record: list[list] = []
+    token = _UNIT_INPUTS.set(record)
+    try:
+        yield record
+    finally:
+        _UNIT_INPUTS.reset(token)
+
+
+# ---------------------------------------------------------------------------
+# Megatron-SP: the sequence-sharded residual of the placed bodies
+# ---------------------------------------------------------------------------
+
+def shard_seq(x, ring):
+    """The reference's ``shard_seq`` on the port's explicit layout: the
+    residual cut over the ``model`` axis along the sequence, where the
+    axis (``ring``) has more than one rank and divides S of a (B, S, D)
+    value.  ``x`` is a replicated tensor (cut to each held rank's rows,
+    ``tensor_parallel.scatter_to_model``) or a list of per-rank partial
+    sums (reduce-scattered, each rank receiving its rows of the sum,
+    ``tensor_parallel.reduce_scatter_to_model``).  Returns the rows as a
+    list (one entry a held rank) or, where the rule does not hold, the
+    value replicated: ``x`` itself, or the partials' sum."""
+    parts = isinstance(x, list)
+    t = x[0] if parts else x
+    if ring.size == 1 or t.dim() != 3 or t.shape[1] % ring.size:
+        return tp.reduce_from_model(x, ring) if parts else x
+    if parts:
+        return tp.reduce_scatter_to_model(x, ring, 1)
+    return tp.scatter_to_model(x, ring, 1)
+
+
+def gather_seq(x, ring) -> list:
+    """The reference's ``gather_seq``: each held rank's input to a block's
+    projections, the whole sequence.  A sequence-sharded ``x`` (a list of
+    rows) is all-gathered (``tensor_parallel.gather_to_model``: the
+    backward reduce-scatters); a replicated one is each rank's copy
+    (``tensor_parallel.copy_to_model``)."""
+    if isinstance(x, list):
+        return tp.gather_to_model(x, ring, 1)
+    return tp.copy_to_model(x, ring)
+
+
+def seq_map(fn, x, ring, *replicated):
+    """``fn(x, *replicated)`` on a replicated ``x``, or on each rank's rows
+    of a sequence-sharded one with that rank's copy of each replicated
+    tensor (a norm's weight: on a process ring its cotangent is then
+    summed over the axis, ``tensor_parallel.copy_to_model``)."""
+    if not isinstance(x, list):
+        return fn(x, *replicated)
+    copies = [tp.copy_to_model(w, ring) for w in replicated]
+    return [fn(t, *(c[i] for c in copies)) for i, t in enumerate(x)]
+
+
+def rms_norm_seq(x, weight, ring, eps: float):
+    """rms_norm of a replicated or sequence-sharded ``x`` by a placed,
+    replicated ``weight`` (:func:`seq_map`)."""
+    return seq_map(lambda t, w: rms_norm(t, w, eps), x, ring, weight.at())
+
+
+def add_partials(x, parts: list, ring, bias=None):
+    """The residual ``x`` plus the row-parallel partials' sum (plus a
+    replicated ``bias``, added once after the sum), in ``x``'s layout: on
+    sequence-sharded rows the sum reduce-scattered (the reference's
+    ``x + shard_seq(delta)``), on a replicated ``x`` all-reduced."""
+    if not isinstance(x, list):
+        d = tp.reduce_from_model(parts, ring)
+        return x + (d if bias is None else d + bias)
+    ds = tp.reduce_scatter_to_model(parts, ring, 1)
+    if bias is not None:
+        ds = [d + b for d, b in zip(ds, tp.copy_to_model(bias, ring))]
+    return [a + d for a, d in zip(x, ds)]
+
+
+def add_rows(x, t: torch.Tensor, ring):
+    """``x`` plus a replicated (.., S, D) ``t`` broadcast over the batch,
+    in ``x``'s layout (each rank adding its rows of ``t``)."""
+    if not isinstance(x, list):
+        return x + t
+    return [a + b for a, b in zip(x, tp.scatter_to_model(t, ring, 1))]
 
 
 def seq_positions(S: int, device) -> torch.Tensor:
@@ -968,30 +1122,30 @@ def project_placed(hs: list, w, ring, gather: bool, bias=None) -> list:
     return tp.gather_to_model(out, ring, -1) if gather else out
 
 
-def attn_out_placed(wo, plan: HeadPlan, ring, outs: list) -> torch.Tensor:
+def attn_out_parts(wo, plan: HeadPlan, ring, outs: list) -> list:
     """The ranks' attention outputs (B, S, heads, Dh) through their rows
-    of ``wo`` (placed, cut on its rows), summed over the axis."""
-    parts = [out_features(plan, r, o) @ wo.at(model=r)
-             for r, o in zip(ring.index(), outs)]
-    return tp.reduce_from_model(parts, ring)
+    of ``wo`` (placed, cut on its rows): each rank's partial sum."""
+    return [out_features(plan, r, o) @ wo.at(model=r)
+            for r, o in zip(ring.index(), outs)]
 
 
-def logits_placed(x: torch.Tensor, w, ring,
-                  tied: bool = False) -> list[torch.Tensor]:
-    """Each model rank's logits over its vocab range from the replicated
-    final activations ``x``: ``x @ w`` of its (D, V / m) columns of an
+def logits_placed(x, w, ring, tied: bool = False) -> list[torch.Tensor]:
+    """Each model rank's logits over its vocab range from the final
+    activations ``x`` (replicated, or sequence-sharded rows gathered
+    first, :func:`gather_seq`): ``x @ w`` of its (D, V / m) columns of an
     output head, or, ``tied``, ``x @ w.T`` of its (V / m, D) rows of the
     embedding."""
     return [x_r @ (w.at(model=r).T if tied else w.at(model=r))
-            for r, x_r in zip(ring.index(), tp.copy_to_model(x, ring))]
+            for r, x_r in zip(ring.index(), gather_seq(x, ring))]
 
 
-def moe_layer_placed(x: torch.Tensor, params: dict, cfg: MoEConfig,
-                     ring) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_layer_placed(hs: list, params: dict, cfg: MoEConfig, ring,
+                     shard: bool = False) -> tuple[object, torch.Tensor]:
     """The MoE MLP on a placed state, over the ranks of ``ring`` (the
-    ``model`` axis): the branch the param specs imply.  ``x`` (B, S, D) is
-    replicated; ``params`` are placed (router replicated, the experts cut
-    by ``parallel.sharding.param_specs``).
+    ``model`` axis): the branch the param specs imply.  ``hs`` is each
+    held rank's whole (B, S, D) input (:func:`gather_seq`); ``params`` are
+    placed (router replicated, the experts cut by
+    ``parallel.sharding.param_specs``).
 
       * E divisible by the axis (experts on ``model``): expert
         parallelism, :func:`moe_ep_ranks`; each rank routes its S / m
@@ -1003,24 +1157,30 @@ def moe_layer_placed(x: torch.Tensor, params: dict, cfg: MoEConfig,
         outputs (rounded to x's dtype, as the reference's per-shard
         ``_moe_local``) summed.
 
+    With ``shard`` (a sequence-sharded residual, :func:`shard_seq`'s rule
+    holds) the output is each held rank's rows: the expert-parallel
+    ranks' own tokens as they are, the TP partials reduce-scattered.
     Returns (out, aux): aux the mean of the ranks' own terms."""
     n = ring.size
     E = cfg.n_experts
-    xs = tp.copy_to_model(x, ring)
+    xs = list(hs)
     routers = tp.copy_to_model(params["router"].at(), ring)
     idx = ring.index()
     wgs, wus, wds = ([params[k].at(model=r) for r in idx]
                      for k in ("w_gate", "w_up", "w_down"))
     if E % n == 0:
-        S = x.shape[1]
+        S = xs[0].shape[1]
         split = S % n == 0
         if split:
             xs = [x_r.narrow(1, r * (S // n), S // n)
                   for r, x_r in zip(idx, xs)]
         outs, auxs = moe_ep_ranks(xs, routers, wgs, wus, wds, cfg=cfg,
                                   ring=ring)
-        out = tp.gather_from_model(outs, ring, 1) if split else \
-            tp.reduce_from_model(outs, ring) / n
+        if shard:
+            out = outs
+        else:
+            out = tp.gather_from_model(outs, ring, 1) if split else \
+                tp.reduce_from_model(outs, ring) / n
     else:
         outs, auxs = [], []
         for x_r, router, wg, wu, wd in zip(xs, routers, wgs, wus, wds):
@@ -1028,5 +1188,6 @@ def moe_layer_placed(x: torch.Tensor, params: dict, cfg: MoEConfig,
                                     "w_up": wu, "w_down": wd}, cfg)
             outs.append(o)
             auxs.append(a)
-        out = tp.reduce_from_model(outs, ring)
+        out = tp.reduce_scatter_to_model(outs, ring, 1) if shard else \
+            tp.reduce_from_model(outs, ring)
     return out, tp.reduce_from_model(auxs, ring) / n

@@ -41,7 +41,8 @@ from repro_torch.device import resolve_device
 from repro_torch.parallel import tensor_parallel as tp
 from repro_torch.parallel.sharding import Placed
 
-from .layers import head_plan, logits_placed, remat_call, rms_norm, unstack
+from .layers import (add_partials, gather_seq, head_plan, logits_placed,
+                     remat_call, rms_norm, rms_norm_seq, shard_seq, unstack)
 
 # Pooled-serving slot layout (see serving/engine.py _write_slot): batch axis
 # of every cache entry.  SSM state caches are position-free, so padded
@@ -60,6 +61,10 @@ class Mamba2Config:
     expand: int = 2
     headdim: int = 64
     chunk: int = 128
+    remat: bool = True                # per-layer activation checkpointing
+    # the reference's sequence parallelism (placed state only), off by
+    # default as there: d_model 1024 leaves small per-rank shards
+    sp: bool = False
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
 
@@ -256,7 +261,7 @@ def forward(cfg: Mamba2Config, params: dict, tokens: torch.Tensor):
         return _forward_placed(cfg, params, tokens)
     x = F.embedding(tokens, params["embed"])
     for lp in unstack(params["layers"]):
-        x = remat_call(_layer_train, cfg, lp, x)
+        x = remat_call(_layer_train, cfg, lp, x, remat=cfg.remat)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x @ params["lm_head"], 0.0
 
@@ -387,11 +392,11 @@ class _RankMix:
 _REPLICATED = ("conv_w", "conv_b", "A_log", "dt_bias", "D_skip", "gnorm")
 
 
-def _ranks(cfg: Mamba2Config, lp: dict, h: torch.Tensor, ring, plan):
-    """Every held rank's :class:`_RankMix` of a layer for the replicated
-    input ``h``: the ``in_proj`` output all-gathered over the axis."""
+def _ranks(cfg: Mamba2Config, lp: dict, hs: list, ring, plan):
+    """Every held rank's :class:`_RankMix` of a layer for its input ``hs``
+    (:func:`layers.gather_seq`): the ``in_proj`` output all-gathered over
+    the axis."""
     idx = ring.index()
-    hs = tp.copy_to_model(h, ring)
     proj = tp.gather_to_model([h_r @ lp["in_proj"].at(model=r)
                                for r, h_r in zip(idx, hs)], ring, -1)
     reps = {n: tp.copy_to_model(lp[n].at(), ring) for n in _REPLICATED}
@@ -401,11 +406,11 @@ def _ranks(cfg: Mamba2Config, lp: dict, h: torch.Tensor, ring, plan):
 
 
 def _out_placed(cfg: Mamba2Config, lp: dict, ranks: list, ys: list,
-                xss: list, ring) -> torch.Tensor:
+                xss: list, ring) -> list:
     """The ranks' SSM outputs (B, L, h, P) f32 through the skip, the gate,
     ``gnorm`` over the whole Din (each rank's sum of squares over its own
-    features, summed over the axis) and their rows of ``out_proj``,
-    summed."""
+    features, summed over the axis) and their rows of ``out_proj``: each
+    rank's partial sum."""
     own, sums = [], []
     for rk, y, xs in zip(ranks, ys, xss):
         sh = rk.sh
@@ -422,16 +427,17 @@ def _out_placed(cfg: Mamba2Config, lp: dict, ranks: list, ys: list,
         inv = torch.rsqrt(total[i] / cfg.d_inner + cfg.norm_eps)
         y = (y * inv * rk.gnorm[sh.q_lo:sh.q_hi].float()).to(cfg.dtype)
         parts.append(y @ lp["out_proj"].at(model=r))
-    return tp.reduce_from_model(parts, ring)
+    return parts
 
 
-def _mix_seq_placed(cfg: Mamba2Config, lp: dict, h: torch.Tensor, ring,
+def _mix_seq_placed(cfg: Mamba2Config, lp: dict, hs: list, ring,
                     plan, states: bool = False):
-    """:func:`_mix_seq` on a placed layer.  -> out, or with ``states``
-    (out, each rank's conv state (B, d_conv - 1, its channels) and final
-    SSM state (B, its heads, P, N))."""
-    L = h.shape[1]
-    ranks = _ranks(cfg, lp, h, ring, plan)
+    """:func:`_mix_seq` on a placed layer from each rank's input ``hs``.
+    -> each rank's partial output, or with ``states`` (those, each rank's
+    conv state (B, d_conv - 1, its channels) and final SSM state (B, its
+    heads, P, N))."""
+    L = hs[0].shape[1]
+    ranks = _ranks(cfg, lp, hs, ring, plan)
     ys, xss, convs, finals = [], [], [], []
     for rk in ranks:
         xc, conv_state = _conv_seq(cfg, rk.conv_w, rk.conv_b, rk.xbc)
@@ -446,21 +452,29 @@ def _mix_seq_placed(cfg: Mamba2Config, lp: dict, h: torch.Tensor, ring,
 
 
 def _layer_train_placed(cfg: Mamba2Config, lp: dict, x, ring, plan):
-    h = rms_norm(x, lp["ln"].at(), cfg.norm_eps)
-    return x + _mix_seq_placed(cfg, lp, h, ring, plan)
+    """A placed layer in ``x``'s layout: with ``cfg.sp`` the normed rows
+    all-gathered at its entry and ``out_proj``'s sum reduce-scattered onto
+    them (the reference's ``gather_seq`` / ``shard_seq``)."""
+    hs = gather_seq(rms_norm_seq(x, lp["ln"], ring, cfg.norm_eps), ring)
+    return add_partials(x, _mix_seq_placed(cfg, lp, hs, ring, plan), ring)
 
 
 def _logits(cfg: Mamba2Config, params: dict, x, ring) -> list:
-    x = rms_norm(x, params["ln_f"].at(), cfg.norm_eps)
-    return logits_placed(x, params["lm_head"], ring)
+    return logits_placed(rms_norm_seq(x, params["ln_f"], ring, cfg.norm_eps),
+                         params["lm_head"], ring)
 
 
 def _forward_placed(cfg: Mamba2Config, params: dict, tokens: torch.Tensor):
-    """:func:`forward` on a placed state."""
+    """:func:`forward` on a placed state: with ``cfg.sp`` the residual
+    between layers each rank's rows of the sequence where the model axis
+    divides it (``layers.shard_seq``)."""
     ring, plan = _tp(cfg, params)
-    x = tp.vocab_embed(tokens, params["embed"], ring)
+    parts = tp.vocab_embed_parts(tokens, params["embed"], ring)
+    x = shard_seq(parts, ring) if cfg.sp else \
+        tp.reduce_from_model(parts, ring)
     for lp in unstack(params["layers"]):
-        x = remat_call(_layer_train_placed, cfg, lp, x, ring, plan)
+        x = remat_call(_layer_train_placed, cfg, lp, x, ring, plan,
+                       remat=cfg.remat)
     return tp.VocabShards(_logits(cfg, params, x, ring), ring,
                           cfg.vocab), 0.0
 
@@ -489,10 +503,10 @@ def _prefill_placed(cfg: Mamba2Config, params: dict, tokens: torch.Tensor,
     ring, plan = _tp(cfg, params)
     x = tp.vocab_embed(tokens, params["embed"], ring)
     for i, lp in enumerate(unstack(params["layers"])):
-        h = rms_norm(x, lp["ln"].at(), cfg.norm_eps)
-        o, convs, finals = _mix_seq_placed(cfg, lp, h, ring, plan,
-                                           states=True)
-        x = x + o
+        hs = gather_seq(rms_norm_seq(x, lp["ln"], ring, cfg.norm_eps), ring)
+        parts, convs, finals = _mix_seq_placed(cfg, lp, hs, ring, plan,
+                                               states=True)
+        x = add_partials(x, parts, ring)
         for r, conv_s, S in zip(ring.index(), convs, finals):
             sh = plan.shards[r]
             _conv_put(cfg, cache, i, sh, conv_s)
@@ -508,8 +522,8 @@ def _decode_step_placed(cfg: Mamba2Config, params: dict,
     ring, plan = _tp(cfg, params)
     x = tp.vocab_embed(tokens, params["embed"], ring)
     for i, lp in enumerate(unstack(params["layers"])):
-        h = rms_norm(x, lp["ln"].at(), cfg.norm_eps)
-        ranks = _ranks(cfg, lp, h, ring, plan)
+        hs = gather_seq(rms_norm_seq(x, lp["ln"], ring, cfg.norm_eps), ring)
+        ranks = _ranks(cfg, lp, hs, ring, plan)
         ys, xss, puts = [], [], []
         for r, rk in zip(ring.index(), ranks):
             sh = rk.sh
@@ -531,7 +545,7 @@ def _decode_step_placed(cfg: Mamba2Config, params: dict,
         for sh, win, state, new in puts:
             _conv_put(cfg, cache, i, sh, win)
             state.copy_(new)
-        x = x + _out_placed(cfg, lp, ranks, ys, xss, ring)
+        x = add_partials(x, _out_placed(cfg, lp, ranks, ys, xss, ring), ring)
     cache["length"].at().add_(1)
     logits = _logits(cfg, params, x, ring)
     return tp.gather_from_model(logits, ring, -1), cache

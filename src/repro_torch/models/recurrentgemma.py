@@ -47,11 +47,12 @@ from repro_torch.device import resolve_device
 from repro_torch.parallel import tensor_parallel as tp
 from repro_torch.parallel.sharding import Placed
 
-from .layers import (apply_rope, attention, attn_out_placed,
-                     decode_attention, expand_views, geglu, gelu, head_plan,
-                     heads_of, kv_cut, kv_heads_of, kv_of, kv_values,
-                     kv_views, logits_placed, project_placed, remat_call,
-                     rms_norm, seq_positions, unstack)
+from .layers import (add_partials, apply_rope, attention, attn_out_parts,
+                     decode_attention, expand_views, gather_seq, geglu,
+                     gelu, head_plan, heads_of, kv_cut, kv_heads_of, kv_of,
+                     kv_values, kv_views, logits_placed, project_placed,
+                     remat_call, rms_norm, rms_norm_seq, seq_positions,
+                     shard_seq, unstack)
 
 RG_LRU_C = 8.0
 
@@ -74,6 +75,7 @@ class RGConfig:
     conv_width: int = 4
     rope_theta: float = 1e4
     norm_eps: float = 1e-6
+    remat: bool = True                # per-unit activation checkpointing
     dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "auto"           # auto | xla | pallas (flash policy)
 
@@ -293,9 +295,9 @@ def forward(cfg: RGConfig, params: dict, tokens: torch.Tensor):
     positions = seq_positions(tokens.shape[1], x.device)
     for rec2, attnp in _groups(params):
         x = remat_call(_group_train, cfg, x, rec2, attnp,
-                       positions)
+                       positions, remat=cfg.remat)
     for lp in unstack(params["rec_tail"]):
-        x = remat_call(_tail_train, cfg, x, lp)
+        x = remat_call(_tail_train, cfg, x, lp, remat=cfg.remat)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x @ params["lm_head"], 0.0
 
@@ -417,14 +419,14 @@ def _tp(cfg: RGConfig, params: dict):
     return ring, head_plan(cfg.n_heads, cfg.n_kv_heads, cfg.dh, ring.size)
 
 
-def _rec_mixer_placed(cfg: RGConfig, lp: dict, x, ring, conv_states=None,
-                      lru_states=None):
-    """:func:`_rec_mixer` on a placed block: each rank's W slice (module
-    docstring); ``conv_states`` / ``lru_states`` each rank's (decode).
-    -> (out, each rank's new conv state, each rank's new LRU state)."""
+def _rec_mixer_placed(cfg: RGConfig, lp: dict, xs: list, ring,
+                      conv_states=None, lru_states=None):
+    """:func:`_rec_mixer` on a placed block from each rank's input ``xs``
+    (:func:`layers.gather_seq`): each rank's W slice (module docstring);
+    ``conv_states`` / ``lru_states`` each rank's (decode).  -> (each
+    rank's partial output, its new conv state, its new LRU state)."""
     idx = ring.index()
     W = cfg.lru_width
-    xs = tp.copy_to_model(x, ring)
     cws = tp.copy_to_model(lp["conv_w"].at(), ring)
     lams = tp.copy_to_model(lp["lam"].at(), ring)
     cuts = [tp.vocab_range(W, ring.size, r) for r in idx]
@@ -447,32 +449,37 @@ def _rec_mixer_placed(cfg: RGConfig, lp: dict, x, ring, conv_states=None,
                       None if lru_states is None else lru_states[i])
         outs.append((h * gates[i]).to(cfg.dtype) @ lp["w_out"].at(model=r))
         lrus.append(lru)
-    return tp.reduce_from_model(outs, ring), convs, lrus
+    return outs, convs, lrus
 
 
 def _mlp_placed(cfg: RGConfig, lp: dict, x, ring):
-    """:func:`_mlp` column- then row-parallel."""
-    h = rms_norm(x, lp["ln2"].at(), cfg.norm_eps)
+    """:func:`_mlp` column- then row-parallel, in ``x``'s layout."""
+    hs = gather_seq(rms_norm_seq(x, lp["ln2"], ring, cfg.norm_eps), ring)
     parts = [geglu(h_r, lp["mlp_gate"].at(model=r), lp["mlp_up"].at(model=r),
                    lp["mlp_down"].at(model=r))
-             for r, h_r in zip(ring.index(), tp.copy_to_model(h, ring))]
-    return x + tp.reduce_from_model(parts, ring)
+             for r, h_r in zip(ring.index(), hs)]
+    return add_partials(x, parts, ring)
 
 
 def _rec_block_placed(cfg: RGConfig, lp: dict, x, ring, conv_states=None,
                       lru_states=None):
-    h = rms_norm(x, lp["ln1"].at(), cfg.norm_eps)
-    o, convs, lrus = _rec_mixer_placed(cfg, lp, h, ring, conv_states,
-                                       lru_states)
-    return _mlp_placed(cfg, lp, x + o, ring), convs, lrus
+    """:func:`_rec_block` on a placed block, in ``x``'s layout: the
+    normed input all-gathered at the block's entry (the reference's
+    ``gather_seq``), each row-parallel sum reduce-scattered onto a
+    sequence-sharded ``x``."""
+    hs = gather_seq(rms_norm_seq(x, lp["ln1"], ring, cfg.norm_eps), ring)
+    outs, convs, lrus = _rec_mixer_placed(cfg, lp, hs, ring, conv_states,
+                                          lru_states)
+    return _mlp_placed(cfg, lp, add_partials(x, outs, ring), ring), \
+        convs, lrus
 
 
-def _qkv_placed(cfg: RGConfig, lp: dict, h, positions, ring, plan,
+def _qkv_placed(cfg: RGConfig, lp: dict, hs: list, positions, ring, plan,
                 all_kv: bool = False):
-    """Each rank's (q, k, v), rotated: q its heads, k / v its kv heads (or
-    every kv head with ``all_kv``, the serving writes), from the
-    projections all-gathered where a head straddles ranks."""
-    hs = tp.copy_to_model(h, ring)
+    """Each rank's (q, k, v), rotated, from its input ``hs``: q its heads,
+    k / v its kv heads (or every kv head with ``all_kv``, the serving
+    writes), from the projections all-gathered where a head straddles
+    ranks."""
     q = project_placed(hs, lp["wq"], ring, plan.gather_q)
     k = project_placed(hs, lp["wk"], ring, plan.gather_kv)
     v = project_placed(hs, lp["wv"], ring, plan.gather_kv)
@@ -488,16 +495,17 @@ def _qkv_placed(cfg: RGConfig, lp: dict, h, positions, ring, plan,
 
 def _attn_block_placed(cfg: RGConfig, lp: dict, x, positions, ring, plan,
                        all_kv: bool = False):
-    """:func:`_attn_block` on a placed block: each rank's q heads through
-    the flash path (``ring="off"``: the ranks split heads).  -> (out, each
-    rank's k, v: its kv heads, or every kv head with ``all_kv``)."""
-    h = rms_norm(x, lp["ln1"].at(), cfg.norm_eps)
-    qkv = _qkv_placed(cfg, lp, h, positions, ring, plan, all_kv)
+    """:func:`_attn_block` on a placed block, in ``x``'s layout: each
+    rank's q heads through the flash path (``ring="off"``: the ranks
+    split heads) over the gathered whole sequence.  -> (out, each rank's
+    k, v: its kv heads, or every kv head with ``all_kv``)."""
+    hs = gather_seq(rms_norm_seq(x, lp["ln1"], ring, cfg.norm_eps), ring)
+    qkv = _qkv_placed(cfg, lp, hs, positions, ring, plan, all_kv)
     outs = [attention(q, kv_of(plan, r, k, all_kv), kv_of(plan, r, v, all_kv),
                       causal=True, window=cfg.window, impl=cfg.attn_impl,
                       ring="off")
             for r, (q, k, v) in zip(ring.index(), qkv)]
-    x = x + attn_out_placed(lp["wo"], plan, ring, outs)
+    x = add_partials(x, attn_out_parts(lp["wo"], plan, ring, outs), ring)
     return _mlp_placed(cfg, lp, x, ring), [(k, v) for _, k, v in qkv]
 
 
@@ -513,20 +521,24 @@ def _tail_train_placed(cfg: RGConfig, x, lp: dict, ring):
 
 
 def _logits(cfg: RGConfig, params: dict, x, ring) -> list:
-    x = rms_norm(x, params["ln_f"].at(), cfg.norm_eps)
-    return logits_placed(x, params["lm_head"], ring)
+    return logits_placed(rms_norm_seq(x, params["ln_f"], ring, cfg.norm_eps),
+                         params["lm_head"], ring)
 
 
 def _forward_placed(cfg: RGConfig, params: dict, tokens: torch.Tensor):
-    """:func:`forward` on a placed state."""
+    """:func:`forward` on a placed state: the residual between the units
+    each rank's rows of the sequence where the model axis divides it
+    (``layers.shard_seq``), as the reference's groups and tail layers
+    return it."""
     ring, plan = _tp(cfg, params)
-    x = tp.vocab_embed(tokens, params["embed"], ring)
-    positions = seq_positions(tokens.shape[1], x.device)
+    x = shard_seq(tp.vocab_embed_parts(tokens, params["embed"], ring), ring)
+    positions = seq_positions(tokens.shape[1], tokens.device)
     for rec2, attnp in _groups(params):
         x = remat_call(_group_train_placed, cfg, x, rec2, attnp, positions,
-                       ring, plan)
+                       ring, plan, remat=cfg.remat)
     for lp in unstack(params["rec_tail"]):
-        x = remat_call(_tail_train_placed, cfg, x, lp, ring)
+        x = remat_call(_tail_train_placed, cfg, x, lp, ring,
+                       remat=cfg.remat)
     return tp.VocabShards(_logits(cfg, params, x, ring), ring,
                           cfg.vocab), 0.0
 
@@ -600,8 +612,9 @@ def _decode_step_placed(cfg: RGConfig, params: dict, tokens: torch.Tensor,
         for j, lp in enumerate(rec2):
             x = _rec_step_placed(cfg, lp, x, cache, ring, "conv_g", "lru_g",
                                  (g, j), decode=True)
-        h = rms_norm(x, attnp["ln1"].at(), cfg.norm_eps)
-        qkv = _qkv_placed(cfg, attnp, h, positions, ring, plan,
+        hs = gather_seq(rms_norm_seq(x, attnp["ln1"], ring, cfg.norm_eps),
+                        ring)
+        qkv = _qkv_placed(cfg, attnp, hs, positions, ring, plan,
                           all_kv=cut != "heads")
         for r, (_, k, v) in zip(idx, qkv):
             for n, new in kv_values(cache, k, v, r, cut, ring).items():
@@ -611,7 +624,8 @@ def _decode_step_placed(cfg: RGConfig, params: dict, tokens: torch.Tensor,
                                                       cut)):
             pg = expand_views(plan, r, pg)
             outs.append(decode_attention(q, pg["k"], pg["v"], n_valid))
-        x = x + attn_out_placed(attnp["wo"], plan, ring, outs)
+        x = add_partials(x, attn_out_parts(attnp["wo"], plan, ring, outs),
+                         ring)
         x = _mlp_placed(cfg, attnp, x, ring)
     for t, lp in enumerate(unstack(params["rec_tail"])):
         x = _rec_step_placed(cfg, lp, x, cache, ring, "conv_t", "lru_t",

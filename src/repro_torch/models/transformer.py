@@ -40,12 +40,14 @@ from repro_torch.device import resolve_device
 from repro_torch.parallel import tensor_parallel as tp
 from repro_torch.parallel.sharding import Placed
 
-from .layers import (MoEConfig, apply_rope, attention, attn_out_placed,
-                     decode_attention, expand_kv, expand_views, head_plan,
-                     heads_of, kv_cut, kv_heads_of, kv_of, kv_values,
-                     kv_views, moe_layer, moe_layer_placed,
-                     paged_decode_attention, project_placed, remat_call,
-                     seq_positions, quantize_kv, rms_norm, swiglu, unstack)
+from .layers import (MoEConfig, add_partials, apply_rope, attention,
+                     attn_out_parts, decode_attention, expand_kv,
+                     expand_views, gather_seq, head_plan, heads_of, kv_cut,
+                     kv_heads_of, kv_of, kv_values, kv_views, moe_layer,
+                     moe_layer_placed, paged_decode_attention,
+                     project_placed, remat_call, seq_positions,
+                     shard_seq, quantize_kv, rms_norm, rms_norm_seq,
+                     swiglu, unstack)
 
 # Serving-engine capability flags (see configs/base.py and
 # serving/engine.py): prefill accepts ``true_lengths`` for length-bucketed
@@ -54,6 +56,10 @@ from .layers import (MoEConfig, apply_rope, attention, attn_out_placed,
 PREFILL_TRUE_LENGTHS = True
 SUPPORTS_PAGED_KV = True
 CACHE_BATCH_AXES = {"k": 1, "v": 1, "k_scale": 1, "v_scale": 1, "length": 0}
+
+# what a layer's recompute keeps (the reference's remat policy,
+# ``save_only_these_names("attn_out")``): the flash forward's o and lse
+SAVED = ("attn_out",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +78,7 @@ class TransformerConfig:
     norm_eps: float = 1e-6
     moe: MoEConfig | None = None
     window: int | None = None         # sliding-window attention (None = full)
+    remat: bool = True                # per-layer activation checkpointing
     vision_tokens: int = 0            # VLM prefix length (stub frontend)
     dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "auto"           # auto | xla | pallas (flash policy)
@@ -214,12 +221,13 @@ def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     layers' aux losses summed (0.0 for a dense config).  For VLM configs,
     ``vision_embeds`` (B, P, D) is prepended (S = P + S_text).
 
-    With grad enabled each layer runs under ``torch.utils.checkpoint``
-    (:func:`layers.remat_call`, the reference's ``remat``): only its input
-    is kept, and the backward recomputes it, aux included; at full width
-    nothing else fits beside the optimizer state.  (The reference also
-    saves the attention output across the recompute; here the flash
-    forward runs again.)  On a placed state the logits come back as each
+    With grad enabled and ``cfg.remat`` each layer runs under
+    ``torch.utils.checkpoint`` (:func:`layers.remat_call`, the reference's
+    ``remat``): it keeps its input and, as the reference's policy names it,
+    its attention output (:data:`SAVED`: the flash forward's o and lse, so
+    the recompute launches no flash forward), and the backward recomputes
+    the rest, aux included; at full width nothing else fits beside the
+    optimizer state.  On a placed state the logits come back as each
     model rank's vocab range (module docstring)."""
     if placed(params):
         return _forward_placed(cfg, params, tokens, vision_embeds)
@@ -227,7 +235,8 @@ def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     positions = seq_positions(x.shape[1], x.device)
     aux = 0.0
     for lp in unstack(params["layers"]):
-        x, a = remat_call(_block_train, cfg, x, lp, positions)
+        x, a = remat_call(_block_train, cfg, x, lp, positions,
+                          remat=cfg.remat, save=SAVED)
         aux = aux + a
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x @ params["lm_head"], aux
@@ -482,14 +491,14 @@ def _tp(cfg: TransformerConfig, params: dict):
     return ring, head_plan(cfg.n_heads, cfg.n_kv_heads, cfg.dh, ring.size)
 
 
-def _qkv_placed(cfg: TransformerConfig, lp: dict, h: torch.Tensor,
+def _qkv_placed(cfg: TransformerConfig, lp: dict, hs: list,
                 positions, ring, plan, all_kv: bool = False):
     """Each model rank's (q, k, v), per rank: q its heads (B, S, h1 - h0,
     Dh), k / v its kv heads, normed and rotated, from its output features
-    (gathered over the axis first where a head straddles ranks).  With
+    of its input ``hs`` (:func:`layers.gather_seq`: the whole sequence),
+    gathered over the axis first where a head straddles ranks.  With
     ``all_kv`` a rank whose projections were gathered keeps every kv head
     (the serving writes: a rank's cache holds a head_dim slice of each)."""
-    hs = tp.copy_to_model(h, ring)
     proj = {name: project_placed(
         hs, lp["w" + name], ring,
         plan.gather_q if name == "q" else plan.gather_kv,
@@ -510,54 +519,80 @@ def _qkv_placed(cfg: TransformerConfig, lp: dict, h: torch.Tensor,
     return res
 
 
-def _mlp_placed(cfg: TransformerConfig, lp: dict, x: torch.Tensor, ring):
-    """The MLP on a placed state: swiglu column- then row-parallel, or the
-    MoE's placed branch.  -> (out, aux)."""
-    h = rms_norm(x, lp["ln2"].at(), cfg.norm_eps)
+def _mlp_placed(cfg: TransformerConfig, lp: dict, x, ring):
+    """The MLP block on a placed state, in ``x``'s layout (replicated, or
+    each rank's rows of the sequence): ``x`` plus swiglu column- then
+    row-parallel, or plus the MoE's placed branch.  -> (x + out, aux)."""
+    hs = gather_seq(rms_norm_seq(x, lp["ln2"], ring, cfg.norm_eps), ring)
     if cfg.moe:
-        return moe_layer_placed(h, lp, cfg.moe, ring)
+        sharded = isinstance(x, list)
+        mo, aux = moe_layer_placed(hs, lp, cfg.moe, ring, shard=sharded)
+        return ([a + b for a, b in zip(x, mo)] if sharded else x + mo), aux
     parts = [swiglu(h_r, lp["w_gate"].at(model=r), lp["w_up"].at(model=r),
                     lp["w_down"].at(model=r))
-             for r, h_r in zip(ring.index(), tp.copy_to_model(h, ring))]
-    return tp.reduce_from_model(parts, ring), 0.0
+             for r, h_r in zip(ring.index(), hs)]
+    return add_partials(x, parts, ring), 0.0
 
 
-def _block_train_placed(cfg: TransformerConfig, x: torch.Tensor, lp: dict,
+def _block_train_placed(cfg: TransformerConfig, x, lp: dict,
                         positions: torch.Tensor, ring, plan):
-    """:func:`_block_train` on a placed layer: -> (output, aux)."""
-    h = rms_norm(x, lp["ln1"].at(), cfg.norm_eps)
+    """:func:`_block_train` on a placed layer: -> (output, aux).  The
+    reference's Megatron-SP sites: the normed input all-gathered before
+    the projections (``gather_seq``), each row-parallel sum
+    reduce-scattered onto a sequence-sharded ``x`` (``shard_seq``), or
+    all-reduced onto a replicated one."""
+    hs = gather_seq(rms_norm_seq(x, lp["ln1"], ring, cfg.norm_eps), ring)
     outs = [attention(q, expand_kv(plan, r, k), expand_kv(plan, r, v),
                       causal=True, window=cfg.window, impl=cfg.attn_impl,
                       ring="off")
             for r, (q, k, v) in zip(ring.index(), _qkv_placed(
-                cfg, lp, h, positions, ring, plan))]
-    x = x + attn_out_placed(lp["wo"], plan, ring, outs)
-    mo, aux = _mlp_placed(cfg, lp, x, ring)
-    return x + mo, aux
+                cfg, lp, hs, positions, ring, plan))]
+    x = add_partials(x, attn_out_parts(lp["wo"], plan, ring, outs), ring)
+    return _mlp_placed(cfg, lp, x, ring)
 
 
-def _logits_placed(cfg: TransformerConfig, params: dict, x: torch.Tensor,
-                   ring) -> list[torch.Tensor]:
-    """Each rank's logits over its vocab range from the final norm."""
-    x = rms_norm(x, params["ln_f"].at(), cfg.norm_eps)
-    return [x_r @ params["lm_head"].at(model=r)
-            for r, x_r in zip(ring.index(), tp.copy_to_model(x, ring))]
+def _embed_parts(params: dict, tokens: torch.Tensor, vision_embeds,
+                 ring) -> list:
+    """Each held rank's partial of the embedded input: its vocabulary
+    range's rows (``tensor_parallel.vocab_embed_parts``), after a VLM's
+    ``vision_embeds`` prefix on rank 0 and zeros on the others (the sum
+    is exact)."""
+    parts = tp.vocab_embed_parts(tokens, params["embed"], ring)
+    if vision_embeds is None:
+        return parts
+    v = vision_embeds.to(parts[0].dtype)
+    return [torch.cat([v if r == 0 else torch.zeros_like(v), p], dim=1)
+            for r, p in zip(ring.index(), parts)]
+
+
+def _logits_placed(cfg: TransformerConfig, params: dict, x, ring,
+                   pick=None) -> list[torch.Tensor]:
+    """Each rank's logits over its vocab range from the final norm (on
+    each rank's rows of a sequence-sharded ``x``, gathered whole before
+    the head); ``pick`` takes rows of the whole (B, S, D) first."""
+    hs = gather_seq(rms_norm_seq(x, params["ln_f"], ring, cfg.norm_eps), ring)
+    if pick is not None:
+        hs = [pick(h) for h in hs]
+    return [h @ params["lm_head"].at(model=r)
+            for r, h in zip(ring.index(), hs)]
 
 
 def _forward_placed(cfg: TransformerConfig, params: dict,
                     tokens: torch.Tensor, vision_embeds):
     """:func:`forward` on a placed state (module docstring).  The model
     axis's ranks split heads, so attention takes no context-parallel path
-    of an active mesh (``ring="off"``)."""
+    of an active mesh (``ring="off"``).  Where the axis divides S the
+    residual between layers is each rank's rows (``layers.shard_seq``),
+    and that is what a layer keeps for its recompute."""
     ring, plan = _tp(cfg, params)
-    x = tp.vocab_embed(tokens, params["embed"], ring)
-    if vision_embeds is not None:
-        x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
-    positions = seq_positions(x.shape[1], x.device)
+    x = shard_seq(_embed_parts(params, tokens, vision_embeds, ring), ring)
+    S = tokens.shape[1] + (0 if vision_embeds is None else
+                           vision_embeds.shape[1])
+    positions = seq_positions(S, tokens.device)
     aux = 0.0
     for lp in unstack(params["layers"]):
         x, a = remat_call(_block_train_placed, cfg, x, lp, positions, ring,
-                          plan)
+                          plan, remat=cfg.remat, save=SAVED)
         aux = aux + a
     logits = _logits_placed(cfg, params, x, ring)
     return tp.VocabShards(logits, ring, cfg.vocab), aux
@@ -566,39 +601,47 @@ def _forward_placed(cfg: TransformerConfig, params: dict,
 def _prefill_placed(cfg: TransformerConfig, params: dict,
                     tokens: torch.Tensor, cache: dict, vision_embeds,
                     true_lengths):
-    """:func:`prefill` on a placed state and cache."""
+    """:func:`prefill` on a placed state and cache: the residual
+    sequence-sharded between layers where the axis divides S, as the
+    train body's (each rank's K/V written from the gathered whole
+    sequence)."""
     ring, plan = _tp(cfg, params)
     idx = ring.index()
     cut = kv_cut(cache["k"])
     all_kv = cut != "heads"
-    x = tp.vocab_embed(tokens, params["embed"], ring)
-    if vision_embeds is not None:
-        x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
-    B, S, _ = x.shape
-    positions = seq_positions(S, x.device)
+    x = shard_seq(_embed_parts(params, tokens, vision_embeds, ring), ring)
+    B = tokens.shape[0]
+    S = tokens.shape[1] + (0 if vision_embeds is None else
+                           vision_embeds.shape[1])
+    positions = seq_positions(S, tokens.device)
     for i, lp in enumerate(unstack(params["layers"])):
-        h = rms_norm(x, lp["ln1"].at(), cfg.norm_eps)
+        hs = gather_seq(rms_norm_seq(x, lp["ln1"], ring, cfg.norm_eps), ring)
         outs = []
         for r, (q, k, v) in zip(idx, _qkv_placed(
-                cfg, lp, h, positions, ring, plan, all_kv=all_kv)):
+                cfg, lp, hs, positions, ring, plan, all_kv=all_kv)):
             for n, val in kv_values(cache, k, v, r, cut, ring).items():
                 cache[n].at(model=r)[i, :, :S] = val
             outs.append(attention(
                 q, kv_of(plan, r, k, all_kv), kv_of(plan, r, v, all_kv),
                 causal=True, window=cfg.window, impl=cfg.attn_impl,
                 ring="off"))
-        x = x + attn_out_placed(lp["wo"], plan, ring, outs)
-        x = x + _mlp_placed(cfg, lp, x, ring)[0]
+        x = add_partials(x, attn_out_parts(lp["wo"], plan, ring, outs),
+                         ring)
+        x = _mlp_placed(cfg, lp, x, ring)[0]
     length = cache["length"].at()
     if true_lengths is None:
         length.fill_(S)
-        last = x[:, -1:]
+
+        def pick(h):
+            return h[:, -1:]
     else:
         length.copy_(true_lengths.to(torch.int32))
-        last = x[torch.arange(B, device=x.device),
-                 true_lengths.long() - 1][:, None]
-    logits = tp.gather_from_model(_logits_placed(cfg, params, last, ring),
-                                  ring, -1)
+        rows = torch.arange(B, device=tokens.device)
+
+        def pick(h):
+            return h[rows, true_lengths.long() - 1][:, None]
+    logits = tp.gather_from_model(
+        _logits_placed(cfg, params, x, ring, pick), ring, -1)
     return logits, cache
 
 
@@ -615,8 +658,8 @@ def _decode_step_placed(cfg: TransformerConfig, params: dict,
     rows = torch.arange(B, device=x.device)
     pos = torch.clamp(length.long(), max=cache["k"].shape[2] - 1)
     for i, lp in enumerate(unstack(params["layers"])):
-        h = rms_norm(x, lp["ln1"].at(), cfg.norm_eps)
-        qkv = _qkv_placed(cfg, lp, h, positions, ring, plan,
+        hs = gather_seq(rms_norm_seq(x, lp["ln1"], ring, cfg.norm_eps), ring)
+        qkv = _qkv_placed(cfg, lp, hs, positions, ring, plan,
                           all_kv=cut != "heads")
         for r, (q, k, v) in zip(idx, qkv):
             for n, val in kv_values(cache, k, v, r, cut, ring).items():
@@ -628,8 +671,9 @@ def _decode_step_placed(cfg: TransformerConfig, params: dict,
             outs.append(decode_attention(q, pg["k"], pg["v"], length + 1,
                                          pg.get("k_scale"),
                                          pg.get("v_scale")))
-        x = x + attn_out_placed(lp["wo"], plan, ring, outs)
-        x = x + _mlp_placed(cfg, lp, x, ring)[0]
+        x = add_partials(x, attn_out_parts(lp["wo"], plan, ring, outs),
+                         ring)
+        x = _mlp_placed(cfg, lp, x, ring)[0]
     length += 1
     logits = tp.gather_from_model(_logits_placed(cfg, params, x, ring),
                                   ring, -1)
@@ -669,8 +713,8 @@ def _paged_step_placed(cfg: TransformerConfig, params: dict,
         dst[phys, off] = val
 
     for i, lp in enumerate(unstack(params["layers"])):
-        h = rms_norm(x, lp["ln1"].at(), cfg.norm_eps)
-        qkv = _qkv_placed(cfg, lp, h, positions, ring, plan, all_kv=all_kv)
+        hs = gather_seq(rms_norm_seq(x, lp["ln1"], ring, cfg.norm_eps), ring)
+        qkv = _qkv_placed(cfg, lp, hs, positions, ring, plan, all_kv=all_kv)
         for r, (q, k, v) in zip(idx, qkv):
             for n, val in kv_values(pool, k, v, r, cut, ring).items():
                 put(pool[n].at(model=r)[i], val)
@@ -681,8 +725,9 @@ def _paged_step_placed(cfg: TransformerConfig, params: dict,
             outs.append(paged_decode_attention(
                 q, pg["k"], pg["v"], page_table, lengths, pg.get("k_scale"),
                 pg.get("v_scale"), impl=impl))
-        x = x + attn_out_placed(lp["wo"], plan, ring, outs)
-        x = x + _mlp_placed(cfg, lp, x, ring)[0]
+        x = add_partials(x, attn_out_parts(lp["wo"], plan, ring, outs),
+                         ring)
+        x = _mlp_placed(cfg, lp, x, ring)[0]
     logits = tp.gather_from_model(_logits_placed(cfg, params, x, ring),
                                   ring, -1)
     return logits, pool, lengths + counts

@@ -42,11 +42,11 @@ from repro_torch.device import resolve_device
 from repro_torch.parallel import tensor_parallel as tp
 from repro_torch.parallel.sharding import Placed
 
-from .layers import (attention, attn_out_placed, decode_attention,
-                     expand_views, gelu, gelu_mlp, head_plan, heads_of,
-                     kv_cut, kv_heads_of, kv_of, kv_values, kv_views,
-                     layer_norm, logits_placed, project_placed, remat_call,
-                     unstack)
+from .layers import (add_partials, add_rows, attention, attn_out_parts,
+                     decode_attention, expand_views, gather_seq, gelu,
+                     gelu_mlp, head_plan, heads_of, kv_cut, kv_heads_of,
+                     kv_of, kv_values, kv_views, layer_norm, logits_placed,
+                     project_placed, remat_call, seq_map, shard_seq, unstack)
 
 # Pooled-serving slot layout (see serving/engine.py _write_slot): batch axis
 # of every cache entry, including the encoder cross-attention K/V.
@@ -64,6 +64,7 @@ class WhisperConfig:
     n_audio_ctx: int = 1500
     max_text_ctx: int = 448
     norm_eps: float = 1e-5
+    remat: bool = True                # per-layer activation checkpointing
     dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "auto"           # auto | xla | pallas (flash policy)
 
@@ -160,18 +161,18 @@ def encode(cfg: WhisperConfig, params: dict,
     grad enabled each layer runs under ``torch.utils.checkpoint``
     (:func:`layers.remat_call`).  On a placed state each layer runs its
     placed body (module docstring); the output is replicated."""
-    x = frames.to(cfg.dtype) + _sinusoidal(
-        frames.shape[1], cfg.d_model, frames.device).to(cfg.dtype)[None]
     if placed(params):
-        ring, plan = _tp(cfg, params)
-        for lp in unstack(params["enc"]):
-            x = remat_call(_enc_layer_placed, cfg, lp, x, ring, plan)
-        return layer_norm(x, params["ln_enc_w"].at(),
-                          params["ln_enc_b"].at(), cfg.norm_eps)
+        return _encode_placed(cfg, params, frames, *_tp(cfg, params))
+    x = _frames_in(cfg, frames)
     for lp in unstack(params["enc"]):
-        x = remat_call(_enc_layer, cfg, lp, x)
+        x = remat_call(_enc_layer, cfg, lp, x, remat=cfg.remat)
     return layer_norm(x, params["ln_enc_w"], params["ln_enc_b"],
                       cfg.norm_eps)
+
+
+def _frames_in(cfg: WhisperConfig, frames: torch.Tensor) -> torch.Tensor:
+    return frames.to(cfg.dtype) + _sinusoidal(
+        frames.shape[1], cfg.d_model, frames.device).to(cfg.dtype)[None]
 
 
 def _dec_layer(cfg: WhisperConfig, lp: dict, x, enc_out):
@@ -214,7 +215,7 @@ def forward(cfg: WhisperConfig, params: dict, tokens: torch.Tensor,
     x = _embed(params, tokens,
                torch.arange(S, device=tokens.device)[None])
     for lp in unstack(params["dec"]):
-        x = remat_call(_dec_train, cfg, lp, x, enc_out)
+        x = remat_call(_dec_train, cfg, lp, x, enc_out, remat=cfg.remat)
     return _logits(cfg, params, x), 0.0
 
 
@@ -313,14 +314,20 @@ def _tp(cfg: WhisperConfig, params: dict):
     return ring, head_plan(cfg.n_heads, cfg.n_heads, cfg.dh, ring.size)
 
 
-def _mha_placed(cfg: WhisperConfig, lp: dict, xq, xkv, ring, plan, *,
-                causal: bool, all_kv: bool = False):
-    """:func:`_mha` on a placed block: each rank's heads (``ring="off"``:
-    the ranks split heads), ``wo`` row-parallel, ``bo`` added once after
-    the sum.  -> (out, each rank's (k, v))."""
+def _ln(cfg: WhisperConfig, x, lp: dict, name: str, ring):
+    """LayerNorm ``name`` (its ``_w`` / ``_b``) of a replicated or
+    sequence-sharded ``x``."""
+    return seq_map(lambda t, w, b: layer_norm(t, w, b, cfg.norm_eps), x,
+                   ring, lp[name + "_w"].at(), lp[name + "_b"].at())
+
+
+def _mha_placed(cfg: WhisperConfig, lp: dict, hq: list, hk: list, ring,
+                plan, *, causal: bool, all_kv: bool = False):
+    """:func:`_mha` on a placed block from each rank's query and key
+    inputs (:func:`layers.gather_seq`): each rank's heads
+    (``ring="off"``: the ranks split heads), ``wo`` row-parallel.  ->
+    (each rank's partial output, before ``bo``; each rank's (k, v))."""
     idx = ring.index()
-    hq = tp.copy_to_model(xq, ring)
-    hk = hq if xkv is xq else tp.copy_to_model(xkv, ring)
     q = project_placed(hq, lp["wq"], ring, plan.gather_q, lp["bq"])
     k = project_placed(hk, lp["wk"], ring, plan.gather_kv)
     v = project_placed(hk, lp["wv"], ring, plan.gather_kv, lp["bv"])
@@ -333,65 +340,100 @@ def _mha_placed(cfg: WhisperConfig, lp: dict, xq, xkv, ring, plan, *,
                               kv_of(plan, r, vr, all_kv), causal=causal,
                               window=None, impl=cfg.attn_impl, ring="off"))
         kvs.append((kr, vr))
-    return attn_out_placed(lp["wo"], plan, ring, outs) + lp["bo"].at(), kvs
+    return attn_out_parts(lp["wo"], plan, ring, outs), kvs
 
 
 def _mlp_placed(cfg: WhisperConfig, lp: dict, x, ring, ln: int):
-    """:func:`_mlp` column- then row-parallel, ``mlp_b2`` added once."""
-    h = layer_norm(x, lp[f"ln{ln}_w"].at(), lp[f"ln{ln}_b"].at(),
-                   cfg.norm_eps)
+    """:func:`_mlp` column- then row-parallel, ``mlp_b2`` added once, in
+    ``x``'s layout."""
+    hs = gather_seq(_ln(cfg, x, lp, f"ln{ln}", ring), ring)
     parts = [gelu(h_r @ lp["mlp_w1"].at(model=r) + lp["mlp_b1"].at(model=r))
              @ lp["mlp_w2"].at(model=r)
-             for r, h_r in zip(ring.index(), tp.copy_to_model(h, ring))]
-    return x + (tp.reduce_from_model(parts, ring) + lp["mlp_b2"].at())
+             for r, h_r in zip(ring.index(), hs)]
+    return add_partials(x, parts, ring, lp["mlp_b2"].at())
 
 
 def _enc_layer_placed(cfg: WhisperConfig, lp: dict, x, ring, plan):
-    h = layer_norm(x, lp["ln1_w"].at(), lp["ln1_b"].at(), cfg.norm_eps)
-    x = x + _mha_placed(cfg, lp["attn"], h, h, ring, plan, causal=False)[0]
+    """:func:`_enc_layer` on a placed layer, in ``x``'s layout.  The
+    reference hints the layer's entry (``gather_seq``) and its output
+    (``shard_seq``); between them its sharded carry makes GSPMD land each
+    row-parallel sum on the rows too, as :func:`layers.add_partials`
+    does."""
+    hs = gather_seq(_ln(cfg, x, lp, "ln1", ring), ring)
+    parts = _mha_placed(cfg, lp["attn"], hs, hs, ring, plan,
+                        causal=False)[0]
+    x = add_partials(x, parts, ring, lp["attn"]["bo"].at())
     return _mlp_placed(cfg, lp, x, ring, 2)
 
 
-def _dec_layer_placed(cfg: WhisperConfig, lp: dict, x, enc_out, ring, plan,
-                      all_kv: bool = False):
-    """:func:`_dec_layer` on a placed layer. -> (x, each rank's self
-    (k, v), each rank's cross (k, v))."""
-    h = layer_norm(x, lp["ln1_w"].at(), lp["ln1_b"].at(), cfg.norm_eps)
-    o, kvs = _mha_placed(cfg, lp["self"], h, h, ring, plan, causal=True,
-                         all_kv=all_kv)
-    x = x + o
-    h = layer_norm(x, lp["ln2_w"].at(), lp["ln2_b"].at(), cfg.norm_eps)
-    o, xkvs = _mha_placed(cfg, lp["cross"], h, enc_out, ring, plan,
-                          causal=False, all_kv=all_kv)
-    return _mlp_placed(cfg, lp, x + o, ring, 3), kvs, xkvs
+def _encode_placed(cfg: WhisperConfig, params: dict, frames: torch.Tensor,
+                   ring, plan, shard: bool = False):
+    """The encoder on a placed state: its output after the final norm,
+    replicated, or with ``shard`` (where the model axis divides S_enc)
+    each rank's rows, the residual between the layers too."""
+    x = _frames_in(cfg, frames)
+    if shard:
+        x = shard_seq(x, ring)
+    for lp in unstack(params["enc"]):
+        x = remat_call(_enc_layer_placed, cfg, lp, x, ring, plan,
+                       remat=cfg.remat)
+    return _ln(cfg, x, params, "ln_enc", ring)
 
 
-def _dec_train_placed(cfg: WhisperConfig, lp: dict, x, enc_out, ring, plan):
-    return _dec_layer_placed(cfg, lp, x, enc_out, ring, plan)[0]
+def _dec_layer_placed(cfg: WhisperConfig, lp: dict, x, enc_hs: list, ring,
+                      plan, all_kv: bool = False):
+    """:func:`_dec_layer` on a placed layer, in ``x``'s layout, the
+    cross-attention over each rank's whole encoder output ``enc_hs``.
+    -> (x, each rank's self (k, v), each rank's cross (k, v))."""
+    hs = gather_seq(_ln(cfg, x, lp, "ln1", ring), ring)
+    parts, kvs = _mha_placed(cfg, lp["self"], hs, hs, ring, plan,
+                             causal=True, all_kv=all_kv)
+    x = add_partials(x, parts, ring, lp["self"]["bo"].at())
+    hs = gather_seq(_ln(cfg, x, lp, "ln2", ring), ring)
+    parts, xkvs = _mha_placed(cfg, lp["cross"], hs, enc_hs, ring, plan,
+                              causal=False, all_kv=all_kv)
+    x = add_partials(x, parts, ring, lp["cross"]["bo"].at())
+    return _mlp_placed(cfg, lp, x, ring, 3), kvs, xkvs
 
 
-def _embed_placed(params: dict, tokens: torch.Tensor, positions, ring):
+def _dec_train_placed(cfg: WhisperConfig, lp: dict, x, enc_hs: list, ring,
+                      plan):
+    return _dec_layer_placed(cfg, lp, x, enc_hs, ring, plan)[0]
+
+
+def _embed_placed(params: dict, tokens: torch.Tensor, positions, ring,
+                  shard: bool = False):
+    """The decoder's input: the vocabulary-parallel embedding (with
+    ``shard``, reduce-scattered to each rank's rows where the axis divides
+    S) plus the learned positions."""
     pos = params["pos_dec"].at()
-    return tp.vocab_embed(tokens, params["embed"], ring) + \
-        pos[positions % pos.shape[0]]
+    parts = tp.vocab_embed_parts(tokens, params["embed"], ring)
+    x = shard_seq(parts, ring) if shard else \
+        tp.reduce_from_model(parts, ring)
+    return add_rows(x, pos[positions % pos.shape[0]], ring)
 
 
 def _logits_placed(cfg: WhisperConfig, params: dict, x, ring) -> list:
-    x = layer_norm(x, params["ln_dec_w"].at(), params["ln_dec_b"].at(),
-                   cfg.norm_eps)
-    return logits_placed(x, params["embed"], ring, tied=True)
+    return logits_placed(_ln(cfg, x, params, "ln_dec", ring),
+                         params["embed"], ring, tied=True)
 
 
 def _forward_placed(cfg: WhisperConfig, params: dict, tokens: torch.Tensor,
                     frames: torch.Tensor):
-    """:func:`forward` on a placed state."""
+    """:func:`forward` on a placed state: the encoder's and the decoder's
+    residuals each rank's rows of their sequences where the model axis
+    divides them (``layers.shard_seq``), the encoder's output gathered
+    whole for the cross-attention."""
     ring, plan = _tp(cfg, params)
-    enc_out = encode(cfg, params, frames)
+    enc_hs = gather_seq(_encode_placed(cfg, params, frames, ring, plan,
+                                       shard=True), ring)
     S = tokens.shape[1]
     x = _embed_placed(params, tokens,
-                      torch.arange(S, device=tokens.device)[None], ring)
+                      torch.arange(S, device=tokens.device)[None], ring,
+                      shard=True)
     for lp in unstack(params["dec"]):
-        x = remat_call(_dec_train_placed, cfg, lp, x, enc_out, ring, plan)
+        x = remat_call(_dec_train_placed, cfg, lp, x, enc_hs, ring, plan,
+                       remat=cfg.remat)
     return tp.VocabShards(_logits_placed(cfg, params, x, ring), ring,
                           cfg.vocab), 0.0
 
@@ -408,12 +450,13 @@ def _prefill_placed(cfg: WhisperConfig, params: dict, tokens: torch.Tensor,
     ring, plan = _tp(cfg, params)
     idx = ring.index()
     cut, xcut = kv_cut(cache["k"]), kv_cut(cache["xk"])
-    enc_out = encode(cfg, params, frames)
+    enc_hs = gather_seq(_encode_placed(cfg, params, frames, ring, plan),
+                        ring)
     S = tokens.shape[1]
     x = _embed_placed(params, tokens,
                       torch.arange(S, device=tokens.device)[None], ring)
     for i, lp in enumerate(unstack(params["dec"])):
-        x, kvs, xkvs = _dec_layer_placed(cfg, lp, x, enc_out, ring, plan,
+        x, kvs, xkvs = _dec_layer_placed(cfg, lp, x, enc_hs, ring, plan,
                                          all_kv=cut != "heads")
         for r, (k, v), (xk, xv) in zip(idx, kvs, xkvs):
             for n, val in kv_values(cache, k, v, r, cut, ring).items():
@@ -442,8 +485,7 @@ def _decode_step_placed(cfg: WhisperConfig, params: dict,
                         device=x.device)
     for i, lp in enumerate(unstack(params["dec"])):
         sa, ca = lp["self"], lp["cross"]
-        h = layer_norm(x, lp["ln1_w"].at(), lp["ln1_b"].at(), cfg.norm_eps)
-        hs = tp.copy_to_model(h, ring)
+        hs = gather_seq(_ln(cfg, x, lp, "ln1", ring), ring)
         q = project_placed(hs, sa["wq"], ring, plan.gather_q, sa["bq"])
         k = project_placed(hs, sa["wk"], ring, plan.gather_kv)
         v = project_placed(hs, sa["wv"], ring, plan.gather_kv, sa["bv"])
@@ -457,17 +499,18 @@ def _decode_step_placed(cfg: WhisperConfig, params: dict,
                 for j, (r, pg) in enumerate(zip(idx, (
                     expand_views(plan, r, pg) for r, pg in zip(
                         idx, kv_views(cache, i, ring, plan, cut)))))]
-        x = x + (attn_out_placed(sa["wo"], plan, ring, outs) + sa["bo"].at())
-        h = layer_norm(x, lp["ln2_w"].at(), lp["ln2_b"].at(), cfg.norm_eps)
-        q = project_placed(tp.copy_to_model(h, ring), ca["wq"], ring,
-                           plan.gather_q, ca["bq"])
+        x = add_partials(x, attn_out_parts(sa["wo"], plan, ring, outs), ring,
+                         sa["bo"].at())
+        q = project_placed(gather_seq(_ln(cfg, x, lp, "ln2", ring), ring),
+                           ca["wq"], ring, plan.gather_q, ca["bq"])
         outs = [decode_attention(heads_of(plan, r, q[j], plan.gather_q),
                                  pg["k"], pg["v"], frames)
                 for j, (r, pg) in enumerate(zip(idx, (
                     expand_views(plan, r, pg) for r, pg in zip(
                         idx, kv_views(_cross(cache), i, ring, plan,
                                       xcut)))))]
-        x = x + (attn_out_placed(ca["wo"], plan, ring, outs) + ca["bo"].at())
+        x = add_partials(x, attn_out_parts(ca["wo"], plan, ring, outs), ring,
+                         ca["bo"].at())
         x = _mlp_placed(cfg, lp, x, ring, 3)
     length += 1
     logits = _logits_placed(cfg, params, x, ring)

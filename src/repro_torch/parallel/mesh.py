@@ -15,7 +15,13 @@ gives each a *transport*, the ring its ranks form, with four operations:
     expert exchange, ``models.layers.moe_ep_local``);
   * ``all_gather(xs, dim)``: every rank's entry, concatenated along
     ``dim`` in rank order, for every rank (the tiled ``all_gather``: the
-    head-split attention's projections, a placed tree gathered whole);
+    head-split attention's projections, a sequence-sharded residual
+    gathered at a block's entry, a placed tree gathered whole); its
+    backward is the reduce-scatter of the ranks' cotangents;
+  * ``reduce_scatter(xs, dim)``: the entries' sum, each rank receiving
+    its chunk along ``dim`` (``psum_scatter``: a row-parallel partial sum
+    landing on a sequence-sharded residual); its backward is the
+    all-gather of the chunks' cotangents;
   * ``index()``: the ``axis_index`` of each rank this process holds.
 
 A ring body is written once over these.  Its state is a list with one
@@ -30,7 +36,8 @@ transports:
     a hop sends to rank ``r + 1`` and receives from rank ``r - 1`` of the
     axis's process group (``torch.distributed`` point-to-point); an
     all-to-all is ``dist.all_to_all_single``, an all-gather
-    ``dist.all_gather_into_tensor``.  On NCCL (a card a rank) every op
+    ``dist.all_gather_into_tensor``, a reduce-scatter
+    ``dist.reduce_scatter_tensor``.  On NCCL (a card a rank) every op
     carries CUDA tensors as they are.  On gloo (the CPU, or a card that
     several ranks share) the collectives do too, but gloo refuses a
     point-to-point send of a CUDA tensor, so the hop is *staged*: the ring
@@ -91,11 +98,7 @@ class _LocalCopy(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *gs):
         collective("all-reduce", len(gs) * _nbytes(gs[0]))
-        dt = gs[0].dtype
-        total = gs[0].float() if _narrow(dt) else gs[0]
-        for g in gs[1:]:
-            total = total + g
-        return total.to(dt), None
+        return _sum_in_order(gs).to(gs[0].dtype), None
 
 
 def local_copies(x: torch.Tensor, n: int) -> list[torch.Tensor]:
@@ -147,11 +150,7 @@ class LocalRing:
         cards (the sum's bytes at every rank)."""
         if self.size > 1:
             collective("all-reduce", self.size * _nbytes(xs[0]))
-        dt = xs[0].dtype
-        total = xs[0].float() if _narrow(dt) else xs[0]
-        for x in xs[1:]:
-            total = total + x
-        return [total.to(dt)] * self.size
+        return [_sum_in_order(xs).to(xs[0].dtype)] * self.size
 
     def all_to_all(self, xs: list) -> list:
         """Rank ``j``'s entry becomes chunk ``j`` (of ``size`` along dim 0)
@@ -171,22 +170,89 @@ class LocalRing:
 
     def all_gather(self, xs: list, dim: int) -> list:
         """The entries concatenated along ``dim`` in rank order, for every
-        rank (:func:`local_copies` of one tensor: each rank's entry gets
-        its slice of the cotangents summed over the ranks, as a process
-        ring's backward sums them).  Counted as the ``all-gather`` it
-        would be between cards: the gathered bytes at every rank."""
+        rank: views of one tensor (:class:`_LocalGather`), each rank's
+        entry getting its slice of the cotangents summed over the ranks
+        (the reduce-scatter a process ring's backward runs).  Counted as
+        the ``all-gather`` it would be between cards: the gathered bytes
+        at every rank."""
         if self.size == 1:
             return list(xs)
-        total = torch.cat(list(xs), dim)
-        collective("all-gather", self.size * _nbytes(total))
-        return local_copies(total, self.size)
+        return list(_LocalGather.apply(dim, *xs))
+
+    def reduce_scatter(self, xs: list, dim: int) -> list:
+        """The entries' sum, added in rank order (a 16-bit float in f32,
+        rounded once, as :meth:`all_sum`), rank ``j`` receiving chunk
+        ``j`` of ``size`` along ``dim`` as a tensor of its own; each
+        entry's cotangent is the chunks' cotangents joined
+        (:class:`_LocalReduceScatter`).  Counted as the
+        ``reduce-scatter`` it would be between cards: each rank's chunk."""
+        if xs[0].shape[dim] % self.size:
+            raise ValueError(f"dim {dim} of {tuple(xs[0].shape)} does not "
+                             f"split over {self.size} ranks")
+        if self.size == 1:
+            return list(xs)
+        return list(_LocalReduceScatter.apply(dim, *xs))
+
+
+def _sum_in_order(xs) -> torch.Tensor:
+    """The tensors' sum in list order, a 16-bit float in f32 (not rounded:
+    the caller rounds once)."""
+    total = xs[0].float() if _narrow(xs[0].dtype) else xs[0]
+    for x in xs[1:]:
+        total = total + x
+    return total
+
+
+class _LocalGather(torch.autograd.Function):
+    """A local ring's all-gather: the entries joined along ``dim``, one
+    view of the joined tensor for each rank.  The backward is the
+    reduce-scatter: the ranks' cotangents summed in rank order (a 16-bit
+    float in f32, rounded once, as a process ring sums them), each entry
+    its chunk; counted as the ``reduce-scatter`` it would be between
+    cards."""
+
+    @staticmethod
+    def forward(ctx, dim: int, *xs):
+        ctx.dim, ctx.n = dim, len(xs)
+        total = torch.cat(xs, dim)
+        collective("all-gather", ctx.n * _nbytes(total))
+        return tuple(total.view_as(total) for _ in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        collective("reduce-scatter", _nbytes(gs[0]))
+        total = _sum_in_order(gs).to(gs[0].dtype)
+        return (None, *total.chunk(ctx.n, ctx.dim))
+
+
+class _LocalReduceScatter(torch.autograd.Function):
+    """A local ring's reduce-scatter along ``dim``: the entries' sum (a
+    16-bit float in f32, rounded once), each rank its chunk, contiguous.
+    The backward is the all-gather: every entry's cotangent is the chunks'
+    cotangents joined; counted as the ``all-gather`` it would be between
+    cards."""
+
+    @staticmethod
+    def forward(ctx, dim: int, *xs):
+        ctx.dim, ctx.n = dim, len(xs)
+        collective("reduce-scatter", _nbytes(xs[0]))
+        total = _sum_in_order(xs).to(xs[0].dtype)
+        return tuple(c.contiguous() for c in total.chunk(ctx.n, dim))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        g = torch.cat(gs, ctx.dim)
+        collective("all-gather", ctx.n * _nbytes(g))
+        return (None, *([g] * ctx.n))
 
 
 # gloo on CUDA tensors, by the card's probe (scripts/probe_gloo_cuda_torch.py;
 # torch 2.11, one H100): all-reduce, all-gather and all-to-all give the
 # right bf16 and f32 results; a point-to-point send of a device pointer
 # ends the process (gloo::IoException, "writev: Bad address"), so a gloo
-# ring stages its hop through pinned host memory (ProcessRing._send_recv)
+# ring stages its hop through pinned host memory (ProcessRing._send_recv);
+# reduce_scatter_tensor gives the right bf16 and f32 results too (the
+# probe's reduce_scatter_tensor rows)
 
 
 class _AllSum(torch.autograd.Function):
@@ -236,22 +302,37 @@ def _gather_fn(dist):
 class _AllGather(torch.autograd.Function):
     """``all_gather_into_tensor`` of equal shards along ``dim``.  The
     gathered tensor feeds this rank's own computation, so the cotangent
-    each rank holds is its part of the whole: the backward sums them over
-    the ranks (``all_reduce``; a 16-bit float in f32, rounded once) and
-    hands back this rank's slice, as the local ring's autograd does."""
+    each rank holds is its part of the whole: the backward is the
+    reduce-scatter of them (a 16-bit float in f32, rounded once), this
+    rank's chunk of their sum, as the local ring's autograd does."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, dim: int,
                 ring: "ProcessRing") -> torch.Tensor:
-        ctx.dim, ctx.ring, ctx.n = dim, ring, x.shape[dim]
+        ctx.dim, ctx.ring = dim, ring
         return ring.gather(x, dim)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        total = g.float() if _narrow(g.dtype) else g.clone()
-        ctx.ring.reduce_(total)
-        part = total.narrow(ctx.dim, ctx.ring.rank * ctx.n, ctx.n)
-        return part.to(g.dtype), None, None
+        return ctx.ring.scatter_sum(g, ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """``reduce_scatter_tensor`` along ``dim`` (a 16-bit float in f32,
+    rounded once): this rank's chunk of the ranks' sum.  The chunk's
+    cotangent is this rank's part of the whole, which every rank's
+    partial fed: the backward is the all-gather of the chunks'
+    cotangents."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int,
+                ring: "ProcessRing") -> torch.Tensor:
+        ctx.dim, ctx.ring = dim, ring
+        return ring.scatter_sum(x, dim)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return ctx.ring.gather(g, ctx.dim), None, None
 
 
 class ProcessRing:
@@ -261,9 +342,11 @@ class ProcessRing:
     into fresh buffers (``dist.batch_isend_irecv``; group ranks translated
     to global ranks with ``dist.get_global_rank``); :meth:`all_sum` is
     ``dist.all_reduce``, :meth:`all_to_all` ``dist.all_to_all_single``,
-    :meth:`all_gather` ``dist.all_gather_into_tensor``.  Every c10d call
-    of the port's mesh code goes through :meth:`reduce_`, :meth:`gather`,
-    :meth:`exchange_` or :meth:`shift`.  On gloo (``stages_hop``) the
+    :meth:`all_gather` ``dist.all_gather_into_tensor``,
+    :meth:`reduce_scatter` ``dist.reduce_scatter_tensor``.  Every c10d
+    call of the port's mesh code goes through :meth:`reduce_`,
+    :meth:`gather`, :meth:`scatter_sum`, :meth:`exchange_` or
+    :meth:`shift`.  On gloo (``stages_hop``) the
     shift stages a CUDA tensor through pinned host memory; ``staged``
     counts the bytes it copied between the card and the host (both ways),
     ``hops`` the shifts."""
@@ -306,6 +389,25 @@ class ProcessRing:
         out = moved.new_empty((self.size * moved.shape[0], *moved.shape[1:]))
         _gather_fn(dist)(out, moved, group=self.group)
         return out.movedim(0, dim)
+
+    def scatter_sum(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's chunk along ``dim`` of the ranks' ``x`` (of one
+        shape) summed, outside autograd: ``dist.reduce_scatter_tensor``
+        (a 16-bit float summed in f32 and rounded once, as
+        :meth:`LocalRing.all_sum`)."""
+        import torch.distributed as dist
+        if x.shape[dim] % self.size:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"over {self.size} ranks")
+        dt = x.dtype
+        acc = x.float() if _narrow(dt) else x
+        moved = acc.movedim(dim, 0).contiguous()
+        out = moved.new_empty((moved.shape[0] // self.size,
+                               *moved.shape[1:]))
+        fn = getattr(dist, "reduce_scatter_single", None) or \
+            dist.reduce_scatter_tensor
+        fn(out, moved, group=self.group)
+        return out.movedim(0, dim).to(dt).contiguous()
 
     def exchange_(self, out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """``dist.all_to_all_single`` of ``x`` into ``out`` (equal splits
@@ -384,11 +486,23 @@ class ProcessRing:
     def all_gather(self, xs: list, dim: int) -> list:
         """Every rank's entry (of one shape) concatenated along ``dim`` in
         rank order (``dist.all_gather_into_tensor``; differentiable: the
-        backward is this rank's slice of the cotangents summed over the
-        ranks).  The op cost counter sees the c10d op itself."""
+        backward is this rank's chunk of the cotangents summed over the
+        ranks, a reduce-scatter).  The op cost counter sees the c10d op
+        itself."""
         if self.size == 1:
             return list(xs)
         return [_AllGather.apply(xs[0], dim, self)]
+
+    def reduce_scatter(self, xs: list, dim: int) -> list:
+        """This rank's chunk along ``dim`` of the ranks' entries summed
+        (:meth:`scatter_sum`; differentiable: the backward is the
+        all-gather of the chunks' cotangents)."""
+        if xs[0].shape[dim] % self.size:
+            raise ValueError(f"dim {dim} of {tuple(xs[0].shape)} does not "
+                             f"split over {self.size} ranks")
+        if self.size == 1:
+            return list(xs)
+        return [_ReduceScatter.apply(xs[0], dim, self)]
 
 
 class Mesh:

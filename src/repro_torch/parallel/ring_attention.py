@@ -56,6 +56,7 @@ import torch
 from ..analysis import kernel_work
 from ..analysis.op_cost import kernel as kernel_cost
 from ..device import card_like
+from ..remat import keep
 from .mesh import LocalRing, Mesh, get_mesh
 
 __all__ = ["ring_attention", "ring_attention_local", "record_ring_passes",
@@ -349,15 +350,22 @@ def _bwd_body(spec: _RingSpec, qs, ks, vs, os_, lses, dos):
 
 class RingAttention(torch.autograd.Function):
     """Ring attention with the second ring pass as its backward: saves
-    ``(q, k, v, o, lse)`` and nothing per hop.  q/k/v are the transport's
+    ``(q, k, v, o, lse)`` and nothing per hop, and names ``(o, lse)``
+    ``"attn_out"`` (``repro_torch.remat.keep``).  q/k/v are the transport's
     operands (global tensors under a ``LocalRing``, this rank's shards
     under a ``ProcessRing``), split along the sequence and joined back."""
 
     @staticmethod
     def forward(ctx, spec: _RingSpec, q, k, v):
         ring = spec.ring
-        os_, lses = _fwd_body(spec, *(ring.split(x, 1) for x in (q, k, v)))
-        o, lse = ring.join(os_, 1), ring.join(lses, -1)
+
+        def run():
+            os_, lses = _fwd_body(spec, *(ring.split(x, 1)
+                                          for x in (q, k, v)))
+            return ring.join(os_, 1), ring.join(lses, -1)
+        # a remat unit that saves "attn_out" hands its recompute the
+        # forward's o and lse: the ring pass does not run again
+        o, lse = keep("attn_out", run)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.spec = spec
         record = _RECORD.get()

@@ -18,8 +18,16 @@ between the two:
   * :func:`gather_from_model`: per-rank pieces -> the replicated whole;
     gathered forward, each rank's slice of the cotangent backward;
   * :func:`gather_to_model`: per-rank pieces -> the whole for every rank's
-    own use; gathered forward, the slices of the summed cotangents
-    backward (``ring.all_gather``).
+    own use; gathered forward, the reduce-scatter of the cotangents
+    backward (``ring.all_gather``; Megatron-SP's all-gather of sequence
+    shards at a block's entry);
+  * :func:`reduce_scatter_to_model`: per-rank partial sums -> each rank's
+    chunk of the sum; reduce-scattered forward, the chunks' cotangents
+    all-gathered backward (``ring.reduce_scatter``; Megatron-SP's
+    row-parallel sum landing on the sequence-sharded residual);
+  * :func:`scatter_to_model`: replicated -> each rank's chunk; cut
+    forward, the chunks' cotangents all-gathered backward (a replicated
+    input joining a sequence-sharded residual).
 
 On a :class:`LocalRing` the ranks share the process and its autograd
 graph: a replicated value is held once, and each rank uses its own view
@@ -122,6 +130,61 @@ def gather_to_model(xs: Sequence[torch.Tensor], ring,
     return ring.all_gather(list(xs), dim)
 
 
+def reduce_scatter_to_model(xs: Sequence[torch.Tensor], ring,
+                            dim: int) -> list[torch.Tensor]:
+    """The per-rank partials' sum, each held rank its chunk along ``dim``
+    (``ring.reduce_scatter``: a chunk is bit-equal to the same rows of
+    :func:`reduce_from_model`'s sum)."""
+    return ring.reduce_scatter(list(xs), dim)
+
+
+class _LocalScatter(torch.autograd.Function):
+    """A replicated tensor's ``n`` chunks along ``dim`` on a local ring,
+    each a tensor of its own; the backward joins the chunks' cotangents,
+    counted as the ``all-gather`` it would be between cards."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int, n: int):
+        ctx.dim, ctx.n = dim, n
+        return tuple(c.contiguous() for c in x.chunk(n, dim))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        g = torch.cat(gs, ctx.dim)
+        collective("all-gather", ctx.n * _nbytes(g))
+        return g, None, None
+
+
+class _ScatterToModel(torch.autograd.Function):
+    """This process's chunk along ``dim`` of a replicated tensor; the
+    backward all-gathers the chunks' cotangents, so every process holds
+    the replicated value's whole cotangent."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int, ring) -> torch.Tensor:
+        ctx.dim, ctx.ring = dim, ring
+        n = x.shape[dim] // ring.size
+        return x.narrow(dim, ring.rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return ctx.ring.gather(g, ctx.dim), None, None
+
+
+def scatter_to_model(x: torch.Tensor, ring, dim: int) -> list[torch.Tensor]:
+    """A replicated tensor cut along ``dim``: each held rank its chunk
+    (the conjugate of :func:`gather_to_model`: its backward all-gathers
+    the chunks' cotangents)."""
+    if x.shape[dim] % ring.size:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {ring.size} ranks")
+    if ring.size == 1:
+        return [x]
+    if _local(ring):
+        return list(_LocalScatter.apply(x, dim, ring.size))
+    return [_ScatterToModel.apply(x, dim, ring)]
+
+
 def all_max(xs: Sequence[torch.Tensor], ring) -> torch.Tensor:
     """The elementwise maximum over the axis, replicated, outside
     autograd (a stabiliser: any constant gives the same logsumexp)."""
@@ -154,11 +217,12 @@ def vocab_range(V: int, m: int, r: int) -> tuple[int, int]:
     return lo, min(lo + step, V)
 
 
-def vocab_embed(tokens: torch.Tensor, embed, ring) -> torch.Tensor:
-    """The vocabulary-parallel embedding lookup: each rank looks up the
-    tokens of its vocab range in its rows of ``embed`` (a placed (V, D)
-    table cut on V) and zeros the others; the partials' sum is the
-    embedding, replicated (exact: one rank's row is non-zero)."""
+def vocab_embed_parts(tokens: torch.Tensor, embed, ring
+                      ) -> list[torch.Tensor]:
+    """The vocabulary-parallel embedding's partials: each held rank looks
+    up the tokens of its vocab range in its rows of ``embed`` (a placed
+    (V, D) table cut on V) and zeros the others (their sum is exact: one
+    rank's row is non-zero)."""
     V = embed.shape[0]
     parts = []
     for r in ring.index():
@@ -168,7 +232,13 @@ def vocab_embed(tokens: torch.Tensor, embed, ring) -> torch.Tensor:
         e = torch.nn.functional.embedding(
             torch.where(own, tokens - lo, 0), rows)
         parts.append(e * own[..., None].to(e.dtype))
-    return reduce_from_model(parts, ring)
+    return parts
+
+
+def vocab_embed(tokens: torch.Tensor, embed, ring) -> torch.Tensor:
+    """The vocabulary-parallel embedding lookup, replicated: the sum of
+    :func:`vocab_embed_parts`."""
+    return reduce_from_model(vocab_embed_parts(tokens, embed, ring), ring)
 
 
 def vocab_loss_terms(logits: Sequence[torch.Tensor], labels: torch.Tensor,

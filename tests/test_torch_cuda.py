@@ -949,8 +949,9 @@ def test_train_step_on_the_card_matches_cpu(dev):
     # group summed G times): hold each leaf's norm to the CPU's within 1%
     ratio = [(a.norm() / b.norm()).item() for a, b in zip(g_gpu, g_cpu)]
     assert max(abs(r - 1.0) for r in ratio) < 1e-2, ratio
-    # remat: each layer's flash forward runs again in the backward
-    assert n["flash_fwd"] == 2 * cfg.n_layers
+    # remat: the layer's recompute keeps attn_out, so the flash forward
+    # runs once a layer
+    assert n["flash_fwd"] == cfg.n_layers
     assert n["flash_bwd_dq"] == n["flash_bwd_dkv"] == cfg.n_layers
     assert n["flash_bwd_dq_simt"] == n["flash_bwd_dkv_simt"] == 0
 
@@ -1662,7 +1663,7 @@ def test_train_step_counts_the_same_on_the_card_and_on_meta(dev):
     with CostMode() as on_card:
         step(params, adamw_init(params), batch)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["flash_fwd"] == 4
+    assert ops.LAUNCHES["flash_fwd"] == 2
     assert ops.LAUNCHES["flash_bwd_dq"] == ops.LAUNCHES["flash_bwd_dkv"] == 2
     meta = bundle.abstract_params()
     with CostMode() as on_meta:
@@ -1671,7 +1672,7 @@ def test_train_step_counts_the_same_on_the_card_and_on_meta(dev):
               for k, v in batch.items()})
     assert on_card.cost.totals() == on_meta.cost.totals()
     assert on_card.cost.kernels == on_meta.cost.kernels
-    assert on_card.cost.kernels["flash_fwd"]["calls"] == 4
+    assert on_card.cost.kernels["flash_fwd"]["calls"] == 2
 
 
 # the sharded state at a small depth: qwen3-4b's full width cut to 2 layers,
@@ -1693,12 +1694,14 @@ def test_sharded_step_on_the_card_matches_unsharded(dev):
     """``chip_smoke.sharded_train_check`` at 2 layers: the (2, 4) placed
     step's loss and grads against the unsharded step's, by
     ``train_check``'s limits, and 2 x 2 x 4 launches of each flash
-    backward kernel (the forward twice), on the wgmma routes."""
+    kernel (the forward once: the recompute keeps attn_out), on the wgmma
+    routes."""
     from repro_torch.parallel import make_mesh
     bundle, params = _sharded_model()
     row = _chip_smoke().sharded_train_check(
         params, make_mesh((2, 4), ("data", "model")), bundle=bundle)
     assert row["launches"]["flash_bwd_dq"] == 2 * 2 * 4
+    assert row["launches"]["flash_fwd"] == 2 * 2 * 4
 
 
 def test_sharded_paged_engine_on_the_card(dev):
@@ -1775,8 +1778,9 @@ def test_sharded_families_on_the_card(dev, arch):
 def test_nccl_world_one_ring_paths_are_bit_equal(dev):
     """Phase ``process_mesh`` (a), in a process of its own: NCCL at a
     world of one, each of ``ProcessRing``'s c10d paths (the f32 sum, the
-    all-gather, the all-to-all, a ``batch_isend_irecv`` to itself) on
-    bf16 and f32 tensors of the card equal to its input bit for bit."""
+    all-gather, the reduce-scatter, the all-to-all, a ``batch_isend_irecv``
+    to itself) on bf16 and f32 tensors of the card equal to its input bit
+    for bit."""
     import json
     import subprocess
     import sys
@@ -1790,7 +1794,7 @@ def test_nccl_world_one_ring_paths_are_bit_equal(dev):
     assert lines, out.stdout[-2000:] + out.stderr[-2000:]
     row = json.loads(lines[-1].split(" ", 1)[1])
     assert row["exit"] == 0 and row["backend"] == "nccl", row
-    assert row["stages_hop"] is False and len(row["bit_equal"]) == 8
+    assert row["stages_hop"] is False and len(row["bit_equal"]) == 10
     assert all(row["bit_equal"].values()), row
 
 
@@ -1814,11 +1818,13 @@ def _gloo_card_rank(rank: int, port: int, out: str) -> None:
                   for _ in range(2)]
             want = {"all_sum": local.all_sum(xs)[rank],
                     "all_gather": local.all_gather(xs, 1)[rank],
+                    "reduce_scatter": local.reduce_scatter(xs, 1)[rank],
                     "all_to_all": local.all_to_all(xs)[rank],
                     "shift": local.shift(xs)[0][rank],
                     "all_max": torch.stack(xs).amax(0)}
             got = {"all_sum": ring.all_sum([xs[rank]])[0],
                    "all_gather": ring.all_gather([xs[rank]], 1)[0],
+                   "reduce_scatter": ring.reduce_scatter([xs[rank]], 1)[0],
                    "all_to_all": ring.all_to_all([xs[rank]])[0],
                    "shift": ring.shift([xs[rank]])[0][0],
                    "all_max": tp.all_max([xs[rank]], ring)}
@@ -1858,6 +1864,6 @@ def test_gloo_process_ring_on_the_card_equals_the_local_ring(dev,
     for r in range(2):
         got = torch.load(f"{out}.{r}")
         assert got["backend"] == "gloo" and got["stages_hop"] is True
-        assert len(got["ops"]) == 10 and all(got["ops"].values()), got
+        assert len(got["ops"]) == 12 and all(got["ops"].values()), got
         # only the two hops (bf16, f32): (4, 64, 32) out and back
         assert got["staged"] == 2 * 4 * 64 * 32 * (2 + 4)

@@ -44,8 +44,10 @@ def test_dense_train_cell_counts_the_placed_step(results):
     """qwen3-4b x train_4k x single on the placed state: the step counted
     on a (2, 4) mesh of local rings (``counted_on``; (16, 16) costs ~130 s
     of CPU), within 15 s of CPU time: L x 2 x 4 launches of each flash
-    backward kernel (the forward twice), the tensor-parallel sums issued
-    and no ring hop, ``collectives_complete``, each rank's temporaries
+    kernel (the forward once: the layer's recompute keeps its o and lse,
+    ``transformer.SAVED``), the tensor-parallel collectives issued (the
+    residual sequence-sharded: reduce-scatter and all-gather) and no ring
+    hop, ``collectives_complete``, each rank's temporaries
     (divided by the model axis, not the data axis), the production
     mesh's argument bytes."""
     cell = dryrun.run_cell("qwen3-4b", "train_4k", "single", force=True)
@@ -57,8 +59,10 @@ def test_dense_train_cell_counts_the_placed_step(results):
     L = get_bundle("qwen3-4b").cfg.n_layers
     n = L * 2 * 4
     assert {k: v["calls"] for k, v in cell["kernels"].items()} == {
-        "flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+        "flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
     assert cell["collectives"]["all-reduce"] > 0
+    assert cell["collectives"]["reduce-scatter"] > 0
+    assert cell["collectives"]["all-gather"] > 0
     assert cell["collectives"]["collective-permute"] == 0
     assert cell["collectives_complete"] is True
     assert cell["temp_sharded_by"] == "model"
@@ -112,7 +116,8 @@ def test_whisper_train_cell_counts_the_placed_step(results):
     """whisper-medium x train_4k x single on the placed state, counted on
     the (2, 4) mesh: its 3 attention calls a layer pair (encoder self,
     decoder self and cross) through each data and model rank, L x 3 x 2
-    x 4 launches of each flash backward kernel (the forward twice), the
+    x 4 launches of each flash backward kernel (the forward twice: the
+    reference's whisper layers save nothing across their recompute), the
     tensor-parallel sums issued, no ring hop."""
     cell = dryrun.run_cell("whisper-medium", "train_4k", "single",
                            force=True)
@@ -133,12 +138,16 @@ def test_qwen3_train_cell_counts_the_ring_on_meta(results):
     """qwen3-4b x train_4k x single: the step counted on meta under a (16,
     16) mesh of local rings (the ring over the model axis at S 4,096: each
     hop the flash kernels' meta route), within 15 s of the cell's own CPU
-    time (``cpu_s``; its wall time, ``compile_s``, also holds the waits for
-    a core when the tests run in parallel), with the reference's keys and
+    time (``cpu_s``: the counting thread's CPU time at one intra-op thread,
+    which the other workers' load does not move; its wall time,
+    ``compile_s``, also holds the waits for a core when the tests run in
+    parallel), with the reference's keys and
     the partial terms named, on the whole state (``state="whole"``; the
     placed state is ``test_dense_train_cell_counts_the_placed_step``)."""
+    threads = torch.get_num_threads()
     cell = dryrun.run_cell("qwen3-4b", "train_4k", "single", force=True,
                            state="whole")
+    assert torch.get_num_threads() == threads
     assert cell["status"] == "ok", cell.get("traceback")
     assert REF_KEYS <= set(cell)
     assert REF_MEMORY_KEYS <= set(cell["memory_analysis"])
@@ -147,9 +156,10 @@ def test_qwen3_train_cell_counts_the_ring_on_meta(results):
     bundle = get_bundle("qwen3-4b")
     L = bundle.cfg.n_layers
     m = PRODUCTION_SHAPES[False][0][1]
-    # forward and recompute: m x m hops a pass; the backward's m x m
+    # the forward's m x m hops (the recompute keeps the ring's o and lse);
+    # the backward's m x m
     assert {k: v["calls"] for k, v in cell["kernels"].items()} == {
-        "flash_fwd": 2 * L * m * m, "flash_bwd_dq": L * m * m,
+        "flash_fwd": L * m * m, "flash_bwd_dq": L * m * m,
         "flash_bwd_dkv": L * m * m}
     assert cell["collectives"]["collective-permute"] > 0
     assert cell["collectives_complete"] is False

@@ -453,10 +453,14 @@ def test_record_ring_passes_reads_the_function_backward():
                                rtol=0, atol=1e-5)
 
 
-def test_remat_recompute_keeps_the_mesh():
+@pytest.mark.parametrize("save,recompute_hops", [((), 3),
+                                                  (("attn_out",), 0)])
+def test_remat_recompute_keeps_the_mesh(save, recompute_hops):
     """The per-layer recompute runs under the forward's mesh even when
     autograd runs it on another thread (as the CUDA engine does), where
-    no mesh was set: the ring hops in the backward too."""
+    no mesh was set: the ring hops in the backward too.  A unit that
+    saves ``attn_out`` (the transformer's policy) keeps the ring's o and
+    lse, and its recompute makes no forward hop."""
     g = torch.Generator().manual_seed(1)
     q = torch.randn(1, 64, 4, 8, generator=g, requires_grad=True)
     k, v = (torch.randn(1, 64, 2, 8, generator=g, requires_grad=True)
@@ -468,7 +472,7 @@ def test_remat_recompute_keeps_the_mesh():
                                    ring="ring") * 2.0
 
     with set_mesh(mesh):
-        o = pt_layers.remat_call(layer, q, k, v)
+        o = pt_layers.remat_call(layer, q, k, v, save=save)
     fwd_hops = mesh.transport("model").hops
     err = []
 
@@ -482,8 +486,9 @@ def test_remat_recompute_keeps_the_mesh():
     t.start()
     t.join(timeout=60)
     assert not t.is_alive() and not err, err
-    # the recompute's forward hops (m - 1) and the backward pass's (m)
-    assert mesh.transport("model").hops == fwd_hops + 3 + 4
+    # the recompute's forward hops (m - 1, unless kept) and the backward
+    # pass's (m)
+    assert mesh.transport("model").hops == fwd_hops + recompute_hops + 4
 
 
 def test_process_axis_refuses_global_tensors():
@@ -744,8 +749,9 @@ def test_train_step_through_the_ring_matches_reference(monkeypatch):
                             {k: torch.from_numpy(v).long()
                              for k, v in batch.items()}, 1.0)
     L = pb.cfg.n_layers
-    # per layer: forward and recompute 3 hops each, backward 4
-    assert mesh.transport("model").hops == L * (3 + 3 + 4)
+    # per layer: the forward's 3 hops (the recompute keeps the ring's o
+    # and lse), the backward's 4
+    assert mesh.transport("model").hops == L * (3 + 4)
     for key in ("loss", "ce", "grad_norm", "lr"):
         np.testing.assert_allclose(float(pm[key]), float(rm[key]),
                                    rtol=1e-5, err_msg=key)

@@ -123,25 +123,26 @@ def test_train_steps_match_reference(family, microbatches):
 
 def test_recompute_leaves_grads_bit_identical(family, monkeypatch):
     """The grads of one batch under per-layer recompute (``remat_call``'s
-    ``torch.utils.checkpoint``) equal those without it (``checkpoint``
-    patched to a plain call), bit for bit (f32, CPU); the first run
-    checkpoints each of the reference's units once."""
+    ``torch.utils.checkpoint``) equal those without it (the config's
+    ``remat=False``), bit for bit (f32, CPU); the first run checkpoints
+    each of the reference's units once."""
     arch, _, _, pb, host = family
     batch = _torch_batch(_batches(pb, 1, seed=5)[0])
     grads, calls = {}, []
 
-    def counted(fn, *args, use_reentrant):
+    def counted(fn, *args, use_reentrant, **kw):
         calls.append(fn)
-        return checkpoint(fn, *args, use_reentrant=use_reentrant)
+        return checkpoint(fn, *args, use_reentrant=use_reentrant, **kw)
 
+    monkeypatch.setattr(pt_layers, "checkpoint", counted)
     for remat in (True, False):
-        monkeypatch.setattr(pt_layers, "checkpoint", counted if remat else
-                            lambda fn, *args, use_reentrant: fn(*args))
+        bundle = dataclasses.replace(pb, cfg=dataclasses.replace(
+            pb.cfg, remat=remat))
         params = from_jax_params(host)
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
-        loss, _ = loss_fn(pb.forward, params, batch)
+        loss, _ = loss_fn(bundle.forward, params, batch)
         grads[remat] = (loss.detach(), torch.autograd.grad(loss, leaves))
     # the reference's units: a (rec, rec, attn) group or a tail layer;
     # an encoder or a decoder layer; a layer
